@@ -1,0 +1,111 @@
+"""Build the port's CUDA kernels with ``nvcc`` at first use; bind with ctypes.
+
+Each ``csrc/<name>.cu`` compiles, on its own, into a shared library with a
+plain C entry point (no PyTorch headers, so a build takes seconds) under
+``build/kernels/`` at the repository root.  The file name carries a hash of
+the source and the flags, so an edited source is rebuilt and a stale
+library is never loaded.  Every entry point takes raw pointers, ints and
+the CUDA stream, launches on that stream and returns ``cudaGetLastError()``;
+:func:`check` turns a non-zero return into an exception.
+
+Nothing here runs at import time: the package imports on a machine with no
+card and no ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import NamedTuple
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: Entry point and argument types of each kernel source.
+KERNELS = {
+    "driver_streamed": ("driver_streamed_launch", (_P,) * 11 + (_I,) * 3 + (_P,)),
+    "topk_merge_rows": ("topk_merge_rows_launch", (_P, _P) + (_I,) * 4 + (_P,)),
+}
+
+_loaded: dict[str, object] = {}
+
+
+class Built(NamedTuple):
+    path: Path
+    seconds: float   # nvcc wall time; 0.0 when the library was already built
+    log: str         # nvcc's output, including ptxas' registers/smem/spills
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in (
+        home and str(Path(home) / "bin" / "nvcc"),
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and Path(cand).is_file():
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+
+
+def build(names=None) -> dict[str, Built]:
+    """Build the named kernels (default: all), one ``nvcc`` per source, all
+    started together; returns each library's path, build time and log."""
+    names = list(KERNELS if names is None else names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    running = {}
+    done = {}
+    for name in names:
+        out = library_path(name)
+        log = out.with_suffix(".log")
+        if out.is_file():
+            done[name] = Built(out, 0.0, log.read_text() if log.is_file() else "")
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, tmp, out, log, time.perf_counter())
+    for name, (proc, tmp, out, log, t0) in running.items():
+        text, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name}.cu:\n{text}")
+        log.write_text(text)
+        os.replace(tmp, out)
+        done[name] = Built(out, seconds, text)
+    return done
+
+
+def kernel(name: str):
+    """The ctypes entry point of kernel ``name``, built and loaded once."""
+    fn = _loaded.get(name)
+    if fn is None:
+        entry, argtypes = KERNELS[name]
+        lib = ctypes.CDLL(str(build([name])[name].path))
+        fn = getattr(lib, entry)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _loaded[name] = fn
+    return fn
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by an entry point."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} (cudaError_t)")

@@ -1,0 +1,143 @@
+// K1: the static slave join, driver window streamed from the flat arrays.
+//
+// Replaces the TPU kernel repro/kernels/posting_intersect.py:
+// intersect_batched_driver_streamed (pallas_call at line 1207, body
+// _driver_streamed_kernel at line 996).  Python side and semantics:
+// repro_torch/kernels/posting_intersect.py (driver_streamed_join_cuda, and
+// driver_streamed_join_torch, the plain version it is held against).
+//
+// What bounds it on the H100: bytes and latency, not arithmetic.  Each
+// block reads one 1024-posting driver tile (docIDs + attrs, 8 KB) and, per
+// active other term, the planned run of that term's list (at most
+// window + TILE postings); the work per byte is one binary search of a few
+// steps, far below the card's operations-per-byte balance.  The plan comes
+// from the skip table before the launch, so postings outside the
+// overlapping tiles are never read (the paper's posting skipping).
+//
+// Design: one block of 256 threads per (driver tile, query).  Each thread
+// keeps 4 driver postings in registers (coalesced loads: thread x reads
+// window positions x, x+256, x+512, x+768 of the tile).  For each active
+// term the block stages the planned range [max(b_tile*TILE, lo),
+// min((b_tile+n_b)*TILE, hi)) through shared memory in chunks of CHUNK
+// postings; the range is a contiguous piece of one ascending list, so it
+// stays sorted and each thread binary-searches its postings in a chunk
+// whose [min, max] can hold them.  Membership is ORed over chunks and
+// ANDed over terms; validity and the attribute filter are applied first,
+// and a block whose postings have all died stops probing
+// (__syncthreads_or).  The TPU kernel's (8,128) broadcast-compare and its
+// clamped unblocked BlockSpecs are not carried over: the driver tile is
+// read by position and masked, so no read passes a list's live range.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define TILE 1024
+#define THREADS 256
+#define ITEMS (TILE / THREADS)
+#define CHUNK 2048
+#define INVALID_DOC 2147483647
+#define INVALID_ATTR (-1)
+
+__global__ void __launch_bounds__(THREADS) driver_streamed_kernel(
+    const int* __restrict__ d_off,        // [Q]
+    const int* __restrict__ d_neff,       // [Q]
+    const int* __restrict__ active,       // [Q, T]
+    const int* __restrict__ attr_filter,  // [Q]
+    const int* __restrict__ postings,     // [P]
+    const int* __restrict__ attrs,        // [P]
+    const int* __restrict__ b_tile,       // [Q, T, A]
+    const int* __restrict__ n_b,          // [Q, T, A]
+    const int* __restrict__ bounds,       // [Q, T, 2]
+    int* __restrict__ out_docs,           // [Q, window]
+    int* __restrict__ out_mask,           // [Q, window]
+    int t_slots, int num_a, int window)
+{
+    __shared__ int sb[CHUNK];
+    const int i = blockIdx.x;   // driver tile
+    const int q = blockIdx.y;   // query
+    const int64_t off = d_off[q];
+    const int neff = d_neff[q];
+    const int filt = attr_filter[q];
+
+    int a[ITEMS];
+    bool keep[ITEMS];
+    bool alive = false;
+#pragma unroll
+    for (int r = 0; r < ITEMS; ++r) {
+        const int w = i * TILE + r * THREADS + threadIdx.x;
+        const bool in_win = w < neff;
+        const int doc = in_win ? postings[off + w] : INVALID_DOC;
+        const int at = in_win ? attrs[off + w] : INVALID_ATTR;
+        a[r] = doc;
+        keep[r] = doc != INVALID_DOC && (filt < 0 || at == filt);
+        alive |= keep[r];
+    }
+
+    for (int t = 0; t < t_slots; ++t) {
+        // Uniform across the block: stop once no posting survives.
+        if (!__syncthreads_or(alive)) break;
+        const int64_t qt = (int64_t)q * t_slots + t;
+        if (active[qt] == 0) continue;
+        const int64_t qti = qt * num_a + i;
+        const int nb = n_b[qti];
+        const int64_t tile0 = (int64_t)b_tile[qti] * TILE;
+        const int64_t lo = bounds[2 * qt], hi = bounds[2 * qt + 1];
+        const int64_t rlo = tile0 > lo ? tile0 : lo;
+        int64_t rhi = tile0 + (int64_t)nb * TILE;
+        if (rhi > hi) rhi = hi;
+        if (nb <= 0) rhi = rlo;
+
+        bool found[ITEMS];
+#pragma unroll
+        for (int r = 0; r < ITEMS; ++r) found[r] = false;
+        for (int64_t c0 = rlo; c0 < rhi; c0 += CHUNK) {
+            const int len = (int)((rhi - c0) < CHUNK ? (rhi - c0) : CHUNK);
+            __syncthreads();  // the previous chunk is no longer read
+            for (int k = threadIdx.x; k < len; k += THREADS) sb[k] = postings[c0 + k];
+            __syncthreads();
+            const int cmin = sb[0], cmax = sb[len - 1];
+#pragma unroll
+            for (int r = 0; r < ITEMS; ++r) {
+                const int x = a[r];
+                if (!keep[r] || found[r] || x < cmin || x > cmax) continue;
+                int l = 0, h = len - 1;   // first index with sb[idx] >= x
+                while (l < h) {
+                    const int m = (l + h) >> 1;
+                    if (sb[m] < x) l = m + 1; else h = m;
+                }
+                found[r] = sb[l] == x;
+            }
+        }
+        alive = false;
+#pragma unroll
+        for (int r = 0; r < ITEMS; ++r) {
+            keep[r] = keep[r] && found[r];
+            alive |= keep[r];
+        }
+    }
+
+#pragma unroll
+    for (int r = 0; r < ITEMS; ++r) {
+        const int w = i * TILE + r * THREADS + threadIdx.x;
+        if (w < window) {
+            out_docs[(int64_t)q * window + w] = a[r];
+            out_mask[(int64_t)q * window + w] = keep[r] ? 1 : 0;
+        }
+    }
+}
+
+extern "C" int driver_streamed_launch(
+    const void* d_off, const void* d_neff, const void* active,
+    const void* attr_filter, const void* postings, const void* attrs,
+    const void* b_tile, const void* n_b, const void* bounds,
+    void* out_docs, void* out_mask,
+    int q_n, int t_slots, int window, void* stream)
+{
+    const int num_a = (window + TILE - 1) / TILE;
+    dim3 grid(num_a, q_n);
+    driver_streamed_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+        (const int*)d_off, (const int*)d_neff, (const int*)active,
+        (const int*)attr_filter, (const int*)postings, (const int*)attrs,
+        (const int*)b_tile, (const int*)n_b, (const int*)bounds,
+        (int*)out_docs, (int*)out_mask, t_slots, num_a, window);
+    return (int)cudaGetLastError();
+}

@@ -1,0 +1,202 @@
+"""Search serving front-end (port of ``repro.serving.search``, read path).
+
+A submitted ``(terms, site)`` query is admitted to a ``(t_max, k)``
+bucket, checked against the LRU result cache, micro-batched (partial
+batches padded with inert clones so device shapes never change), routed,
+executed with :func:`repro_torch.core.parallel.distributed_query_topk` on
+the service's device, and merged — the same pipeline
+(:class:`~repro_torch.serving.scheduler.MasterScheduler`) for the
+synchronous :meth:`SearchService.search` and the
+:meth:`~SearchService.submit` / :meth:`~SearchService.drain` pair.
+
+The service runs on ``cuda`` unless given ``device="cpu"``; with no card
+and no device it raises.  ``backend="kernel"`` (the default) runs the
+hand-written kernels on a card and their plain versions on the CPU;
+``backend="torch"`` runs plain PyTorch ops.
+
+Online updates (``updatable``/``writer``/``compact``), health-aware
+routing (``set_health``) and per-set devices (``set_meshes``) come with
+later slices; the constructor refuses them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+from repro_torch.core.engine import make_query_batch
+from repro_torch.core.index import INVALID_DOC, IndexMeta, ShardedIndex, resolve_device
+from repro_torch.core.parallel import SearchResult, distributed_query_topk
+from repro_torch.obs.registry import MetricsRegistry, get_registry
+from repro_torch.serving.scheduler import MasterScheduler, QueryTicket
+
+
+@dataclasses.dataclass
+class SearchHit:
+    """One query's merged result: global docIDs in rank order."""
+
+    docids: list[int]
+    n_hits: int
+
+
+class SearchService:
+    """Serve search queries over a sharded index on one device.
+
+    Engine parameters mirror :func:`distributed_query_topk`; scheduler
+    parameters (``batch_size``, ``t_max_buckets``, ``cache_size``,
+    ``n_sets``, ``max_wait``, ``adaptive_wait``, ``capacity_qps``) are
+    those of :class:`~repro_torch.serving.scheduler.MasterScheduler`.
+    """
+
+    def __init__(
+        self,
+        index: ShardedIndex,
+        meta: IndexMeta,
+        *,
+        ns: int,
+        k: int = 10,
+        window: int = 4096,
+        t_max: int = 4,
+        strategy: str = "embed",
+        merge: str = "tournament",
+        backend: str = "kernel",
+        device=None,
+        batch_size: int = 8,
+        t_max_buckets: tuple[int, ...] | None = None,
+        cache_size: int = 1024,
+        n_sets: int = 1,
+        max_wait: float = 0.0,
+        adaptive_wait: bool = False,
+        capacity_qps: float | None = None,
+        registry: MetricsRegistry | None = None,
+        span_sink=None,
+        updatable: bool = False,
+        writer=None,
+        set_health=None,
+        set_meshes=None,
+    ):
+        if updatable or writer is not None:
+            raise NotImplementedError(
+                "online updates come with the port's merge-on-read slice")
+        if set_health is not None or set_meshes is not None:
+            raise NotImplementedError(
+                "health-aware routing and per-set devices come with the "
+                "port's multi-GPU slice")
+        self.device = resolve_device(device)
+        if index.postings.device != self.device:
+            raise ValueError(f"index lives on {index.postings.device}, "
+                             f"service on {self.device}")
+        self.index = index
+        self.meta = meta
+        self.ns = ns
+        self.k = k
+        self.window = window
+        self.t_max = t_max
+        self.strategy = strategy
+        self.merge = merge
+        self.backend = backend
+        buckets = t_max_buckets if t_max_buckets is not None else (t_max,)
+        if max(buckets) > t_max:
+            raise ValueError(f"t_max_buckets {buckets} exceed t_max={t_max}")
+        self.registry = registry if registry is not None else get_registry()
+        self._exec_phases: dict[str, float] | None = None
+        self.scheduler = MasterScheduler(
+            self._execute,
+            batch_size=batch_size,
+            t_max_buckets=buckets,
+            default_k=k,
+            cache_size=cache_size,
+            n_sets=n_sets,
+            max_wait=max_wait,
+            adaptive_wait=adaptive_wait,
+            capacity_qps=capacity_qps,
+            width_fn=self._query_width,
+            registry=self.registry,
+            exec_phases_fn=self._take_exec_phases,
+            span_sink=span_sink,
+        )
+
+    def _query_width(self, terms, site) -> int:
+        """Effective padded width — the ``site_term`` strategy rewrites the
+        site restriction into an extra join term."""
+        extra = 1 if (site is not None and self.strategy == "site_term") else 0
+        return len(terms) + extra
+
+    def _run_engine(self, queries, *, t_max: int, k: int) -> SearchResult:
+        """One batch end-to-end on the device at the given padded shapes."""
+        batch = make_query_batch(
+            queries, t_max=t_max, meta=self.meta, strategy=self.strategy,
+            device=self.device,
+        )
+        return distributed_query_topk(
+            self.index, batch, ns=self.ns, k=k, window=self.window,
+            attr_strategy=self.strategy, merge=self.merge,
+            backend=self.backend,
+        )
+
+    def _take_exec_phases(self) -> dict[str, float] | None:
+        """Return-and-clear the last :meth:`_execute`'s phase breakdown."""
+        phases, self._exec_phases = self._exec_phases, None
+        return phases
+
+    def _execute(self, queries, t_max: int, k: int, set_id: int) -> list[SearchHit]:
+        """Scheduler executor: run one formed micro-batch.  ``set_id`` is
+        the router's pick; the in-process sets time-share the one device.
+
+        With a live registry the batch's service splits at the batch
+        boundary only: host build + kernel launches, the copy of the
+        results to the host (which waits for the device), and the host-side
+        result extraction."""
+        timed = self.registry.enabled
+        w0 = time.perf_counter() if timed else 0.0
+        res = self._run_engine(queries, t_max=t_max, k=k)
+        w1 = time.perf_counter() if timed else 0.0
+        docs = res.docids.cpu().numpy()
+        hits = res.n_hits.cpu().numpy()
+        w2 = time.perf_counter() if timed else 0.0
+        out = [
+            SearchHit(
+                docids=[int(d) for d in row if d != INVALID_DOC],
+                n_hits=int(h),
+            )
+            for row, h in zip(docs, hits)
+        ]
+        if timed:
+            self._exec_phases = {
+                "slave_dispatch": w1 - w0,   # host build + async launches
+                "master_merge": w2 - w1,     # batch-boundary device sync
+                "finalize": time.perf_counter() - w2,  # host result extraction
+            }
+        return out
+
+    def submit(
+        self, terms, site: int | None = None, *, k: int | None = None
+    ) -> QueryTicket:
+        """Admit one query into the pipeline (async-style entry point)."""
+        return self.scheduler.submit(terms, site, k=k)
+
+    def drain(self) -> list[QueryTicket]:
+        """Dispatch micro-batches until the admission queue is empty."""
+        return self.scheduler.drain()
+
+    def search_batch(
+        self, queries: list[tuple[list[int], int | None]]
+    ) -> SearchResult:
+        """Run one pre-formed batch end-to-end (no admission or caching);
+        returns device tensors."""
+        return self._run_engine(queries, t_max=self.t_max, k=self.k)
+
+    def search(
+        self, queries: list[tuple[list[int], int | None]]
+    ) -> list[SearchHit]:
+        """Through the full pipeline: every query is admitted,
+        cache-checked, micro-batched and routed; returns the merged hits in
+        submission order."""
+        tickets = [self.scheduler.submit(terms, site) for terms, site in queries]
+        self.scheduler.drain()
+        if not all(t.done for t in tickets):
+            raise RuntimeError("drain() left queries unanswered")
+        return [t.result for t in tickets]
+
+    def stats(self) -> dict:
+        """Scheduler/cache/router counters (see MasterScheduler.stats)."""
+        return self.scheduler.stats()
