@@ -1,35 +1,54 @@
 """Drive the PyTorch/CUDA port of the ODYS search engine on one GPU.
 
-    python3 chip_smoke.py            # the full check, one card
+    python3 chip_smoke.py                                  # the full check
+    python3 chip_smoke.py --n-docs 200000 --n-queries 128  # a short rehearsal
 
 Phases (any failure exits non-zero; nothing is caught):
 
 1. device  — the card's name, power limit and count;
-2. build   — nvcc builds every kernel of the query path from
+2. build   — nvcc builds every kernel (K1–K4) from
              ``src/repro_torch/kernels/csrc`` (one process per source, all
              at once) and prints ptxas' registers / shared memory / spills;
-3. data    — the slice's deployment: a 4M-page corpus from a seed
-             (100k terms, mean 64 terms a page, 10k sites), site terms on,
-             striped over 4 slaves stacked on the card;
-4. K1      — the slave join kernel against its plain PyTorch version,
+3. data    — the deployment: a 4M-page corpus from a seed (100k terms,
+             mean 64 terms a page, 10k sites), site terms on, striped over
+             4 slaves stacked on the card;
+4. K1      — the static slave join against its plain PyTorch version,
              bit-exact, on every slave: main-path shapes (32 queries, 4 term
              slots, window 4096) with the attribute filter on and off,
              windows 1000 and 1536, empty lists and the last list of the
              flat array;
 5. K2      — the master-merge kernel against its plain version, bit-exact,
              at (Q*ns, 2k) and (Q, ns*k) for k in {10, 50, 1000};
-6. serve   — SearchService on the card answers 512 queries of the default
-             query mix (k in {10, 50, 1000}); every hit must equal the same
-             service with backend="torch"; the kernel launch counters of
-             that run must equal what its batches imply; 96 queries on a
-             small corpus must equal the brute-force set intersection;
-             short passes for the gather and site_term strategies and the
-             allgather merge;
-7. times   — CUDA-event kernel times beside their bounds, plain versions
-             and the library call; served queries/s, per-batch mean and p99;
-             peak device memory; then a traced pass (live metrics registry
-             and torch.profiler) for the phase split and the device's busy
-             share.
+6. serve   — the static path: SearchService answers 512 queries of the
+             default mix (k in {10, 50, 1000}) equal to backend="torch",
+             with the launch counters its batches imply; 96 queries on a
+             small corpus equal brute force; the gather and site_term
+             strategies and the allgather merge;
+7. times   — static path: K1/K2 CUDA-event times beside bounds, plain
+             versions and the library call; served queries/s, per-batch
+             mean and p99; peak memory; a traced pass (phase split, busy
+             share, the hand-written kernels among the device events);
+8. updates — merge-on-read on the same index: a DeltaWriter (term capacity
+             256, doc headroom 4096) takes a mixed insert/delete/update
+             stream op by op until its hottest list is empty (fill 0), half
+             full and full.  At each fill: seconds per ``device_delta()``
+             snapshot; K3 and K4 against their plain versions, bit-exact, on
+             every slave (main-path drivers; hot, rare, inert and
+             empty-main-list drivers; windows 4096, 1000, 256; K4 with the
+             filter on and off); an updatable SearchService answers the 512
+             queries equal to backend="torch" with K3 = K4 = 4, K2 = 2 and
+             K1 = 0 launches per executed batch; served queries/s and
+             per-batch times, cache off; a query repeated after a mutation
+             is recomputed, not served stale;
+9. small   — a 3000-page corpus with a writer of term capacity 384 (BLOCK-
+             but not TILE-aligned), a mixed stream, a driver list
+             tombstoned wall to wall and lists empty in the main index with
+             delta postings: K3/K4 bit-exact; served hits equal brute force
+             over the mutated corpus, before and after compact(verify=True);
+10. mor-times — at fill 1.0: K3/K4 CUDA-event times beside bounds, plain
+             versions and the library sort; peak device memory; a traced
+             pass; then the full-size delta compacted into a fresh index,
+             served equal to backend="torch".
 
 The line before the last is the card as ``nvidia-smi`` names it; the one
 before that the kernels' JSON record; the last line the result JSON.
@@ -51,6 +70,11 @@ import torch
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 INT32_OPS_PER_S = 67e12        # 32-bit CUDA-core peak (the fp32 figure)
 MAIN_WINDOW, MAIN_Q, MAIN_T, NS = 4096, 32, 4, 4
+TERM_CAPACITY, DOC_HEADROOM = 256, 4096
+FILLS = (0.0, 0.5, 1.0)
+MOR_WINDOWS = (4096, 1000, 256)
+KERNEL_NAMES = {"K1": "driver_streamed_kernel", "K2": "topk_merge_rows_kernel",
+                "K3": "delta_merge_kernel", "K4": "streamed_join_kernel"}
 
 
 def log(*a):
@@ -78,6 +102,23 @@ def cuda_ms(fn, *, reps: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, *, reps: int = 20) -> float:
+    """Device milliseconds per call of ``fn()``: the profiler's device time
+    summed over every kernel the call launches, averaged over ``reps``
+    calls.  Unlike ``cuda_ms`` it leaves out the gaps in which the device
+    waits for the host to launch the next call."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / reps / 1e3
+
+
 def union_length(lo: np.ndarray, hi: np.ndarray) -> int:
     """Total length of the union of the intervals [lo, hi) (non-empty ones)."""
     keep = hi > lo
@@ -96,6 +137,24 @@ def union_length(lo: np.ndarray, hi: np.ndarray) -> int:
     return total
 
 
+def probed_postings(b_tile, n_b, bounds, tile) -> int:
+    """Postings a probe plan reads: per (query, term) the union of its
+    planned ranges [max(b_tile*TILE, lo), min((b_tile+n_b)*TILE, hi))."""
+    lo = bounds[..., 0].long().cpu().numpy()
+    hi = bounds[..., 1].long().cpu().numpy()
+    bt = b_tile.long().cpu().numpy() * tile
+    nb = n_b.long().cpu().numpy()
+    rlo = np.maximum(bt, lo[..., None])
+    rhi = np.where(nb > 0, np.minimum(bt + nb * tile, hi[..., None]), rlo)
+    return sum(union_length(rlo[q, t], rhi[q, t])
+               for q in range(rlo.shape[0]) for t in range(rlo.shape[1]))
+
+
+def bound_ms(n_bytes: int, n_ops: int) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / INT32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-docs", type=int, default=4_000_000)
@@ -108,18 +167,33 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.core.engine import (
-        StaticPostingSource, _pick_drivers, brute_force_topk, make_query_batch)
+        MergedPostingSource, StaticPostingSource, _pick_drivers, brute_force_topk,
+        make_query_batch)
     from repro_torch.core.index import (
-        InvertedIndex, TILE, build_index, build_sharded_index)
+        INVALID_DOC, TILE, InvertedIndex, build_index, build_sharded_index)
     from repro_torch.core.parallel import slave_topk_unmerged
     from repro_torch.core.perfmodel import QUERY_MIX_DEFAULT
     from repro_torch.core.queries import WorkloadConfig, generate_workload
-    from repro_torch.data.corpus import CorpusConfig, corpus_from_docs, generate_corpus
+    from repro_torch.data.corpus import (
+        CorpusConfig, MutationConfig, corpus_from_docs, generate_corpus,
+        generate_mutations)
+    from repro_torch.indexing.delta import DeltaWriter
     from repro_torch.kernels import _build
+    from repro_torch.kernels import delta_merge as dm
     from repro_torch.kernels import posting_intersect as pi
     from repro_torch.kernels import topk_merge as tm
     from repro_torch.obs.registry import MetricsRegistry
     from repro_torch.serving.search import SearchService
+
+    wrappers = {"K1": pi.driver_streamed_join_cuda, "K2": tm.merge_topk_rows_cuda,
+                "K3": dm.merge_delta_windows_cuda, "K4": pi.streamed_join_cuda}
+
+    def reset_launches():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def launches_now():
+        return {k: fn.launches for k, fn in wrappers.items()}
 
     dev = torch.device("cuda", torch.cuda.current_device())
     kind = torch.cuda.get_device_name(0)
@@ -170,23 +244,28 @@ def main() -> int:
         return (span.off, span.n_eff, active, attr.contiguous(), idx.postings,
                 idx.attrs, *(p.contiguous() for p in plan))
 
-    max_err = {"K1": 0, "K2": 0}
+    max_err = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+
+    def same(kernel, label, got, want, names):
+        """Bit-exact or raise; records the largest absolute difference."""
+        for g, w, what in zip(got, want, names):
+            err = int((g.long() - w.long()).abs().max()) if g.numel() else 0
+            max_err[kernel] = max(max_err[kernel], err)
+            if not torch.equal(g, w):
+                bad = int((g != w).sum())
+                raise AssertionError(f"{kernel} {label}: {what} differs in {bad} slots")
 
     def k1_check(label, args_, window):
         got = pi.driver_streamed_join_cuda(*args_, window=window)
         torch.cuda.synchronize()
         want = pi.driver_streamed_join_torch(*args_, window=window)
-        for g, w, what in zip(got, want, ("docs", "mask")):
-            err = int((g.long() - w.long()).abs().max()) if g.numel() else 0
-            max_err["K1"] = max(max_err["K1"], err)
-            if not torch.equal(g, w):
-                bad = int((g != w).sum())
-                raise AssertionError(f"K1 {label}: {what} differs in {bad} slots")
+        same("K1", label, got, want, ("docs", "mask"))
         return int(want[1].sum())
 
     main_batch = make_query_batch(queries[:MAIN_Q], t_max=MAIN_T, meta=meta,
                                   strategy="embed", device=dev)
     last_term = meta.n_terms - 1
+    empty_terms: dict[int, int] = {}
     for s in range(NS):
         idx = sharded.shard(s)
         lens = idx.lengths
@@ -196,6 +275,7 @@ def main() -> int:
                   ([last_term, common], 1)]
         if empty.numel():
             e = int(empty[0])
+            empty_terms[s] = e
             edge_q += [([e], None), ([common, e], None), ([e, common, last_term], None)]
         edge_batch = make_query_batch(edge_q, t_max=MAIN_T, meta=meta, device=dev)
         hits = []
@@ -235,11 +315,8 @@ def main() -> int:
     for (merge, k), x in k2_inputs.items():
         got = tm.merge_topk_rows_cuda(x, k)
         torch.cuda.synchronize()
-        plain = tm.merge_topk_rows_torch(x, k)
-        max_err["K2"] = max(max_err["K2"],
-                            int((got.long() - plain.long()).abs().max()))
-        if not torch.equal(got, plain):
-            raise AssertionError(f"K2 {merge} k={k} {tuple(x.shape)} differs")
+        same("K2", f"{merge} k={k} {tuple(x.shape)}", (got,),
+             (tm.merge_topk_rows_torch(x, k),), ("rows",))
         log(f"[K2] {merge} k={k} shape {tuple(x.shape)}: bit-exact vs plain")
 
     # ------------------------------------------------------------ 6. serve
@@ -248,27 +325,30 @@ def main() -> int:
         svc.drain()
         return [(t.result.docids, t.result.n_hits) for t in tickets]
 
+    def executed_batches(svc):
+        st = svc.stats()
+        return st["n_batches"] - st["n_short_circuited"]
+
     ks = [s.k for s in specs]
     main_kw = dict(ns=NS, window=MAIN_WINDOW, t_max=MAIN_T, batch_size=MAIN_Q,
                    merge="tournament", strategy="embed")
     torch.cuda.reset_peak_memory_stats()
     svc = SearchService(sharded, meta, **main_kw)
-    pi.driver_streamed_join_cuda.launches = 0
-    tm.merge_topk_rows_cuda.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     got = serve(svc, queries, ks)
     t_serve = time.perf_counter() - t0
-    launches = {"K1": pi.driver_streamed_join_cuda.launches,
-                "K2": tm.merge_topk_rows_cuda.launches}
-    st = svc.stats()
-    executed = st["n_batches"] - st["n_short_circuited"]
-    want_launch = {"K1": NS * executed, "K2": int(math.log2(NS)) * executed}
-    log(f"[serve] main path: {len(queries)} queries, {st['n_batches']} batches "
-        f"({executed} executed, cache hits {st['cache']['hits']}); launches "
-        f"{launches}, implied by the batches {want_launch}; {t_serve:.2f} s "
-        f"including one-time set-up")
-    if launches != want_launch or min(launches.values()) == 0:
-        raise AssertionError(f"launch counts {launches} != implied {want_launch}")
+    static_launches = launches_now()
+    executed = executed_batches(svc)
+    want_launch = {"K1": NS * executed, "K2": int(math.log2(NS)) * executed,
+                   "K3": 0, "K4": 0}
+    log(f"[serve] main path: {len(queries)} queries, {svc.stats()['n_batches']} "
+        f"batches ({executed} executed, cache hits {svc.stats()['cache']['hits']}); "
+        f"launches {static_launches}, implied by the batches {want_launch}; "
+        f"{t_serve:.2f} s including one-time set-up")
+    if static_launches != want_launch or min(static_launches["K1"],
+                                             static_launches["K2"]) == 0:
+        raise AssertionError(f"launch counts {static_launches} != implied {want_launch}")
     want = serve(SearchService(sharded, meta, backend="torch", **main_kw),
                  queries, ks)
     if got != want:
@@ -288,8 +368,8 @@ def main() -> int:
     s_specs = generate_workload(s_meta, QUERY_MIX_DEFAULT,
                                 WorkloadConfig(n_queries=96, seed=args.seed))
     s_q = [(list(s.terms), s.site) for s in s_specs]
-    s_got = serve(SearchService(s_idx, s_meta, **main_kw), s_q,
-                  [s.k for s in s_specs])
+    s_ks = [s.k for s in s_specs]
+    s_got = serve(SearchService(s_idx, s_meta, **main_kw), s_q, s_ks)
     truth = brute_force_topk(small, s_q, small.n_docs)
     s_want = [(t[:s.k], len(t)) for t, s in zip(truth, s_specs)]
     if s_got != s_want:
@@ -301,16 +381,14 @@ def main() -> int:
                       ("site_term", dict(strategy="site_term")),
                       ("allgather", dict(merge="allgather"))):
         kw = {**main_kw, **kw}
-        pi.driver_streamed_join_cuda.launches = 0
-        tm.merge_topk_rows_cuda.launches = 0
+        reset_launches()
         svc_k = SearchService(sharded, meta, **kw)
         a = serve(svc_k, queries[:64], ks[:64])
         b = serve(SearchService(sharded, meta, backend="torch", **kw),
                   queries[:64], ks[:64])
-        st_k = svc_k.stats()
-        ex = st_k["n_batches"] - st_k["n_short_circuited"]
+        ex = executed_batches(svc_k)
         per = int(math.log2(NS)) if kw["merge"] == "tournament" else 1
-        lk = (pi.driver_streamed_join_cuda.launches, tm.merge_topk_rows_cuda.launches)
+        lk = (wrappers["K1"].launches, wrappers["K2"].launches)
         if a != b or lk != (NS * ex, per * ex):
             raise AssertionError(f"serve {label}: hits equal {a == b}, "
                                  f"launches {lk} vs {(NS * ex, per * ex)}")
@@ -323,14 +401,7 @@ def main() -> int:
     k1_ms = cuda_ms(lambda: pi.driver_streamed_join_cuda(*k1_args, window=MAIN_WINDOW))
     k1_plain = cuda_ms(lambda: pi.driver_streamed_join_torch(*k1_args, window=MAIN_WINDOW),
                        reps=10, warmup=2)
-    lo = bounds[..., 0].long().cpu().numpy()
-    hi = bounds[..., 1].long().cpu().numpy()
-    bt = b_tile.long().cpu().numpy() * TILE
-    nb = n_b.long().cpu().numpy()
-    rlo = np.maximum(bt, lo[..., None])
-    rhi = np.where(nb > 0, np.minimum(bt + nb * TILE, hi[..., None]), rlo)
-    probe = sum(union_length(rlo[q, t], rhi[q, t])
-                for q in range(rlo.shape[0]) for t in range(rlo.shape[1]))
+    probe = probed_postings(b_tile, n_b, bounds, TILE)
     drv = int(d_neff.sum())
     small_in = sum(x.numel() * 4 for x in (d_off, d_neff, active, k1_args[3],
                                           b_tile, n_b, bounds))
@@ -339,11 +410,13 @@ def main() -> int:
     # active other term
     k1_ops = int((d_neff.long() * active.long().sum(1)).sum()) * math.ceil(
         math.log2(MAIN_WINDOW + TILE))
-    k1_bound = max(k1_bytes / HBM_BYTES_PER_S, k1_ops / INT32_OPS_PER_S) * 1e3
+    k1_bound, k1_by = bound_ms(k1_bytes, k1_ops)
     log(f"[times] K1 window {MAIN_WINDOW}, Q={MAIN_Q}, T={MAIN_T}, shard 0: "
         f"{k1_ms:.4f} ms/launch, {NS} launches/batch; plain {k1_plain:.4f} ms; "
         f"bound {k1_bound:.5f} ms ({k1_bytes} bytes: driver {drv} postings, "
         f"probed {probe} postings) on {smi}")
+    log(f"[times] K1 device time (profiler): kernel {device_ms(lambda: pi.driver_streamed_join_cuda(*k1_args, window=MAIN_WINDOW)):.5f} ms/launch, "
+        f"plain {device_ms(lambda: pi.driver_streamed_join_torch(*k1_args, window=MAIN_WINDOW)):.5f} ms on {smi}")
 
     k2_rows = {}
     for (merge, k), x in k2_inputs.items():
@@ -355,98 +428,450 @@ def main() -> int:
         stages = int(math.log2(mpad)) * (int(math.log2(mpad)) + 1) // 2
         k2_bytes = x.numel() * 4 + x.shape[0] * k * 4
         k2_ops = x.shape[0] * (mpad // 2) * stages * 2
-        bound = max(k2_bytes / HBM_BYTES_PER_S, k2_ops / INT32_OPS_PER_S) * 1e3
-        k2_rows[(merge, k)] = (ms, plain, lib, bound, k2_bytes, k2_ops)
+        bound, by = bound_ms(k2_bytes, k2_ops)
+        k2_rows[(merge, k)] = (ms, plain, lib, bound, by)
         log(f"[times] K2 {merge} k={k} {tuple(x.shape)}: {ms:.4f} ms; plain "
             f"{plain:.4f} ms; torch.topk {lib:.4f} ms; bound {bound:.6f} ms "
-            f"({'bytes' if k2_bytes / HBM_BYTES_PER_S >= k2_ops / INT32_OPS_PER_S else 'operations'}) "
-            f"on {smi}")
+            f"({by}) on {smi}")
+    x = k2_inputs[("tournament", 1000)]
+    log(f"[times] K2 tournament k=1000 device time (profiler): kernel "
+        f"{device_ms(lambda: tm.merge_topk_rows_cuda(x, 1000)):.5f} ms/launch, plain "
+        f"{device_ms(lambda: tm.merge_topk_rows_torch(x, 1000)):.5f} ms, torch.topk "
+        f"{device_ms(lambda: torch.topk(x, 1000, dim=-1, largest=False)):.5f} ms on {smi}")
 
-    # served throughput and per-batch response, cache off, after warm-up
-    svc_t = SearchService(sharded, meta, cache_size=0, **main_kw)
-    batch_s: list[float] = []
-    inner = svc_t.scheduler.executor
+    def timed_serve(svc, label):
+        """Served queries/s and per-batch times after a warm-up, cache off."""
+        batch_s: list[float] = []
+        inner = svc.scheduler.executor
 
-    def timed_executor(*a):
-        t = time.perf_counter()
-        out = inner(*a)                 # ends in a device->host copy (sync)
+        def timed_executor(*a):
+            t = time.perf_counter()
+            out = inner(*a)                 # ends in a device->host copy (sync)
+            torch.cuda.synchronize()
+            batch_s.append(time.perf_counter() - t)
+            return out
+
+        svc.scheduler.executor = timed_executor
+        serve(svc, queries[:96], ks[:96])
+        batch_s.clear()
         torch.cuda.synchronize()
-        batch_s.append(time.perf_counter() - t)
-        return out
+        t0 = time.perf_counter()
+        hits = serve(svc, queries, ks)
+        wall = time.perf_counter() - t0
+        bs = np.array(batch_s)
+        log(f"[times] {label} served: {len(queries)} queries in {wall:.4f} s = "
+            f"{len(queries) / wall:.1f} queries/s; {bs.size} batches, per-batch "
+            f"mean {bs.mean() * 1e3:.3f} ms, p99 {np.percentile(bs, 99) * 1e3:.3f} ms, "
+            f"max {bs.max() * 1e3:.3f} ms (host clock around synchronize, cache "
+            f"off) on {smi}")
+        return hits
 
-    svc_t.scheduler.executor = timed_executor
-    serve(svc_t, queries[:96], ks[:96])
-    batch_s.clear()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    timed = serve(svc_t, queries, ks)
-    wall = time.perf_counter() - t0
-    if timed != got:
+    if timed_serve(SearchService(sharded, meta, cache_size=0, **main_kw),
+                   "static") != got:
         raise AssertionError("timed pass disagrees with the main-path pass")
-    bs = np.array(batch_s)
-    log(f"[times] served: {len(queries)} queries in {wall:.4f} s = "
-        f"{len(queries) / wall:.1f} queries/s; {bs.size} batches, per-batch "
-        f"mean {bs.mean() * 1e3:.3f} ms, p99 {np.percentile(bs, 99) * 1e3:.3f} ms, "
-        f"max {bs.max() * 1e3:.3f} ms (host clock around synchronize, cache "
-        f"off) on {smi}")
     log(f"[times] peak device memory {torch.cuda.max_memory_allocated()} bytes "
         f"(index {sharded.nbytes()})")
 
-    # traced pass (separate from the timed one): the service's phase split
-    # from a live metrics registry, and device busy time from the profiler
-    reg = MetricsRegistry()
-    svc_p = SearchService(sharded, meta, cache_size=0, registry=reg, **main_kw)
-    serve(svc_p, queries[:96], ks[:96])
-    reg = MetricsRegistry()
-    svc_p = SearchService(sharded, meta, cache_size=0, registry=reg, **main_kw)
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        serve(svc_p, queries, ks)
+    def traced(make_svc, label):
+        """One pass under the live registry and torch.profiler: the
+        service's phase split, the device's busy share, and the
+        hand-written kernels among the device events."""
+        serve(make_svc(MetricsRegistry()), queries[:96], ks[:96])
+        reg = MetricsRegistry()
+        svc_p = make_svc(reg)
         torch.cuda.synchronize()
-        traced_wall = time.perf_counter() - t0
-    phases = {labels["phase"]: (h.sum, h.count)
-              for name, _, _, series in reg.collect() if name == "odys_phase_seconds"
-              for labels, h in series if h.count}
-    batches = svc_p.stats()["n_batches"]
-    log(f"[trace] {batches} batches in {traced_wall:.4f} s traced; per-batch "
-        "phase means (wall, live registry): " + ", ".join(
-            f"{p} {s / n * 1e3:.3f} ms" for p, (s, n) in phases.items()
-            if p in ("slave_dispatch", "master_merge", "finalize")))
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kern)
-    n_kern = sum(e.count for e in kern)
-    if busy_us > 0:
-        log(f"[trace] device busy {busy_us / 1e3:.3f} ms of {traced_wall * 1e3:.3f} "
-            f"ms traced wall = {busy_us / (traced_wall * 1e6):.4f} busy share "
-            f"(idle {1 - busy_us / (traced_wall * 1e6):.4f}); {n_kern} device "
-            f"ops, {n_kern / max(batches, 1):.1f} per batch; top by device time: "
-            + "; ".join(f"{e.key[:48]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
-                        for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]))
-    else:
-        log("[trace] the profiler recorded no device time: busy share not measured")
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            serve(svc_p, queries, ks)
+            torch.cuda.synchronize()
+            traced_wall = time.perf_counter() - t0
+        phases = {labels["phase"]: (h.sum, h.count)
+                  for name, _, _, series in reg.collect()
+                  if name == "odys_phase_seconds"
+                  for labels, h in series if h.count}
+        batches = svc_p.stats()["n_batches"]
+        log(f"[trace] {label}: {batches} batches in {traced_wall:.4f} s traced; "
+            "per-batch phase means (wall, live registry): " + ", ".join(
+                f"{p} {s / n * 1e3:.3f} ms" for p, (s, n) in phases.items()
+                if p in ("slave_dispatch", "master_merge", "finalize")))
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_us = sum(e.self_device_time_total for e in kern)
+        n_kern = sum(e.count for e in kern)
+        if busy_us > 0:
+            log(f"[trace] {label}: device busy {busy_us / 1e3:.3f} ms of "
+                f"{traced_wall * 1e3:.3f} ms traced wall = "
+                f"{busy_us / (traced_wall * 1e6):.4f} busy share (idle "
+                f"{1 - busy_us / (traced_wall * 1e6):.4f}); {n_kern} device ops, "
+                f"{n_kern / max(batches, 1):.1f} per batch; top by device time: "
+                + "; ".join(f"{e.key[:48]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
+                            for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]))
+        else:
+            log(f"[trace] {label}: the profiler recorded no device time: busy "
+                "share not measured")
+        ours = {k: [(e.count, e.self_device_time_total) for e in kern if n in e.key]
+                for k, n in KERNEL_NAMES.items()}
+        log(f"[trace] {label}: hand-written kernels among the device events: " + "; ".join(
+            f"{k} {KERNEL_NAMES[k]} x{sum(c for c, _ in v)} "
+            f"{sum(t for _, t in v) / 1e3:.3f} ms" if v else
+            f"{k} {KERNEL_NAMES[k]} not listed" for k, v in ours.items()))
+
+    traced(lambda reg: SearchService(sharded, meta, cache_size=0, registry=reg,
+                                     **main_kw), "static")
+
+    # ------------------------------------------------------------ 8. updates
+    def k3_inputs(idx, delta, d_terms, window):
+        src = MergedPostingSource(idx, delta)
+        span = src.driver_span(d_terms, window)
+        return (idx.postings, idx.attrs, span.off.contiguous(),
+                span.n_eff.contiguous(), delta.postings, delta.attrs,
+                delta.offsets, delta.lengths, d_terms.to(torch.int32).contiguous())
+
+    def k3_check(label, k3, window, cap):
+        got = dm.merge_delta_windows_cuda(*k3, window=window, cap=cap)
+        torch.cuda.synchronize()
+        want = dm.merge_delta_windows_torch(*k3, window=window, cap=cap)
+        same("K3", label, got, want, ("docs", "attrs", "src"))
+        return want
+
+    def k4_inputs(label, idx, delta, batch, window, filt):
+        """K3 (checked) then K4's inputs for one slave, built as the kernel
+        backend builds them (driver pick on merged lengths, the main span,
+        flags and the live stream from K3's output, the two probe plans)."""
+        src = MergedPostingSource(idx, delta)
+        _, d_terms, active = _pick_drivers(src, batch)
+        active = active.to(torch.int32).contiguous()
+        cap = delta.term_capacity
+        k3 = k3_inputs(idx, delta, d_terms, window)
+        docs, attrs, srcs = k3_check(label, k3, window, cap)
+        flags = src.driver_flags(docs).contiguous()
+        live = src.driver_live(docs, srcs, flags).contiguous()
+        main, dplan, cap = pi.plan_streamed(
+            docs, batch.terms, active, idx.offsets, idx.lengths, idx.block_max,
+            delta.offsets, delta.lengths, delta.block_max)
+        attr = batch.attr_filter if filt else torch.full_like(batch.attr_filter, -1)
+        return k3, (docs, attrs, live, flags, active, attr.contiguous(),
+                    idx.postings, *main, delta.postings, *dplan), cap
+
+    def k4_check(label, k4, cap):
+        got = pi.streamed_join_cuda(*k4, cap=cap)
+        torch.cuda.synchronize()
+        want = pi.streamed_join_torch(*k4, cap=cap)
+        same("K4", label, (got,), (want,), ("mask",))
+        return int(want.sum())
+
+    def mor_checks(tag, index, idx_meta, batch_main, writer, extra_terms):
+        """K3 and K4 against their plain versions on every slave: the
+        drivers of ``batch_main`` and an edge set (hot, rare, inert, and
+        per slave the terms of ``extra_terms``), windows 4096, 1000, 256."""
+        deltas = writer.shard_deltas()
+        n_cases, sums = 0, []
+        for s in range(writer.ns):
+            idx, delta = index.shard(s), deltas[s]
+            lens = idx.lengths
+            hot, hot2 = (int(t) for t in torch.topk(lens, 2).indices)
+            dhot = int(torch.argmax(delta.lengths))
+            rare = int(torch.nonzero((lens > 0) & (lens <= 64))[0]) \
+                if bool(((lens > 0) & (lens <= 64)).any()) else hot
+            extra = extra_terms.get(s, [])
+            drivers = torch.tensor([hot, hot2, dhot, rare, -1, *extra],
+                                   dtype=torch.int32, device=dev)
+            edge_q = [([hot], None), ([hot, rare], None), ([rare], None),
+                      ([dhot], None), ([dhot, hot], 1), ([hot, hot2, dhot], None)]
+            for e in extra:
+                edge_q += [([e], None), ([e, hot], None), ([hot, e], None)]
+            edge = make_query_batch(edge_q, t_max=MAIN_T, meta=idx_meta,
+                                    device=dev)
+            for window in MOR_WINDOWS:
+                k3_check(f"{tag} shard {s} w{window} edge drivers",
+                         k3_inputs(idx, delta, drivers, window), window,
+                         delta.term_capacity)
+                for bname, batch in (("main", batch_main), ("edge", edge)):
+                    for filt in (True, False):
+                        label = f"{tag} shard {s} w{window} {bname} filter {filt}"
+                        _, k4, cap = k4_inputs(label, idx, delta, batch, window, filt)
+                        sums.append(k4_check(label, k4, cap))
+                        n_cases += 1
+        log(f"[{tag}] K3 and K4 bit-exact vs plain on {writer.ns} slaves: "
+            f"{n_cases} K4 cases (+ as many K3 merges, and edge drivers "
+            f"{sorted(extra_terms.items())} with inert -1), windows "
+            f"{MOR_WINDOWS}; K4 mask sums {sums[:6]}...")
+
+    def route_to_empty_lists(writer, index, avoid, n_per_shard=1):
+        """Give lists that are empty in a slave's main index a delta posting
+        there: an update of a doc of that slave (none in ``avoid``) to the
+        term, or, for a site term, to the site.  Returns {slave: [terms]}."""
+        out: dict[int, list[int]] = {}
+        vocab = writer.vocab_size
+        for s in range(writer.ns):
+            empty = torch.nonzero(index.shard(s).lengths == 0).flatten().tolist()
+            picks = empty[:n_per_shard]
+            for j, e in enumerate(picks):
+                gid = next(g for g in range(s + writer.ns * (7 + j), writer.n_docs,
+                                            writer.ns)
+                           if g not in avoid and g not in writer.delta_doc_ids)
+                if e < vocab:
+                    writer.update_docs([(gid, [e], None)])
+                else:
+                    writer.update_docs([(gid, [], e - vocab)])
+                avoid.add(gid)
+            if picks:
+                out[s] = picks
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    writer = DeltaWriter(corpus, meta, NS, term_capacity=TERM_CAPACITY,
+                         doc_headroom=DOC_HEADROOM, device=dev)
+    t_writer = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    muts = generate_mutations(corpus, MutationConfig(
+        n_ops=4000, mean_doc_len=64, p_insert=0.4, p_delete=0.3, p_update=0.3,
+        seed=args.seed))
+    t_muts = time.perf_counter() - t0
+    touched = {m.docid for m in muts if m.docid is not None}
+    log(f"[updates] DeltaWriter(term_capacity={TERM_CAPACITY}, doc_headroom="
+        f"{DOC_HEADROOM}) over the {corpus.n_docs}-page corpus in {t_writer:.2f} s; "
+        f"{len(muts)} mixed ops (p 0.4/0.3/0.3, mean doc length 64) drawn in "
+        f"{t_muts:.2f} s")
+    applied, mor = 0, {}
+    extra_terms: dict[int, list[int]] = {}
+    for fill in FILLS:
+        t0 = time.perf_counter()
+        while writer.posting_fill() < fill:
+            if applied == len(muts):
+                raise AssertionError(f"the stream ended below fill {fill}")
+            writer.apply([muts[applied]])
+            applied += 1
+        t_apply = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        snap = writer.device_delta()
+        torch.cuda.synchronize()
+        t_snap = time.perf_counter() - t0
+        n_delta = int(snap.lengths.sum())
+        log(f"[updates] fill {writer.posting_fill():.3f} after {applied} ops "
+            f"({t_apply:.2f} s host); {len(writer.delta_doc_ids)} docs with delta "
+            f"postings, {n_delta} delta postings, doc fill {writer.doc_fill():.3f}; "
+            f"device_delta() snapshot {t_snap:.4f} s, {snap.nbytes()} device bytes")
+        mor_checks(f"updates fill {fill}", sharded, meta, main_batch, writer,
+                   extra_terms)
+
+        reset_launches()
+        svc_u = SearchService(sharded, meta, writer=writer, **main_kw)
+        u_got = serve(svc_u, queries, ks)
+        counts = launches_now()
+        executed = executed_batches(svc_u)
+        implied = {"K1": 0, "K2": int(math.log2(NS)) * executed,
+                   "K3": NS * executed, "K4": NS * executed}
+        if counts != implied or counts["K3"] == 0:
+            raise AssertionError(f"fill {fill}: launches {counts} != implied {implied}")
+        u_want = serve(SearchService(sharded, meta, writer=writer, backend="torch",
+                                     **main_kw), queries, ks)
+        if u_got != u_want:
+            bad = sum(g != w for g, w in zip(u_got, u_want))
+            raise AssertionError(f"fill {fill}: {bad} hits differ from backend='torch'")
+        log(f"[updates] fill {fill}: all {len(u_got)} hits equal backend='torch'; "
+            f"launches {counts} as implied by {executed} executed batches; total "
+            f"n_hits {sum(n for _, n in u_got)}")
+        if timed_serve(SearchService(sharded, meta, writer=writer, cache_size=0,
+                                     **main_kw), f"fill {fill}") != u_got:
+            raise AssertionError(f"fill {fill}: timed pass disagrees")
+        mor[fill] = counts
+
+        # a cached query, then a mutation that changes its answer
+        q = next(q for q, h in zip(queries, u_got) if h[0] and h[1] > 1)
+        first = svc_u.search([q])[0]
+        stale0 = svc_u.stats()["cache"]["stale"]
+        victim = next(d for d in first.docids
+                      if d not in touched and d not in writer.delta_doc_ids)
+        svc_u.delete([victim])
+        touched.add(victim)
+        after = svc_u.search([q])[0]
+        fresh = SearchService(sharded, meta, writer=writer, backend="torch",
+                              **main_kw).search([q])[0]
+        if svc_u.stats()["cache"]["stale"] != stale0 + 1 or after != fresh \
+                or victim in after.docids or after.n_hits != first.n_hits - 1:
+            raise AssertionError(f"fill {fill}: stale cache check failed")
+        log(f"[updates] fill {fill}: after deleting doc {victim} the cached query "
+            f"{q} was recomputed (stale {stale0} -> {stale0 + 1}); n_hits "
+            f"{first.n_hits} -> {after.n_hits}, equal to backend='torch'")
+        if fill == 0.0:
+            extra_terms = route_to_empty_lists(writer, sharded, touched)
+            log(f"[updates] lists empty in the main index given delta postings: "
+                f"{sorted(extra_terms.items())}")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[updates] peak device memory with the delta attached {peak} bytes "
+        f"(index {sharded.nbytes()}, delta snapshot {writer.device_delta().nbytes()})")
+
+    # ------------------------------------------------------------ 9. small
+    s_writer = DeltaWriter(small, s_meta, NS, term_capacity=384, doc_headroom=512,
+                           device=dev)
+    s_muts = generate_mutations(small, MutationConfig(
+        n_ops=300, mean_doc_len=20, p_insert=0.4, p_delete=0.3, p_update=0.3,
+        seed=args.seed))
+    s_writer.apply(s_muts)
+    s_touched = {m.docid for m in s_muts if m.docid is not None}
+    s_extra = route_to_empty_lists(s_writer, s_idx, s_touched, n_per_shard=2)
+    s_lens = s_idx.lengths.sum(0)
+    tomb = int(torch.nonzero((s_lens > 0) & (s_lens <= 8))[0])
+    s_mutated = s_writer.mutated_corpus()
+    holders = [d for d in range(s_mutated.n_docs) if tomb in s_mutated.terms_of(d)]
+    s_writer.delete_docs(holders)
+    for s in range(NS):
+        s_extra.setdefault(s, []).append(tomb)
+    mor_checks("small cap 384", s_idx, s_meta, make_query_batch(
+        s_q[:MAIN_Q], t_max=MAIN_T, meta=s_meta, device=dev), s_writer, s_extra)
+    # a term with no main postings anywhere, served from the delta alone
+    tiny = corpus_from_docs([np.array(d, np.int32) for d in ([0, 1], [0, 2], [1, 2])],
+                            [0, 1, 0], vocab_size=8, n_sites=4)
+    tiny_idx, tiny_meta = build_sharded_index(tiny, 1, device=dev)
+    tiny_w = DeltaWriter(tiny, tiny_meta, 1, term_capacity=384, doc_headroom=128,
+                         device=dev)
+    tiny_w.insert_docs([([5, 0], 2), ([5], 1)])
+    mor_checks("tiny", tiny_idx, tiny_meta, make_query_batch(
+        [([5], None), ([5, 0], None), ([0, 5], 2), ([0], None)], t_max=MAIN_T,
+        meta=tiny_meta, device=dev), tiny_w, {0: [5]})
+
+    o_q = s_q + [([t], None) for t in sorted({tomb, *sum(s_extra.values(), [])})
+                 if t < s_meta.vocab_size]
+    o_ks = s_ks + [10] * (len(o_q) - len(s_q))
+    svc_s = SearchService(s_idx, s_meta, writer=s_writer, **main_kw)
+    o_got = serve(svc_s, o_q, o_ks)
+    mutated = s_writer.mutated_corpus()
+    o_truth = brute_force_topk(mutated, o_q, mutated.n_docs)
+    o_want = [(t[:k], len(t)) for t, k in zip(o_truth, o_ks)]
+    if o_got != o_want:
+        bad = sum(g != w for g, w in zip(o_got, o_want))
+        raise AssertionError(f"small: {bad} of {len(o_q)} differ from brute force")
+    t0 = time.perf_counter()
+    svc_s.compact(verify=True)
+    t_small_compact = time.perf_counter() - t0
+    if serve(svc_s, o_q, o_ks) != o_want:
+        raise AssertionError("small: hits changed across compaction")
+    log(f"[small] {len(o_q)} queries over {len(s_muts)} mixed ops, {len(holders)} "
+        f"deletes tombstoning term {tomb}, and delta postings in main-empty lists "
+        f"{sorted(s_extra.items())} equal brute force over the mutated corpus; "
+        f"compact(verify=True) in {t_small_compact:.2f} s swapped in the folded "
+        f"index and the same queries give the same hits")
+
+    # ------------------------------------------------------------ 10. mor-times
+    idx0, delta0 = sharded.shard(0), writer.shard_deltas()[0]
+    cap = delta0.term_capacity
+    k3m, k4m, _ = k4_inputs("times", idx0, delta0, main_batch, MAIN_WINDOW, True)
+    k3_ms = cuda_ms(lambda: dm.merge_delta_windows_cuda(*k3m, window=MAIN_WINDOW, cap=cap))
+    k3_plain = cuda_ms(lambda: dm.merge_delta_windows_torch(
+        *k3m, window=MAIN_WINDOW, cap=cap), reps=10, warmup=2)
+    m_docs, _ = dm._stream(idx0.postings, idx0.attrs, k3m[2].long(), k3m[3].long(),
+                           MAIN_WINDOW)
+    start, d_len = dm._slab(k3m[8], delta0.offsets, delta0.lengths, cap)
+    d_docs, _ = dm._stream(delta0.postings, delta0.attrs, start, d_len, cap)
+    keys = torch.cat([m_docs, d_docs], dim=-1).contiguous()
+    k3_lib = cuda_ms(lambda: torch.sort(keys, dim=-1, stable=True))
+    na = k3m[3].long().clamp(max=MAIN_WINDOW).cpu()
+    nb = d_len.cpu()
+    # docID and attr of each posting that reaches the output (the first
+    # `window` of the merge), five int32 per query, three outputs
+    k3_read = int((na + nb).clamp(max=MAIN_WINDOW).sum())
+    k3_bytes = k3_read * 8 + 5 * MAIN_Q * 4 + 3 * MAIN_Q * MAIN_WINDOW * 4
+    k3_ops = int(sum(min(a + b, MAIN_WINDOW) * (math.ceil(math.log2(min(a, b) + 1)) + 1)
+                     for a, b in zip(na.tolist(), nb.tolist())))
+    k3_bound, k3_by = bound_ms(k3_bytes, k3_ops)
+    log(f"[times] K3 window {MAIN_WINDOW}, Q={MAIN_Q}, cap {cap}, shard 0, fill "
+        f"{writer.posting_fill():.3f}: {k3_ms:.4f} ms/launch, {NS} launches/batch; "
+        f"plain {k3_plain:.4f} ms; torch.sort(stable) of the (Q, window+cap) keys "
+        f"{k3_lib:.4f} ms; bound {k3_bound:.6f} ms ({k3_by}; {k3_bytes} bytes: "
+        f"{k3_read} of main {int(na.sum())} + delta {int(nb.sum())} postings "
+        f"read) on {smi}")
+    log(f"[times] K3 device time (profiler): kernel {device_ms(lambda: dm.merge_delta_windows_cuda(*k3m, window=MAIN_WINDOW, cap=cap)):.5f} "
+        f"ms/launch, plain {device_ms(lambda: dm.merge_delta_windows_torch(*k3m, window=MAIN_WINDOW, cap=cap)):.5f} ms, "
+        f"torch.sort(stable) {device_ms(lambda: torch.sort(keys, dim=-1, stable=True)):.5f} ms on {smi}")
+
+    (a_docs, _, a_live, _, a_active, a_filter, _, mb_tile, mn_b, mbounds, _,
+     db_tile, dn_b, dbounds) = k4m
+    k4_ms = cuda_ms(lambda: pi.streamed_join_cuda(*k4m, cap=cap))
+    k4_plain = cuda_ms(lambda: pi.streamed_join_torch(*k4m, cap=cap),
+                       reps=10, warmup=2)
+    probe_m = probed_postings(mb_tile, mn_b, mbounds, TILE)
+    probe_d = probed_postings(db_tile, dn_b, dbounds, TILE)
+    live_slots = (a_live != 0).long().sum(1)
+    # What the function must read: every driver docID; the live stream of
+    # valid slots; the flags of live slots of queries that join a term; the
+    # attrs of valid slots of filtered queries; the probed postings; and it
+    # writes the mask.
+    valid = (a_docs != INVALID_DOC).long().sum(1)
+    joins = a_active.long().sum(1) > 0
+    k4_slots = (MAIN_Q * MAIN_WINDOW + int(valid.sum())
+                + int(live_slots[joins].sum()) + int(valid[a_filter >= 0].sum()))
+    k4_small = sum(x.numel() * 4 for x in (a_active, mb_tile, mn_b, mbounds, db_tile,
+                                          dn_b, dbounds)) + MAIN_Q * 4
+    k4_bytes = (k4_small + (k4_slots + MAIN_Q * MAIN_WINDOW) * 4
+                + (probe_m + probe_d) * 4)
+    k4_ops = int((live_slots * a_active.long().sum(1)).sum()) * (
+        math.ceil(math.log2(MAIN_WINDOW + TILE)) + math.ceil(math.log2(cap + TILE)))
+    k4_bound, k4_by = bound_ms(k4_bytes, k4_ops)
+    log(f"[times] K4 window {MAIN_WINDOW}, Q={MAIN_Q}, T={MAIN_T}, cap {cap}, "
+        f"shard 0: {k4_ms:.4f} ms/launch, {NS} launches/batch; plain "
+        f"{k4_plain:.4f} ms; bound {k4_bound:.6f} ms ({k4_by}; {k4_bytes} bytes: "
+        f"{int(valid.sum())} valid and {int(live_slots.sum())} live driver slots, "
+        f"probed main {probe_m} + delta {probe_d} postings) on {smi}")
+    log(f"[times] K4 device time (profiler): kernel "
+        f"{device_ms(lambda: pi.streamed_join_cuda(*k4m, cap=cap)):.5f} ms/launch, "
+        f"plain {device_ms(lambda: pi.streamed_join_torch(*k4m, cap=cap)):.5f} ms on {smi}")
+
+    traced(lambda reg: SearchService(sharded, meta, writer=writer, cache_size=0,
+                                     registry=reg, **main_kw), "fill 1.0")
+
+    # compaction of the full-size delta: fold, rebuild, swap; the compacted
+    # index serves equal to backend="torch" (a rebuild is not the oracle
+    # here: the lists are far longer than the window)
+    svc_c = SearchService(sharded, meta, writer=writer, **main_kw)
+    t0 = time.perf_counter()
+    svc_c.compact()
+    torch.cuda.synchronize()
+    t_compact = time.perf_counter() - t0
+    reset_launches()
+    c_got = serve(svc_c, queries[:128], ks[:128])
+    c_counts = launches_now()
+    c_ex = executed_batches(svc_c)
+    c_want = serve(SearchService(svc_c.index, svc_c.meta, writer=writer,
+                                 backend="torch", **main_kw), queries[:128], ks[:128])
+    if c_got != c_want or c_counts["K3"] != NS * c_ex or c_counts["K1"] != 0:
+        raise AssertionError(f"compacted index: hits equal {c_got == c_want}, "
+                             f"launches {c_counts}")
+    log(f"[compact] full-size compaction (fold {writer.base_corpus.n_docs} pages, "
+        f"rebuild, swap) in {t_compact:.2f} s; 128 queries on the compacted index "
+        f"equal backend='torch', launches {c_counts}; index "
+        f"{svc_c.index.nbytes()} device bytes")
 
     k2_main = k2_rows[("tournament", 1000)]
+    fill1 = mor[1.0]
     record = {"kernels": [
         {"name": "K1 driver_streamed_join", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/driver_streamed.cu",
          "replaces": "src/repro/kernels/posting_intersect.py:1207",
-         "launches": launches["K1"], "max_abs_err": max_err["K1"],
+         "launches": static_launches["K1"], "max_abs_err": max_err["K1"],
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
-         "bound_by": "bytes" if k1_bytes / HBM_BYTES_PER_S >= k1_ops / INT32_OPS_PER_S
-         else "operations",
-         "library_ms": None},
+         "bound_by": k1_by, "library_ms": None},
         {"name": "K2 topk_merge_rows", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/topk_merge_rows.cu",
          "replaces": "src/repro/kernels/topk_merge.py:122",
-         "launches": launches["K2"], "max_abs_err": max_err["K2"],
+         "launches": static_launches["K2"], "max_abs_err": max_err["K2"],
          "ms": k2_main[0], "plain_ms": k2_main[1], "bound_ms": k2_main[3],
-         "bound_by": "bytes" if k2_main[4] / HBM_BYTES_PER_S >= k2_main[5] / INT32_OPS_PER_S
-         else "operations",
-         "library_ms": k2_main[2]},
+         "bound_by": k2_main[4], "library_ms": k2_main[2]},
+        {"name": "K3 merge_delta_windows", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/delta_merge.cu",
+         "replaces": "src/repro/kernels/delta_merge.py:394",
+         "launches": fill1["K3"], "max_abs_err": max_err["K3"],
+         "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound,
+         "bound_by": k3_by, "library_ms": k3_lib},
+        {"name": "K4 intersect_batched_streamed", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/streamed_join.cu",
+         "replaces": "src/repro/kernels/posting_intersect.py:958",
+         "launches": fill1["K4"], "max_abs_err": max_err["K4"],
+         "ms": k4_ms, "plain_ms": k4_plain, "bound_ms": k4_bound,
+         "bound_by": k4_by, "library_ms": None},
     ]}
     print(json.dumps(record), flush=True)
     print(smi, flush=True)

@@ -19,13 +19,23 @@ Two backends, both bit-identical to the reference's ``backend="jnp"``:
 
 - ``"torch"``  — plain PyTorch ops: the port of the jnp branch, batched
   over queries instead of ``vmap``-ed;
-- ``"kernel"`` — the port of the static branch of the reference's
-  ``_query_topk_batch_pallas``: driver pick, driver span, the K1 join
+- ``"kernel"`` — the port of the reference's ``_query_topk_batch_pallas``.
+  On the static index: driver pick, driver span, the K1 join
   (:func:`repro_torch.kernels.ops.intersect_fullstream`), the ``gather``
-  join on the device, then the first k.  On a CPU tensor K1 runs its plain
-  version, so this backend is tested here too.
+  join on the device, then the first k.  Under merge-on-read (a
+  :class:`~repro_torch.indexing.delta.DeltaIndex`): driver pick on the
+  merged lengths, the *main* driver span, the K3 driver merge
+  (:func:`~repro_torch.kernels.ops.merge_windows`), the tombstone flags
+  and live stream, the K4 join against main and delta
+  (:func:`~repro_torch.kernels.ops.intersect_streamed`), the ``gather``
+  join on the delta's ``doc_site``, then the first k.  On CPU tensors the
+  kernels run their plain versions, so this backend is tested here too.
 
-The merge-on-read path (a delta index) comes with its own slice.
+Merge-on-read (:class:`MergedPostingSource`): each term's logical list is
+main ∪ delta.  A main posting is live unless its doc is DEAD or
+SUPERSEDED, a delta posting unless it is DEAD, and equal docIDs order
+main first.  Results equal a rebuild over the mutated corpus while the
+window covers the merged lists.
 """
 from __future__ import annotations
 
@@ -35,6 +45,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.index import (
+    DOC_DEAD,
+    DOC_SUPERSEDED,
     INVALID_ATTR,
     INVALID_DOC,
     IndexMeta,
@@ -42,6 +54,7 @@ from repro_torch.core.index import (
     resolve_device,
     site_term_id,
 )
+from repro_torch.kernels.posting_intersect import _take_fill
 from repro_torch.obs.registry import get_registry
 
 NO_TERM = np.int32(-1)
@@ -111,24 +124,29 @@ def make_query_batch(
 # Windowed posting access (batched over any leading shape of ``term``)
 # ---------------------------------------------------------------------------
 
-def term_window(index: InvertedIndex, term: torch.Tensor, window: int):
-    """``(docids, attrs, valid)``, each ``[..., window]``, for each term.
-
-    Reads past the flat arrays give INVALID_DOC / INVALID_ATTR, docIDs past
-    the list's length are INVALID_DOC, and attrs are not masked (as in the
-    reference)."""
-    t = term.clamp(0, index.offsets.shape[0] - 1).long()
-    off = index.offsets[t].long()
-    ln = torch.where(term < 0, torch.zeros_like(term), index.lengths[t])
-    pos = torch.arange(window, dtype=torch.int64, device=term.device)
+def _list_window(lists, term: torch.Tensor, width: int):
+    """``(docids, attrs, valid)``, each ``[..., width]``, of each term's
+    list in ``lists`` (an index or a delta: ``offsets``, ``lengths``,
+    ``postings``, ``attrs``).  Reads past the flat arrays give INVALID_DOC /
+    INVALID_ATTR, docIDs past the list's length are INVALID_DOC, and attrs
+    are not masked (as in the reference)."""
+    t = term.clamp(0, lists.offsets.shape[0] - 1).long()
+    off = lists.offsets[t].long()
+    ln = torch.where(term < 0, torch.zeros_like(term), lists.lengths[t])
+    pos = torch.arange(width, dtype=torch.int64, device=term.device)
     idx = off[..., None] + pos
-    inside = idx < index.postings.shape[0]
-    idx = idx.clamp(max=index.postings.shape[0] - 1)
-    docs = torch.where(inside, index.postings[idx], _INVALID)
-    attrs = torch.where(inside, index.attrs[idx], int(INVALID_ATTR))
+    inside = idx < lists.postings.shape[0]
+    idx = idx.clamp(max=lists.postings.shape[0] - 1)
+    docs = torch.where(inside, lists.postings[idx], _INVALID)
+    attrs = torch.where(inside, lists.attrs[idx], int(INVALID_ATTR))
     valid = pos < ln[..., None]
     docs = torch.where(valid, docs, _INVALID).to(torch.int32)
     return docs, attrs.to(torch.int32), valid
+
+
+def term_window(index: InvertedIndex, term: torch.Tensor, window: int):
+    """``(docids, attrs, valid)``, each ``[..., window]``, for each term."""
+    return _list_window(index, term, window)
 
 
 def member_sorted(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -144,6 +162,51 @@ def _first_k_by_rank(docids: torch.Tensor, mask: torch.Tensor, k: int):
     key = torch.where(mask, docids, _INVALID)
     out = key.sort(dim=-1).values[..., :k].contiguous()
     return out, mask.sum(dim=-1, dtype=torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Merge-on-read: logical windows over main + delta with tombstone filtering
+# ---------------------------------------------------------------------------
+
+def delta_term_window(delta, term: torch.Tensor):
+    """``(docids, attrs, valid)``, each ``[..., cap]``, of each term's delta
+    list (the delta shares the main index's CSR layout, with a fixed
+    per-term capacity)."""
+    return _list_window(delta, term, delta.term_capacity)
+
+
+def posting_live(delta, docs: torch.Tensor, *, from_delta: bool) -> torch.Tensor:
+    """Per-posting tombstone predicate: a main posting is live iff its doc
+    is neither DEAD nor SUPERSEDED, a delta posting iff it is not DEAD.
+    INVALID and any docID past the bitmap read flag 0 (live) and are killed
+    by the validity predicate instead."""
+    flags = _take_fill(delta.doc_flags, docs, 0)
+    kill = DOC_DEAD if from_delta else (DOC_DEAD | DOC_SUPERSEDED)
+    return (flags & int(kill)) == 0
+
+
+def merged_term_window(index: InvertedIndex, delta, term: torch.Tensor,
+                       window: int, *, drop_dead: bool):
+    """Merge-on-read window ``(docids, attrs, live)``, each ``[..., window]``.
+
+    The main window and the term's delta list, concatenated main first and
+    sorted stably, so equal docIDs keep main first.  ``drop_dead=True``
+    turns tombstoned postings into INVALID before the merge;
+    ``drop_dead=False`` keeps them in their rank slots with ``live=0``.
+    This is the reference driver merge, the oracle for K3."""
+    m_docs, m_attrs, m_valid = term_window(index, term, window)
+    m_live = posting_live(delta, m_docs, from_delta=False) & m_valid
+    d_docs, d_attrs, d_valid = delta_term_window(delta, term)
+    d_live = posting_live(delta, d_docs, from_delta=True) & d_valid
+    docs = torch.cat([m_docs, d_docs], dim=-1)
+    attrs = torch.cat([m_attrs, d_attrs], dim=-1)
+    live = torch.cat([m_live, d_live], dim=-1)
+    if drop_dead:
+        docs = torch.where(live, docs, _INVALID)
+    docs, order = docs.sort(dim=-1, stable=True)
+    docs, order = docs[..., :window], order[..., :window]
+    live = live.gather(-1, order) & (docs != _INVALID)
+    return docs.contiguous(), attrs.gather(-1, order), live.to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -197,10 +260,75 @@ class StaticPostingSource:
         ln = torch.where(terms < 0, torch.zeros_like(terms), self.index.lengths[tt])
         return DriverSpan(off, ln.clamp(max=window))
 
+    def driver_flags(self, a_docs: torch.Tensor) -> None:
+        """No tombstones on the read-only index."""
+        return None
+
     def member(self, a_docs: torch.Tensor, term: torch.Tensor, window: int):
         """Membership of each driver posting in the term's bounded window."""
         b_docs, _, _ = term_window(self.index, term, window)
         return member_sorted(a_docs, b_docs)
+
+
+class MergedPostingSource(StaticPostingSource):
+    """Merge-on-read posting access over main + delta.
+
+    The driver stream is the merged window, tombstoned postings keeping
+    their slots with ``live=0``.  The ``kernel`` backend builds it with K3
+    from the inherited *main* :meth:`driver_span` and the delta slab, and
+    :meth:`driver_live` turns K3's per-slot stream id into the live stream.
+    Other-term membership never materializes a merged window: a driver
+    posting joins the logical list iff it is in the main list and its doc
+    is neither DEAD nor SUPERSEDED, or in the delta list and its doc is not
+    DEAD; :meth:`driver_flags` gives the bits those probes key off.
+    """
+
+    def __init__(self, index: InvertedIndex, delta):
+        super().__init__(index)
+        self.delta = delta
+
+    @property
+    def doc_site(self) -> torch.Tensor:
+        return self.delta.doc_site
+
+    def list_lengths(self, terms: torch.Tensor) -> torch.Tensor:
+        tt = terms.clamp(0, self.index.offsets.shape[0] - 1).long()
+        return self.index.lengths[tt] + self.delta.lengths[tt]
+
+    def driver_window(self, term: torch.Tensor, window: int):
+        docs, attrs, live = merged_term_window(
+            self.index, self.delta, term, window, drop_dead=False)
+        return docs, attrs, live > 0
+
+    def driver_flags(self, a_docs: torch.Tensor) -> torch.Tensor:
+        """Tombstone bits of each driver posting's document."""
+        return _take_fill(self.delta.doc_flags, a_docs, 0)
+
+    def driver_live(self, docs, src, a_flags=None) -> torch.Tensor:
+        """The live stream of a merged driver window, int32, from each
+        slot's stream id (K3's ``src``: 0 = main, 1 = delta) and the
+        tombstone bits."""
+        if a_flags is None:
+            a_flags = self.driver_flags(docs)
+        main_ok = (a_flags & int(DOC_DEAD | DOC_SUPERSEDED)) == 0
+        delta_ok = (a_flags & int(DOC_DEAD)) == 0
+        live = (docs != _INVALID) & torch.where(src == 0, main_ok, delta_ok)
+        return live.to(torch.int32)
+
+    def member(self, a_docs, term, window: int, a_flags=None):
+        if a_flags is None:
+            a_flags = self.driver_flags(a_docs)
+        m_docs, _, _ = term_window(self.index, term, window)
+        d_docs, _, _ = delta_term_window(self.delta, term)
+        main_ok = (a_flags & int(DOC_DEAD | DOC_SUPERSEDED)) == 0
+        delta_ok = (a_flags & int(DOC_DEAD)) == 0
+        return ((member_sorted(a_docs, m_docs) & main_ok)
+                | (member_sorted(a_docs, d_docs) & delta_ok))
+
+
+def make_posting_source(index: InvertedIndex, delta) -> StaticPostingSource:
+    return (StaticPostingSource(index) if delta is None
+            else MergedPostingSource(index, delta))
 
 
 def _pick_drivers(source: StaticPostingSource, batch: QueryBatch):
@@ -223,8 +351,10 @@ def _query_topk_torch(source, batch: QueryBatch, *, k, window, attr_strategy):
     """Port of the reference's jnp branch (``_query_topk_one``), batched."""
     _, d_terms, active = _pick_drivers(source, batch)
     docs, attrs, mask = source.driver_window(d_terms, window)
+    a_flags = source.driver_flags(docs)
+    flags_kw = {} if a_flags is None else {"a_flags": a_flags}
     for s in range(batch.terms.shape[1]):
-        m = source.member(docs, batch.terms[:, s], window)
+        m = source.member(docs, batch.terms[:, s], window, **flags_kw)
         mask = mask & (m | ~active[:, s:s + 1])
     f = batch.attr_filter[:, None]
     if attr_strategy == "embed":
@@ -235,24 +365,45 @@ def _query_topk_torch(source, batch: QueryBatch, *, k, window, attr_strategy):
 
 
 def _query_topk_kernel(source, batch: QueryBatch, *, k, window, attr_strategy):
-    """Port of the static branch of the reference's
-    ``_query_topk_batch_pallas``: plan + K1, the gather join, first k."""
+    """Port of the reference's ``_query_topk_batch_pallas``: plan + K1 on
+    the static index, or K3 + K4 under merge-on-read; the gather join;
+    first k."""
     from repro_torch.kernels import ops
 
     index = source.index
     _, d_terms, active = _pick_drivers(source, batch)
+    active = active.to(torch.int32)
+    # The main list's span, also under merge-on-read (n_eff is the main
+    # length clamped to the window; K3 adds the delta slab).
     span = source.driver_span(d_terms, window)
-    # K1's fused predicate serves ``embed``; ``site_term`` has rewritten the
-    # restriction into a term and ``gather`` joins doc_site below.
+    # The kernels' fused predicate serves ``embed``; ``site_term`` has
+    # rewritten the restriction into a term and ``gather`` joins doc_site
+    # below.
     kernel_filter = (
         batch.attr_filter if attr_strategy == "embed"
         else torch.full_like(batch.attr_filter, int(NO_ATTR))
     )
-    docs, mask = ops.intersect_fullstream(
-        span.off, span.n_eff, batch.terms, active.to(torch.int32),
-        kernel_filter, index.postings, index.attrs, index.offsets,
-        index.lengths, index.block_max, window=window,
-    )
+    if not isinstance(source, MergedPostingSource):
+        docs, mask = ops.intersect_fullstream(
+            span.off, span.n_eff, batch.terms, active, kernel_filter,
+            index.postings, index.attrs, index.offsets, index.lengths,
+            index.block_max, window=window,
+        )
+    else:
+        delta = source.delta
+        docs, attrs, src = ops.merge_windows(
+            index.postings, index.attrs, span.off, span.n_eff,
+            delta.postings, delta.attrs, delta.offsets, delta.lengths,
+            delta.block_max, d_terms, window=window,
+        )
+        a_flags = source.driver_flags(docs)
+        live = source.driver_live(docs, src, a_flags)
+        mask = ops.intersect_streamed(
+            docs, attrs, live, batch.terms, active, kernel_filter,
+            index.postings, index.offsets, index.lengths, index.block_max,
+            delta.postings, delta.offsets, delta.lengths, delta.block_max,
+            a_flags,
+        )
     mask = mask > 0
     if attr_strategy == "gather":
         mask = mask & _site_ok(source, docs, batch.attr_filter)
@@ -263,6 +414,7 @@ def query_topk(
     index: InvertedIndex,
     batch: QueryBatch,
     *,
+    delta=None,
     k: int = 10,
     window: int = 4096,
     attr_strategy: str = "embed",
@@ -272,8 +424,13 @@ def query_topk(
     n_hits[Q])``: local docids ascending (= rank order), INVALID_DOC-padded
     when fewer than k documents match inside the window.
 
-    ``backend="kernel"`` runs K1 (see the module docstring); ``"torch"``
-    runs plain PyTorch ops.  Both equal the reference's jnp backend.
+    ``delta`` (a :class:`~repro_torch.indexing.delta.DeltaIndex` on the
+    same device) turns on merge-on-read: inserts, updates and deletes are
+    visible without touching the main index.
+
+    ``backend="kernel"`` runs K1, or K3 and K4 with a delta (see the module
+    docstring); ``"torch"`` runs plain PyTorch ops.  Both equal the
+    reference's jnp backend.
     """
     if attr_strategy not in STRATEGIES:
         raise ValueError(f"unknown attr_strategy {attr_strategy!r}")
@@ -282,10 +439,13 @@ def query_topk(
     if batch.terms.device != index.postings.device:
         raise ValueError(f"batch on {batch.terms.device}, index on "
                          f"{index.postings.device}")
+    if delta is not None and delta.postings.device != index.postings.device:
+        raise ValueError(f"delta on {delta.postings.device}, index on "
+                         f"{index.postings.device}")
     if not 1 <= k <= window:
         raise ValueError(f"need 1 <= k <= window, got k={k}, window={window}")
     fn = _query_topk_kernel if backend == "kernel" else _query_topk_torch
-    return fn(StaticPostingSource(index), batch, k=k, window=window,
+    return fn(make_posting_source(index, delta), batch, k=k, window=window,
               attr_strategy=attr_strategy)
 
 

@@ -33,11 +33,37 @@ import numpy as np
 import torch
 
 from repro_torch.data.corpus import Corpus
+from repro_torch.obs.registry import get_registry
 
 BLOCK = 128                      # postings per skip-table block
 TILE = 8 * BLOCK                 # postings per join tile of the flat arrays
 INVALID_DOC = np.int32(2**31 - 1)  # padding docID; sorts after every real doc
 INVALID_ATTR = np.int32(-1)
+
+# Tombstone bits of the online-update doc_flags bitmap
+# (repro_torch.indexing): DEAD masks a doc's postings in main and delta;
+# SUPERSEDED masks its *main* postings only (its live version is in the
+# delta).
+DOC_DEAD = np.int32(1)
+DOC_SUPERSEDED = np.int32(2)
+
+
+def export_index_bytes(
+    raw_nbytes: int, packed_nbytes: int | None, *, kind: str
+) -> None:
+    """Export the ``odys_index_bytes{layout, kind}`` gauges on the port's
+    metrics registry: resident posting-structure bytes of the raw flat
+    array and, when a packed twin exists, of that.  No-op unless metrics
+    are enabled."""
+    reg = get_registry()
+    help_ = "resident posting-structure bytes by layout and index kind"
+    reg.gauge("odys_index_bytes", help=help_, layout="raw", kind=kind).set(
+        int(raw_nbytes)
+    )
+    if packed_nbytes is not None:
+        reg.gauge(
+            "odys_index_bytes", help=help_, layout="packed", kind=kind
+        ).set(int(packed_nbytes))
 
 
 def resolve_device(device=None) -> torch.device:

@@ -17,7 +17,10 @@ over all slaves at once:
 - ``allgather``  — the paper-faithful central merge: the ns*k candidates
   of each query in one K2 launch, ``(Q, ns*k)``.
 
-``n_hits`` is the sum over slaves.  Replicated sets on their own cards
+``n_hits`` is the sum over slaves.  A :class:`~repro_torch.indexing.delta.
+ShardedDelta` stacked like the index turns on merge-on-read: slave ``s``
+answers over its main partition and delta slice ``s`` (K3 + K4 under
+``backend="kernel"``).  Replicated sets on their own cards
 (``replicated_query_topk``, ``set_mesh_slices``) need several GPUs and
 come with a later slice.
 """
@@ -33,6 +36,7 @@ from repro_torch.core.index import (
     ShardedIndex,
     local_to_global_docids,
 )
+from repro_torch.indexing.delta import DeltaIndex, ShardedDelta
 
 
 class SearchResult(NamedTuple):
@@ -77,6 +81,7 @@ def allgather_merge(cands: torch.Tensor, *, backend: str = "kernel") -> torch.Te
 def slave_topk_unmerged(
     index: ShardedIndex,
     batch: QueryBatch,
+    delta: ShardedDelta | None = None,
     *,
     ns: int,
     k: int = 10,
@@ -89,10 +94,14 @@ def slave_topk_unmerged(
     int32[ns, Q]."""
     if index.postings.shape[0] != ns:
         raise ValueError(f"index holds {index.postings.shape[0]} shards, ns={ns}")
+    if delta is not None and delta.postings.shape[0] != ns:
+        raise ValueError(f"delta holds {delta.postings.shape[0]} shards, ns={ns}")
     docs, hits = [], []
     for s in range(ns):
-        d, h = query_topk(index.shard(s), batch, k=k, window=window,
-                          attr_strategy=attr_strategy, backend=backend)
+        d, h = query_topk(index.shard(s), batch,
+                          delta=None if delta is None else delta.shard(s),
+                          k=k, window=window, attr_strategy=attr_strategy,
+                          backend=backend)
         docs.append(local_to_global_docids(d, s, ns))
         hits.append(h)
     return SearchResult(torch.stack(docs), torch.stack(hits))
@@ -101,6 +110,7 @@ def slave_topk_unmerged(
 def distributed_query_topk(
     index: ShardedIndex,
     batch: QueryBatch,
+    delta: ShardedDelta | None = None,
     *,
     ns: int,
     k: int = 10,
@@ -110,12 +120,13 @@ def distributed_query_topk(
     backend: str = "kernel",
 ) -> SearchResult:
     """Broadcast the batch to all slaves, local top-k, merge to the global
-    top-k.  ``backend`` selects the engine on both sides: K1 in every slave
+    top-k.  ``delta`` attaches the slaves' deltas (merge-on-read: live
+    traffic sees every mutation of the snapshot).  ``backend`` selects the engine on both sides: K1 in every slave
     and K2 in the master merge under ``"kernel"``, plain PyTorch under
     ``"torch"``."""
     if merge not in ("tournament", "allgather"):
         raise ValueError(f"unknown merge {merge!r}")
-    local = slave_topk_unmerged(index, batch, ns=ns, k=k, window=window,
+    local = slave_topk_unmerged(index, batch, delta, ns=ns, k=k, window=window,
                                 attr_strategy=attr_strategy, backend=backend)
     if merge == "tournament":
         merged = tournament_merge(local.docids, ns, backend=backend)
@@ -132,13 +143,17 @@ def sequential_reference(
     k: int,
     window: int,
     attr_strategy: str = "embed",
+    deltas: list[DeltaIndex] | None = None,
     backend: str = "torch",
 ) -> SearchResult:
     """Run each shard in turn and merge with one plain sort — the oracle
-    for :func:`distributed_query_topk`."""
+    for :func:`distributed_query_topk`.  ``deltas`` gives the per-shard
+    deltas (``DeltaWriter.shard_deltas()``)."""
     all_cands, all_hits = [], []
     for s, idx in enumerate(shard_indexes):
-        docs, hits = query_topk(idx, batch, k=k, window=window,
+        docs, hits = query_topk(idx, batch,
+                                delta=None if deltas is None else deltas[s],
+                                k=k, window=window,
                                 attr_strategy=attr_strategy, backend=backend)
         all_cands.append(local_to_global_docids(docs, s, ns))
         all_hits.append(hits)

@@ -10,11 +10,15 @@ int64 key ``doc * vocab + term`` instead of ``lexsort``-ing two keys.  The
 sorted keys decode to the same ``(doc, term)`` pairs, and at millions of
 documents the single-key sort is several times faster.
 
-Mutation streams (online updates) come with the merge-on-read slice.
+Mutation streams for online updates (:class:`Mutation`,
+:func:`generate_mutations`, :func:`apply_mutations`) draw the same numbers
+in the same order as the reference's, so one seed gives one stream, op for
+op.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 
@@ -117,4 +121,108 @@ def generate_corpus(cfg: CorpusConfig) -> Corpus:
         n_docs=cfg.n_docs,
         vocab_size=cfg.vocab_size,
         n_sites=cfg.n_sites,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Mutation streams (the online-update workload, repro_torch.indexing)
+# ---------------------------------------------------------------------------
+
+class Mutation(NamedTuple):
+    """One ingest operation.
+
+    ``op`` is ``"insert"`` (terms+site, docid assigned by the writer),
+    ``"delete"`` (docid only) or ``"update"`` (docid + new terms; ``site``
+    is the new site, or None to keep the old one).
+    """
+
+    op: str
+    docid: int | None
+    terms: np.ndarray | None
+    site: int | None
+
+
+@dataclasses.dataclass(frozen=True)
+class MutationConfig:
+    n_ops: int = 100
+    p_insert: float = 0.5
+    p_delete: float = 0.2
+    p_update: float = 0.3
+    mean_doc_len: int = 32
+    zipf_s: float = 1.1
+    site_zipf_s: float = 1.2
+    p_site_change: float = 0.25   # fraction of updates that move sites
+    seed: int = 0
+
+
+def _draw_terms(rng, cfg: MutationConfig, probs: np.ndarray) -> np.ndarray:
+    n = max(1, int(rng.poisson(lam=cfg.mean_doc_len)))
+    return np.unique(
+        rng.choice(probs.shape[0], size=n, p=probs)
+    ).astype(np.int32)
+
+
+def generate_mutations(corpus: Corpus, cfg: MutationConfig) -> list[Mutation]:
+    """An interleaved insert/delete/update stream over ``corpus``.
+
+    Deletes and updates target uniformly-random *live* docs (tracking the
+    stream's own inserts and deletes); inserts draw term sets and sites
+    from the same Zipf laws as the base corpus.  Empty docs are deletion
+    tombstones and never targets.
+    """
+    rng = np.random.default_rng(cfg.seed)
+    probs = np.array([cfg.p_insert, cfg.p_delete, cfg.p_update], np.float64)
+    probs = probs / probs.sum()
+    site_probs = _zipf_probs(corpus.n_sites, cfg.site_zipf_s)
+    term_probs = _zipf_probs(corpus.vocab_size, cfg.zipf_s)
+
+    live = np.flatnonzero(np.diff(corpus.doc_offsets) > 0).tolist()
+    n_docs = corpus.n_docs
+    out: list[Mutation] = []
+    for _ in range(cfg.n_ops):
+        kind = ["insert", "delete", "update"][rng.choice(3, p=probs)]
+        if kind != "insert" and not live:
+            kind = "insert"
+        if kind == "insert":
+            terms = _draw_terms(rng, cfg, term_probs)
+            site = int(rng.choice(corpus.n_sites, p=site_probs))
+            out.append(Mutation("insert", None, terms, site))
+            live.append(n_docs)
+            n_docs += 1
+        elif kind == "delete":
+            i = int(rng.integers(len(live)))
+            gid = live.pop(i)
+            out.append(Mutation("delete", gid, None, None))
+        else:
+            gid = live[int(rng.integers(len(live)))]
+            terms = _draw_terms(rng, cfg, term_probs)
+            site = (
+                int(rng.choice(corpus.n_sites, p=site_probs))
+                if rng.random() < cfg.p_site_change
+                else None
+            )
+            out.append(Mutation("update", gid, terms, site))
+    return out
+
+
+def apply_mutations(corpus: Corpus, mutations: list[Mutation]) -> Corpus:
+    """The post-stream corpus, the ground truth a from-scratch rebuild
+    sees.  Deleted docs become *empty* docs (zero terms, site kept), so
+    docIDs, and therefore ranks, never shift."""
+    docs = [np.asarray(corpus.terms_of(d), np.int32) for d in range(corpus.n_docs)]
+    sites = [int(x) for x in corpus.doc_site]
+    for m in mutations:
+        if m.op == "insert":
+            docs.append(np.unique(np.asarray(m.terms, np.int32)))
+            sites.append(int(m.site))
+        elif m.op == "delete":
+            docs[m.docid] = np.zeros(0, dtype=np.int32)
+        elif m.op == "update":
+            docs[m.docid] = np.unique(np.asarray(m.terms, np.int32))
+            if m.site is not None:
+                sites[m.docid] = int(m.site)
+        else:
+            raise ValueError(m.op)
+    return corpus_from_docs(
+        docs, sites, vocab_size=corpus.vocab_size, n_sites=corpus.n_sites
     )

@@ -1,0 +1,600 @@
+"""Per-shard delta index: the online-update write path (port of
+``repro.indexing.delta``).
+
+**DeltaIndex** (one slave) is a fixed-capacity posting buffer with the main
+index's CSR + skip-table layout, as torch tensors on a device:
+
+- ``offsets[t] = t * term_capacity``: every term owns a BLOCK-aligned slab;
+- ``postings``/``attrs``: local docIDs ascending per slab, the embedded
+  siteId beside each; TILE-padded like the main flat arrays;
+- ``block_max``: the skip table over the slabs, exact length
+  ``n_terms * cap / BLOCK``, holding the max of the block's *valid*
+  postings and ``INVALID_DOC`` for an empty block;
+- ``doc_flags``: the tombstone bitmap over base and inserted docs
+  (``DOC_DEAD``: every posting of the doc is dead; ``DOC_SUPERSEDED``: its
+  main postings are stale, its live postings are in the delta);
+- ``doc_site``: the authoritative local docID -> siteId table.
+
+**DeltaWriter** is the host-side transaction manager: ``insert_docs`` /
+``delete_docs`` / ``update_docs`` mutate per-shard numpy mirrors and a
+monotone version; :meth:`DeltaWriter.device_delta` snapshots the mirrors
+into a :class:`ShardedDelta` on the writer's device, cached per version.
+New documents take the next global docIDs and stripe with ``d % ns``.
+
+The writer's record of the mutated corpus (what a from-scratch rebuild
+sees) keeps only the documents that changed, over the corpus the writer
+was made with, where the reference copies every document of that corpus;
+:meth:`DeltaWriter.mutated_corpus` returns the same arrays.
+
+The multi-master ``ShardedDeltaWriter`` / ``VectorVersion`` and the packed
+codec are later slices of the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping, NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.index import (
+    BLOCK,
+    DOC_DEAD,
+    DOC_SUPERSEDED,
+    INVALID_ATTR,
+    INVALID_DOC,
+    IndexMeta,
+    export_index_bytes,
+    flat_tile_pad,
+    resolve_device,
+)
+from repro_torch.data.corpus import Corpus
+
+
+class DeltaFullError(RuntimeError):
+    """The delta is out of posting or document capacity.
+
+    Batches apply document by document: the earlier documents of a batch
+    stay applied (and visible to the next snapshot); ``applied`` says how
+    many, so a retry after compaction resumes from that offset.
+    """
+
+    def __init__(self, msg: str, *, applied: int = 0):
+        super().__init__(msg)
+        self.applied = applied
+
+
+class DeltaIndex(NamedTuple):
+    """One slave's delta on a device; every field an int32 tensor."""
+
+    offsets: torch.Tensor    # int32[n_terms]   t * term_capacity
+    lengths: torch.Tensor    # int32[n_terms]   valid postings per slab
+    postings: torch.Tensor   # int32[flat_tile_pad(n_terms * cap)]
+    attrs: torch.Tensor      # int32[flat_tile_pad(n_terms * cap)]
+    block_max: torch.Tensor  # int32[n_terms * cap // BLOCK] (valid max)
+    doc_flags: torch.Tensor  # int32[nd_cap]    tombstone bitmap
+    doc_site: torch.Tensor   # int32[nd_cap]    docID -> siteId
+
+    @property
+    def term_capacity(self) -> int:
+        # block_max is exact (never padded), so it records the slab width.
+        return self.block_max.shape[-1] * BLOCK // self.offsets.shape[-1]
+
+
+class ShardedDelta(NamedTuple):
+    """ns per-slave deltas stacked on a leading dimension."""
+
+    offsets: torch.Tensor    # int32[ns, n_terms]
+    lengths: torch.Tensor    # int32[ns, n_terms]
+    postings: torch.Tensor   # int32[ns, flat_tile_pad(n_terms * cap)]
+    attrs: torch.Tensor      # int32[ns, flat_tile_pad(n_terms * cap)]
+    block_max: torch.Tensor  # int32[ns, n_terms * cap // BLOCK]
+    doc_flags: torch.Tensor  # int32[ns, nd_cap]
+    doc_site: torch.Tensor   # int32[ns, nd_cap]
+
+    def shard(self, s: int) -> DeltaIndex:
+        """Slave ``s``'s delta (views, no copy)."""
+        return DeltaIndex(*(x[s] for x in self))
+
+    def nbytes(self) -> int:
+        return sum(x.numel() * x.element_size() for x in self)
+
+
+def local_delta(stacked: ShardedDelta) -> DeltaIndex:
+    """The delta of a stack holding one slave."""
+    return stacked.shard(0)
+
+
+def delta_from_numpy(arrays: Mapping[str, np.ndarray], *, device) -> DeltaIndex:
+    """The port's delta from the reference's arrays (``np.asarray`` of each
+    leaf of a JAX ``DeltaIndex``; extra keys such as ``packed`` are
+    ignored), so a test can run both on the very same snapshot."""
+    dev = torch.device(device)
+    return DeltaIndex(*(
+        torch.from_numpy(np.require(arrays[f], np.int32, ["C", "W"])).to(dev)
+        for f in DeltaIndex._fields
+    ))
+
+
+def sharded_delta_from_numpy(
+    arrays: Mapping[str, np.ndarray], *, device
+) -> ShardedDelta:
+    """The stacked twin of :func:`delta_from_numpy` (each array ``[ns, ...]``)."""
+    dev = torch.device(device)
+    return ShardedDelta(*(
+        torch.from_numpy(np.require(arrays[f], np.int32, ["C", "W"])).to(dev)
+        for f in ShardedDelta._fields
+    ))
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _pad_block(n: int) -> int:
+    return _ceil_div(n, BLOCK) * BLOCK
+
+
+def overlay_corpus(
+    base: Corpus,
+    terms: Mapping[int, np.ndarray],
+    sites: np.ndarray,
+    *,
+    n_docs: int,
+) -> Corpus:
+    """``corpus_from_docs`` over ``n_docs`` documents: document ``g`` has
+    the terms ``terms[g]`` where given, else the base corpus's (none past
+    the base).  The unchanged runs of the base are copied whole, so the
+    cost follows the number of changed documents, not the corpus size."""
+    nb = base.n_docs
+    lens = np.zeros(n_docs, np.int64)
+    lens[:nb] = np.diff(base.doc_offsets)
+    for g, ts in terms.items():
+        lens[g] = ts.shape[0]
+    offsets = np.zeros(n_docs + 1, np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    out = np.empty(int(offsets[-1]), np.int32)
+
+    def copy_base(lo: int, hi: int) -> None:
+        if hi > lo:
+            out[offsets[lo]:offsets[hi]] = base.doc_terms[
+                base.doc_offsets[lo]:base.doc_offsets[hi]]
+
+    prev = 0
+    for g in sorted(terms):
+        copy_base(prev, min(g, nb))
+        out[offsets[g]:offsets[g + 1]] = terms[g]
+        prev = max(prev, min(g + 1, nb))
+    copy_base(prev, nb)
+    return Corpus(
+        doc_offsets=offsets,
+        doc_terms=out,
+        doc_site=np.asarray(sites, dtype=np.int32),
+        n_docs=n_docs,
+        vocab_size=base.vocab_size,
+        n_sites=base.n_sites,
+    )
+
+
+@dataclasses.dataclass
+class _ShardState:
+    """Host-side numpy mirror of one shard's delta."""
+
+    lengths: np.ndarray    # int32[n_terms]
+    postings: np.ndarray   # int32[n_terms, cap]  (2-D host-side; flat on device)
+    attrs: np.ndarray      # int32[n_terms, cap]
+    doc_flags: np.ndarray  # int32[nd_cap]
+    doc_site: np.ndarray   # int32[nd_cap]
+
+
+class DeltaWriter:
+    """Host-side write path over a sharded corpus, mirrored per shard.
+
+    ``corpus`` is the corpus the current main index was built from, ``meta``
+    that index's :class:`IndexMeta`, ``ns`` its shard count.
+    ``term_capacity`` (rounded up to BLOCK) is the delta postings a term
+    can hold; ``doc_headroom`` the inserted documents the generation can
+    hold.  A full list or headroom raises :class:`DeltaFullError`; compact
+    and retry.  Snapshots live on ``device`` (default ``cuda``).
+    """
+
+    def __init__(
+        self,
+        corpus: Corpus,
+        meta: IndexMeta,
+        ns: int,
+        *,
+        term_capacity: int = 2 * BLOCK,
+        doc_headroom: int = 1024,
+        codec: str = "raw",
+        device=None,
+    ):
+        if ns < 1:
+            raise ValueError(f"need ns >= 1, got {ns}")
+        if codec == "packed":
+            raise NotImplementedError(
+                "codec='packed' (block-codec delta slabs, kernel K5) comes "
+                "with the port's packed-codec slice")
+        if codec != "raw":
+            raise ValueError(f"unknown codec {codec!r}")
+        self.device = resolve_device(device)
+        self.ns = ns
+        self.meta = meta
+        self.include_site_terms = meta.include_site_terms
+        self.vocab_size = meta.vocab_size
+        self.n_sites = meta.n_sites
+        self.n_terms = meta.n_terms
+        self.term_capacity = _pad_block(max(term_capacity, 1))
+        self._base = corpus
+
+        n_base_local = _ceil_div(corpus.n_docs, ns)
+        self._doc_cap_local = _ceil_div(doc_headroom, ns)
+        self._n_base_local_init = n_base_local
+        # Local-docID admission limit (exact headroom); nd_cap is the
+        # BLOCK-padded array width and may exceed it.
+        self._doc_limit_local = n_base_local + self._doc_cap_local
+        self.nd_cap = _pad_block(self._doc_limit_local)
+
+        self.generation = 0
+        self._shards = [self._fresh_shard(corpus, s) for s in range(ns)]
+
+        # The mutated corpus, kept apart from the delta structures so that
+        # compaction can be verified against a rebuild: the term sets and
+        # sites of the documents that differ from ``corpus``, which this
+        # record keeps across rebases.
+        self._origin = corpus
+        self._terms_over: dict[int, np.ndarray] = {}
+        self._sites_over: dict[int, int] = {}
+        self.n_docs = corpus.n_docs            # total, including inserts
+        self._delta_docs: set[int] = set()     # gids whose live postings are in delta
+        self._version = 0
+        self._snapshot: ShardedDelta | None = None
+        self._snapshot_version = -1
+
+    # ------------------------------------------------------------------
+    # construction / rebase
+    # ------------------------------------------------------------------
+
+    def _fresh_shard(self, base: Corpus, s: int) -> _ShardState:
+        st = _ShardState(
+            lengths=np.zeros(self.n_terms, dtype=np.int32),
+            # 2-D host-side write mirrors, flattened and TILE-padded only
+            # at snapshot time in device_delta().
+            # lint: allow(posting-alloc)
+            postings=np.full(
+                (self.n_terms, self.term_capacity), INVALID_DOC, dtype=np.int32
+            ),
+            # lint: allow(posting-alloc)
+            attrs=np.full(
+                (self.n_terms, self.term_capacity), INVALID_ATTR, dtype=np.int32
+            ),
+            doc_flags=np.zeros(self.nd_cap, dtype=np.int32),
+            doc_site=np.full(self.nd_cap, INVALID_ATTR, dtype=np.int32),
+        )
+        base_sites = base.doc_site[s::self.ns]
+        st.doc_site[: base_sites.shape[0]] = base_sites
+        return st
+
+    def rebase(
+        self,
+        folded: Corpus,
+        *,
+        term_capacity: int | None = None,
+        doc_headroom: int | None = None,
+    ) -> None:
+        """Point the writer at a freshly compacted main index (``folded`` is
+        the corpus it was built from) and empty the delta.
+
+        ``term_capacity``/``doc_headroom`` start a new delta generation
+        with re-sized shapes, whose headroom counts from the folded
+        corpus."""
+        if term_capacity is not None or doc_headroom is not None:
+            if term_capacity is not None:
+                self.term_capacity = _pad_block(max(term_capacity, 1))
+            if doc_headroom is not None:
+                self._doc_cap_local = _ceil_div(max(doc_headroom, 1), self.ns)
+            self._n_base_local_init = _ceil_div(folded.n_docs, self.ns)
+            self._doc_limit_local = self._n_base_local_init + self._doc_cap_local
+            self.nd_cap = _pad_block(self._doc_limit_local)
+            self.generation += 1
+            self._snapshot = None
+        if _ceil_div(folded.n_docs, self.ns) > self._doc_limit_local:
+            raise DeltaFullError(
+                "folded corpus exceeds the writer's fixed doc capacity"
+            )
+        self._base = folded
+        self._shards = [self._fresh_shard(folded, s) for s in range(self.ns)]
+        self._delta_docs = set()
+        self._bump()
+
+    # ------------------------------------------------------------------
+    # low-level sorted posting ops (host numpy, per shard)
+    # ------------------------------------------------------------------
+
+    def _insert_posting(self, st: _ShardState, t: int, local: int, attr: int):
+        ln = int(st.lengths[t])
+        row, arow = st.postings[t], st.attrs[t]
+        pos = int(np.searchsorted(row[:ln], local))
+        row[pos + 1 : ln + 1] = row[pos:ln]
+        arow[pos + 1 : ln + 1] = arow[pos:ln]
+        row[pos] = local
+        arow[pos] = attr
+        st.lengths[t] = ln + 1
+
+    def _remove_posting(self, st: _ShardState, t: int, local: int):
+        ln = int(st.lengths[t])
+        row, arow = st.postings[t], st.attrs[t]
+        pos = int(np.searchsorted(row[:ln], local))
+        if pos >= ln or row[pos] != local:
+            return
+        row[pos : ln - 1] = row[pos + 1 : ln]
+        arow[pos : ln - 1] = arow[pos + 1 : ln]
+        row[ln - 1] = INVALID_DOC
+        arow[ln - 1] = INVALID_ATTR
+        st.lengths[t] = ln - 1
+
+    def _terms_of(self, gid: int) -> np.ndarray:
+        ts = self._terms_over.get(gid)
+        if ts is None:
+            ts = self._origin.terms_of(gid) if gid < self._origin.n_docs else ()
+        return ts
+
+    def _site_of(self, gid: int) -> int:
+        site = self._sites_over.get(gid)
+        return int(self._origin.doc_site[gid]) if site is None else site
+
+    def _posting_terms(self, gid: int) -> list[int]:
+        """All term ids carrying postings for gid's *current* version."""
+        ts = [int(t) for t in self._terms_of(gid)]
+        if self.include_site_terms:
+            ts.append(self.vocab_size + self._site_of(gid))
+        return ts
+
+    def _check_terms(self, terms: np.ndarray, site: int):
+        if terms.size and (terms[0] < 0 or terms[-1] >= self.vocab_size):
+            raise ValueError(f"term out of range: {terms}")
+        if not (0 <= site < self.n_sites):
+            raise ValueError(f"site out of range: {site}")
+
+    def _shard_of(self, gid: int) -> tuple[_ShardState, int]:
+        return self._shards[gid % self.ns], gid // self.ns
+
+    def _bump(self):
+        self._version += 1
+
+    # ------------------------------------------------------------------
+    # transactional ops
+    # ------------------------------------------------------------------
+
+    def insert_docs(
+        self, docs: Sequence[tuple[Sequence[int], int]]
+    ) -> list[int]:
+        """Insert new documents; returns their global docIDs.
+
+        docIDs are assigned monotonically (a new doc ranks below every
+        existing one) and stripe with ``d % ns``.  Each document is
+        admitted atomically and bumps the version as it lands, so a
+        mid-batch :class:`DeltaFullError` leaves the earlier ones applied
+        and visible (resume from its ``applied``)."""
+        gids: list[int] = []
+        for terms, site in docs:
+            try:
+                gids.append(self._insert_one(terms, site))
+            except DeltaFullError as e:
+                raise DeltaFullError(str(e), applied=len(gids)) from None
+        return gids
+
+    def _insert_one(self, terms: Sequence[int], site: int) -> int:
+        terms_u = np.unique(np.asarray(terms, dtype=np.int64)).astype(np.int32)
+        self._check_terms(terms_u, site)
+        gid = self.n_docs
+        st, local = self._shard_of(gid)
+        if local >= self._doc_limit_local:
+            raise DeltaFullError("document headroom exhausted")
+        plist = [int(t) for t in terms_u]
+        if self.include_site_terms:
+            plist.append(self.vocab_size + site)
+        for t in plist:
+            if st.lengths[t] >= self.term_capacity:
+                raise DeltaFullError(f"delta list full for term {t}")
+        for t in plist:
+            self._insert_posting(st, t, local, site)
+        st.doc_site[local] = site
+        self._terms_over[gid] = terms_u
+        self._sites_over[gid] = int(site)
+        self._delta_docs.add(gid)
+        self.n_docs += 1
+        self._bump()
+        return gid
+
+    def delete_docs(self, docids: Sequence[int]) -> None:
+        """Tombstone documents.  Their delta postings are removed (which
+        reclaims capacity); main postings are masked by ``DOC_DEAD`` until
+        compaction folds them out."""
+        for gid in docids:
+            self._delete_one(int(gid))
+
+    def _delete_one(self, gid: int) -> None:
+        if not (0 <= gid < self.n_docs):
+            raise KeyError(f"unknown docID {gid}")
+        st, local = self._shard_of(gid)
+        if st.doc_flags[local] & DOC_DEAD:
+            return
+        if gid in self._delta_docs:
+            for t in self._posting_terms(gid):
+                self._remove_posting(st, t, local)
+            self._delta_docs.discard(gid)
+        st.doc_flags[local] |= DOC_DEAD
+        self._terms_over[gid] = np.zeros(0, dtype=np.int32)
+        self._bump()
+
+    def update_docs(
+        self, updates: Sequence[tuple[int, Sequence[int], int | None]]
+    ) -> None:
+        """Replace documents in place: ``(docid, new_terms, new_site|None)``.
+
+        The docID (= rank) stays.  The old main postings are masked by
+        ``DOC_SUPERSEDED``, an older delta version is removed, and the new
+        postings land in the delta.  Each update is atomic and versioned on
+        its own (a mid-batch error leaves the earlier ones applied)."""
+        applied = 0
+        for gid, terms, site in updates:
+            try:
+                self._update_one(int(gid), terms, site)
+            except DeltaFullError as e:
+                raise DeltaFullError(str(e), applied=applied) from None
+            applied += 1
+
+    def _update_one(
+        self, gid: int, terms: Sequence[int], site: int | None
+    ) -> None:
+        if not (0 <= gid < self.n_docs):
+            raise KeyError(f"unknown docID {gid}")
+        st, local = self._shard_of(gid)
+        if st.doc_flags[local] & DOC_DEAD:
+            raise KeyError(f"docID {gid} is deleted")
+        new_site = self._site_of(gid) if site is None else int(site)
+        terms_u = np.unique(np.asarray(terms, dtype=np.int64)).astype(np.int32)
+        self._check_terms(terms_u, new_site)
+        in_delta = gid in self._delta_docs
+        old_plist = set(self._posting_terms(gid)) if in_delta else set()
+        new_plist = [int(t) for t in terms_u]
+        if self.include_site_terms:
+            new_plist.append(self.vocab_size + new_site)
+        for t in new_plist:
+            drop = 1 if t in old_plist else 0
+            if st.lengths[t] - drop >= self.term_capacity:
+                raise DeltaFullError(f"delta list full for term {t}")
+        if in_delta:
+            for t in old_plist:
+                self._remove_posting(st, t, local)
+        else:
+            st.doc_flags[local] |= DOC_SUPERSEDED
+        for t in new_plist:
+            self._insert_posting(st, t, local, new_site)
+        st.doc_site[local] = new_site
+        self._terms_over[gid] = terms_u
+        self._sites_over[gid] = new_site
+        self._delta_docs.add(gid)
+        self._bump()
+
+    def apply(self, mutations) -> None:
+        """Apply a :func:`repro_torch.data.corpus.generate_mutations` stream."""
+        for m in mutations:
+            if m.op == "insert":
+                self.insert_docs([(m.terms, m.site)])
+            elif m.op == "delete":
+                self.delete_docs([m.docid])
+            elif m.op == "update":
+                self.update_docs([(m.docid, m.terms, m.site)])
+            else:
+                raise ValueError(m.op)
+
+    # ------------------------------------------------------------------
+    # views
+    # ------------------------------------------------------------------
+
+    @property
+    def version(self) -> int:
+        return self._version
+
+    @property
+    def doc_headroom(self) -> int:
+        """Total inserted-document capacity of the current generation."""
+        return self._doc_cap_local * self.ns
+
+    @property
+    def base_corpus(self) -> Corpus:
+        """The corpus the current main index was built from."""
+        return self._base
+
+    @property
+    def delta_doc_ids(self) -> frozenset[int]:
+        """Global docIDs whose live postings are in the delta."""
+        return frozenset(self._delta_docs)
+
+    def device_delta(self) -> ShardedDelta:
+        """Snapshot the host mirrors into a :class:`ShardedDelta` on the
+        writer's device, cached per version.  Shapes are fixed per
+        generation.  The skip table is computed on the device from the
+        copied slabs: per block, the max of its valid postings, and
+        ``INVALID_DOC`` for a block with none."""
+        if self._snapshot is not None and self._snapshot_version == self._version:
+            return self._snapshot
+        ns, cap, n_terms, dev = self.ns, self.term_capacity, self.n_terms, self.device
+        flat = n_terms * cap
+        flat_pad = flat_tile_pad(flat)
+        bpt = cap // BLOCK
+        i32 = torch.int32
+        postings = torch.full((ns, flat_pad), int(INVALID_DOC), dtype=i32, device=dev)
+        attrs = torch.full((ns, flat_pad), int(INVALID_ATTR), dtype=i32, device=dev)
+        block_max = torch.empty((ns, n_terms * bpt), dtype=i32, device=dev)
+        lengths = torch.from_numpy(
+            np.stack([st.lengths for st in self._shards])).to(dev)
+        slot = torch.arange(cap, dtype=i32, device=dev)
+        for s, st in enumerate(self._shards):
+            p = postings[s, :flat]
+            p.copy_(torch.from_numpy(st.postings.reshape(-1)))
+            attrs[s, :flat].copy_(torch.from_numpy(st.attrs.reshape(-1)))
+            valid = slot < lengths[s][:, None]                     # [n_terms, cap]
+            m = torch.where(valid, p.view(n_terms, cap), -1)
+            m = m.view(n_terms, bpt, BLOCK).amax(-1).view(-1)
+            block_max[s] = torch.where(m >= 0, m, int(INVALID_DOC))
+        offsets = (torch.arange(n_terms, dtype=i32, device=dev) * cap).expand(
+            ns, n_terms).contiguous()
+        self._snapshot = ShardedDelta(
+            offsets=offsets,
+            lengths=lengths,
+            postings=postings,
+            attrs=attrs,
+            block_max=block_max,
+            doc_flags=torch.from_numpy(
+                np.stack([st.doc_flags for st in self._shards])).to(dev),
+            doc_site=torch.from_numpy(
+                np.stack([st.doc_site for st in self._shards])).to(dev),
+        )
+        self._snapshot_version = self._version
+        export_index_bytes(postings.numel() * postings.element_size(), None,
+                           kind="delta")
+        return self._snapshot
+
+    def shard_deltas(self) -> list[DeltaIndex]:
+        """Per-shard views of the current snapshot."""
+        stacked = self.device_delta()
+        return [stacked.shard(s) for s in range(self.ns)]
+
+    def mutated_corpus(self) -> Corpus:
+        """The authoritative post-mutation corpus (deleted docs become empty
+        docs, so docIDs, and thus ranks, stay stable)."""
+        sites = np.empty(self.n_docs, dtype=np.int32)
+        sites[: self._origin.n_docs] = self._origin.doc_site
+        for gid, site in self._sites_over.items():
+            sites[gid] = site
+        return overlay_corpus(self._origin, self._terms_over, sites,
+                              n_docs=self.n_docs)
+
+    # ------------------------------------------------------------------
+    # fill / compaction triggers
+    # ------------------------------------------------------------------
+
+    def posting_fill(self) -> float:
+        """Max posting-list fill fraction across shards and terms."""
+        return max(
+            float(s.lengths.max()) / self.term_capacity for s in self._shards
+        )
+
+    def doc_fill(self) -> float:
+        """Inserted-document headroom consumed (whole writer lifetime)."""
+        used = _ceil_div(self.n_docs, self.ns) - self._n_base_local_init
+        return max(0.0, used / self._doc_cap_local)
+
+    def fill(self) -> float:
+        """Worst capacity dimension (reporting/monitoring)."""
+        return max(self.posting_fill(), self.doc_fill())
+
+    def needs_compaction(self, threshold: float = 0.5) -> bool:
+        """True once the *posting* fill crosses ``threshold``.  Document
+        headroom is consumed for the writer's lifetime (compaction cannot
+        drain it), so it is not a trigger; its exhaustion surfaces as
+        :class:`DeltaFullError` at insert time."""
+        return self.posting_fill() >= threshold

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles, on its own, into a shared library with a
 plain C entry point (no PyTorch headers, so a build takes seconds) under
 ``build/kernels/`` at the repository root.  The file name carries a hash of
-the source and the flags, so an edited source is rebuilt and a stale
-library is never loaded.  Every entry point takes raw pointers, ints and
+the source, of every header it includes from ``csrc/`` (``#include
+"name"``) and of the flags, so an edited source or header is rebuilt and a
+stale library is never loaded.  Every entry point takes raw pointers, ints and
 the CUDA stream, launches on that stream and returns ``cudaGetLastError()``;
 :func:`check` turns a non-zero return into an exception.
 
@@ -16,11 +17,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
 from typing import NamedTuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -34,7 +38,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNELS = {
     "driver_streamed": ("driver_streamed_launch", (_P,) * 11 + (_I,) * 3 + (_P,)),
     "topk_merge_rows": ("topk_merge_rows_launch", (_P, _P) + (_I,) * 4 + (_P,)),
+    "delta_merge": ("delta_merge_launch", (_P,) * 12 + (_I,) * 4 + (_P,)),
+    "streamed_join": ("streamed_join_launch", (_P,) * 15 + (_I,) * 3 + (_P,)),
 }
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 _loaded: dict[str, object] = {}
 
@@ -57,9 +64,20 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def _source_bytes(path: Path, seen: set[Path]) -> bytes:
+    """``path``'s bytes followed by those of each header it includes from
+    ``csrc/``, recursively, each file once."""
+    if path in seen:
+        return b""
+    seen.add(path)
+    text = path.read_bytes()
+    return text + b"".join(_source_bytes(CSRC / inc.decode(), seen)
+                           for inc in _LOCAL_INCLUDE.findall(text))
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    src = _source_bytes(CSRC / f"{name}.cu", set())
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
@@ -103,6 +121,25 @@ def kernel(name: str):
         fn.restype = ctypes.c_int
         _loaded[name] = fn
     return fn
+
+
+def check_args(q_n: int, **args) -> None:
+    """Validate a launch's tensors before their pointers go to C.  Each
+    ``args[name]`` is ``(tensor, shape)`` (``shape`` None: any) and must be
+    a contiguous int32 CUDA tensor of that shape with fewer than 2**31
+    elements (the kernels index with int32 offsets); ``q_n`` queries must
+    fit the grid's y extent."""
+    for name, (x, shape) in args.items():
+        if shape is not None and tuple(x.shape) != tuple(shape):
+            raise ValueError(f"{name}: shape {tuple(x.shape)}, expected "
+                             f"{tuple(shape)}")
+        if x.dtype != torch.int32 or not x.is_cuda or not x.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous int32 CUDA tensor, "
+                             f"got {x.dtype} on {x.device}")
+        if x.numel() >= 2**31:
+            raise ValueError(f"{name}: {x.numel()} elements need int64 offsets")
+    if q_n >= 65536:
+        raise ValueError(f"{q_n} queries exceed the grid's y extent (65535)")
 
 
 def check(err: int, what: str) -> None:

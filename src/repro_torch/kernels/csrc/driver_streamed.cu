@@ -17,25 +17,14 @@
 // Design: one block of 256 threads per (driver tile, query).  Each thread
 // keeps 4 driver postings in registers (coalesced loads: thread x reads
 // window positions x, x+256, x+512, x+768 of the tile).  For each active
-// term the block stages the planned range [max(b_tile*TILE, lo),
-// min((b_tile+n_b)*TILE, hi)) through shared memory in chunks of CHUNK
-// postings; the range is a contiguous piece of one ascending list, so it
-// stays sorted and each thread binary-searches its postings in a chunk
-// whose [min, max] can hold them.  Membership is ORed over chunks and
+// term the block probes the planned range of the term's list through
+// shared memory (probe_range in probe.cuh, shared with K4).  Membership is
 // ANDed over terms; validity and the attribute filter are applied first,
 // and a block whose postings have all died stops probing
 // (__syncthreads_or).  The TPU kernel's (8,128) broadcast-compare and its
 // clamped unblocked BlockSpecs are not carried over: the driver tile is
 // read by position and masked, so no read passes a list's live range.
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#define TILE 1024
-#define THREADS 256
-#define ITEMS (TILE / THREADS)
-#define CHUNK 2048
-#define INVALID_DOC 2147483647
-#define INVALID_ATTR (-1)
+#include "probe.cuh"
 
 __global__ void __launch_bounds__(THREADS) driver_streamed_kernel(
     const int* __restrict__ d_off,        // [Q]
@@ -78,35 +67,11 @@ __global__ void __launch_bounds__(THREADS) driver_streamed_kernel(
         const int64_t qt = (int64_t)q * t_slots + t;
         if (active[qt] == 0) continue;
         const int64_t qti = qt * num_a + i;
-        const int nb = n_b[qti];
-        const int64_t tile0 = (int64_t)b_tile[qti] * TILE;
-        const int64_t lo = bounds[2 * qt], hi = bounds[2 * qt + 1];
-        const int64_t rlo = tile0 > lo ? tile0 : lo;
-        int64_t rhi = tile0 + (int64_t)nb * TILE;
-        if (rhi > hi) rhi = hi;
-        if (nb <= 0) rhi = rlo;
-
+        int64_t rlo, rhi;
+        planned_range(b_tile[qti], n_b[qti], bounds[2 * qt], bounds[2 * qt + 1],
+                      rlo, rhi);
         bool found[ITEMS];
-#pragma unroll
-        for (int r = 0; r < ITEMS; ++r) found[r] = false;
-        for (int64_t c0 = rlo; c0 < rhi; c0 += CHUNK) {
-            const int len = (int)((rhi - c0) < CHUNK ? (rhi - c0) : CHUNK);
-            __syncthreads();  // the previous chunk is no longer read
-            for (int k = threadIdx.x; k < len; k += THREADS) sb[k] = postings[c0 + k];
-            __syncthreads();
-            const int cmin = sb[0], cmax = sb[len - 1];
-#pragma unroll
-            for (int r = 0; r < ITEMS; ++r) {
-                const int x = a[r];
-                if (!keep[r] || found[r] || x < cmin || x > cmax) continue;
-                int l = 0, h = len - 1;   // first index with sb[idx] >= x
-                while (l < h) {
-                    const int m = (l + h) >> 1;
-                    if (sb[m] < x) l = m + 1; else h = m;
-                }
-                found[r] = sb[l] == x;
-            }
-        }
+        probe_range(postings, rlo, rhi, sb, a, keep, found);
         alive = false;
 #pragma unroll
         for (int r = 0; r < ITEMS; ++r) {

@@ -1,0 +1,61 @@
+// The membership probe shared by the slave joins K1 (driver_streamed.cu)
+// and K4 (streamed_join.cu).
+//
+// A block of THREADS threads owns one 1024-posting driver tile; each thread
+// keeps ITEMS driver postings in registers.  For one (query, term, driver
+// tile) the probe plan names a run of physical tiles of the term's list,
+// clipped to the term's window [lo, hi): positions [max(b_tile*TILE, lo),
+// min((b_tile+n_b)*TILE, hi)), empty when n_b <= 0.  That range is one
+// contiguous piece of one ascending list, so it stays sorted: the block
+// stages it through shared memory in chunks of CHUNK postings and each
+// thread binary-searches its postings in a chunk whose [min, max] can hold
+// them.  Every thread of the block must call probe_range with the same
+// range (it synchronises).
+#pragma once
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define TILE 1024
+#define THREADS 256
+#define ITEMS (TILE / THREADS)
+#define CHUNK 2048
+#define INVALID_DOC 2147483647
+#define INVALID_ATTR (-1)
+
+// The planned range [rlo, rhi) of one (query, term, driver tile).
+__device__ __forceinline__ void planned_range(
+    int b_tile, int n_b, int64_t lo, int64_t hi, int64_t& rlo, int64_t& rhi)
+{
+    const int64_t tile0 = (int64_t)b_tile * TILE;
+    rlo = tile0 > lo ? tile0 : lo;
+    rhi = tile0 + (int64_t)n_b * TILE;
+    if (rhi > hi) rhi = hi;
+    if (n_b <= 0) rhi = rlo;
+}
+
+// found[r] = need[r] and a[r] occurs in list[rlo, rhi).
+__device__ __forceinline__ void probe_range(
+    const int* __restrict__ list, int64_t rlo, int64_t rhi, int* sb,
+    const int (&a)[ITEMS], const bool (&need)[ITEMS], bool (&found)[ITEMS])
+{
+#pragma unroll
+    for (int r = 0; r < ITEMS; ++r) found[r] = false;
+    for (int64_t c0 = rlo; c0 < rhi; c0 += CHUNK) {
+        const int len = (int)((rhi - c0) < CHUNK ? (rhi - c0) : CHUNK);
+        __syncthreads();  // the previous chunk is no longer read
+        for (int k = threadIdx.x; k < len; k += THREADS) sb[k] = list[c0 + k];
+        __syncthreads();
+        const int cmin = sb[0], cmax = sb[len - 1];
+#pragma unroll
+        for (int r = 0; r < ITEMS; ++r) {
+            const int x = a[r];
+            if (!need[r] || found[r] || x < cmin || x > cmax) continue;
+            int l = 0, h = len - 1;   // first index with sb[idx] >= x
+            while (l < h) {
+                const int m = (l + h) >> 1;
+                if (sb[m] < x) l = m + 1; else h = m;
+            }
+            found[r] = sb[l] == x;
+        }
+    }
+}

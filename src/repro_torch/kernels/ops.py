@@ -6,7 +6,11 @@ PyTorch version.  Nothing falls back from one to the other.
 """
 from __future__ import annotations
 
-from repro_torch.kernels.posting_intersect import intersect_batched_driver_streamed
+from repro_torch.kernels.delta_merge import merge_delta_windows
+from repro_torch.kernels.posting_intersect import (
+    intersect_batched_driver_streamed,
+    intersect_batched_streamed,
+)
 from repro_torch.kernels.topk_merge import merge_topk_rows
 
 
@@ -19,6 +23,34 @@ def intersect_fullstream(d_off, d_neff, terms, active, attr_filter,
     return intersect_batched_driver_streamed(
         d_off, d_neff, terms, active, attr_filter,
         postings, attrs, offsets, lengths, block_max, window=window,
+    )
+
+
+def intersect_streamed(a_docs, a_attrs, a_live, terms, active, attr_filter,
+                       postings, offsets, lengths, block_max,
+                       d_postings=None, d_offsets=None, d_lengths=None,
+                       d_block_max=None, a_flags=None):
+    """Batched ZigZag join over a materialized driver window (K4), other-term
+    lists probed in place from the flat arrays.  The reference's signature;
+    the port runs it under merge-on-read only, so the ``d_*`` delta arrays
+    and ``a_flags`` are required (a call without them raises
+    ``NotImplementedError``).  Returns the mask, int32[Q, W]."""
+    return intersect_batched_streamed(
+        a_docs, a_attrs, a_live, terms, active, attr_filter,
+        postings, offsets, lengths, block_max,
+        d_postings, d_offsets, d_lengths, d_block_max, a_flags,
+    )
+
+
+def merge_windows(postings, attrs, m_off, m_neff, d_postings, d_attrs,
+                  d_offsets, d_lengths, d_block_max, terms, *, window):
+    """Merge of the main driver windows with the driver terms' delta slabs
+    (K3), both read from their flat arrays.  Returns ``(docs, attrs,
+    src)``, int32[Q, window]; ``src`` is each slot's stream id, from which
+    the caller derives the live stream with the ``doc_flags`` bits."""
+    return merge_delta_windows(
+        postings, attrs, m_off, m_neff, d_postings, d_attrs,
+        d_offsets, d_lengths, d_block_max, terms, window=window,
     )
 
 

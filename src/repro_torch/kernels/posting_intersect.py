@@ -1,7 +1,7 @@
-"""The static slave join (K1): ZigZag posting-list intersection with
-posting skipping, driver window streamed from the flat index arrays.
+"""The slave joins: ZigZag posting-list intersection with posting
+skipping, K1 on the static index and K4 under merge-on-read.
 
-Replaces the TPU kernel
+K1 replaces the TPU kernel
 ``repro/kernels/posting_intersect.py:intersect_batched_driver_streamed``
 (``pallas_call`` at line 1207, body ``_driver_streamed_kernel`` at 996).
 
@@ -19,17 +19,36 @@ tile), the run of physical tiles ``b_tile .. b_tile + n_b - 1`` whose docID
 span can overlap the driver tile; ``bounds`` clips them to the term's
 window.  Only those postings are ever read.
 
-The module holds three things: the plan helpers, the plain PyTorch join
-:func:`driver_streamed_join_torch` (what the CPU runs, and the reference the
-card's kernel is held against), and :func:`driver_streamed_join_cuda`, the
-wrapper of ``csrc/driver_streamed.cu``.  :func:`driver_streamed_join`
-picks by the device of the tensors it is given; there is no fallback.
+K4 replaces ``repro/kernels/posting_intersect.py:intersect_batched_streamed``
+(``pallas_call`` at line 958, body ``_streamed_kernel`` at 699).  Its
+driver is materialized: the merged window K3 emits, with its attrs, live
+stream and tombstone flags.  The plans come from the exact spans of the
+driver tiles (:func:`_a_tile_spans`), one over the main lists at
+``window`` and one over the delta slabs at ``cap``.  A live driver slot
+joins a term when it is in the main probe range and its doc is neither
+DEAD nor SUPERSEDED, or in the delta probe range and its doc is not DEAD.
+
+For each kernel the module holds the plan helpers, the plain PyTorch join
+(:func:`driver_streamed_join_torch`, :func:`streamed_join_torch`: what the
+CPU runs, and the reference the card's kernel is held against) and the
+wrapper of its CUDA source (:func:`driver_streamed_join_cuda` of
+``csrc/driver_streamed.cu``, :func:`streamed_join_cuda` of
+``csrc/streamed_join.cu``).  :func:`driver_streamed_join` and
+:func:`streamed_join` pick by the device of the tensors they are given;
+there is no fallback.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.index import BLOCK, INVALID_ATTR, INVALID_DOC, TILE
+from repro_torch.core.index import (
+    BLOCK,
+    DOC_DEAD,
+    DOC_SUPERSEDED,
+    INVALID_ATTR,
+    INVALID_DOC,
+    TILE,
+)
 
 _NEG = -(2**31)  # below every docID; span sentinel
 _INVALID = int(INVALID_DOC)
@@ -76,6 +95,23 @@ def window_tile_spans(
         [torch.full_like(tile_max[..., :1], _NEG), tile_max[..., :-1]], dim=-1
     )
     return tile0, n_tiles, tile_min, tile_max
+
+
+def _pad_to_tile(x: torch.Tensor, fill: int) -> torch.Tensor:
+    """``x`` [Q, W] padded with ``fill`` to a multiple of TILE columns."""
+    pad = -x.shape[-1] % TILE
+    return torch.nn.functional.pad(x, (0, pad), value=fill) if pad else x
+
+
+def _a_tile_spans(a: torch.Tensor):
+    """``(a_min, a_max, a_any)``, each ``[Q, num_a]``: exact docID spans of
+    the tiles of a materialized, TILE-padded driver window ``a`` [Q, W]
+    (ascending, INVALID past its live slots)."""
+    at = a.view(a.shape[0], -1, TILE)
+    valid = at != _INVALID
+    a_min = at[:, :, 0]
+    a_max = torch.where(valid, at, -1).amax(-1)
+    return a_min, a_max, valid.any(-1)
 
 
 def driver_tile_spans(
@@ -144,14 +180,10 @@ def driver_streamed_join_torch(
     d_off, d_neff, active, attr_filter, postings, attrs, b_tile, n_b, bounds,
     *, window: int,
 ):
-    """Plain PyTorch version of the kernel, on the same inputs.
-
-    For query ``q``, driver tile ``i`` and active term ``t``, the postings
-    probed are the contiguous positions ``[max(b_tile*TILE, lo),
-    min((b_tile + n_b)*TILE, hi))`` of one ascending list.  They are
-    gathered from the term's bounded window with ``_NEG`` below the range
-    and ``INVALID_DOC`` above it, which keeps each row sorted, and probed
-    with ``searchsorted``.  Returns ``(docs, mask)``, int32[Q, window].
+    """Plain PyTorch version of the kernel, on the same inputs: the driver
+    window read by position and masked, each driver tile probed in every
+    active term's planned range (:func:`_probe_member`).  Returns ``(docs,
+    mask)``, int32[Q, window].
     """
     q_n = d_off.shape[0]
     num_a = -(-window // TILE)
@@ -167,47 +199,36 @@ def driver_streamed_join_torch(
         (attr_filter[:, None] < 0) | (aa == attr_filter[:, None])
     )
 
-    lo = bounds[..., 0].long()                              # [Q, T]
-    hi = bounds[..., 1].long()
-    rlo = torch.maximum(b_tile.long() * TILE, lo[..., None])       # [Q, T, A]
-    rhi = torch.minimum((b_tile.long() + n_b.long()) * TILE, hi[..., None])
-    rhi = torch.where(n_b > 0, rhi, rlo)
-    j = torch.arange(window, dtype=torch.int64, device=dev)
-    p = lo[..., None, None] + j                             # [Q, T, 1, W]
-    bw = postings[p.clamp(max=postings.shape[0] - 1)]
-    b = torch.where(p < rlo[..., None], torch.full_like(bw, _NEG),
-                    torch.where(p < rhi[..., None], bw,
-                                torch.full_like(bw, _INVALID)))  # [Q, T, A, W]
-    a_tiles = a.view(q_n, 1, num_a, TILE).expand(-1, b.shape[1], -1, -1)
-    hit = torch.searchsorted(b, a_tiles.contiguous()).clamp(max=window - 1)
-    member = b.gather(-1, hit) == a_tiles                   # [Q, T, A, TILE]
+    member = _probe_member(a.view(q_n, num_a, TILE), postings, b_tile, n_b,
+                           bounds, window)
     member = member | (active == 0)[:, :, None, None]
     mask = keep & member.all(dim=1).reshape(q_n, num_a * TILE)
     return a[:, :window].contiguous(), mask[:, :window].to(torch.int32)
 
 
-def _check_join_inputs(d_off, d_neff, active, attr_filter, postings, attrs,
-                       b_tile, n_b, bounds, window):
-    q_n, t_n = active.shape
-    num_a = -(-window // TILE)
-    shapes = dict(
-        d_off=(d_off, (q_n,)), d_neff=(d_neff, (q_n,)),
-        attr_filter=(attr_filter, (q_n,)), b_tile=(b_tile, (q_n, t_n, num_a)),
-        n_b=(n_b, (q_n, t_n, num_a)), bounds=(bounds, (q_n, t_n, 2)),
-        postings=(postings, postings.shape[:1]), attrs=(attrs, postings.shape[:1]),
-    )
-    for name, (x, shape) in shapes.items():
-        if tuple(x.shape) != tuple(shape):
-            raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {shape}")
-    for name, x in dict(shapes, active=(active, None)).items():
-        x = x[0]
-        if x.dtype != torch.int32 or not x.is_cuda or not x.is_contiguous():
-            raise ValueError(f"{name}: need a contiguous int32 CUDA tensor, "
-                             f"got {x.dtype} on {x.device}")
-    if postings.shape[0] >= 2**31:
-        raise ValueError("flat arrays past 2**31 postings need int64 offsets")
-    if q_n >= 65536:
-        raise ValueError(f"{q_n} queries exceed the grid's y extent (65535)")
+def _probe_member(a_tiles, postings, b_tile, n_b, bounds, width: int):
+    """Membership ``[Q, T, A, TILE]`` of the driver tiles ``a_tiles``
+    ``[Q, A, TILE]`` in each (term, tile)'s planned range of ``postings``.
+
+    The range ``[max(b_tile*TILE, lo), min((b_tile + n_b)*TILE, hi))`` is a
+    contiguous piece of one ascending list inside the term's window ``[lo,
+    hi)``, at most ``width`` long.  It is gathered with ``_NEG`` below and
+    ``INVALID_DOC`` above, which keeps each row sorted, and probed with
+    ``searchsorted``."""
+    lo = bounds[..., 0].long()                              # [Q, T]
+    hi = bounds[..., 1].long()
+    rlo = torch.maximum(b_tile.long() * TILE, lo[..., None])       # [Q, T, A]
+    rhi = torch.minimum((b_tile.long() + n_b.long()) * TILE, hi[..., None])
+    rhi = torch.where(n_b > 0, rhi, rlo)
+    j = torch.arange(width, dtype=torch.int64, device=postings.device)
+    p = lo[..., None, None] + j                             # [Q, T, 1, width]
+    bw = postings[p.clamp(max=postings.shape[0] - 1)]
+    b = torch.where(p < rlo[..., None], torch.full_like(bw, _NEG),
+                    torch.where(p < rhi[..., None], bw,
+                                torch.full_like(bw, _INVALID)))  # [Q, T, A, width]
+    a_t = a_tiles[:, None].expand(-1, b.shape[1], -1, -1)
+    hit = torch.searchsorted(b, a_t.contiguous()).clamp(max=width - 1)
+    return b.gather(-1, hit) == a_t
 
 
 def driver_streamed_join_cuda(
@@ -219,10 +240,14 @@ def driver_streamed_join_cuda(
     :func:`driver_streamed_join_torch`."""
     from repro_torch.kernels import _build
 
-    _check_join_inputs(d_off, d_neff, active, attr_filter, postings, attrs,
-                       b_tile, n_b, bounds, window)
-    launch = _build.kernel("driver_streamed")
     q_n, t_n = active.shape
+    plan = (q_n, t_n, -(-window // TILE))
+    _build.check_args(
+        q_n, d_off=(d_off, (q_n,)), d_neff=(d_neff, (q_n,)),
+        active=(active, None), attr_filter=(attr_filter, (q_n,)),
+        postings=(postings, None), attrs=(attrs, postings.shape),
+        b_tile=(b_tile, plan), n_b=(n_b, plan), bounds=(bounds, (q_n, t_n, 2)))
+    launch = _build.kernel("driver_streamed")
     docs = torch.empty((q_n, window), dtype=torch.int32, device=postings.device)
     mask = torch.empty_like(docs)
     if q_n == 0:
@@ -287,3 +312,145 @@ def intersect_batched_driver_streamed(
         window=window,
     )
 
+
+
+# ---------------------------------------------------------------------------
+# K4: the join over a materialized driver, main and delta probes
+# ---------------------------------------------------------------------------
+
+def streamed_join_torch(
+    a_docs, a_attrs, a_live, a_flags, active, attr_filter,
+    postings, b_tile, n_b, bounds, d_postings, d_tile, n_d, d_bounds, *,
+    cap: int,
+):
+    """Plain PyTorch version of K4, on the same inputs.
+
+    A driver slot survives when it is valid, live, passes the attribute
+    filter, and for every active term is in the term's main probe range
+    with its flags free of DEAD and SUPERSEDED, or in its delta probe range
+    with its flags free of DEAD.  Returns the mask, int32[Q, W].
+    """
+    q_n, window = a_docs.shape
+    a = _pad_to_tile(a_docs, _INVALID)
+    num_a = a.shape[1] // TILE
+    aa = _pad_to_tile(a_attrs, int(INVALID_ATTR))
+    al = _pad_to_tile(a_live, 0)
+    keep = (a != _INVALID) & (al != 0) & (
+        (attr_filter[:, None] < 0) | (aa == attr_filter[:, None])
+    )
+    a_tiles = a.view(q_n, num_a, TILE)
+    in_main = _probe_member(a_tiles, postings, b_tile, n_b, bounds, window)
+    in_delta = _probe_member(a_tiles, d_postings, d_tile, n_d, d_bounds, cap)
+    flags = _pad_to_tile(a_flags, 0).view(q_n, 1, num_a, TILE)
+    main_ok = (flags & int(DOC_DEAD | DOC_SUPERSEDED)) == 0
+    delta_ok = (flags & int(DOC_DEAD)) == 0
+    member = (in_main & main_ok) | (in_delta & delta_ok)
+    member = member | (active == 0)[:, :, None, None]
+    mask = keep & member.all(dim=1).reshape(q_n, num_a * TILE)
+    return mask[:, :window].to(torch.int32).contiguous()
+
+
+def streamed_join_cuda(
+    a_docs, a_attrs, a_live, a_flags, active, attr_filter,
+    postings, b_tile, n_b, bounds, d_postings, d_tile, n_d, d_bounds, *,
+    cap: int,
+):
+    """Launch ``csrc/streamed_join.cu`` (one block per query and driver
+    tile) on the current stream.  Same signature and result as
+    :func:`streamed_join_torch`."""
+    from repro_torch.kernels import _build
+
+    q_n, window = a_docs.shape
+    t_n = active.shape[1]
+    drv, plan, span = (q_n, window), (q_n, t_n, -(-window // TILE)), (q_n, t_n, 2)
+    _build.check_args(
+        q_n, a_docs=(a_docs, drv), a_attrs=(a_attrs, drv), a_live=(a_live, drv),
+        a_flags=(a_flags, drv), active=(active, (q_n, t_n)),
+        attr_filter=(attr_filter, (q_n,)), postings=(postings, None),
+        b_tile=(b_tile, plan), n_b=(n_b, plan), bounds=(bounds, span),
+        d_postings=(d_postings, None), d_tile=(d_tile, plan), n_d=(n_d, plan),
+        d_bounds=(d_bounds, span))
+    launch = _build.kernel("streamed_join")
+    mask = torch.empty((q_n, window), dtype=torch.int32, device=a_docs.device)
+    if q_n == 0:
+        return mask
+    stream = torch.cuda.current_stream(a_docs.device).cuda_stream
+    err = launch(
+        a_docs.data_ptr(), a_attrs.data_ptr(), a_live.data_ptr(),
+        a_flags.data_ptr(), active.data_ptr(), attr_filter.data_ptr(),
+        postings.data_ptr(), b_tile.data_ptr(), n_b.data_ptr(),
+        bounds.data_ptr(), d_postings.data_ptr(), d_tile.data_ptr(),
+        n_d.data_ptr(), d_bounds.data_ptr(), mask.data_ptr(), q_n, t_n, window,
+        stream)
+    streamed_join_cuda.launches += 1
+    _build.check(err, "streamed_join_launch")
+    return mask
+
+
+streamed_join_cuda.launches = 0
+
+
+def streamed_join(*args, cap: int):
+    """K4 on CUDA tensors, its plain version on CPU tensors (arguments as
+    :func:`streamed_join_torch`)."""
+    fn = streamed_join_cuda if args[0].is_cuda else streamed_join_torch
+    return fn(*args, cap=cap)
+
+
+def plan_streamed(a_docs, terms, active, offsets, lengths, block_max,
+                  d_offsets, d_lengths, d_block_max):
+    """K4's probe plans from the exact spans of the materialized driver
+    ``a_docs`` [Q, W]: ``(main, delta, cap)``, where ``main`` is ``(b_tile,
+    n_b, bounds)`` over the main lists at the window ``W``, ``delta`` the
+    same over the delta slabs at their capacity ``cap``, and ``n_b`` is
+    zeroed for inactive slots."""
+    a_spans = _a_tile_spans(_pad_to_tile(a_docs, _INVALID))
+
+    def plan(offs, lens, bmax, width):
+        # A BLOCK-aligned list start can straddle one more physical tile
+        # than the window spans.
+        b_tile, n_b, bounds = _probe_plan(
+            a_spans, terms, offs, lens, bmax,
+            window=width, s_tiles=-(-width // TILE) + 1,
+        )
+        return (b_tile.contiguous(), (n_b * active[:, :, None]).contiguous(),
+                bounds.contiguous())
+
+    main = plan(offsets, lengths, block_max, a_docs.shape[1])
+    cap = d_block_max.shape[0] * BLOCK // d_offsets.shape[0]
+    return main, plan(d_offsets, d_lengths, d_block_max, cap), cap
+
+
+def intersect_batched_streamed(
+    a_docs: torch.Tensor,       # int32[Q, W]  driver windows
+    a_attrs: torch.Tensor,      # int32[Q, W]  driver attribute streams
+    a_live: torch.Tensor,       # int32[Q, W]  driver tombstone stream
+    terms: torch.Tensor,        # int32[Q, T]  term ids per slot (NO_TERM pad)
+    active: torch.Tensor,       # int32[Q, T]  1 iff slot t joins query q
+    attr_filter: torch.Tensor,  # int32[Q]     NO_ATTR(-1) = unrestricted
+    postings: torch.Tensor,     # int32[P]     main flat postings
+    offsets: torch.Tensor, lengths: torch.Tensor, block_max: torch.Tensor,
+    d_postings=None, d_offsets=None, d_lengths=None, d_block_max=None,
+    a_flags=None,               # int32[Q, W]  driver doc_flags
+):
+    """Batched ZigZag join over a materialized driver window, other-term
+    lists probed in place: plans, then K4.  The port runs it under
+    merge-on-read only, so the delta arrays and ``a_flags`` are required
+    (the static path is K1, :func:`intersect_batched_driver_streamed`).
+    Returns int32[Q, W] in {0, 1}."""
+    if any(x is None for x in (d_postings, d_offsets, d_lengths, d_block_max,
+                               a_flags)):
+        raise NotImplementedError(
+            "K4 runs under merge-on-read only: pass d_postings, d_offsets, "
+            "d_lengths, d_block_max and a_flags (the static join is K1, "
+            "intersect_batched_driver_streamed)")
+    active = active.to(torch.int32).contiguous()
+    main, delta, cap = plan_streamed(a_docs, terms, active, offsets, lengths,
+                                     block_max, d_offsets, d_lengths,
+                                     d_block_max)
+    return streamed_join(
+        a_docs.contiguous(), a_attrs.to(torch.int32).contiguous(),
+        a_live.to(torch.int32).contiguous(), a_flags.to(torch.int32).contiguous(),
+        active, attr_filter.to(torch.int32).contiguous(), postings, *main,
+        d_postings, *delta, cap=cap,
+    )

@@ -1,4 +1,4 @@
-"""Search serving front-end (port of ``repro.serving.search``, read path).
+"""Search serving front-end (port of ``repro.serving.search``).
 
 A submitted ``(terms, site)`` query is admitted to a ``(t_max, k)``
 bucket, checked against the LRU result cache, micro-batched (partial
@@ -14,9 +14,18 @@ and no device it raises.  ``backend="kernel"`` (the default) runs the
 hand-written kernels on a card and their plain versions on the CPU;
 ``backend="torch"`` runs plain PyTorch ops.
 
-Online updates (``updatable``/``writer``/``compact``), health-aware
-routing (``set_health``) and per-set devices (``set_meshes``) come with
-later slices; the constructor refuses them.
+**Online updates**: ``updatable=True`` with the base ``corpus`` (or a
+ready :class:`~repro_torch.indexing.delta.DeltaWriter` on the service's
+device) attaches the write path.  :meth:`SearchService.insert` /
+:meth:`~SearchService.delete` / :meth:`~SearchService.update` mutate the
+delta; every executed batch runs merge-on-read against the writer's
+current snapshot, so the next batch sees each mutation.  Every mutation
+bumps the writer version, which is the result cache's stamp, so a cached
+result is never served across a mutation.  :meth:`SearchService.compact`
+(or ``auto_compact``) folds the delta into a fresh main index.
+
+Health-aware routing (``set_health``) and per-set devices
+(``set_meshes``) come with later slices; the constructor refuses them.
 """
 from __future__ import annotations
 
@@ -26,6 +35,9 @@ import time
 from repro_torch.core.engine import make_query_batch
 from repro_torch.core.index import INVALID_DOC, IndexMeta, ShardedIndex, resolve_device
 from repro_torch.core.parallel import SearchResult, distributed_query_topk
+from repro_torch.data.corpus import Corpus
+from repro_torch.indexing.compaction import compact as _compact
+from repro_torch.indexing.delta import DeltaWriter
 from repro_torch.obs.registry import MetricsRegistry, get_registry
 from repro_torch.serving.scheduler import MasterScheduler, QueryTicket
 
@@ -45,6 +57,13 @@ class SearchService:
     parameters (``batch_size``, ``t_max_buckets``, ``cache_size``,
     ``n_sets``, ``max_wait``, ``adaptive_wait``, ``capacity_qps``) are
     those of :class:`~repro_torch.serving.scheduler.MasterScheduler`.
+
+    Online updates: pass ``updatable=True`` with the ``corpus`` the index
+    was built from (a :class:`DeltaWriter` of ``term_capacity`` and
+    ``doc_headroom`` is made on the service's device), or a ready
+    ``writer``.  ``auto_compact`` (a fill fraction, or None) compacts when
+    a mutation pushes the posting fill past it, and hands the writer a
+    doubled ``doc_headroom`` when the document fill crosses it instead.
     """
 
     def __init__(
@@ -69,14 +88,15 @@ class SearchService:
         capacity_qps: float | None = None,
         registry: MetricsRegistry | None = None,
         span_sink=None,
+        corpus: Corpus | None = None,
         updatable: bool = False,
-        writer=None,
+        writer: DeltaWriter | None = None,
+        term_capacity: int = 256,
+        doc_headroom: int = 1024,
+        auto_compact: float | None = None,
         set_health=None,
         set_meshes=None,
     ):
-        if updatable or writer is not None:
-            raise NotImplementedError(
-                "online updates come with the port's merge-on-read slice")
         if set_health is not None or set_meshes is not None:
             raise NotImplementedError(
                 "health-aware routing and per-set devices come with the "
@@ -94,6 +114,26 @@ class SearchService:
         self.strategy = strategy
         self.merge = merge
         self.backend = backend
+        self.auto_compact = auto_compact
+        if writer is None and updatable:
+            if corpus is None:
+                raise ValueError("updatable=True needs the base corpus")
+            writer = DeltaWriter(
+                corpus, meta, ns, term_capacity=term_capacity,
+                doc_headroom=doc_headroom, device=self.device,
+            )
+        if writer is not None:
+            # A mismatched writer would stripe delta docIDs with the wrong
+            # d % ns map (silently wrong results): fail loudly instead.
+            if writer.ns != ns:
+                raise ValueError(f"writer.ns={writer.ns} != service ns={ns}")
+            if writer.n_terms != meta.n_terms:
+                raise ValueError(
+                    f"writer n_terms={writer.n_terms} != index {meta.n_terms}")
+            if writer.device != self.device:
+                raise ValueError(f"writer on {writer.device}, service on "
+                                 f"{self.device}")
+        self.writer = writer
         buckets = t_max_buckets if t_max_buckets is not None else (t_max,)
         if max(buckets) > t_max:
             raise ValueError(f"t_max_buckets {buckets} exceed t_max={t_max}")
@@ -109,11 +149,68 @@ class SearchService:
             max_wait=max_wait,
             adaptive_wait=adaptive_wait,
             capacity_qps=capacity_qps,
+            version_fn=self._snapshot_version,
             width_fn=self._query_width,
             registry=self.registry,
             exec_phases_fn=self._take_exec_phases,
             span_sink=span_sink,
         )
+
+    # ------------------------------------------------------------------
+    # write path
+    # ------------------------------------------------------------------
+
+    def _require_writer(self) -> DeltaWriter:
+        if self.writer is None:
+            raise RuntimeError("service is read-only (no DeltaWriter attached)")
+        return self.writer
+
+    def insert(self, docs) -> list[int]:
+        """Insert ``(terms, site)`` documents; returns global docIDs."""
+        gids = self._require_writer().insert_docs(docs)
+        self._maybe_compact()
+        return gids
+
+    def delete(self, docids) -> None:
+        self._require_writer().delete_docs(docids)
+        self._maybe_compact()
+
+    def update(self, updates) -> None:
+        """Apply ``(docid, new_terms, new_site_or_None)`` updates."""
+        self._require_writer().update_docs(updates)
+        self._maybe_compact()
+
+    def compact(
+        self,
+        *,
+        verify: bool = False,
+        term_capacity: int | None = None,
+        doc_headroom: int | None = None,
+    ) -> None:
+        """Fold the delta into a fresh main index and swap it in;
+        ``term_capacity``/``doc_headroom`` re-size the writer's next delta
+        generation (:meth:`DeltaWriter.rebase`)."""
+        self.index, self.meta = _compact(
+            self._require_writer(), verify=verify,
+            term_capacity=term_capacity, doc_headroom=doc_headroom,
+        )
+
+    def _maybe_compact(self) -> None:
+        w = self.writer
+        if self.auto_compact is None or w is None:
+            return
+        grow = w.doc_fill() >= self.auto_compact
+        if grow or w.needs_compaction(self.auto_compact):
+            self.compact(doc_headroom=2 * w.doc_headroom if grow else None)
+
+    # ------------------------------------------------------------------
+    # read path
+    # ------------------------------------------------------------------
+
+    def _snapshot_version(self) -> int:
+        """Cache stamp: the writer's version (every mutation and every
+        compaction bumps it); 0 for a read-only service."""
+        return 0 if self.writer is None else self.writer.version
 
     def _query_width(self, terms, site) -> int:
         """Effective padded width — the ``site_term`` strategy rewrites the
@@ -122,13 +219,16 @@ class SearchService:
         return len(terms) + extra
 
     def _run_engine(self, queries, *, t_max: int, k: int) -> SearchResult:
-        """One batch end-to-end on the device at the given padded shapes."""
+        """One batch end-to-end on the device at the given padded shapes,
+        merge-on-read against the writer's current snapshot if there is
+        one."""
         batch = make_query_batch(
             queries, t_max=t_max, meta=self.meta, strategy=self.strategy,
             device=self.device,
         )
+        delta = None if self.writer is None else self.writer.device_delta()
         return distributed_query_topk(
-            self.index, batch, ns=self.ns, k=k, window=self.window,
+            self.index, batch, delta, ns=self.ns, k=k, window=self.window,
             attr_strategy=self.strategy, merge=self.merge,
             backend=self.backend,
         )

@@ -97,10 +97,95 @@ def test_default_device_service_raises_without_card(setup, monkeypatch):
 
 def test_service_refuses_later_slices(setup):
     _, _, psh, pmeta = setup
-    with pytest.raises(NotImplementedError, match="merge-on-read"):
+    with pytest.raises(ValueError, match="needs the base corpus"):
         SearchService(psh, pmeta, ns=1, device="cpu", updatable=True)
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         SearchService(psh, pmeta, ns=1, device="cpu", set_health=object())
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        SearchService(psh, pmeta, ns=1, device="cpu", set_meshes=[object()])
+    with pytest.raises(RuntimeError, match="read-only"):
+        SearchService(psh, pmeta, ns=1, device="cpu").delete([0])
+
+
+def _mutate(svc, muts):
+    for m in muts:
+        if m.op == "insert":
+            svc.insert([(m.terms, m.site)])
+        elif m.op == "delete":
+            svc.delete([m.docid])
+        else:
+            svc.update([(m.docid, m.terms, m.site)])
+
+
+@pytest.mark.parametrize("backend", ["kernel", "torch"])
+def test_updatable_service_matches_reference_service(setup, backend):
+    """The same mutations through both services' write paths: hits equal
+    the reference service's before and after ``compact(verify=True)``, and
+    equal a service over the rebuilt mutated corpus."""
+    rsh, meta, psh, pmeta = setup
+    rcorpus = ref_corpus.generate_corpus(ref_corpus.CorpusConfig(**CFG))
+    pcorpus = pt_corpus.generate_corpus(pt_corpus.CorpusConfig(**CFG))
+    mcfg = dict(n_ops=80, p_insert=0.45, p_delete=0.25, p_update=0.3,
+                mean_doc_len=25, seed=21)
+    rmuts = ref_corpus.generate_mutations(rcorpus, ref_corpus.MutationConfig(**mcfg))
+    pmuts = pt_corpus.generate_mutations(pcorpus, pt_corpus.MutationConfig(**mcfg))
+    kw = dict(ns=1, k=10, window=1024, t_max=4, batch_size=4,
+              term_capacity=256, doc_headroom=128, updatable=True)
+    mesh = jax.make_mesh((1,), ("data",))
+    ref = RefService(rsh, meta, mesh, backend="jnp", corpus=rcorpus, **kw)
+    port = SearchService(psh, pmeta, device="cpu", backend=backend,
+                         corpus=pcorpus, **kw)
+    stream = _stream()
+    for half in (slice(0, 40), slice(40, 80)):
+        _mutate(ref, rmuts[half])
+        _mutate(port, pmuts[half])
+        assert port.writer.version == ref.writer.version
+        want = [(h.docids, h.n_hits) for h in ref.search(stream)]
+        assert [(h.docids, h.n_hits) for h in port.search(stream)] == want
+    rebuilt, rb_meta = pt_index.build_sharded_index(
+        port.writer.mutated_corpus(), 1, device="cpu")
+    fresh = SearchService(rebuilt, rb_meta, ns=1, window=1024, device="cpu")
+    assert [(h.docids, h.n_hits) for h in fresh.search(stream)] == want
+    ref.compact(verify=True)
+    port.compact(verify=True)
+    for f in pt_index.ShardedIndex._fields:
+        assert getattr(port.index, f).numpy().tolist() == \
+            jax.device_get(getattr(ref.index, f)).tolist(), f
+    assert port.meta == pt_index.IndexMeta(**vars(ref.meta))
+    assert [(h.docids, h.n_hits) for h in port.search(stream)] == want
+    assert [(h.docids, h.n_hits) for h in ref.search(stream)] == want
+    rs, ps = ref.stats(), port.stats()
+    for key in ("n_batches", "n_padded", "n_short_circuited", "cache"):
+        assert ps[key] == rs[key], key
+
+
+def test_cached_result_goes_stale_after_a_mutation(setup):
+    _, _, psh, pmeta = setup
+    pcorpus = pt_corpus.generate_corpus(pt_corpus.CorpusConfig(**CFG))
+    svc = SearchService(psh, pmeta, ns=1, window=1024, device="cpu",
+                        updatable=True, corpus=pcorpus, cache_size=16)
+    q = [([3, 9], None)]
+    before = svc.search(q)[0]
+    assert svc.search(q)[0] == before
+    assert svc.stats()["cache"]["hits"] == 1
+    (gid,) = svc.insert([([3, 9], 0)])
+    after = svc.search(q)[0]
+    cache = svc.stats()["cache"]
+    assert cache["stale"] == 1 and cache["hits"] == 1
+    assert after.n_hits == before.n_hits + 1   # the new doc is visible
+    svc.delete([gid])
+    assert svc.search(q)[0] == before and svc.stats()["cache"]["stale"] == 2
+    # auto_compact folds a full delta without changing results
+    auto = SearchService(psh, pmeta, ns=1, window=1024, device="cpu",
+                         updatable=True, corpus=pcorpus, term_capacity=128,
+                         auto_compact=0.5)
+    for _ in range(70):
+        auto.insert([([3], 1)])
+    assert auto.writer.generation == 0 and auto.writer.posting_fill() < 0.5
+    assert auto.meta.n_docs > pmeta.n_docs
+    with pytest.raises(ValueError, match="writer.ns"):
+        SearchService(psh, pmeta, ns=1, device="cpu", writer=type(
+            "W", (), {"ns": 2, "n_terms": pmeta.n_terms})())
 
 
 # ---------------------------------------------------------------- scheduler
