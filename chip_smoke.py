@@ -6,9 +6,10 @@
 Phases (any failure exits non-zero; nothing is caught):
 
 1. device  — the card's name, power limit and count;
-2. build   — nvcc builds every kernel (K1–K4) from
-             ``src/repro_torch/kernels/csrc`` (one process per source, all
-             at once) and prints ptxas' registers / shared memory / spills;
+2. build   — nvcc builds every kernel (K1–K4 and the packed modes K1p,
+             K3p, K4p) from ``src/repro_torch/kernels/csrc`` (one process
+             per source, all at once) and prints ptxas' registers / shared
+             memory / spills;
 3. data    — the deployment: a 4M-page corpus from a seed (100k terms,
              mean 64 terms a page, 10k sites), site terms on, striped over
              4 slaves stacked on the card;
@@ -28,8 +29,9 @@ Phases (any failure exits non-zero; nothing is caught):
              versions and the library call; served queries/s, per-batch
              mean and p99; peak memory; a traced pass (phase split, busy
              share, the hand-written kernels among the device events);
-8. updates — merge-on-read on the same index: a DeltaWriter (term capacity
-             256, doc headroom 4096) takes a mixed insert/delete/update
+8. updates — merge-on-read on the same index: a packed DeltaWriter (term
+             capacity 256, doc headroom 4096; the service reads its raw
+             snapshot) takes a mixed insert/delete/update
              stream op by op until its hottest list is empty (fill 0), half
              full and full.  At each fill: seconds per ``device_delta()``
              snapshot; K3 and K4 against their plain versions, bit-exact, on
@@ -48,7 +50,29 @@ Phases (any failure exits non-zero; nothing is caught):
 10. mor-times — at fill 1.0: K3/K4 CUDA-event times beside bounds, plain
              versions and the library sort; peak device memory; a traced
              pass; then the full-size delta compacted into a fresh index,
-             served equal to backend="torch".
+             served equal to backend="torch";
+11. packed — the block-codec read path (K5): each slave packed with
+             ``pack_index`` (seconds, bytes, the width histogram, which must
+             hold widths 0 and 32; the decode equals the raw postings; one
+             slave's device pack equals its CPU pack); K1p bit-exact against
+             its plain version and raw K1 on every slave in phase 4's cases
+             and on the array-edge index, and against the numpy decode on a
+             synthetic array of every width; a packed writer replaying phase
+             8's stream: at fills 0, 0.5, 1.0 K3p and K4p bit-exact against
+             their plain versions and raw K3/K4 on every slave (phase 8's
+             cases and a window that takes K3p's global-scratch form), and
+             seconds per packed ``shard_deltas()`` version; the 512 queries
+             through ``sequential_reference(codec="packed",
+             backend="kernel")`` with every raw posting array zeroed, equal
+             to ``backend="torch", codec="raw"`` and to the raw service, K1p
+             = 4 (static) and K3p = K4p = 4 (fill 1.0) launches per batch and
+             no raw join; the 3000-page corpus with a packed writer of term
+             capacity 384 against brute force before and after
+             ``compact(verify=True)`` and ``pack_index``; K1p/K3p/K4p times
+             beside bounds and plain versions; packed against raw per-batch
+             time, interleaved.
+
+Every phase prints its seconds.
 
 The line before the last is the card as ``nvidia-smi`` names it; the one
 before that the kernels' JSON record; the last line the result JSON.
@@ -73,8 +97,12 @@ MAIN_WINDOW, MAIN_Q, MAIN_T, NS = 4096, 32, 4, 4
 TERM_CAPACITY, DOC_HEADROOM = 256, 4096
 FILLS = (0.0, 0.5, 1.0)
 MOR_WINDOWS = (4096, 1000, 256)
+BIG_WINDOW = 65536             # K3p's decode row exceeds shared memory here
 KERNEL_NAMES = {"K1": "driver_streamed_kernel", "K2": "topk_merge_rows_kernel",
-                "K3": "delta_merge_kernel", "K4": "streamed_join_kernel"}
+                "K3": "delta_merge_kernel", "K4": "streamed_join_kernel",
+                "K1p": "driver_streamed_packed_kernel",
+                "K3p": "delta_merge_packed_kernel",
+                "K4p": "streamed_join_packed_kernel"}
 
 
 def log(*a):
@@ -155,6 +183,57 @@ def bound_ms(n_bytes: int, n_ops: int) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def range_blocks(lo: np.ndarray, hi: np.ndarray, block: int) -> np.ndarray:
+    """The distinct blocks that hold the positions of the ranges [lo, hi)."""
+    keep = hi > lo
+    firsts, lasts = lo[keep] // block, (hi[keep] - 1) // block
+    if firsts.size == 0:
+        return np.zeros(0, np.int64)
+    return np.unique(np.concatenate([np.arange(a, b + 1)
+                                     for a, b in zip(firsts.tolist(), lasts.tolist())]))
+
+
+def probed_ranges(b_tile, n_b, bounds, tile):
+    """The planned probe ranges [rlo, rhi) of a plan, each [Q, T, A]."""
+    lo = bounds[..., 0].long().cpu().numpy()
+    hi = bounds[..., 1].long().cpu().numpy()
+    bt = b_tile.long().cpu().numpy() * tile
+    nb = n_b.long().cpu().numpy()
+    rlo = np.maximum(bt, lo[..., None])
+    rhi = np.where(nb > 0, np.minimum(bt + nb * tile, hi[..., None]), rlo)
+    return rlo, rhi
+
+
+def packed_block_cost(blocks: np.ndarray, meta_host: np.ndarray) -> tuple[int, int]:
+    """``(bytes, blocks)`` a packed kernel must read to decode ``blocks``:
+    each block's packed words (4 * width words of 4 bytes) and its 12
+    descriptor bytes.  ``meta_host`` is the twin's ``blk_meta`` up to
+    ``n_blocks``."""
+    blocks = blocks[blocks < meta_host.shape[0]]
+    widths = meta_host[blocks] & 63
+    return int((widths.astype(np.int64) * 16).sum()) + 12 * int(blocks.size), int(blocks.size)
+
+
+def probe_block_cost(b_tile, n_b, bounds, tile, meta_host) -> tuple[int, int]:
+    """``packed_block_cost`` of a probe plan: per (query, term) the blocks
+    of the union of its planned ranges (the convention of
+    ``probed_postings``), summed."""
+    rlo, rhi = probed_ranges(b_tile, n_b, bounds, tile)
+    costs = [packed_block_cost(range_blocks(rlo[q, t], rhi[q, t], 128), meta_host)
+             for q in range(rlo.shape[0]) for t in range(rlo.shape[1])]
+    return sum(c[0] for c in costs), sum(c[1] for c in costs)
+
+
+def span_block_cost(start, length, meta_host) -> tuple[int, int]:
+    """``packed_block_cost`` of each row's span [start, start + length),
+    summed over rows (int tensors of one shape)."""
+    lo = start.long().cpu().numpy().reshape(-1)
+    hi = lo + length.long().cpu().numpy().reshape(-1)
+    costs = [packed_block_cost(range_blocks(lo[i:i + 1], hi[i:i + 1], 128), meta_host)
+             for i in range(lo.shape[0])]
+    return sum(c[0] for c in costs), sum(c[1] for c in costs)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-docs", type=int, default=4_000_000)
@@ -170,13 +249,16 @@ def main() -> int:
         MergedPostingSource, StaticPostingSource, _pick_drivers, brute_force_topk,
         make_query_batch)
     from repro_torch.core.index import (
-        INVALID_DOC, TILE, InvertedIndex, build_index, build_sharded_index)
-    from repro_torch.core.parallel import slave_topk_unmerged
+        BLOCK, INVALID_DOC, PACK_WIDTHS, TILE, InvertedIndex, build_index,
+        build_sharded_index, flat_tile_pad, pack_flat_postings, pack_index,
+        unpack_flat_postings, unpack_flat_postings_torch)
+    from repro_torch.core.parallel import sequential_reference, slave_topk_unmerged
     from repro_torch.core.perfmodel import QUERY_MIX_DEFAULT
     from repro_torch.core.queries import WorkloadConfig, generate_workload
     from repro_torch.data.corpus import (
         CorpusConfig, MutationConfig, corpus_from_docs, generate_corpus,
         generate_mutations)
+    from repro_torch.indexing.compaction import compact
     from repro_torch.indexing.delta import DeltaWriter
     from repro_torch.kernels import _build
     from repro_torch.kernels import delta_merge as dm
@@ -186,7 +268,11 @@ def main() -> int:
     from repro_torch.serving.search import SearchService
 
     wrappers = {"K1": pi.driver_streamed_join_cuda, "K2": tm.merge_topk_rows_cuda,
-                "K3": dm.merge_delta_windows_cuda, "K4": pi.streamed_join_cuda}
+                "K3": dm.merge_delta_windows_cuda, "K4": pi.streamed_join_cuda,
+                "K1p": pi.driver_streamed_join_packed_cuda,
+                "K3p": dm.merge_delta_windows_packed_cuda,
+                "K4p": pi.streamed_join_packed_cuda}
+    no_launch = {k: 0 for k in wrappers}
 
     def reset_launches():
         for fn in wrappers.values():
@@ -198,19 +284,27 @@ def main() -> int:
     dev = torch.device("cuda", torch.cuda.current_device())
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
+    clock = [time.perf_counter()]
+
+    def phase_end(name):
+        now = time.perf_counter()
+        log(f"[phase] {name}: {now - clock[0]:.1f} s")
+        clock[0] = now
     # ------------------------------------------------------------ 1. device
     log(f"[device] {smi}; torch {torch.__version__} cuda {torch.version.cuda}; "
         f"device_count {torch.cuda.device_count()}")
+    phase_end("1 device")
 
     # ------------------------------------------------------------ 2. build
     t0 = time.perf_counter()
     built = _build.build()
-    log(f"[build] {len(built)} kernels in {time.perf_counter() - t0:.2f} s "
-        f"(parallel nvcc, sm_90a) on {smi}")
+    log(f"[build] {len(_build.KERNELS)} kernels from {len(built)} sources in "
+        f"{time.perf_counter() - t0:.2f} s (parallel nvcc, sm_90a) on {smi}")
     for name, b in built.items():
         ptxas = [ln.strip() for ln in b.log.splitlines()
                  if "registers" in ln or "spill" in ln]
         log(f"[build] {name}: nvcc {b.seconds:.2f} s; " + " | ".join(ptxas))
+    phase_end("2 build")
 
     # ------------------------------------------------------------ 3. data
     cfg = CorpusConfig(n_docs=args.n_docs, vocab_size=100_000, mean_doc_len=64,
@@ -230,6 +324,7 @@ def main() -> int:
     specs = generate_workload(meta, QUERY_MIX_DEFAULT,
                               WorkloadConfig(n_queries=args.n_queries, seed=args.seed))
     queries = [(list(s.terms), s.site) for s in specs]
+    phase_end("3 data")
 
     # ------------------------------------------------------------ 4. K1
     def k1_inputs(idx: InvertedIndex, batch, window, filt=True):
@@ -244,7 +339,7 @@ def main() -> int:
         return (span.off, span.n_eff, active, attr.contiguous(), idx.postings,
                 idx.attrs, *(p.contiguous() for p in plan))
 
-    max_err = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    max_err = {k: 0 for k in wrappers}
 
     def same(kernel, label, got, want, names):
         """Bit-exact or raise; records the largest absolute difference."""
@@ -266,6 +361,7 @@ def main() -> int:
                                   strategy="embed", device=dev)
     last_term = meta.n_terms - 1
     empty_terms: dict[int, int] = {}
+    edge_batches = {}
     for s in range(NS):
         idx = sharded.shard(s)
         lens = idx.lengths
@@ -278,6 +374,7 @@ def main() -> int:
             empty_terms[s] = e
             edge_q += [([e], None), ([common, e], None), ([e, common, last_term], None)]
         edge_batch = make_query_batch(edge_q, t_max=MAIN_T, meta=meta, device=dev)
+        edge_batches[s] = edge_batch
         hits = []
         for label, batch, window, filt in (
             ("main filter-on", main_batch, MAIN_WINDOW, True),
@@ -302,6 +399,7 @@ def main() -> int:
                  k1_inputs(aux_idx, aux_batch, window), window)
     log("[K1] array-edge index (empty lists, lists in the last partial tile): "
         "bit-exact at windows 128, 1000, 1024, 1536")
+    phase_end("4 K1")
 
     # ------------------------------------------------------------ 5. K2
     k2_inputs = {}
@@ -318,6 +416,7 @@ def main() -> int:
         same("K2", f"{merge} k={k} {tuple(x.shape)}", (got,),
              (tm.merge_topk_rows_torch(x, k),), ("rows",))
         log(f"[K2] {merge} k={k} shape {tuple(x.shape)}: bit-exact vs plain")
+    phase_end("5 K2")
 
     # ------------------------------------------------------------ 6. serve
     def serve(svc, qs, ks):
@@ -340,8 +439,8 @@ def main() -> int:
     t_serve = time.perf_counter() - t0
     static_launches = launches_now()
     executed = executed_batches(svc)
-    want_launch = {"K1": NS * executed, "K2": int(math.log2(NS)) * executed,
-                   "K3": 0, "K4": 0}
+    want_launch = {**no_launch, "K1": NS * executed,
+                   "K2": int(math.log2(NS)) * executed}
     log(f"[serve] main path: {len(queries)} queries, {svc.stats()['n_batches']} "
         f"batches ({executed} executed, cache hits {svc.stats()['cache']['hits']}); "
         f"launches {static_launches}, implied by the batches {want_launch}; "
@@ -394,6 +493,7 @@ def main() -> int:
                                  f"launches {lk} vs {(NS * ex, per * ex)}")
         log(f"[serve] {label}: 64 queries equal backend='torch'; launches "
             f"K1 {lk[0]} K2 {lk[1]} as implied by {ex} batches")
+    phase_end("6 serve")
 
     # ------------------------------------------------------------ 7. times
     k1_args = k1_inputs(sharded.shard(0), main_batch, MAIN_WINDOW)
@@ -520,6 +620,7 @@ def main() -> int:
 
     traced(lambda reg: SearchService(sharded, meta, cache_size=0, registry=reg,
                                      **main_kw), "static")
+    phase_end("7 times")
 
     # ------------------------------------------------------------ 8. updates
     def k3_inputs(idx, delta, d_terms, window):
@@ -562,14 +663,42 @@ def main() -> int:
         same("K4", label, (got,), (want,), ("mask",))
         return int(want.sum())
 
-    def mor_checks(tag, index, idx_meta, batch_main, writer, extra_terms):
+    def k3p_check(label, k3, m_twin, d_twin, window, cap):
+        """K3p against its plain version and raw K3 on the same inputs."""
+        pk3 = (m_twin,) + k3[1:4] + (d_twin,) + k3[5:]
+        got = dm.merge_delta_windows_packed_cuda(*pk3, window=window, cap=cap)
+        torch.cuda.synchronize()
+        names = ("docs", "attrs", "src")
+        same("K3p", label, got, dm.merge_delta_windows_packed_torch(
+            *pk3, window=window, cap=cap), names)
+        same("K3p", label + " vs raw K3", got, dm.merge_delta_windows_cuda(
+            *k3, window=window, cap=cap), names)
+        return pk3
+
+    def k4p_check(label, k4, m_twin, d_twin, cap):
+        """K4p against its plain version and raw K4 on the same inputs."""
+        pk4 = k4[:6] + (m_twin,) + k4[7:10] + (d_twin,) + k4[11:]
+        got = pi.streamed_join_packed_cuda(*pk4, cap=cap)
+        torch.cuda.synchronize()
+        same("K4p", label, (got,), (pi.streamed_join_packed_torch(*pk4, cap=cap),),
+             ("mask",))
+        same("K4p", label + " vs raw K4", (got,), (pi.streamed_join_cuda(*k4, cap=cap),),
+             ("mask",))
+        return pk4
+
+    def mor_checks(tag, index, idx_meta, batch_main, writer, extra_terms,
+                   twins=None):
         """K3 and K4 against their plain versions on every slave: the
         drivers of ``batch_main`` and an edge set (hot, rare, inert, and
-        per slave the terms of ``extra_terms``), windows 4096, 1000, 256."""
+        per slave the terms of ``extra_terms``), windows 4096, 1000, 256.
+        With ``twins`` (the slaves' packed indexes; the writer is packed)
+        K3p and K4p too, against their plain versions and raw K3/K4, and
+        K3p at BIG_WINDOW (its global-scratch form)."""
         deltas = writer.shard_deltas()
         n_cases, sums = 0, []
         for s in range(writer.ns):
             idx, delta = index.shard(s), deltas[s]
+            m_twin = None if twins is None else twins[s].packed
             lens = idx.lengths
             hot, hot2 = (int(t) for t in torch.topk(lens, 2).indices)
             dhot = int(torch.argmax(delta.lengths))
@@ -585,19 +714,31 @@ def main() -> int:
             edge = make_query_batch(edge_q, t_max=MAIN_T, meta=idx_meta,
                                     device=dev)
             for window in MOR_WINDOWS:
-                k3_check(f"{tag} shard {s} w{window} edge drivers",
-                         k3_inputs(idx, delta, drivers, window), window,
-                         delta.term_capacity)
+                label = f"{tag} shard {s} w{window} edge drivers"
+                k3 = k3_inputs(idx, delta, drivers, window)
+                k3_check(label, k3, window, delta.term_capacity)
+                if twins is not None:
+                    k3p_check(label, k3, m_twin, delta.packed, window,
+                              delta.term_capacity)
                 for bname, batch in (("main", batch_main), ("edge", edge)):
                     for filt in (True, False):
                         label = f"{tag} shard {s} w{window} {bname} filter {filt}"
-                        _, k4, cap = k4_inputs(label, idx, delta, batch, window, filt)
+                        k3, k4, cap = k4_inputs(label, idx, delta, batch, window, filt)
                         sums.append(k4_check(label, k4, cap))
+                        if twins is not None:
+                            k3p_check(label, k3, m_twin, delta.packed, window, cap)
+                            k4p_check(label, k4, m_twin, delta.packed, cap)
                         n_cases += 1
-        log(f"[{tag}] K3 and K4 bit-exact vs plain on {writer.ns} slaves: "
+            if twins is not None:
+                label = f"{tag} shard {s} w{BIG_WINDOW} edge drivers"
+                k3p_check(label, k3_inputs(idx, delta, drivers, BIG_WINDOW),
+                          m_twin, delta.packed, BIG_WINDOW, delta.term_capacity)
+        which = "K3/K4 and K3p/K4p (also vs raw)" if twins is not None else "K3 and K4"
+        log(f"[{tag}] {which} bit-exact vs plain on {writer.ns} slaves: "
             f"{n_cases} K4 cases (+ as many K3 merges, and edge drivers "
             f"{sorted(extra_terms.items())} with inert -1), windows "
-            f"{MOR_WINDOWS}; K4 mask sums {sums[:6]}...")
+            f"{MOR_WINDOWS}" + (f" (+ K3p at {BIG_WINDOW})" if twins is not None
+                                else "") + f"; K4 mask sums {sums[:6]}...")
 
     def route_to_empty_lists(writer, index, avoid, n_per_shard=1):
         """Give lists that are empty in a slave's main index a delta posting
@@ -624,7 +765,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     writer = DeltaWriter(corpus, meta, NS, term_capacity=TERM_CAPACITY,
-                         doc_headroom=DOC_HEADROOM, device=dev)
+                         doc_headroom=DOC_HEADROOM, codec="packed", device=dev)
     t_writer = time.perf_counter() - t0
     t0 = time.perf_counter()
     muts = generate_mutations(corpus, MutationConfig(
@@ -633,7 +774,7 @@ def main() -> int:
     t_muts = time.perf_counter() - t0
     touched = {m.docid for m in muts if m.docid is not None}
     log(f"[updates] DeltaWriter(term_capacity={TERM_CAPACITY}, doc_headroom="
-        f"{DOC_HEADROOM}) over the {corpus.n_docs}-page corpus in {t_writer:.2f} s; "
+        f"{DOC_HEADROOM}, codec='packed') over the {corpus.n_docs}-page corpus in {t_writer:.2f} s; "
         f"{len(muts)} mixed ops (p 0.4/0.3/0.3, mean doc length 64) drawn in "
         f"{t_muts:.2f} s")
     applied, mor = 0, {}
@@ -663,7 +804,7 @@ def main() -> int:
         u_got = serve(svc_u, queries, ks)
         counts = launches_now()
         executed = executed_batches(svc_u)
-        implied = {"K1": 0, "K2": int(math.log2(NS)) * executed,
+        implied = {**no_launch, "K2": int(math.log2(NS)) * executed,
                    "K3": NS * executed, "K4": NS * executed}
         if counts != implied or counts["K3"] == 0:
             raise AssertionError(f"fill {fill}: launches {counts} != implied {implied}")
@@ -704,6 +845,7 @@ def main() -> int:
     peak = torch.cuda.max_memory_allocated()
     log(f"[updates] peak device memory with the delta attached {peak} bytes "
         f"(index {sharded.nbytes()}, delta snapshot {writer.device_delta().nbytes()})")
+    phase_end("8 updates")
 
     # ------------------------------------------------------------ 9. small
     s_writer = DeltaWriter(small, s_meta, NS, term_capacity=384, doc_headroom=512,
@@ -755,6 +897,7 @@ def main() -> int:
         f"{sorted(s_extra.items())} equal brute force over the mutated corpus; "
         f"compact(verify=True) in {t_small_compact:.2f} s swapped in the folded "
         f"index and the same queries give the same hits")
+    phase_end("9 small")
 
     # ------------------------------------------------------------ 10. mor-times
     idx0, delta0 = sharded.shard(0), writer.shard_deltas()[0]
@@ -844,6 +987,353 @@ def main() -> int:
         f"rebuild, swap) in {t_compact:.2f} s; 128 queries on the compacted index "
         f"equal backend='torch', launches {c_counts}; index "
         f"{svc_c.index.nbytes()} device bytes")
+    phase_end("10 mor-times")
+
+    # ------------------------------------------------------------ 11. packed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    twins = [pack_index(sharded.shard(s)) for s in range(NS)]
+    torch.cuda.synchronize()
+    t_pack = time.perf_counter() - t0
+    hist_all = np.zeros(64, np.int64)
+    meta_host = []
+    for s, tw in enumerate(twins):
+        pk = tw.packed
+        m_host = pk.blk_meta[:pk.n_blocks].cpu().numpy()
+        meta_host.append(m_host)
+        hist = np.bincount(m_host & 63, minlength=64)
+        hist_all += hist
+        if not torch.equal(unpack_flat_postings_torch(pk), tw.postings):
+            raise AssertionError(f"packed: slave {s}'s decode differs from its postings")
+        raw_b = tw.postings.numel() * tw.postings.element_size()
+        words_b = pk.words.numel() * 4
+        log(f"[packed] slave {s}: raw postings {raw_b} bytes, packed {pk.nbytes()} "
+            f"bytes (words {words_b}, descriptors {pk.nbytes() - words_b}), raw/packed "
+            f"{raw_b / pk.nbytes():.3f}, raw/live postings "
+            f"{int(tw.lengths.sum()) * 4 / pk.nbytes():.3f}; {pk.n_blocks} blocks, "
+            f"chunk_rows {pk.chunk_rows}; blocks by width "
+            + ", ".join(f"{w}: {hist[w]}" for w in PACK_WIDTHS))
+    # a 32-bit gap needs more than 2**16 pages on a slave (a short rehearsal
+    # has fewer); width 0 holds every block of at most one posting
+    need = (0, 32) if corpus.n_docs // NS > 1 << 16 else (0,)
+    if any(hist_all[w] == 0 for w in need) or hist_all.sum() != sum(
+            hist_all[w] for w in PACK_WIDTHS):
+        raise AssertionError(f"packed: widths {np.nonzero(hist_all)[0].tolist()}, "
+                             f"need {need}")
+    t0 = time.perf_counter()
+    host_twin = pack_flat_postings(sharded.shard(0).postings.cpu())
+    t_host_pack = time.perf_counter() - t0
+    if host_twin.chunk_rows != twins[0].packed.chunk_rows or not all(
+            torch.equal(a, b.cpu()) for a, b in zip(host_twin.arrays(),
+                                                    twins[0].packed.arrays())):
+        raise AssertionError("packed: slave 0's device pack differs from its CPU pack")
+    log(f"[packed] pack_index of {NS} slaves on the card in {t_pack:.3f} s; every "
+        f"decode equals its raw postings; widths {need} occur (widths 0 and 32: "
+        f"{hist_all[0]} and {hist_all[32]} blocks); slave 0 packed on the host in {t_host_pack:.2f} s "
+        f"equals its device pack array for array")
+
+    def k1p_check(label, idx_p, batch, window, filt=True):
+        """K1p against its plain version and raw K1 on the same inputs."""
+        a = k1_inputs(idx_p, batch, window, filt)
+        pa = a[:4] + (idx_p.packed,) + a[5:]
+        got = pi.driver_streamed_join_packed_cuda(*pa, window=window)
+        torch.cuda.synchronize()
+        same("K1p", label, got, pi.driver_streamed_join_packed_torch(*pa, window=window),
+             ("docs", "mask"))
+        same("K1p", label + " vs raw K1", got, pi.driver_streamed_join_cuda(*a, window=window),
+             ("docs", "mask"))
+        return got, pa
+
+    for s in range(NS):
+        for label, batch, window, filt in (
+            ("main filter-on", main_batch, MAIN_WINDOW, True),
+            ("main filter-off", main_batch, MAIN_WINDOW, False),
+            ("window 1000", main_batch, 1000, True),
+            ("window 1536", main_batch, 1536, True),
+            ("empty+last lists", edge_batches[s], MAIN_WINDOW, True),
+            ("empty+last lists w1000", edge_batches[s], 1000, True),
+        ):
+            k1p_check(f"shard {s} {label}", twins[s], batch, window, filt)
+    aux_p = pack_index(aux_idx)
+    for window in (128, 1000, 1024, 1536):
+        k1p_check(f"array-edge index window {window}", aux_p, aux_batch, window)
+    log(f"[packed] K1p bit-exact vs its plain version and raw K1 on {NS} slaves x 6 "
+        f"cases (phase 4's) and on the array-edge index at windows 128, 1000, 1024, 1536")
+
+    # a synthetic array of every width: two blocks a width, gaps at the top of
+    # their range (a width-16 field sets its word's sign bit), width 32 from a
+    # gap of 2**29, and a last block of one posting (width 0, no word)
+    rng = np.random.default_rng(args.seed)
+    gap_blocks = []
+    for _ in range(2):
+        for w in PACK_WIDTHS:
+            if w == 0:
+                g = np.zeros(BLOCK, np.int64)
+            elif w == 32:
+                g = rng.integers(0, 1 << 16, BLOCK)
+                g[5] = (1 << 29) + 7
+            else:
+                g = rng.integers(0, 1 << w, BLOCK)
+                g[1:9:2] = (1 << w) - 1
+            g[0] = rng.integers(1, 1000)
+            gap_blocks.append(g)
+    gap_blocks.append(np.array([5]))
+    syn_docs = np.cumsum(np.concatenate(gap_blocks)).astype(np.int32)
+    n_syn = syn_docs.size
+    syn_flat = np.full(flat_tile_pad(n_syn), INVALID_DOC, np.int32)
+    syn_flat[:n_syn] = syn_docs
+    flat_t = torch.from_numpy(syn_flat).to(dev)
+    n_lists = -(-n_syn // BLOCK)
+    offs = torch.arange(n_lists, dtype=torch.int32, device=dev) * BLOCK
+    syn_idx = pack_index(InvertedIndex(
+        offsets=offs, lengths=(n_syn - offs).to(torch.int32), postings=flat_t,
+        attrs=torch.where(flat_t != INVALID_DOC, 0, -1).to(torch.int32),
+        block_max=flat_t.view(-1, BLOCK).amax(1).contiguous(),
+        doc_site=torch.zeros(BLOCK, dtype=torch.int32, device=dev)))
+    syn_meta = syn_idx.packed.blk_meta[:syn_idx.packed.n_blocks].cpu().numpy()
+    host_decode = unpack_flat_postings(syn_idx.packed)
+    if not np.array_equal(host_decode, syn_flat) or set(
+            (syn_meta[:n_lists] & 63).tolist()) != set(PACK_WIDTHS):
+        raise AssertionError("packed: the synthetic array does not hold every width")
+    syn_q = ([([k], None) for k in range(n_lists)]
+             + [([k, (k + 5) % n_lists], None) for k in range(n_lists)]
+             + [([0, n_lists - 1, 3], None)])
+    syn_batch = make_query_batch(syn_q, t_max=MAIN_T, device=dev)
+    for window in (2048, 1000, 128):
+        (docs_k, _), _ = k1p_check(f"synthetic window {window}", syn_idx, syn_batch, window)
+        docs_h = docs_k.cpu().numpy()
+        for k in range(n_lists):
+            n_k = min(n_syn - k * BLOCK, window)
+            if not np.array_equal(docs_h[k, :n_k], host_decode[k * BLOCK:k * BLOCK + n_k]):
+                raise AssertionError(f"packed: synthetic list {k} window {window} "
+                                     "differs from the numpy decode")
+    log(f"[packed] synthetic array ({n_syn} postings, blocks of every width incl. a "
+        f"sign-bit word and a final width-0 block): K1p equals the numpy decode, its "
+        f"plain version and raw K1 at windows 2048, 1000, 128")
+
+    # merge-on-read: a packed writer replaying phase 8's stream
+    p_writer = DeltaWriter(corpus, meta, NS, term_capacity=TERM_CAPACITY,
+                           doc_headroom=DOC_HEADROOM, codec="packed", device=dev)
+    p_touched = {m.docid for m in muts if m.docid is not None}
+    applied_p, p_extra, pack_s = 0, {}, []
+    for fill in FILLS:
+        while p_writer.posting_fill() < fill:
+            p_writer.apply([muts[applied_p]])
+            applied_p += 1
+        t0 = time.perf_counter()
+        p_writer.device_delta()
+        torch.cuda.synchronize()
+        t_raw = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        views = p_writer.shard_deltas()
+        torch.cuda.synchronize()
+        t_twins = time.perf_counter() - t0
+        pack_s.append(t_twins)
+        d_raw = sum(v.postings.numel() * 4 for v in views)
+        d_packed = sum(v.packed.nbytes() for v in views)
+        log(f"[packed] writer fill {p_writer.posting_fill():.3f} after {applied_p} ops: "
+            f"raw snapshot {t_raw:.4f} s, then the {NS} slab twins of this version "
+            f"{t_twins:.4f} s (delta raw {d_raw} bytes, packed {d_packed} bytes)")
+        mor_checks(f"packed fill {fill}", sharded, meta, main_batch, p_writer,
+                   p_extra, twins=twins)
+        if fill == 0.0:
+            p_extra = route_to_empty_lists(p_writer, sharded, p_touched)
+
+    # the packed path end to end, every raw posting array zeroed
+    k_all = max(ks)
+    batches = [make_query_batch(queries[i:i + MAIN_Q], t_max=MAIN_T, meta=meta,
+                                strategy="embed", device=dev)
+               for i in range(0, len(queries), MAIN_Q)]
+    raw_shards = [sharded.shard(s) for s in range(NS)]
+    blind = [tw._replace(postings=torch.zeros_like(tw.postings)) for tw in twins]
+    p_deltas = p_writer.shard_deltas()
+    blind_deltas = [d._replace(postings=torch.zeros_like(d.postings)) for d in p_deltas]
+
+    def as_hits(results, kk):
+        out = []
+        for r in results:
+            rows, hits = r.docids.cpu().numpy(), r.n_hits.cpu().numpy()
+            out += [([int(d) for d in row if d != INVALID_DOC], int(h))
+                    for row, h in zip(rows, hits)]
+        return [(d[:k], h) for (d, h), k in zip(out, kk)]
+
+    def packed_path(label, deltas_blind, deltas_raw, implied, served):
+        """The main path of this phase: every batch through the packed
+        kernels, launch counts per batch, then held against the plain raw
+        path and the raw service's hits."""
+        reset_launches()
+        results = []
+        for b in batches:
+            before = launches_now()
+            results.append(sequential_reference(
+                blind, b, ns=NS, k=k_all, window=MAIN_WINDOW, deltas=deltas_blind,
+                backend="kernel", codec="packed"))
+            per = {k: v - before[k] for k, v in launches_now().items()}
+            if per != {**no_launch, **implied}:
+                raise AssertionError(f"packed {label}: launches per batch {per}")
+        counts = launches_now()
+        torch.cuda.synchronize()
+        for b, r in zip(batches, results):
+            w = sequential_reference(raw_shards, b, ns=NS, k=k_all, window=MAIN_WINDOW,
+                                     deltas=deltas_raw, backend="torch", codec="raw")
+            if not (torch.equal(r.docids, w.docids) and torch.equal(r.n_hits, w.n_hits)):
+                raise AssertionError(f"packed {label}: differs from backend='torch', raw")
+        if as_hits(results, ks) != served:
+            raise AssertionError(f"packed {label}: differs from the raw service")
+        log(f"[packed] {label}: {len(queries)} queries in {len(batches)} batches through "
+            f"sequential_reference(codec='packed', backend='kernel') with every raw "
+            f"posting zeroed equal backend='torch', codec='raw' and the raw service; "
+            f"launches {counts}, per batch {implied}; total n_hits "
+            f"{sum(h for _, h in served)}")
+        return counts
+
+    p_static = packed_path("static", None, None, {"K1p": NS}, got)
+    p_served = serve(SearchService(sharded, meta, writer=p_writer, **main_kw), queries, ks)
+    p_mor = packed_path("fill 1.0", blind_deltas, p_deltas, {"K3p": NS, "K4p": NS},
+                        p_served)
+
+    # the 3000-page corpus, packed writer of term capacity 384
+    sp_writer = DeltaWriter(small, s_meta, NS, term_capacity=384, doc_headroom=512,
+                            codec="packed", device=dev)
+    sp_writer.apply(s_muts)
+    sp_extra = route_to_empty_lists(sp_writer, s_idx, {m.docid for m in s_muts
+                                                       if m.docid is not None},
+                                    n_per_shard=2)
+    sp_before = sp_writer.mutated_corpus()
+    sp_holders = [d for d in range(sp_before.n_docs) if tomb in sp_before.terms_of(d)]
+    sp_writer.delete_docs(sp_holders)
+    for s in range(NS):
+        sp_extra.setdefault(s, []).append(tomb)
+    s_twins = [pack_index(s_idx.shard(s)) for s in range(NS)]
+    mor_checks("packed small cap 384", s_idx, s_meta, make_query_batch(
+        s_q[:MAIN_Q], t_max=MAIN_T, meta=s_meta, device=dev), sp_writer, sp_extra,
+        twins=s_twins)
+    sp_q = s_q + [([t], None) for t in sorted({tomb, *sum(sp_extra.values(), [])})
+                  if t < s_meta.vocab_size]
+    sp_ks = s_ks + [10] * (len(sp_q) - len(s_q))
+    sp_batch = make_query_batch(sp_q, t_max=MAIN_T, meta=s_meta, device=dev)
+    sp_mutated = sp_writer.mutated_corpus()
+    sp_want = [(t[:k], len(t)) for t, k in zip(
+        brute_force_topk(sp_mutated, sp_q, sp_mutated.n_docs), sp_ks)]
+
+    def small_packed(shards_):
+        r = sequential_reference(shards_, sp_batch, ns=NS, k=max(sp_ks), window=MAIN_WINDOW,
+                                 deltas=sp_writer.shard_deltas(), backend="kernel",
+                                 codec="packed")
+        return as_hits([r], sp_ks)
+
+    if small_packed(s_twins) != sp_want:
+        raise AssertionError("packed small: differs from brute force")
+    sp_index, _ = compact(sp_writer, verify=True)
+    if small_packed([pack_index(sp_index.shard(s)) for s in range(NS)]) != sp_want:
+        raise AssertionError("packed small: differs from brute force after compaction")
+    log(f"[packed] small: {len(sp_q)} queries through the packed path equal brute "
+        f"force over the mutated corpus, before and after compact(verify=True) and "
+        f"pack_index")
+
+    # times, slave 0, main-path shapes; fill 1.0 for K3p/K4p
+    (_, _), k1p_args = k1p_check("times", twins[0], main_batch, MAIN_WINDOW)
+    d_off, d_neff, active, _, _, _, b_tile, n_b, bounds = k1p_args
+    k1p_run = lambda: pi.driver_streamed_join_packed_cuda(*k1p_args, window=MAIN_WINDOW)
+    k1p_plain_run = lambda: pi.driver_streamed_join_packed_torch(*k1p_args, window=MAIN_WINDOW)
+    k1p_ms = cuda_ms(k1p_run)
+    k1p_plain = cuda_ms(k1p_plain_run, reps=10, warmup=2)
+    k1p_dev, k1p_plain_dev = device_ms(k1p_run), device_ms(k1p_plain_run)
+    drv_b, drv_blk = span_block_cost(d_off, d_neff, meta_host[0])
+    prb_b, prb_blk = probe_block_cost(b_tile, n_b, bounds, TILE, meta_host[0])
+    drv = int(d_neff.sum())
+    small_in = sum(x.numel() * 4 for x in (d_off, d_neff, active, k1p_args[3],
+                                          b_tile, n_b, bounds))
+    k1p_bytes = small_in + drv_b + prb_b + drv * 4 + 2 * MAIN_Q * MAIN_WINDOW * 4
+    # K1's binary-search compares plus four operations (shift, mask, add,
+    # scan step) per decoded posting
+    k1p_ops = int((d_neff.long() * active.long().sum(1)).sum()) * math.ceil(
+        math.log2(MAIN_WINDOW + TILE)) + 4 * BLOCK * (drv_blk + prb_blk)
+    k1p_bound, k1p_by = bound_ms(k1p_bytes, k1p_ops)
+    log(f"[times] K1p window {MAIN_WINDOW}, Q={MAIN_Q}, T={MAIN_T}, shard 0: "
+        f"{k1p_ms:.4f} ms/launch (device {k1p_dev:.5f} ms), {NS} launches/batch; plain "
+        f"{k1p_plain:.4f} ms (device {k1p_plain_dev:.5f} ms); bound {k1p_bound:.6f} ms "
+        f"({k1p_by}; {k1p_bytes} bytes: driver {drv_blk} blocks {drv_b} bytes, probes "
+        f"{prb_blk} blocks {prb_b} bytes, {drv} attrs) on {smi}")
+
+    pd0 = p_deltas[0]
+    cap = pd0.term_capacity
+    k3m, k4m, _ = k4_inputs("times packed", twins[0], pd0, main_batch, MAIN_WINDOW, True)
+    pk3 = k3p_check("times", k3m, twins[0].packed, pd0.packed, MAIN_WINDOW, cap)
+    pk4 = k4p_check("times", k4m, twins[0].packed, pd0.packed, cap)
+    k3p_run = lambda: dm.merge_delta_windows_packed_cuda(*pk3, window=MAIN_WINDOW, cap=cap)
+    k3p_plain_run = lambda: dm.merge_delta_windows_packed_torch(*pk3, window=MAIN_WINDOW,
+                                                                cap=cap)
+    k3p_ms = cuda_ms(k3p_run)
+    k3p_plain = cuda_ms(k3p_plain_run, reps=10, warmup=2)
+    k3p_dev, k3p_plain_dev = device_ms(k3p_run), device_ms(k3p_plain_run)
+    d_meta_host = pd0.packed.blk_meta[:pd0.packed.n_blocks].cpu().numpy()
+    na = k3m[3].long().clamp(max=MAIN_WINDOW)
+    start, d_len = dm._slab(k3m[8], pd0.offsets, pd0.lengths, cap)
+    m_b, m_blk = span_block_cost(k3m[2], na, meta_host[0])
+    dd_b, dd_blk = span_block_cost(start, d_len, d_meta_host)
+    k3p_read = int((na + d_len).clamp(max=MAIN_WINDOW).sum())
+    k3p_bytes = (m_b + dd_b + k3p_read * 4 + 5 * MAIN_Q * 4
+                 + 3 * MAIN_Q * MAIN_WINDOW * 4)
+    k3p_ops = int(sum(min(a + b, MAIN_WINDOW) * (math.ceil(math.log2(min(a, b) + 1)) + 1)
+                      for a, b in zip(na.tolist(), d_len.tolist()))) + 4 * BLOCK * (
+        m_blk + dd_blk)
+    k3p_bound, k3p_by = bound_ms(k3p_bytes, k3p_ops)
+    log(f"[times] K3p window {MAIN_WINDOW}, Q={MAIN_Q}, cap {cap}, shard 0, fill "
+        f"{p_writer.posting_fill():.3f}: {k3p_ms:.4f} ms/launch (device {k3p_dev:.5f} "
+        f"ms), {NS} launches/batch; plain {k3p_plain:.4f} ms (device "
+        f"{k3p_plain_dev:.5f} ms); bound {k3p_bound:.6f} ms ({k3p_by}; {k3p_bytes} "
+        f"bytes: main {m_blk} blocks {m_b} bytes, delta {dd_blk} blocks {dd_b} bytes, "
+        f"{k3p_read} attrs) on {smi}")
+
+    (a_docs, _, a_live, _, a_active, a_filter, _, mb_tile, mn_b, mbounds, _,
+     db_tile, dn_b, dbounds) = pk4
+    k4p_run = lambda: pi.streamed_join_packed_cuda(*pk4, cap=cap)
+    k4p_plain_run = lambda: pi.streamed_join_packed_torch(*pk4, cap=cap)
+    k4p_ms = cuda_ms(k4p_run)
+    k4p_plain = cuda_ms(k4p_plain_run, reps=10, warmup=2)
+    k4p_dev, k4p_plain_dev = device_ms(k4p_run), device_ms(k4p_plain_run)
+    pm_b, pm_blk = probe_block_cost(mb_tile, mn_b, mbounds, TILE, meta_host[0])
+    pdd_b, pdd_blk = probe_block_cost(db_tile, dn_b, dbounds, TILE, d_meta_host)
+    live_slots = (a_live != 0).long().sum(1)
+    valid = (a_docs != INVALID_DOC).long().sum(1)
+    joins = a_active.long().sum(1) > 0
+    k4p_slots = (MAIN_Q * MAIN_WINDOW + int(valid.sum())
+                 + int(live_slots[joins].sum()) + int(valid[a_filter >= 0].sum()))
+    k4p_small = sum(x.numel() * 4 for x in (a_active, mb_tile, mn_b, mbounds, db_tile,
+                                           dn_b, dbounds)) + MAIN_Q * 4
+    k4p_bytes = k4p_small + (k4p_slots + MAIN_Q * MAIN_WINDOW) * 4 + pm_b + pdd_b
+    k4p_ops = int((live_slots * a_active.long().sum(1)).sum()) * (
+        math.ceil(math.log2(MAIN_WINDOW + TILE)) + math.ceil(math.log2(cap + TILE))
+    ) + 4 * BLOCK * (pm_blk + pdd_blk)
+    k4p_bound, k4p_by = bound_ms(k4p_bytes, k4p_ops)
+    log(f"[times] K4p window {MAIN_WINDOW}, Q={MAIN_Q}, T={MAIN_T}, cap {cap}, shard 0: "
+        f"{k4p_ms:.4f} ms/launch (device {k4p_dev:.5f} ms), {NS} launches/batch; plain "
+        f"{k4p_plain:.4f} ms (device {k4p_plain_dev:.5f} ms); bound {k4p_bound:.6f} ms "
+        f"({k4p_by}; {k4p_bytes} bytes: probes main {pm_blk} blocks {pm_b} bytes + "
+        f"delta {pdd_blk} blocks {pdd_b} bytes) on {smi}")
+
+    def seq_batch_ms(shards_, deltas_, codec):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for b in batches:
+            sequential_reference(shards_, b, ns=NS, k=k_all, window=MAIN_WINDOW,
+                                 deltas=deltas_, backend="kernel", codec=codec)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / len(batches) * 1e3
+
+    for label, dl in (("static", None), ("fill 1.0", p_deltas)):
+        seq_batch_ms(raw_shards, dl, "raw")
+        seq_batch_ms(twins, dl, "packed")
+        order = ("raw", "packed", "packed", "raw")
+        ms = [seq_batch_ms(raw_shards if c == "raw" else twins, dl, c) for c in order]
+        log(f"[times] sequential_reference(backend='kernel') {label}, per batch of "
+            f"{MAIN_Q} (ms, host clock around synchronize, in turns "
+            f"{'/'.join(order)}): " + " / ".join(f"{x:.3f}" for x in ms)
+            + f" on {smi}")
+    log(f"[packed] seconds per packed shard_deltas() version (the twins on top of the "
+        f"raw snapshot): " + ", ".join(f"{x:.4f}" for x in pack_s))
+    phase_end("11 packed")
 
     k2_main = k2_rows[("tournament", 1000)]
     fill1 = mor[1.0]
@@ -872,6 +1362,24 @@ def main() -> int:
          "launches": fill1["K4"], "max_abs_err": max_err["K4"],
          "ms": k4_ms, "plain_ms": k4_plain, "bound_ms": k4_bound,
          "bound_by": k4_by, "library_ms": None},
+        {"name": "K1p driver_streamed_join_packed", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/driver_streamed.cu",
+         "replaces": "src/repro/kernels/posting_intersect.py:1207",
+         "launches": p_static["K1p"], "max_abs_err": max_err["K1p"],
+         "ms": k1p_ms, "plain_ms": k1p_plain, "bound_ms": k1p_bound,
+         "bound_by": k1p_by, "library_ms": None},
+        {"name": "K3p merge_delta_windows_packed", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/delta_merge.cu",
+         "replaces": "src/repro/kernels/delta_merge.py:394",
+         "launches": p_mor["K3p"], "max_abs_err": max_err["K3p"],
+         "ms": k3p_ms, "plain_ms": k3p_plain, "bound_ms": k3p_bound,
+         "bound_by": k3p_by, "library_ms": None},
+        {"name": "K4p intersect_batched_streamed_packed", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/streamed_join.cu",
+         "replaces": "src/repro/kernels/posting_intersect.py:958",
+         "launches": p_mor["K4p"], "max_abs_err": max_err["K4p"],
+         "ms": k4p_ms, "plain_ms": k4p_plain, "bound_ms": k4p_bound,
+         "bound_by": k4p_by, "library_ms": None},
     ]}
     print(json.dumps(record), flush=True)
     print(smi, flush=True)

@@ -31,6 +31,12 @@ Two backends, both bit-identical to the reference's ``backend="jnp"``:
   join on the delta's ``doc_site``, then the first k.  On CPU tensors the
   kernels run their plain versions, so this backend is tested here too.
 
+``codec="packed"`` reads the postings through the block codec: the index
+(and the delta, when one is attached) must carry its packed twin.  The
+``torch`` backend decodes the whole array first, as the reference's jnp
+branch does; the ``kernel`` backend hands the twins to K1p, or to K3p and
+K4p, which decode block by block on the card, and reads no raw posting.
+
 Merge-on-read (:class:`MergedPostingSource`): each term's logical list is
 main ∪ delta.  A main posting is live unless its doc is DEAD or
 SUPERSEDED, a delta posting unless it is DEAD, and equal docIDs order
@@ -53,6 +59,7 @@ from repro_torch.core.index import (
     InvertedIndex,
     resolve_device,
     site_term_id,
+    unpack_flat_postings_torch,
 )
 from repro_torch.kernels.posting_intersect import _take_fill
 from repro_torch.obs.registry import get_registry
@@ -60,6 +67,7 @@ from repro_torch.obs.registry import get_registry
 NO_TERM = np.int32(-1)
 NO_ATTR = np.int32(-1)
 BACKENDS = ("torch", "kernel")
+CODECS = ("raw", "packed")
 STRATEGIES = ("embed", "gather", "site_term")
 _INVALID = int(INVALID_DOC)
 
@@ -364,10 +372,11 @@ def _query_topk_torch(source, batch: QueryBatch, *, k, window, attr_strategy):
     return _first_k_by_rank(docs, mask, k)
 
 
-def _query_topk_kernel(source, batch: QueryBatch, *, k, window, attr_strategy):
+def _query_topk_kernel(source, batch: QueryBatch, *, k, window, attr_strategy,
+                       use_packed=False):
     """Port of the reference's ``_query_topk_batch_pallas``: plan + K1 on
     the static index, or K3 + K4 under merge-on-read; the gather join;
-    first k."""
+    first k.  ``use_packed`` runs K1p, or K3p and K4p, on the twins."""
     from repro_torch.kernels import ops
 
     index = source.index
@@ -383,18 +392,21 @@ def _query_topk_kernel(source, batch: QueryBatch, *, k, window, attr_strategy):
         batch.attr_filter if attr_strategy == "embed"
         else torch.full_like(batch.attr_filter, int(NO_ATTR))
     )
+    packed = index.packed if use_packed else None
     if not isinstance(source, MergedPostingSource):
         docs, mask = ops.intersect_fullstream(
             span.off, span.n_eff, batch.terms, active, kernel_filter,
             index.postings, index.attrs, index.offsets, index.lengths,
-            index.block_max, window=window,
+            index.block_max, window=window, packed=packed,
         )
     else:
         delta = source.delta
+        d_packed = delta.packed if use_packed else None
         docs, attrs, src = ops.merge_windows(
             index.postings, index.attrs, span.off, span.n_eff,
             delta.postings, delta.attrs, delta.offsets, delta.lengths,
             delta.block_max, d_terms, window=window,
+            packed=packed, d_packed=d_packed,
         )
         a_flags = source.driver_flags(docs)
         live = source.driver_live(docs, src, a_flags)
@@ -402,7 +414,7 @@ def _query_topk_kernel(source, batch: QueryBatch, *, k, window, attr_strategy):
             docs, attrs, live, batch.terms, active, kernel_filter,
             index.postings, index.offsets, index.lengths, index.block_max,
             delta.postings, delta.offsets, delta.lengths, delta.block_max,
-            a_flags,
+            a_flags, packed=packed, d_packed=d_packed,
         )
     mask = mask > 0
     if attr_strategy == "gather":
@@ -419,6 +431,7 @@ def query_topk(
     window: int = 4096,
     attr_strategy: str = "embed",
     backend: str = "kernel",
+    codec: str = "raw",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Batched local top-k on the index's device.  Returns ``(docids[Q, k],
     n_hits[Q])``: local docids ascending (= rank order), INVALID_DOC-padded
@@ -430,8 +443,21 @@ def query_topk(
 
     ``backend="kernel"`` runs K1, or K3 and K4 with a delta (see the module
     docstring); ``"torch"`` runs plain PyTorch ops.  Both equal the
-    reference's jnp backend.
+    reference's jnp backend.  ``codec="packed"`` reads the postings from
+    the index's (and the delta's) block-codec twin: decoded whole first on
+    ``"torch"``, block by block in K1p, K3p and K4p on ``"kernel"``.
     """
+    if codec not in CODECS:
+        raise ValueError(f"unknown codec {codec!r}")
+    if codec == "packed":
+        if index.packed is None:
+            raise ValueError(
+                "codec='packed' needs an index carrying its packed twin "
+                "(build_index(codec='packed') or pack_index)")
+        if delta is not None and delta.packed is None:
+            raise ValueError(
+                "codec='packed' needs a delta snapshot with a packed twin "
+                "(DeltaWriter(codec='packed'))")
     if attr_strategy not in STRATEGIES:
         raise ValueError(f"unknown attr_strategy {attr_strategy!r}")
     if backend not in BACKENDS:
@@ -444,9 +470,17 @@ def query_topk(
                          f"{index.postings.device}")
     if not 1 <= k <= window:
         raise ValueError(f"need 1 <= k <= window, got k={k}, window={window}")
-    fn = _query_topk_kernel if backend == "kernel" else _query_topk_torch
-    return fn(make_posting_source(index, delta), batch, k=k, window=window,
-              attr_strategy=attr_strategy)
+    if codec == "packed" and backend == "torch":
+        index = index._replace(postings=unpack_flat_postings_torch(index.packed))
+        if delta is not None:
+            delta = delta._replace(
+                postings=unpack_flat_postings_torch(delta.packed))
+    if backend == "kernel":
+        return _query_topk_kernel(
+            make_posting_source(index, delta), batch, k=k, window=window,
+            attr_strategy=attr_strategy, use_packed=codec == "packed")
+    return _query_topk_torch(make_posting_source(index, delta), batch, k=k,
+                             window=window, attr_strategy=attr_strategy)
 
 
 def single_keyword_topk(

@@ -145,16 +145,20 @@ def sequential_reference(
     attr_strategy: str = "embed",
     deltas: list[DeltaIndex] | None = None,
     backend: str = "torch",
+    codec: str = "raw",
 ) -> SearchResult:
     """Run each shard in turn and merge with one plain sort — the oracle
     for :func:`distributed_query_topk`.  ``deltas`` gives the per-shard
-    deltas (``DeltaWriter.shard_deltas()``)."""
+    deltas (``DeltaWriter.shard_deltas()``); ``codec`` goes to each
+    shard's :func:`~repro_torch.core.engine.query_topk` (``"packed"``
+    needs every index and delta to carry its twin)."""
     all_cands, all_hits = [], []
     for s, idx in enumerate(shard_indexes):
         docs, hits = query_topk(idx, batch,
                                 delta=None if deltas is None else deltas[s],
                                 k=k, window=window,
-                                attr_strategy=attr_strategy, backend=backend)
+                                attr_strategy=attr_strategy, backend=backend,
+                                codec=codec)
         all_cands.append(local_to_global_docids(docs, s, ns))
         all_hits.append(hits)
     cands = torch.cat(all_cands, dim=-1)  # (Q, ns*k)

@@ -26,8 +26,12 @@ sees) keeps only the documents that changed, over the corpus the writer
 was made with, where the reference copies every document of that corpus;
 :meth:`DeltaWriter.mutated_corpus` returns the same arrays.
 
-The multi-master ``ShardedDeltaWriter`` / ``VectorVersion`` and the packed
-codec are later slices of the port.
+With ``codec="packed"``, :meth:`DeltaWriter.shard_deltas` gives each view
+the block-codec twin of its slab, re-encoded per version on the writer's
+device and cached like the snapshot; :meth:`DeltaWriter.device_delta`
+stays raw, so one packed writer serves the raw service and the packed read
+path.  The multi-master ``ShardedDeltaWriter`` / ``VectorVersion`` are a
+later slice of the port.
 """
 from __future__ import annotations
 
@@ -39,13 +43,17 @@ import torch
 
 from repro_torch.core.index import (
     BLOCK,
+    DESC_PAD,
     DOC_DEAD,
     DOC_SUPERSEDED,
     INVALID_ATTR,
     INVALID_DOC,
     IndexMeta,
+    PackedFlatArrays,
     export_index_bytes,
     flat_tile_pad,
+    pack_flat_postings,
+    packed_from_numpy,
     resolve_device,
 )
 from repro_torch.data.corpus import Corpus
@@ -65,7 +73,9 @@ class DeltaFullError(RuntimeError):
 
 
 class DeltaIndex(NamedTuple):
-    """One slave's delta on a device; every field an int32 tensor."""
+    """One slave's delta on a device; every array an int32 tensor, plus the
+    optional block-codec twin of ``postings`` (last, with a default, so
+    that the seven :class:`ShardedDelta` arrays still build one)."""
 
     offsets: torch.Tensor    # int32[n_terms]   t * term_capacity
     lengths: torch.Tensor    # int32[n_terms]   valid postings per slab
@@ -74,6 +84,7 @@ class DeltaIndex(NamedTuple):
     block_max: torch.Tensor  # int32[n_terms * cap // BLOCK] (valid max)
     doc_flags: torch.Tensor  # int32[nd_cap]    tombstone bitmap
     doc_site: torch.Tensor   # int32[nd_cap]    docID -> siteId
+    packed: PackedFlatArrays | None = None  # block-codec twin of ``postings``
 
     @property
     def term_capacity(self) -> int:
@@ -107,13 +118,16 @@ def local_delta(stacked: ShardedDelta) -> DeltaIndex:
 
 def delta_from_numpy(arrays: Mapping[str, np.ndarray], *, device) -> DeltaIndex:
     """The port's delta from the reference's arrays (``np.asarray`` of each
-    leaf of a JAX ``DeltaIndex``; extra keys such as ``packed`` are
-    ignored), so a test can run both on the very same snapshot."""
+    array leaf of a JAX ``DeltaIndex``, and under ``packed`` its twin when
+    it has one, carried over), so a test can run both on the very same
+    snapshot."""
     dev = torch.device(device)
-    return DeltaIndex(*(
-        torch.from_numpy(np.require(arrays[f], np.int32, ["C", "W"])).to(dev)
-        for f in DeltaIndex._fields
-    ))
+    packed = arrays.get("packed")
+    return DeltaIndex(
+        *(torch.from_numpy(np.require(arrays[f], np.int32, ["C", "W"])).to(dev)
+          for f in ShardedDelta._fields),
+        packed=None if packed is None else packed_from_numpy(packed, device=dev),
+    )
 
 
 def sharded_delta_from_numpy(
@@ -196,6 +210,8 @@ class DeltaWriter:
     can hold; ``doc_headroom`` the inserted documents the generation can
     hold.  A full list or headroom raises :class:`DeltaFullError`; compact
     and retry.  Snapshots live on ``device`` (default ``cuda``).
+    ``codec="packed"`` gives the views of :meth:`shard_deltas` their
+    block-codec twins.
     """
 
     def __init__(
@@ -211,12 +227,10 @@ class DeltaWriter:
     ):
         if ns < 1:
             raise ValueError(f"need ns >= 1, got {ns}")
-        if codec == "packed":
-            raise NotImplementedError(
-                "codec='packed' (block-codec delta slabs, kernel K5) comes "
-                "with the port's packed-codec slice")
-        if codec != "raw":
+        if codec not in ("raw", "packed"):
             raise ValueError(f"unknown codec {codec!r}")
+        self.codec = codec
+        self._packed_cache: tuple[int, list[PackedFlatArrays]] | None = None
         self.device = resolve_device(device)
         self.ns = ns
         self.meta = meta
@@ -559,9 +573,28 @@ class DeltaWriter:
         return self._snapshot
 
     def shard_deltas(self) -> list[DeltaIndex]:
-        """Per-shard views of the current snapshot."""
+        """Per-shard views of the current snapshot.
+
+        With ``codec="packed"`` each view carries the block-codec twin of
+        its slab, packed on the writer's device with ``span_blocks`` the
+        blocks of one slab (as the reference), re-encoded once per version
+        and cached; the ``odys_index_bytes{kind="delta"}`` gauges then
+        report both layouts' totals."""
         stacked = self.device_delta()
-        return [stacked.shard(s) for s in range(self.ns)]
+        shards = [stacked.shard(s) for s in range(self.ns)]
+        if self.codec != "packed":
+            return shards
+        if self._packed_cache is None or self._packed_cache[0] != self._version:
+            span = max(DESC_PAD, self.term_capacity // BLOCK)
+            packs = [pack_flat_postings(d.postings, span_blocks=span)
+                     for d in shards]
+            export_index_bytes(
+                sum(d.postings.numel() * d.postings.element_size()
+                    for d in shards),
+                sum(pk.nbytes() for pk in packs), kind="delta")
+            self._packed_cache = (self._version, packs)
+        return [d._replace(packed=pk)
+                for d, pk in zip(shards, self._packed_cache[1])]
 
     def mutated_corpus(self) -> Corpus:
         """The authoritative post-mutation corpus (deleted docs become empty

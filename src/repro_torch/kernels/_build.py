@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with ``nvcc`` at first use; bind with ctypes.
 
-Each ``csrc/<name>.cu`` compiles, on its own, into a shared library with a
-plain C entry point (no PyTorch headers, so a build takes seconds) under
-``build/kernels/`` at the repository root.  The file name carries a hash of
+Each ``csrc/<source>.cu`` compiles, on its own, into a shared library with
+plain C entry points (no PyTorch headers, so a build takes seconds) under
+``build/kernels/`` at the repository root; a source may hold a kernel and
+its packed mode, each with its own entry point.  The file name carries a hash of
 the source, of every header it includes from ``csrc/`` (``#include
 "name"``) and of the flags, so an edited source or header is rebuilt and a
 stale library is never loaded.  Every entry point takes raw pointers, ints and
@@ -34,16 +35,43 @@ NVCC_FLAGS = (
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-#: Entry point and argument types of each kernel source.
+
+
+class Kernel(NamedTuple):
+    source: str      # csrc/<source>.cu
+    entry: str       # its extern "C" launch function
+    argtypes: tuple
+
+
+#: Each kernel's source, entry point and argument types.
 KERNELS = {
-    "driver_streamed": ("driver_streamed_launch", (_P,) * 11 + (_I,) * 3 + (_P,)),
-    "topk_merge_rows": ("topk_merge_rows_launch", (_P, _P) + (_I,) * 4 + (_P,)),
-    "delta_merge": ("delta_merge_launch", (_P,) * 12 + (_I,) * 4 + (_P,)),
-    "streamed_join": ("streamed_join_launch", (_P,) * 15 + (_I,) * 3 + (_P,)),
+    "driver_streamed": Kernel(
+        "driver_streamed", "driver_streamed_launch",
+        (_P,) * 11 + (_I,) * 3 + (_P,)),
+    "driver_streamed_packed": Kernel(
+        "driver_streamed", "driver_streamed_packed_launch",
+        (_P,) * 14 + (_I,) * 4 + (_P,)),
+    "topk_merge_rows": Kernel(
+        "topk_merge_rows", "topk_merge_rows_launch",
+        (_P, _P) + (_I,) * 4 + (_P,)),
+    "delta_merge": Kernel(
+        "delta_merge", "delta_merge_launch", (_P,) * 12 + (_I,) * 4 + (_P,)),
+    "delta_merge_packed": Kernel(
+        "delta_merge", "delta_merge_packed_launch",
+        (_P,) * 19 + (_I,) * 8 + (_P,)),
+    "streamed_join": Kernel(
+        "streamed_join", "streamed_join_launch",
+        (_P,) * 15 + (_I,) * 3 + (_P,)),
+    "streamed_join_packed": Kernel(
+        "streamed_join", "streamed_join_packed_launch",
+        (_P,) * 21 + (_I,) * 5 + (_P,)),
 }
+#: Every kernel source.
+SOURCES = tuple(dict.fromkeys(k.source for k in KERNELS.values()))
 _LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 _loaded: dict[str, object] = {}
+_libs: dict[str, ctypes.CDLL] = {}
 
 
 class Built(NamedTuple):
@@ -82,9 +110,9 @@ def library_path(name: str) -> Path:
 
 
 def build(names=None) -> dict[str, Built]:
-    """Build the named kernels (default: all), one ``nvcc`` per source, all
+    """Build the named sources (default: all), one ``nvcc`` per source, all
     started together; returns each library's path, build time and log."""
-    names = list(KERNELS if names is None else names)
+    names = list(SOURCES if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     running = {}
     done = {}
@@ -114,8 +142,10 @@ def kernel(name: str):
     """The ctypes entry point of kernel ``name``, built and loaded once."""
     fn = _loaded.get(name)
     if fn is None:
-        entry, argtypes = KERNELS[name]
-        lib = ctypes.CDLL(str(build([name])[name].path))
+        source, entry, argtypes = KERNELS[name]
+        lib = _libs.get(source)
+        if lib is None:
+            lib = _libs[source] = ctypes.CDLL(str(build([source])[source].path))
         fn = getattr(lib, entry)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
@@ -140,6 +170,17 @@ def check_args(q_n: int, **args) -> None:
             raise ValueError(f"{name}: {x.numel()} elements need int64 offsets")
     if q_n >= 65536:
         raise ValueError(f"{q_n} queries exceed the grid's y extent (65535)")
+
+
+def packed_args(packed, label: str = "") -> dict:
+    """:func:`check_args` entries of a block-codec twin's four arrays
+    (``repro_torch.core.index.PackedFlatArrays``), names prefixed by
+    ``label``; the descriptor lengths follow from ``n_blocks``."""
+    desc = packed.blk_base.shape[0]
+    return {f"{label}words": (packed.words, None),
+            f"{label}blk_base": (packed.blk_base, (desc,)),
+            f"{label}blk_meta": (packed.blk_meta, (desc,)),
+            f"{label}blk_woff": (packed.blk_woff, (desc + 1,))}
 
 
 def check(err: int, what: str) -> None:

@@ -1,5 +1,6 @@
 // The membership probe shared by the slave joins K1 (driver_streamed.cu)
-// and K4 (streamed_join.cu).
+// and K4 (streamed_join.cu), over raw postings or, for their packed modes
+// K1p and K4p, over block-codec words (decode.cuh).
 //
 // A block of THREADS threads owns one 1024-posting driver tile; each thread
 // keeps ITEMS driver postings in registers.  For one (query, term, driver
@@ -7,19 +8,23 @@
 // clipped to the term's window [lo, hi): positions [max(b_tile*TILE, lo),
 // min((b_tile+n_b)*TILE, hi)), empty when n_b <= 0.  That range is one
 // contiguous piece of one ascending list, so it stays sorted: the block
-// stages it through shared memory in chunks of CHUNK postings and each
-// thread binary-searches its postings in a chunk whose [min, max] can hold
-// them.  Every thread of the block must call probe_range with the same
-// range (it synchronises).
+// stages it through shared memory in chunks of CHUNK postings (a raw copy,
+// or the decode of the blocks that hold the chunk) and each thread
+// binary-searches its postings in a chunk whose [min, max] can hold them.
+// Every thread of the block must call a probe with the same range (it
+// synchronises).  The staging buffer holds CHUNK + PBLOCK ints: a packed
+// chunk that starts inside a block decodes one block more.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "decode.cuh"
 
 #define TILE 1024
 #define THREADS 256
 #define ITEMS (TILE / THREADS)
 #define CHUNK 2048
-#define INVALID_DOC 2147483647
+#define STAGE (CHUNK + PBLOCK)
 #define INVALID_ATTR (-1)
 
 // The planned range [rlo, rhi) of one (query, term, driver tile).
@@ -33,29 +38,78 @@ __device__ __forceinline__ void planned_range(
     if (n_b <= 0) rhi = rlo;
 }
 
-// found[r] = need[r] and a[r] occurs in list[rlo, rhi).
-__device__ __forceinline__ void probe_range(
-    const int* __restrict__ list, int64_t rlo, int64_t rhi, int* sb,
-    const int (&a)[ITEMS], const bool (&need)[ITEMS], bool (&found)[ITEMS])
+// found[r] |= need[r] and a[r] occurs in the sorted sb[0, len).
+__device__ __forceinline__ void search_staged(
+    const int* sb, int len, const int (&a)[ITEMS], const bool (&need)[ITEMS],
+    bool (&found)[ITEMS])
 {
+    const int cmin = sb[0], cmax = sb[len - 1];
 #pragma unroll
-    for (int r = 0; r < ITEMS; ++r) found[r] = false;
-    for (int64_t c0 = rlo; c0 < rhi; c0 += CHUNK) {
-        const int len = (int)((rhi - c0) < CHUNK ? (rhi - c0) : CHUNK);
-        __syncthreads();  // the previous chunk is no longer read
-        for (int k = threadIdx.x; k < len; k += THREADS) sb[k] = list[c0 + k];
-        __syncthreads();
-        const int cmin = sb[0], cmax = sb[len - 1];
-#pragma unroll
-        for (int r = 0; r < ITEMS; ++r) {
-            const int x = a[r];
-            if (!need[r] || found[r] || x < cmin || x > cmax) continue;
-            int l = 0, h = len - 1;   // first index with sb[idx] >= x
-            while (l < h) {
-                const int m = (l + h) >> 1;
-                if (sb[m] < x) l = m + 1; else h = m;
-            }
-            found[r] = sb[l] == x;
+    for (int r = 0; r < ITEMS; ++r) {
+        const int x = a[r];
+        if (!need[r] || found[r] || x < cmin || x > cmax) continue;
+        int l = 0, h = len - 1;   // first index with sb[idx] >= x
+        while (l < h) {
+            const int m = (l + h) >> 1;
+            if (sb[m] < x) l = m + 1; else h = m;
         }
+        found[r] = sb[l] == x;
     }
 }
+
+// Raw postings of one flat array.
+struct RawList {
+    const int* p;
+
+    // The driver tile's n postings at flat position p0: read in place.
+    __device__ __forceinline__ const int* stage(int64_t p0, int n, int* sb) const
+    {
+        return p + p0;
+    }
+
+    // found[r] = need[r] and a[r] occurs in p[rlo, rhi).
+    __device__ __forceinline__ void probe(
+        int64_t rlo, int64_t rhi, int* sb, const int (&a)[ITEMS],
+        const bool (&need)[ITEMS], bool (&found)[ITEMS]) const
+    {
+#pragma unroll
+        for (int r = 0; r < ITEMS; ++r) found[r] = false;
+        for (int64_t c0 = rlo; c0 < rhi; c0 += CHUNK) {
+            const int len = (int)((rhi - c0) < CHUNK ? (rhi - c0) : CHUNK);
+            __syncthreads();  // the previous chunk is no longer read
+            for (int k = threadIdx.x; k < len; k += THREADS) sb[k] = p[c0 + k];
+            __syncthreads();
+            search_staged(sb, len, a, need, found);
+        }
+    }
+};
+
+// Block-codec words of one flat array (K5).
+struct PackedList {
+    Packed pk;
+
+    // The driver tile's n postings at flat position p0, decoded into sb.
+    __device__ __forceinline__ const int* stage(int64_t p0, int n, int* sb) const
+    {
+        const int lead = decode_range(pk, p0, n, sb);
+        __syncthreads();
+        return sb + lead;
+    }
+
+    // found[r] = need[r] and a[r] occurs in the decoded positions
+    // [rlo, rhi): each chunk's blocks are decoded, then searched.
+    __device__ __forceinline__ void probe(
+        int64_t rlo, int64_t rhi, int* sb, const int (&a)[ITEMS],
+        const bool (&need)[ITEMS], bool (&found)[ITEMS]) const
+    {
+#pragma unroll
+        for (int r = 0; r < ITEMS; ++r) found[r] = false;
+        for (int64_t c0 = rlo; c0 < rhi; c0 += CHUNK) {
+            const int len = (int)((rhi - c0) < CHUNK ? (rhi - c0) : CHUNK);
+            __syncthreads();  // the previous chunk is no longer read
+            const int lead = decode_range(pk, c0, len, sb);
+            __syncthreads();
+            search_staged(sb + lead, len, a, need, found);
+        }
+    }
+};

@@ -23,15 +23,28 @@ the earlier slot):
 The caller turns ``src`` and the tombstone bits into the live stream
 (:meth:`repro_torch.core.engine.MergedPostingSource.driver_live`).
 
+K3p is its packed mode (K5, the reference's ``packed=`` / ``d_packed=``,
+which go together): both posting streams are read from block-codec twins
+and decoded on the card; the attrs stay raw.
+
 :func:`merge_delta_windows_torch` is the plain version (a stable sort over
-main then delta), :func:`merge_delta_windows_cuda` wraps
-``csrc/delta_merge.cu``, and :func:`merge_delta_windows` picks by device.
+main then delta), :func:`merge_delta_windows_cuda` wraps K3 in
+``csrc/delta_merge.cu``; :func:`merge_delta_windows_packed_torch` (the
+full-array decodes, then the plain merge) and
+:func:`merge_delta_windows_packed_cuda` are K3p's.
+:func:`merge_delta_windows` picks by mode and device.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.index import BLOCK, INVALID_ATTR, INVALID_DOC
+from repro_torch.core.index import (
+    BLOCK,
+    INVALID_ATTR,
+    INVALID_DOC,
+    PackedFlatArrays,
+    unpack_flat_postings_torch,
+)
 
 _INVALID = int(INVALID_DOC)
 
@@ -107,6 +120,69 @@ def merge_delta_windows_cuda(postings, attrs, m_off, m_neff, d_postings,
 merge_delta_windows_cuda.launches = 0
 
 
+def merge_delta_windows_packed_torch(packed, attrs, m_off, m_neff, d_packed,
+                                     d_attrs, d_offsets, d_lengths, terms, *,
+                                     window: int, cap: int):
+    """Plain version of K3p: the full-array decodes of both twins, then the
+    plain merge (:func:`merge_delta_windows_torch`)."""
+    return merge_delta_windows_torch(
+        unpack_flat_postings_torch(packed), attrs, m_off, m_neff,
+        unpack_flat_postings_torch(d_packed), d_attrs, d_offsets, d_lengths,
+        terms, window=window, cap=cap)
+
+
+def k3p_row(window: int, cap: int) -> tuple[int, int]:
+    """``(m_room, row)``: K3p's per-query decode row in ints, the main
+    window's blocks (one block more than the window, for a start inside a
+    block) and then the delta slab's (likewise)."""
+    m_room = (-(-window // BLOCK) + 1) * BLOCK
+    return m_room, m_room + cap + BLOCK
+
+
+def merge_delta_windows_packed_cuda(packed, attrs, m_off, m_neff, d_packed,
+                                    d_attrs, d_offsets, d_lengths, terms, *,
+                                    window: int, cap: int):
+    """Launch ``delta_merge_packed_kernel`` of ``csrc/delta_merge.cu`` (K3p:
+    one block per query) on the current stream: its decode row in dynamic
+    shared memory when it fits, else in a global scratch allocated here
+    (the kernel's second form).  Same signature and result as
+    :func:`merge_delta_windows_packed_torch`."""
+    from repro_torch.kernels import _build
+
+    q_n = terms.shape[0]
+    _build.check_args(
+        q_n, **_build.packed_args(packed), attrs=(attrs, (packed.n_blocks * BLOCK,)),
+        m_off=(m_off, (q_n,)), m_neff=(m_neff, (q_n,)),
+        **_build.packed_args(d_packed, "d_"),
+        d_attrs=(d_attrs, (d_packed.n_blocks * BLOCK,)),
+        d_offsets=(d_offsets, None), d_lengths=(d_lengths, d_offsets.shape),
+        terms=(terms, (q_n,)))
+    launch = _build.kernel("delta_merge_packed")
+    dev = attrs.device
+    docs = torch.empty((q_n, window), dtype=torch.int32, device=dev)
+    out_attrs = torch.empty_like(docs)
+    src = torch.empty_like(docs)
+    if q_n == 0:
+        return docs, out_attrs, src
+    m_room, row = k3p_row(window, cap)
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    scratch = (None if row * 4 <= optin
+               else torch.empty((q_n, row), dtype=torch.int32, device=dev))
+    ptr = [x.data_ptr() for x in (*packed.arrays(), attrs, m_off, m_neff,
+                                  *d_packed.arrays(), d_attrs, d_offsets,
+                                  d_lengths, terms, docs, out_attrs, src)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = launch(*ptr, None if scratch is None else scratch.data_ptr(), q_n,
+                 window, d_offsets.shape[0], cap, packed.n_blocks,
+                 d_packed.n_blocks, m_room, row, stream)
+    merge_delta_windows_packed_cuda.launches += 1
+    _build.check(err, "delta_merge_packed_launch")
+    return docs, out_attrs, src
+
+
+merge_delta_windows_packed_cuda.launches = 0
+
+
 def merge_delta_windows(
     postings: torch.Tensor,     # int32[P] flat main postings
     attrs: torch.Tensor,        # int32[P] flat main attrs
@@ -120,12 +196,26 @@ def merge_delta_windows(
     terms: torch.Tensor,        # int32[Q] driver term per query
     *,
     window: int,
+    packed: PackedFlatArrays | None = None,
+    d_packed: PackedFlatArrays | None = None,
 ):
     """Merged ``(docs, attrs, src)`` driver windows, each int32[Q, window]:
-    the kernel on CUDA tensors, the plain version on CPU tensors."""
+    the kernel on CUDA tensors, the plain version on CPU tensors.  With
+    ``packed`` and ``d_packed`` (both or neither) the postings are read
+    from the twins (K3p), and ``postings`` and ``d_postings`` are not
+    read."""
+    if (packed is None) != (d_packed is None):
+        raise ValueError("merge_delta_windows: packed and d_packed go together")
     cap = d_block_max.shape[0] * BLOCK // d_offsets.shape[0]
-    fn = merge_delta_windows_cuda if postings.is_cuda else merge_delta_windows_torch
-    return fn(postings, attrs, m_off.to(torch.int32).contiguous(),
-              m_neff.to(torch.int32).contiguous(), d_postings, d_attrs,
+    if packed is None:
+        fn = (merge_delta_windows_cuda if postings.is_cuda
+              else merge_delta_windows_torch)
+        m_src, d_src = postings, d_postings
+    else:
+        fn = (merge_delta_windows_packed_cuda if packed.words.is_cuda
+              else merge_delta_windows_packed_torch)
+        m_src, d_src = packed, d_packed
+    return fn(m_src, attrs, m_off.to(torch.int32).contiguous(),
+              m_neff.to(torch.int32).contiguous(), d_src, d_attrs,
               d_offsets, d_lengths, terms.to(torch.int32).contiguous(),
               window=window, cap=cap)

@@ -16,41 +16,49 @@ from repro_torch.kernels.topk_merge import merge_topk_rows
 
 def intersect_fullstream(d_off, d_neff, terms, active, attr_filter,
                          postings, attrs, offsets, lengths, block_max, *,
-                         window):
+                         window, packed=None):
     """Fully-streamed batched ZigZag join (K1): the driver window reads
-    straight from the flat arrays.  Returns ``(docs, mask)``, the driver
-    window plus the join mask, int32[Q, window]."""
+    straight from the flat arrays; with ``packed`` (K1p) every posting read
+    comes from the block-codec twin, decoded on the card.  Returns
+    ``(docs, mask)``, the driver window plus the join mask, int32[Q, window]."""
     return intersect_batched_driver_streamed(
         d_off, d_neff, terms, active, attr_filter,
         postings, attrs, offsets, lengths, block_max, window=window,
+        packed=packed,
     )
 
 
 def intersect_streamed(a_docs, a_attrs, a_live, terms, active, attr_filter,
                        postings, offsets, lengths, block_max,
                        d_postings=None, d_offsets=None, d_lengths=None,
-                       d_block_max=None, a_flags=None):
+                       d_block_max=None, a_flags=None, *,
+                       packed=None, d_packed=None):
     """Batched ZigZag join over a materialized driver window (K4), other-term
-    lists probed in place from the flat arrays.  The reference's signature;
-    the port runs it under merge-on-read only, so the ``d_*`` delta arrays
-    and ``a_flags`` are required (a call without them raises
+    lists probed in place from the flat arrays; with ``packed`` and
+    ``d_packed`` (K4p) the probes read the twins.  The reference's
+    signature; the port runs it under merge-on-read only, so the ``d_*``
+    delta arrays and ``a_flags`` are required (a call without them raises
     ``NotImplementedError``).  Returns the mask, int32[Q, W]."""
     return intersect_batched_streamed(
         a_docs, a_attrs, a_live, terms, active, attr_filter,
         postings, offsets, lengths, block_max,
         d_postings, d_offsets, d_lengths, d_block_max, a_flags,
+        packed=packed, d_packed=d_packed,
     )
 
 
 def merge_windows(postings, attrs, m_off, m_neff, d_postings, d_attrs,
-                  d_offsets, d_lengths, d_block_max, terms, *, window):
+                  d_offsets, d_lengths, d_block_max, terms, *, window,
+                  packed=None, d_packed=None):
     """Merge of the main driver windows with the driver terms' delta slabs
-    (K3), both read from their flat arrays.  Returns ``(docs, attrs,
-    src)``, int32[Q, window]; ``src`` is each slot's stream id, from which
-    the caller derives the live stream with the ``doc_flags`` bits."""
+    (K3), both read from their flat arrays, or from their twins with
+    ``packed`` and ``d_packed`` (K3p; both or neither).  Returns ``(docs,
+    attrs, src)``, int32[Q, window]; ``src`` is each slot's stream id, from
+    which the caller derives the live stream with the ``doc_flags`` bits."""
     return merge_delta_windows(
         postings, attrs, m_off, m_neff, d_postings, d_attrs,
         d_offsets, d_lengths, d_block_max, terms, window=window,
+        packed=packed, d_packed=d_packed,
     )
 
 

@@ -28,14 +28,23 @@ driver tiles (:func:`_a_tile_spans`), one over the main lists at
 joins a term when it is in the main probe range and its doc is neither
 DEAD nor SUPERSEDED, or in the delta probe range and its doc is not DEAD.
 
+K1p and K4p are their packed modes (K5, the reference's ``packed=`` /
+``d_packed=``): the same joins, with every posting read (K1p's driver and
+probes, K4p's main and delta probes) taken from a block-codec twin
+(:class:`~repro_torch.core.index.PackedFlatArrays`) that the kernel decodes
+block by block on the card (``csrc/decode.cuh``).  The plans are the raw
+modes', from the raw skip tables.  A packed kernel's entry point takes no
+raw posting array.
+
 For each kernel the module holds the plan helpers, the plain PyTorch join
-(:func:`driver_streamed_join_torch`, :func:`streamed_join_torch`: what the
-CPU runs, and the reference the card's kernel is held against) and the
-wrapper of its CUDA source (:func:`driver_streamed_join_cuda` of
-``csrc/driver_streamed.cu``, :func:`streamed_join_cuda` of
-``csrc/streamed_join.cu``).  :func:`driver_streamed_join` and
-:func:`streamed_join` pick by the device of the tensors they are given;
-there is no fallback.
+(:func:`driver_streamed_join_torch`, :func:`streamed_join_torch`, and for
+the packed modes the full-array decode followed by those: what the CPU
+runs, and the reference the card's kernel is held against) and the
+wrapper of its CUDA source (:func:`driver_streamed_join_cuda` and
+:func:`driver_streamed_join_packed_cuda` of ``csrc/driver_streamed.cu``,
+:func:`streamed_join_cuda` and :func:`streamed_join_packed_cuda` of
+``csrc/streamed_join.cu``).  The dispatchers pick by the device of the
+tensors they are given; there is no fallback.
 """
 from __future__ import annotations
 
@@ -48,6 +57,8 @@ from repro_torch.core.index import (
     INVALID_ATTR,
     INVALID_DOC,
     TILE,
+    PackedFlatArrays,
+    unpack_flat_postings_torch,
 )
 
 _NEG = -(2**31)  # below every docID; span sentinel
@@ -273,6 +284,61 @@ def driver_streamed_join(d_off, d_neff, active, attr_filter, postings, attrs,
               b_tile, n_b, bounds, window=window)
 
 
+def driver_streamed_join_packed_torch(
+    d_off, d_neff, active, attr_filter, packed, attrs, b_tile, n_b, bounds,
+    *, window: int,
+):
+    """Plain version of K1p: the full-array decode of ``packed``, then the
+    raw plain join (:func:`driver_streamed_join_torch`)."""
+    return driver_streamed_join_torch(
+        d_off, d_neff, active, attr_filter, unpack_flat_postings_torch(packed),
+        attrs, b_tile, n_b, bounds, window=window)
+
+
+def driver_streamed_join_packed_cuda(
+    d_off, d_neff, active, attr_filter, packed, attrs, b_tile, n_b, bounds,
+    *, window: int,
+):
+    """Launch ``driver_streamed_packed_kernel`` of ``csrc/driver_streamed.cu``
+    (K1p: one block per query and driver tile, blocks decoded on the card)
+    on the current stream.  Same signature and result as
+    :func:`driver_streamed_join_packed_torch`."""
+    from repro_torch.kernels import _build
+
+    q_n, t_n = active.shape
+    plan = (q_n, t_n, -(-window // TILE))
+    _build.check_args(
+        q_n, d_off=(d_off, (q_n,)), d_neff=(d_neff, (q_n,)),
+        active=(active, None), attr_filter=(attr_filter, (q_n,)),
+        **_build.packed_args(packed), attrs=(attrs, (packed.n_blocks * BLOCK,)),
+        b_tile=(b_tile, plan), n_b=(n_b, plan), bounds=(bounds, (q_n, t_n, 2)))
+    launch = _build.kernel("driver_streamed_packed")
+    docs = torch.empty((q_n, window), dtype=torch.int32, device=attrs.device)
+    mask = torch.empty_like(docs)
+    if q_n == 0:
+        return docs, mask
+    ptr = [x.data_ptr() for x in (d_off, d_neff, active, attr_filter,
+                                  *packed.arrays(), attrs, b_tile, n_b, bounds,
+                                  docs, mask)]
+    stream = torch.cuda.current_stream(attrs.device).cuda_stream
+    err = launch(*ptr, q_n, t_n, window, packed.n_blocks, stream)
+    driver_streamed_join_packed_cuda.launches += 1
+    _build.check(err, "driver_streamed_packed_launch")
+    return docs, mask
+
+
+driver_streamed_join_packed_cuda.launches = 0
+
+
+def driver_streamed_join_packed(d_off, d_neff, active, attr_filter, packed,
+                                attrs, b_tile, n_b, bounds, *, window: int):
+    """K1p on a CUDA twin, its plain version on a CPU twin."""
+    fn = (driver_streamed_join_packed_cuda if packed.words.is_cuda
+          else driver_streamed_join_packed_torch)
+    return fn(d_off, d_neff, active, attr_filter, packed, attrs,
+              b_tile, n_b, bounds, window=window)
+
+
 def plan_driver_streamed(d_off, d_neff, terms, active, offsets, lengths,
                          block_max, *, window: int):
     """The probe plan the join consumes: ``(b_tile, n_b, bounds)``, with
@@ -297,17 +363,22 @@ def intersect_batched_driver_streamed(
     offsets: torch.Tensor, lengths: torch.Tensor, block_max: torch.Tensor,
     *,
     window: int,
+    packed: PackedFlatArrays | None = None,
 ):
     """Batched ZigZag join with the driver window streamed from the index:
-    plan, then the join.  Returns ``(docs, mask)``, int32[Q, window]."""
+    plan, then the join (K1, or K1p reading ``packed`` in place of
+    ``postings``, which it then never reads).  Returns ``(docs, mask)``,
+    int32[Q, window]."""
     active = active.to(torch.int32)
     b_tile, n_b, bounds = plan_driver_streamed(
         d_off, d_neff, terms, active, offsets, lengths, block_max,
         window=window,
     )
-    return driver_streamed_join(
+    join = driver_streamed_join if packed is None else driver_streamed_join_packed
+    return join(
         d_off.contiguous(), d_neff.contiguous(), active.contiguous(),
-        attr_filter.to(torch.int32).contiguous(), postings, attrs,
+        attr_filter.to(torch.int32).contiguous(),
+        postings if packed is None else packed, attrs,
         b_tile.contiguous(), n_b.contiguous(), bounds.contiguous(),
         window=window,
     )
@@ -397,6 +468,66 @@ def streamed_join(*args, cap: int):
     return fn(*args, cap=cap)
 
 
+def streamed_join_packed_torch(
+    a_docs, a_attrs, a_live, a_flags, active, attr_filter,
+    packed, b_tile, n_b, bounds, d_packed, d_tile, n_d, d_bounds, *,
+    cap: int,
+):
+    """Plain version of K4p: the full-array decodes of ``packed`` and
+    ``d_packed``, then the raw plain join (:func:`streamed_join_torch`)."""
+    return streamed_join_torch(
+        a_docs, a_attrs, a_live, a_flags, active, attr_filter,
+        unpack_flat_postings_torch(packed), b_tile, n_b, bounds,
+        unpack_flat_postings_torch(d_packed), d_tile, n_d, d_bounds, cap=cap)
+
+
+def streamed_join_packed_cuda(
+    a_docs, a_attrs, a_live, a_flags, active, attr_filter,
+    packed, b_tile, n_b, bounds, d_packed, d_tile, n_d, d_bounds, *,
+    cap: int,
+):
+    """Launch ``streamed_join_packed_kernel`` of ``csrc/streamed_join.cu``
+    (K4p: one block per query and driver tile, probe blocks decoded on the
+    card) on the current stream.  Same signature and result as
+    :func:`streamed_join_packed_torch`."""
+    from repro_torch.kernels import _build
+
+    q_n, window = a_docs.shape
+    t_n = active.shape[1]
+    drv, plan, span = (q_n, window), (q_n, t_n, -(-window // TILE)), (q_n, t_n, 2)
+    _build.check_args(
+        q_n, a_docs=(a_docs, drv), a_attrs=(a_attrs, drv), a_live=(a_live, drv),
+        a_flags=(a_flags, drv), active=(active, (q_n, t_n)),
+        attr_filter=(attr_filter, (q_n,)), **_build.packed_args(packed),
+        b_tile=(b_tile, plan), n_b=(n_b, plan), bounds=(bounds, span),
+        **_build.packed_args(d_packed, "d_"), d_tile=(d_tile, plan), n_d=(n_d, plan),
+        d_bounds=(d_bounds, span))
+    launch = _build.kernel("streamed_join_packed")
+    mask = torch.empty((q_n, window), dtype=torch.int32, device=a_docs.device)
+    if q_n == 0:
+        return mask
+    ptr = [x.data_ptr() for x in (
+        a_docs, a_attrs, a_live, a_flags, active, attr_filter,
+        *packed.arrays(), b_tile, n_b, bounds, *d_packed.arrays(), d_tile, n_d,
+        d_bounds, mask)]
+    stream = torch.cuda.current_stream(a_docs.device).cuda_stream
+    err = launch(*ptr, q_n, t_n, window, packed.n_blocks, d_packed.n_blocks,
+                 stream)
+    streamed_join_packed_cuda.launches += 1
+    _build.check(err, "streamed_join_packed_launch")
+    return mask
+
+
+streamed_join_packed_cuda.launches = 0
+
+
+def streamed_join_packed(*args, cap: int):
+    """K4p on CUDA tensors, its plain version on CPU tensors (arguments as
+    :func:`streamed_join_packed_torch`)."""
+    fn = streamed_join_packed_cuda if args[0].is_cuda else streamed_join_packed_torch
+    return fn(*args, cap=cap)
+
+
 def plan_streamed(a_docs, terms, active, offsets, lengths, block_max,
                   d_offsets, d_lengths, d_block_max):
     """K4's probe plans from the exact spans of the materialized driver
@@ -432,11 +563,16 @@ def intersect_batched_streamed(
     offsets: torch.Tensor, lengths: torch.Tensor, block_max: torch.Tensor,
     d_postings=None, d_offsets=None, d_lengths=None, d_block_max=None,
     a_flags=None,               # int32[Q, W]  driver doc_flags
+    *,
+    packed: PackedFlatArrays | None = None,
+    d_packed: PackedFlatArrays | None = None,
 ):
     """Batched ZigZag join over a materialized driver window, other-term
-    lists probed in place: plans, then K4.  The port runs it under
-    merge-on-read only, so the delta arrays and ``a_flags`` are required
-    (the static path is K1, :func:`intersect_batched_driver_streamed`).
+    lists probed in place: plans, then K4, or K4p when ``packed`` (and, as
+    in the reference, then also ``d_packed``) is given, which probes the
+    twins and never reads ``postings`` or ``d_postings``.  The port runs it
+    under merge-on-read only, so the delta arrays and ``a_flags`` are
+    required (the static path is K1, :func:`intersect_batched_driver_streamed`).
     Returns int32[Q, W] in {0, 1}."""
     if any(x is None for x in (d_postings, d_offsets, d_lengths, d_block_max,
                                a_flags)):
@@ -444,13 +580,17 @@ def intersect_batched_streamed(
             "K4 runs under merge-on-read only: pass d_postings, d_offsets, "
             "d_lengths, d_block_max and a_flags (the static join is K1, "
             "intersect_batched_driver_streamed)")
+    if packed is not None and d_packed is None:
+        raise ValueError("packed codec needs d_packed when delta arrays are given")
     active = active.to(torch.int32).contiguous()
     main, delta, cap = plan_streamed(a_docs, terms, active, offsets, lengths,
                                      block_max, d_offsets, d_lengths,
                                      d_block_max)
-    return streamed_join(
+    join, m_src, d_src = ((streamed_join, postings, d_postings) if packed is None
+                          else (streamed_join_packed, packed, d_packed))
+    return join(
         a_docs.contiguous(), a_attrs.to(torch.int32).contiguous(),
         a_live.to(torch.int32).contiguous(), a_flags.to(torch.int32).contiguous(),
-        active, attr_filter.to(torch.int32).contiguous(), postings, *main,
-        d_postings, *delta, cap=cap,
+        active, attr_filter.to(torch.int32).contiguous(), m_src, *main,
+        d_src, *delta, cap=cap,
     )

@@ -59,7 +59,7 @@ def _assert_same_writer(pw, rw):
                                       np.asarray(getattr(rd, f)), err_msg=f)
     for rs, ps in zip(rw.shard_deltas(), pw.shard_deltas(), strict=True):
         assert ps.term_capacity == rs.term_capacity
-        for f in pt_delta.DeltaIndex._fields:
+        for f in pt_delta.ShardedDelta._fields:
             np.testing.assert_array_equal(getattr(ps, f).numpy(),
                                           np.asarray(getattr(rs, f)), err_msg=f)
     for attr in ("version", "n_docs", "doc_headroom", "term_capacity",
@@ -302,15 +302,23 @@ def test_delta_carry_over_from_numpy(corpora):
     one = pt_delta.delta_from_numpy(
         {f: np.asarray(v) for f, v in rw.shard_deltas()[1]._asdict().items()
          if v is not None}, device="cpu")
-    for got, want in zip(one, pw.shard_deltas()[1], strict=True):
-        assert torch.equal(got, want)
+    mine = pw.shard_deltas()[1]
+    assert one.packed is None and mine.packed is None
+    for f in pt_delta.ShardedDelta._fields:
+        assert torch.equal(getattr(one, f), getattr(mine, f)), f
     assert pt_delta.local_delta(carried).term_capacity == 256
 
 
 def test_packed_codec_and_default_device(corpora, monkeypatch):
     _, pc, _, pmeta = corpora
-    with pytest.raises(NotImplementedError, match="K5"):
-        pt_delta.DeltaWriter(pc, pmeta, 1, codec="packed", device="cpu")
+    pw = pt_delta.DeltaWriter(pc, pmeta, 2, codec="packed", device="cpu")
+    pw.insert_docs([([1, 4], 0)])
+    views = pw.shard_deltas()
+    for view, raw in zip(views, pw.device_delta().postings, strict=True):
+        assert view.packed is not None
+        assert torch.equal(pt_index.unpack_flat_postings_torch(view.packed), raw)
+    assert pw.shard_deltas()[0].packed is views[0].packed   # cached per version
+    assert pw.device_delta().shard(0).packed is None        # the raw snapshot
     with pytest.raises(ValueError, match="codec"):
         pt_delta.DeltaWriter(pc, pmeta, 1, codec="zip", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

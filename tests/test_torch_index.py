@@ -54,7 +54,7 @@ def test_index_arrays_equal(cfg, site_terms):
     pidx, pmeta = pt_index.build_index(
         port_c, include_site_terms=site_terms, device="cpu")
     assert dataclass_fields(rmeta) == dataclass_fields(pmeta)
-    for f in pt_index.InvertedIndex._fields:
+    for f in pt_index.ShardedIndex._fields:
         a, b = _np(getattr(ridx, f)), _np(getattr(pidx, f))
         assert b.dtype == np.int32 and a.shape == b.shape, f
         np.testing.assert_array_equal(a, b, err_msg=f)
@@ -98,7 +98,7 @@ def test_array_edge_index_equal():
     ref_c, port_c = _edge_corpora()
     ridx, _ = ref_index.build_index(ref_c, include_site_terms=False)
     pidx, _ = pt_index.build_index(port_c, include_site_terms=False, device="cpu")
-    for f in pt_index.InvertedIndex._fields:
+    for f in pt_index.ShardedIndex._fields:
         np.testing.assert_array_equal(_np(getattr(ridx, f)), _np(getattr(pidx, f)))
     # the last list sits inside the final partial tile, with a spare tile after
     assert pidx.postings.shape[0] == pt_index.flat_tile_pad(12 * pt_index.BLOCK)
@@ -127,7 +127,7 @@ def test_index_from_numpy_round_trip():
         {f: np.asarray(v) for f, v in ridx._asdict().items() if v is not None},
         device="cpu")
     own, _ = pt_index.build_index(port_c, device="cpu")
-    for f in pt_index.InvertedIndex._fields:
+    for f in pt_index.ShardedIndex._fields:
         assert torch.equal(getattr(carried, f), getattr(own, f)), f
     rsh, _ = ref_index.build_sharded_index(ref_c, 2)
     psh = pt_index.sharded_index_from_numpy(

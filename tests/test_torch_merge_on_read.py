@@ -385,7 +385,8 @@ def test_delta_on_another_device_is_refused(setup):
     w = _writer_at_fill(corpus, meta, 0.0)
     pdelta = _carry_delta(ref_delta.local_delta(w.device_delta()))
     _, pqb = _batches(QUERIES, meta)
-    moved = pt_delta.DeltaIndex(*(x.to("meta") for x in pdelta))
+    moved = pdelta._replace(**{f: getattr(pdelta, f).to("meta")
+                               for f in pt_delta.ShardedDelta._fields})
     with pytest.raises(ValueError, match="delta on"):
         pt_engine.query_topk(pidx, pqb, delta=moved)
     # the plain K3 on an empty slab is the main window copied through
