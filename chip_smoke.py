@@ -6,10 +6,10 @@
 Phases (any failure exits non-zero; nothing is caught):
 
 1. device  — the card's name, power limit and count;
-2. build   — nvcc builds every kernel (K1–K4 and the packed modes K1p,
-             K3p, K4p) from ``src/repro_torch/kernels/csrc`` (one process
-             per source, all at once) and prints ptxas' registers / shared
-             memory / spills;
+2. build   — nvcc builds every kernel (K1–K4, the work-list kernels
+             K6–K8, and the packed modes K1p, K3p, K4p, K6p, K7p, K8p) from
+             ``src/repro_torch/kernels/csrc`` (one process per source, all
+             at once) and prints ptxas' registers / shared memory / spills;
 3. data    — the deployment: a 4M-page corpus from a seed (100k terms,
              mean 64 terms a page, 10k sites), site terms on, striped over
              4 slaves stacked on the card;
@@ -70,7 +70,26 @@ Phases (any failure exits non-zero; nothing is caught):
              capacity 384 against brute force before and after
              ``compact(verify=True)`` and ``pack_index``; K1p/K3p/K4p times
              beside bounds and plain versions; packed against raw per-batch
-             time, interleaved.
+             time, interleaved;
+12. compact — work-list compaction (``backend="kernel_compact"``): K6 and
+             K6p bit-exact against their plain versions (which execute the
+             descriptor table) and, on live rows, against K1 / K1p, on every
+             slave in phase 4's cases; at fills 0, 0.5, 1.0 (phase 11's
+             writer versions) K8/K8p and K7/K7p likewise against K3/K3p and
+             K4/K4p in phase 8's cases; each under live_q all live, the last
+             rows inert clones of the last live query, one live and every
+             other live, with inert rows as specified, and an all-inert batch
+             that launches nothing; the 512 queries through
+             ``sequential_reference(backend="kernel_compact")`` on the static
+             index and at fill 1.0, raw and packed (raw postings zeroed),
+             equal to ``backend="kernel"`` and ``"torch"`` with K6 (K6p) = 4
+             and K8 = K7 = 4 (K8p, K7p) launches per batch and no dense
+             join; the 3000-page corpus against brute force before and after
+             ``compact(verify=True)``; K6–K8p times beside bounds and plain
+             versions, the host work per table, the occupancy gauge, and the
+             slave phase's per-batch time (dense against compact in turns)
+             and its device ops and busy share, at all 32 live and at 20 of
+             32 live.
 
 Every phase prints its seconds.
 
@@ -102,7 +121,10 @@ KERNEL_NAMES = {"K1": "driver_streamed_kernel", "K2": "topk_merge_rows_kernel",
                 "K3": "delta_merge_kernel", "K4": "streamed_join_kernel",
                 "K1p": "driver_streamed_packed_kernel",
                 "K3p": "delta_merge_packed_kernel",
-                "K4p": "streamed_join_packed_kernel"}
+                "K4p": "streamed_join_packed_kernel",
+                "K6": "driver_compact_kernel", "K6p": "driver_compact_packed_kernel",
+                "K7": "streamed_compact_kernel", "K7p": "streamed_compact_packed_kernel",
+                "K8": "merge_compact_kernel", "K8p": "merge_compact_packed_kernel"}
 
 
 def log(*a):
@@ -134,17 +156,23 @@ def device_ms(fn, *, reps: int = 20) -> float:
     """Device milliseconds per call of ``fn()``: the profiler's device time
     summed over every kernel the call launches, averaged over ``reps``
     calls.  Unlike ``cuda_ms`` it leaves out the gaps in which the device
-    waits for the host to launch the next call."""
+    waits for the host to launch the next call.  A window in which the
+    profiler recorded no device event is taken again, up to three times;
+    0.0 means not measured."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / reps / 1e3
+    for _ in range(3):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total > 0:
+            break
+    return total / reps / 1e3
 
 
 def union_length(lo: np.ndarray, hi: np.ndarray) -> int:
@@ -234,6 +262,28 @@ def span_block_cost(start, length, meta_host) -> tuple[int, int]:
     return sum(c[0] for c in costs), sum(c[1] for c in costs)
 
 
+def table_probe_cost(desc_h, n_items, bounds_h, col, tile, meta_host=None):
+    """What a work list's probe tiles in column ``col`` (3 main, 5 delta)
+    read: per (query, term) the union of its rows' tiles clipped to the
+    term's bounds, as postings, or with the twin's ``meta_host`` as the
+    ``packed_block_cost`` of the blocks that hold them."""
+    it = desc_h[:n_items].astype(np.int64)
+    it = it[it[:, col] >= 0]
+    b = bounds_h[it[:, 0], it[:, 2]].astype(np.int64)
+    lo = np.maximum(it[:, col] * tile, b[:, 0])
+    hi = np.minimum((it[:, col] + 1) * tile, b[:, 1])
+    keys = it[:, 0] * 64 + it[:, 2]
+    postings, n_bytes, n_blocks = 0, 0, 0
+    for key in np.unique(keys):
+        m = keys == key
+        if meta_host is None:
+            postings += union_length(lo[m], hi[m])
+        else:
+            c = packed_block_cost(range_blocks(lo[m], hi[m], 128), meta_host)
+            n_bytes, n_blocks = n_bytes + c[0], n_blocks + c[1]
+    return postings if meta_host is None else (n_bytes, n_blocks)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-docs", type=int, default=4_000_000)
@@ -247,7 +297,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.core.engine import (
         MergedPostingSource, StaticPostingSource, _pick_drivers, brute_force_topk,
-        make_query_batch)
+        make_query_batch, query_topk)
     from repro_torch.core.index import (
         BLOCK, INVALID_DOC, PACK_WIDTHS, TILE, InvertedIndex, build_index,
         build_sharded_index, flat_tile_pad, pack_flat_postings, pack_index,
@@ -263,15 +313,22 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import delta_merge as dm
     from repro_torch.kernels import posting_intersect as pi
+    from repro_torch.kernels import ops
     from repro_torch.kernels import topk_merge as tm
-    from repro_torch.obs.registry import MetricsRegistry
+    from repro_torch.kernels import worklist as wlm
+    from repro_torch.obs.registry import MetricsRegistry, set_registry
     from repro_torch.serving.search import SearchService
 
     wrappers = {"K1": pi.driver_streamed_join_cuda, "K2": tm.merge_topk_rows_cuda,
                 "K3": dm.merge_delta_windows_cuda, "K4": pi.streamed_join_cuda,
                 "K1p": pi.driver_streamed_join_packed_cuda,
                 "K3p": dm.merge_delta_windows_packed_cuda,
-                "K4p": pi.streamed_join_packed_cuda}
+                "K4p": pi.streamed_join_packed_cuda,
+                "K6": pi.driver_compact_join_cuda,
+                "K6p": pi.driver_compact_join_packed_cuda,
+                "K7": pi.streamed_compact_join_cuda,
+                "K7p": pi.streamed_compact_join_packed_cuda,
+                "K8": dm.merge_compact_cuda, "K8p": dm.merge_compact_packed_cuda}
     no_launch = {k: 0 for k in wrappers}
 
     def reset_launches():
@@ -1115,7 +1172,7 @@ def main() -> int:
     p_writer = DeltaWriter(corpus, meta, NS, term_capacity=TERM_CAPACITY,
                            doc_headroom=DOC_HEADROOM, codec="packed", device=dev)
     p_touched = {m.docid for m in muts if m.docid is not None}
-    applied_p, p_extra, pack_s = 0, {}, []
+    applied_p, p_extra, pack_s, p_views = 0, {}, [], {}
     for fill in FILLS:
         while p_writer.posting_fill() < fill:
             p_writer.apply([muts[applied_p]])
@@ -1125,7 +1182,7 @@ def main() -> int:
         torch.cuda.synchronize()
         t_raw = time.perf_counter() - t0
         t0 = time.perf_counter()
-        views = p_writer.shard_deltas()
+        views = p_views[fill] = p_writer.shard_deltas()
         torch.cuda.synchronize()
         t_twins = time.perf_counter() - t0
         pack_s.append(t_twins)
@@ -1335,6 +1392,492 @@ def main() -> int:
         f"raw snapshot): " + ", ".join(f"{x:.4f}" for x in pack_s))
     phase_end("11 packed")
 
+    # ------------------------------------------------------------ 12. compact
+    def live_cases(batch):
+        """The live_q patterns of one batch: all live; the last rows inert
+        as clones of the last live query (12 of 32, as the scheduler pads a
+        partial bucket); one live query; every other query live."""
+        q_n = batch.terms.shape[0]
+        n_live = q_n - 12 if q_n > 12 else max(1, q_n // 2)
+        pick = torch.tensor(list(range(n_live)) + [n_live - 1] * (q_n - n_live),
+                            device=dev)
+        clones = type(batch)(*(x[pick].contiguous() for x in batch))
+        return [("all live", batch, None),
+                (f"last {q_n - n_live} inert clones", clones, np.arange(q_n) < n_live),
+                ("one live", batch, np.eye(q_n, dtype=bool)[q_n // 2]),
+                ("alternate", batch, np.arange(q_n) % 2 == 0)]
+
+    def live_mask(live, q_n):
+        return (torch.ones(q_n, dtype=torch.bool, device=dev) if live is None
+                else torch.from_numpy(live).to(dev))
+
+    def held(kernel, label, got, dense, live, inert, names):
+        """A compact kernel's live rows equal the dense kernel's; its inert
+        rows hold the inert values."""
+        rows = live_mask(live, got[0].shape[0])
+        same(kernel, label + " vs dense", [g[rows] for g in got],
+             [d[rows] for d in dense], names)
+        for g, v, what in zip(got, inert, names):
+            if not bool((g[~rows] == v).all()):
+                raise AssertionError(f"{kernel} {label}: inert rows of {what} "
+                                     f"are not {v}")
+
+    def no_launch_when_inert(label, fn):
+        before = launches_now()
+        out = fn()
+        if launches_now() != before:
+            raise AssertionError(f"{label}: an all-inert batch launched "
+                                 f"{ {k: v - before[k] for k, v in launches_now().items()} }")
+        return out
+
+    def k6_cases(label, idx_p, batch, window, filt):
+        """K6 and K6p (idx_p carries both codecs) against their plain
+        versions and K1 / K1p on the live rows, under every live_q pattern;
+        the all-inert batch launches nothing."""
+        for pname, b, live in live_cases(batch):
+            a = k1_inputs(idx_p, b, window, filt)
+            wl, bounds = pi.plan_driver_compact(
+                a[0], a[1], b.terms, a[2], idx_p.offsets, idx_p.lengths,
+                idx_p.block_max, window=window, live_q=live)
+            desc, heads = wlm.table_to_device(wl, dev)
+            for kname, src, cuda_fn, plain_fn, dense in (
+                ("K6", idx_p.postings, pi.driver_compact_join_cuda,
+                 pi.driver_compact_join_torch,
+                 lambda: pi.driver_streamed_join_cuda(*a, window=window)),
+                ("K6p", idx_p.packed, pi.driver_compact_join_packed_cuda,
+                 pi.driver_compact_join_packed_torch,
+                 lambda: pi.driver_streamed_join_packed_cuda(
+                     *a[:4], idx_p.packed, *a[5:], window=window))):
+                args = (desc, heads, a[0], a[1], a[3], src, a[5], bounds)
+                got = cuda_fn(*args, window=window)
+                torch.cuda.synchronize()
+                ctx = f"{label} {pname}"
+                same(kname, ctx, got, plain_fn(*args, window=window), ("docs", "mask"))
+                held(kname, ctx, got, dense(), live, (INVALID_DOC, 0), ("docs", "mask"))
+        a = k1_inputs(idx_p, batch, window, filt)
+        for packed in (None, idx_p.packed):
+            d, m = no_launch_when_inert(label, lambda: ops.intersect_fullstream_compact(
+                a[0], a[1], batch.terms, a[2], a[3], idx_p.postings, idx_p.attrs,
+                idx_p.offsets, idx_p.lengths, idx_p.block_max, window=window,
+                packed=packed, live_q=np.zeros(batch.terms.shape[0], bool)))
+            if not (bool((d == INVALID_DOC).all()) and bool((m == 0).all())):
+                raise AssertionError(f"{label}: all-inert rows are not (INVALID_DOC, 0)")
+
+    def k8_cases(label, idx_p, delta, k3, window, patterns):
+        """K8 and K8p against their plain versions and K3 / K3p on the live
+        rows of K3's inputs ``k3``, under each (name, live_q) of
+        ``patterns``; all-inert launches nothing."""
+        cap = delta.term_capacity
+        pk3 = (idx_p.packed,) + k3[1:4] + (delta.packed,) + k3[5:]
+        q_n = k3[8].shape[0]
+        dense = {"K8": dm.merge_delta_windows_cuda(*k3, window=window, cap=cap),
+                 "K8p": dm.merge_delta_windows_packed_cuda(*pk3, window=window, cap=cap)}
+        names = ("docs", "attrs", "src")
+        for pname, live in patterns:
+            wl = dm.plan_merge_compact(k3[3], window=window, live_q=live)
+            desc, heads = wlm.table_to_device(wl, dev)
+            for kname, args, cuda_fn, plain_fn in (
+                ("K8", k3, dm.merge_compact_cuda, dm.merge_compact_torch),
+                ("K8p", pk3, dm.merge_compact_packed_cuda, dm.merge_compact_packed_torch)):
+                got = cuda_fn(desc, heads, *args, window=window, cap=cap)
+                torch.cuda.synchronize()
+                ctx = f"{label} {pname}"
+                same(kname, ctx, got, plain_fn(desc, heads, *args, window=window,
+                                               cap=cap), names)
+                held(kname, ctx, got, dense[kname], live, (INVALID_DOC, -1, 1), names)
+        for packed, d_packed in ((None, None), (idx_p.packed, delta.packed)):
+            out = no_launch_when_inert(label, lambda: ops.merge_windows_compact(
+                *k3[:8], delta.block_max, k3[8], window=window, packed=packed,
+                d_packed=d_packed, live_q=np.zeros(q_n, bool)))
+            if not all(bool((o == v).all()) for o, v in zip(out, (INVALID_DOC, -1, 1))):
+                raise AssertionError(f"{label}: all-inert merge rows are not inert")
+
+    def k7_cases(label, idx_p, delta, batch, window, filt):
+        """K8 on each batch's drivers, then K7 and K7p against their plain
+        versions and K4 / K4p on the live rows, under every live_q
+        pattern; all-inert launches nothing."""
+        names = ("mask",)
+        for pname, b, live in live_cases(batch):
+            ctx = f"{label} {pname}"
+            k3, k4, cap = k4_inputs(ctx, idx_p, delta, b, window, filt)
+            k8_cases(ctx + " K8", idx_p, delta, k3, window, [(pname, live)])
+            wl, bounds, d_bounds = pi.plan_streamed_compact(
+                k4[0], b.terms, k4[4], idx_p.offsets, idx_p.lengths,
+                idx_p.block_max, delta.offsets, delta.lengths, delta.block_max,
+                live_q=live)
+            desc, heads = wlm.table_to_device(wl, dev)
+            pk4 = k4[:6] + (idx_p.packed,) + k4[7:10] + (delta.packed,) + k4[11:]
+            for kname, m_src, d_src, cuda_fn, plain_fn, dense in (
+                ("K7", idx_p.postings, delta.postings, pi.streamed_compact_join_cuda,
+                 pi.streamed_compact_join_torch,
+                 lambda: pi.streamed_join_cuda(*k4, cap=cap)),
+                ("K7p", idx_p.packed, delta.packed, pi.streamed_compact_join_packed_cuda,
+                 pi.streamed_compact_join_packed_torch,
+                 lambda: pi.streamed_join_packed_cuda(*pk4, cap=cap))):
+                args = (desc, heads, *k4[:4], k4[5], m_src, bounds, d_src, d_bounds)
+                got = (cuda_fn(*args),)
+                torch.cuda.synchronize()
+                same(kname, ctx, got, (plain_fn(*args),), names)
+                held(kname, ctx, got, (dense(),), live, (0,), names)
+            if pname == "all live":
+                for packed, d_packed in ((None, None), (idx_p.packed, delta.packed)):
+                    m = no_launch_when_inert(ctx, lambda: ops.intersect_streamed_compact(
+                        *k4[:3], b.terms, k4[4], k4[5], idx_p.postings,
+                        idx_p.offsets, idx_p.lengths, idx_p.block_max,
+                        delta.postings, delta.offsets, delta.lengths,
+                        delta.block_max, k4[3], packed=packed, d_packed=d_packed,
+                        live_q=np.zeros(b.terms.shape[0], bool)))
+                    if not bool((m == 0).all()):
+                        raise AssertionError(f"{ctx}: all-inert mask rows are not 0")
+
+    for s in range(NS):
+        for label, batch, window, filt in (
+            ("main filter-on", main_batch, MAIN_WINDOW, True),
+            ("main filter-off", main_batch, MAIN_WINDOW, False),
+            ("window 1000", main_batch, 1000, True),
+            ("window 1536", main_batch, 1536, True),
+            ("empty+last lists", edge_batches[s], MAIN_WINDOW, True),
+            ("empty+last lists w1000", edge_batches[s], 1000, True),
+        ):
+            k6_cases(f"compact shard {s} {label}", twins[s], batch, window, filt)
+    for window in (128, 1000, 1024, 1536):
+        k6_cases(f"compact array-edge index window {window}", aux_p, aux_batch, window,
+                 True)
+    log(f"[compact] K6 and K6p bit-exact vs their plain versions and, on live rows, "
+        f"vs K1 / K1p on {NS} slaves x 6 cases (phase 4's) and the array-edge index, "
+        f"under live_q all live / last rows inert clones / one live / alternate; "
+        f"all-inert batches launched nothing")
+
+    for fill in FILLS:
+        views = p_views[fill]
+        for s in range(NS):
+            idx_p, delta = twins[s], views[s]
+            lens = idx_p.lengths
+            hot, hot2 = (int(t) for t in torch.topk(lens, 2).indices)
+            dhot = int(torch.argmax(delta.lengths))
+            rare = int(torch.nonzero((lens > 0) & (lens <= 64))[0]) \
+                if bool(((lens > 0) & (lens <= 64)).any()) else hot
+            extra = p_extra.get(s, [])
+            drivers = torch.tensor([hot, hot2, dhot, rare, -1, *extra],
+                                   dtype=torch.int32, device=dev)
+            edge_q = [([hot], None), ([hot, rare], None), ([rare], None),
+                      ([dhot], None), ([dhot, hot], 1), ([hot, hot2, dhot], None)]
+            for e in extra:
+                edge_q += [([e], None), ([e, hot], None), ([hot, e], None)]
+            edge = make_query_batch(edge_q, t_max=MAIN_T, meta=meta, device=dev)
+            for window in MOR_WINDOWS:
+                tag = f"compact fill {fill} shard {s} w{window}"
+                n_drv = drivers.shape[0]
+                k8_cases(tag + " edge drivers", idx_p, delta,
+                         k3_inputs(idx_p, delta, drivers, window), window,
+                         [("all live", None),
+                          ("one live", np.eye(n_drv, dtype=bool)[n_drv // 2]),
+                          ("alternate", np.arange(n_drv) % 2 == 0),
+                          ("first half", np.arange(n_drv) < max(1, n_drv // 2))])
+                for bname, batch in (("main", main_batch), ("edge", edge)):
+                    for filt in (True, False):
+                        k7_cases(f"{tag} {bname} filter {filt}", idx_p, delta, batch,
+                                 window, filt)
+        log(f"[compact] fill {fill}: K8/K8p and K7/K7p bit-exact vs their plain "
+            f"versions and, on live rows, vs K3/K3p and K4/K4p on {NS} slaves (phase "
+            f"8's cases: main and edge drivers incl. inert -1 and main-empty lists "
+            f"{sorted(p_extra.items())}, filter on/off, windows {MOR_WINDOWS}), every "
+            f"live_q pattern; all-inert batches launched nothing")
+
+    # the path: 512 queries, 16 batches of 32, through sequential_reference
+    def compact_path(label, shards_, deltas_, codec, implied, dense_shards):
+        reset_launches()
+        results = []
+        for b in batches:
+            before = launches_now()
+            results.append(sequential_reference(
+                shards_, b, ns=NS, k=k_all, window=MAIN_WINDOW, deltas=deltas_,
+                backend="kernel_compact", codec=codec))
+            per = {k: v - before[k] for k, v in launches_now().items()}
+            if per != {**no_launch, **implied}:
+                raise AssertionError(f"compact {label}: launches per batch {per}")
+        counts = launches_now()
+        torch.cuda.synchronize()
+        raw_deltas = None if deltas_ is None else p_views[1.0]
+        for b, r in zip(batches, results):
+            for backend, sh, dl, cd in (("kernel", dense_shards, deltas_, codec),
+                                        ("torch", raw_shards, raw_deltas, "raw")):
+                w = sequential_reference(sh, b, ns=NS, k=k_all, window=MAIN_WINDOW,
+                                         deltas=dl, backend=backend, codec=cd)
+                if not (torch.equal(r.docids, w.docids) and torch.equal(r.n_hits, w.n_hits)):
+                    raise AssertionError(f"compact {label}: differs from backend={backend!r}")
+        log(f"[compact] {label}: {len(queries)} queries in {len(batches)} batches through "
+            f"sequential_reference(backend='kernel_compact', codec={codec!r}) equal "
+            f"backend='kernel' and backend='torch'; launches {counts}, per batch {implied}")
+        return counts
+
+    c_static = compact_path("static raw", raw_shards, None, "raw", {"K6": NS}, raw_shards)
+    c_static_p = compact_path("static packed, raw postings zeroed", blind, None, "packed",
+                              {"K6p": NS}, twins)
+    c_mor = compact_path("fill 1.0 raw", raw_shards, p_views[1.0], "raw",
+                         {"K8": NS, "K7": NS}, raw_shards)
+    c_mor_p = compact_path("fill 1.0 packed, raw postings zeroed", blind, blind_deltas,
+                           "packed", {"K8p": NS, "K7p": NS}, twins)
+
+    # the 3000-page corpus: brute force before and after compact(verify=True)
+    sc_writer = DeltaWriter(small, s_meta, NS, term_capacity=384, doc_headroom=512,
+                            codec="packed", device=dev)
+    sc_writer.apply(s_muts)
+    route_to_empty_lists(sc_writer, s_idx, {m.docid for m in s_muts
+                                            if m.docid is not None}, n_per_shard=2)
+    sc_before = sc_writer.mutated_corpus()
+    sc_writer.delete_docs([d for d in range(sc_before.n_docs)
+                           if tomb in sc_before.terms_of(d)])
+    sc_mutated = sc_writer.mutated_corpus()
+    sc_want = [(t[:k], len(t)) for t, k in zip(
+        brute_force_topk(sc_mutated, sp_q, sc_mutated.n_docs), sp_ks)]
+
+    def small_compact(shards_):
+        for codec in ("raw", "packed"):
+            r = sequential_reference(shards_, sp_batch, ns=NS, k=max(sp_ks),
+                                     window=MAIN_WINDOW, deltas=sc_writer.shard_deltas(),
+                                     backend="kernel_compact", codec=codec)
+            if as_hits([r], sp_ks) != sc_want:
+                raise AssertionError(f"compact small ({codec}): differs from brute force")
+
+    small_compact(s_twins)
+    sc_index, _ = compact(sc_writer, verify=True)
+    small_compact([pack_index(sc_index.shard(s)) for s in range(NS)])
+    log(f"[compact] small: {len(sp_q)} queries through backend='kernel_compact' (raw "
+        f"and packed) equal brute force over the mutated corpus, before and after "
+        f"compact(verify=True)")
+
+    # times, slave 0, main-path shapes (all live); fill 1.0 for K8/K7
+    t_idx = twins[0]
+    ka = k1_inputs(t_idx, main_batch, MAIN_WINDOW)
+    host_s = {}
+
+    def timed_plan(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        desc, heads = wlm.table_to_device(out[0] if isinstance(out, tuple) else out, dev)
+        torch.cuda.synchronize()
+        host_s.setdefault(name, []).append(time.perf_counter() - t)
+        return out, desc, heads
+
+    for _ in range(10):
+        (wl6, bounds6), desc6, heads6 = timed_plan("K6", lambda: pi.plan_driver_compact(
+            ka[0], ka[1], main_batch.terms, ka[2], t_idx.offsets, t_idx.lengths,
+            t_idx.block_max, window=MAIN_WINDOW))
+    d1 = p_views[1.0][0]
+    cap = d1.term_capacity
+    k3m, k4m, _ = k4_inputs("compact times", t_idx, d1, main_batch, MAIN_WINDOW, True)
+    for _ in range(10):
+        wl8, desc8, heads8 = timed_plan("K8", lambda: dm.plan_merge_compact(
+            k3m[3], window=MAIN_WINDOW))
+        (wl7, bounds7, dbounds7), desc7, heads7 = timed_plan(
+            "K7", lambda: pi.plan_streamed_compact(
+                k4m[0], main_batch.terms, k4m[4], t_idx.offsets, t_idx.lengths,
+                t_idx.block_max, d1.offsets, d1.lengths, d1.block_max))
+    _, b6_tile, n6_b, _ = pi._driver_plan(
+        ka[0], ka[1], main_batch.terms, ka[2], t_idx.offsets, t_idx.lengths,
+        t_idx.block_max, window=MAIN_WINDOW)
+    plan_h = wlm.plan_to_host(n6_b, b6_tile, ka[2])
+    a_any_h = np.ones((MAIN_Q, -(-MAIN_WINDOW // TILE)), bool)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        wlm.build_intersect_worklist(*plan_h, a_any_h, kernel="build timing",
+                                     dense_steps=1)
+    t_build = (time.perf_counter() - t0) / 10
+    log(f"[times] compact host work per call (device plan, one device->host copy, "
+        f"numpy build, one host->device copy; slave 0, Q={MAIN_Q}, mean of 10): "
+        + ", ".join(f"{k} {np.mean(v) * 1e3:.3f} ms (min {np.min(v) * 1e3:.3f})"
+                    for k, v in host_s.items())
+        + f"; the K6 numpy build alone {t_build * 1e3:.3f} ms; tables of {wl6.n_items} "
+        f"/ {wl8.n_items} / {wl7.n_items} rows (K6 / K8 / K7) on {smi}")
+
+    def groups_of(wl):
+        heads = wl.group_heads()
+        first = wl.desc[heads[:-1]]
+        return first[:, 0].astype(np.int64), first[:, 1].astype(np.int64), heads
+
+    def table_small(wl, n_groups):
+        return 32 * wl.n_items + 4 * (n_groups + 1)
+
+    compact_rows = {}
+
+    def time_compact(kname, cuda_run, plain_run, n_bytes, n_ops, extra, lib=None):
+        ms, plain = cuda_ms(cuda_run), cuda_ms(plain_run, reps=10, warmup=2)
+        dev_ms, plain_dev = device_ms(cuda_run), device_ms(plain_run)
+        bound, by = bound_ms(n_bytes, n_ops)
+        lib_ms = None if lib is None else cuda_ms(lib)
+        compact_rows[kname] = (ms, plain, bound, by, lib_ms)
+        log(f"[times] {kname} window {MAIN_WINDOW}, Q={MAIN_Q}, shard 0: {ms:.4f} "
+            f"ms/launch (device {dev_ms:.5f} ms); plain {plain:.4f} ms (device "
+            f"{plain_dev:.5f} ms)" + ("" if lib is None else
+                                     f"; torch.sort(stable) {lib_ms:.4f} ms")
+            + f"; bound {bound:.6f} ms ({by}; {n_bytes} bytes: {extra}) on {smi}")
+
+    # K6 / K6p
+    q6, i6, heads6_h = groups_of(wl6)
+    neff_h = ka[1].long().cpu().numpy()
+    off_h = ka[0].long().cpu().numpy()
+    live6 = np.clip(neff_h[q6] - i6 * TILE, 0, TILE)
+    bounds6_h = bounds6.long().cpu().numpy()
+    probe6 = table_probe_cost(wl6.desc, wl6.n_items, bounds6_h, 3, TILE)
+    small6 = table_small(wl6, len(q6)) + 12 * MAIN_Q + 8 * MAIN_Q * MAIN_T
+    out6 = 2 * MAIN_Q * MAIN_WINDOW * 4
+    rows6 = wl6.desc[:wl6.n_items]
+    row_group6 = np.cumsum(rows6[:, 4] & 1) - 1
+    ops6 = int(live6[row_group6[rows6[:, 3] >= 0]].sum()) * int(math.log2(TILE))
+    args6 = (desc6, heads6, ka[0], ka[1], ka[3], t_idx.postings, ka[5], bounds6)
+    args6p = args6[:5] + (t_idx.packed,) + args6[6:]
+    time_compact("K6", lambda: pi.driver_compact_join_cuda(*args6, window=MAIN_WINDOW),
+                 lambda: pi.driver_compact_join_torch(*args6, window=MAIN_WINDOW),
+                 small6 + int(live6.sum()) * 8 + probe6 * 4 + out6, ops6,
+                 f"{len(q6)} groups, {int(live6.sum())} driver postings, probed "
+                 f"{probe6} postings, {wl6.n_items} descriptor rows")
+    d6_b, d6_blk = span_block_cost(torch.from_numpy(off_h[q6] + i6 * TILE),
+                                   torch.from_numpy(live6), meta_host[0])
+    p6_b, p6_blk = table_probe_cost(wl6.desc, wl6.n_items, bounds6_h, 3, TILE,
+                                    meta_host[0])
+    time_compact("K6p", lambda: pi.driver_compact_join_packed_cuda(
+                     *args6p, window=MAIN_WINDOW),
+                 lambda: pi.driver_compact_join_packed_torch(*args6p, window=MAIN_WINDOW),
+                 small6 + d6_b + p6_b + int(live6.sum()) * 4 + out6,
+                 ops6 + 4 * BLOCK * (d6_blk + p6_blk),
+                 f"driver {d6_blk} blocks {d6_b} bytes, probes {p6_blk} blocks "
+                 f"{p6_b} bytes, {wl6.n_items} descriptor rows")
+
+    # K8 / K8p at fill 1.0
+    d_meta1 = d1.packed.blk_meta[:d1.packed.n_blocks].cpu().numpy()
+    na8 = k3m[3].long().clamp(max=MAIN_WINDOW)
+    start8, dlen8 = dm._slab(k3m[8], d1.offsets, d1.lengths, cap)
+    read8 = int((na8 + dlen8).clamp(max=MAIN_WINDOW).sum())
+    small8 = table_small(wl8, MAIN_Q) + 5 * MAIN_Q * 4
+    out8 = 3 * MAIN_Q * MAIN_WINDOW * 4
+    ops8 = int(sum(min(a + b, MAIN_WINDOW) * (math.ceil(math.log2(min(a, b) + 1)) + 1)
+                   for a, b in zip(na8.tolist(), dlen8.tolist())))
+    args8 = (desc8, heads8, *k3m)
+    args8p = (desc8, heads8, t_idx.packed, *k3m[1:4], d1.packed, *k3m[5:])
+    m_docs8, _ = dm._stream(t_idx.postings, t_idx.attrs, k3m[2].long(), k3m[3].long(),
+                            MAIN_WINDOW)
+    d_docs8, _ = dm._stream(d1.postings, d1.attrs, start8, dlen8, cap)
+    keys8 = torch.cat([m_docs8, d_docs8], dim=-1).contiguous()
+    time_compact("K8", lambda: dm.merge_compact_cuda(*args8, window=MAIN_WINDOW, cap=cap),
+                 lambda: dm.merge_compact_torch(*args8, window=MAIN_WINDOW, cap=cap),
+                 small8 + read8 * 8 + out8, ops8,
+                 f"{read8} postings of main {int(na8.sum())} + delta {int(dlen8.sum())} "
+                 f"read, {wl8.n_items} descriptor rows",
+                 lib=lambda: torch.sort(keys8, dim=-1, stable=True))
+    m8_b, m8_blk = span_block_cost(k3m[2], na8, meta_host[0])
+    dd8_b, dd8_blk = span_block_cost(start8, dlen8, d_meta1)
+    time_compact("K8p", lambda: dm.merge_compact_packed_cuda(*args8p, window=MAIN_WINDOW,
+                                                             cap=cap),
+                 lambda: dm.merge_compact_packed_torch(*args8p, window=MAIN_WINDOW, cap=cap),
+                 small8 + m8_b + dd8_b + read8 * 4 + out8,
+                 ops8 + 4 * BLOCK * (m8_blk + dd8_blk),
+                 f"main {m8_blk} blocks {m8_b} bytes, delta {dd8_blk} blocks {dd8_b} "
+                 f"bytes, {read8} attrs")
+
+    # K7 / K7p at fill 1.0
+    a7_docs, _, a7_live, _, a7_active, a7_filter = k4m[:6]
+    valid7 = (a7_docs != INVALID_DOC).long().sum(1)
+    live7 = (a7_live != 0).long().sum(1)
+    joins7 = a7_active.long().sum(1) > 0
+    slots7 = (MAIN_Q * MAIN_WINDOW + int(valid7.sum()) + int(live7[joins7].sum())
+              + int(valid7[a7_filter >= 0].sum()))
+    b7_h, db7_h = bounds7.long().cpu().numpy(), dbounds7.long().cpu().numpy()
+    pm7 = table_probe_cost(wl7.desc, wl7.n_items, b7_h, 3, TILE)
+    pd7 = table_probe_cost(wl7.desc, wl7.n_items, db7_h, 5, TILE)
+    small7 = table_small(wl7, len(groups_of(wl7)[0])) + 4 * MAIN_Q + 16 * MAIN_Q * MAIN_T
+    out7 = MAIN_Q * MAIN_WINDOW * 4
+    rows7 = wl7.desc[:wl7.n_items]
+    q7, i7, _ = groups_of(wl7)
+    slots_g7 = np.clip((a7_live != 0).long().view(MAIN_Q, -1, TILE).sum(-1)
+                       .cpu().numpy()[q7, i7], 0, TILE)
+    rg7 = np.cumsum(rows7[:, 4] & 1) - 1
+    ops7 = int((slots_g7[rg7] * ((rows7[:, 3] >= 0).astype(np.int64)
+                                 + (rows7[:, 5] >= 0))).sum()) * int(math.log2(TILE))
+    args7 = (desc7, heads7, *k4m[:4], k4m[5], t_idx.postings, bounds7, d1.postings,
+             dbounds7)
+    args7p = args7[:7] + (t_idx.packed, bounds7, d1.packed, dbounds7)
+    time_compact("K7", lambda: pi.streamed_compact_join_cuda(*args7),
+                 lambda: pi.streamed_compact_join_torch(*args7),
+                 small7 + slots7 * 4 + out7 + (pm7 + pd7) * 4, ops7,
+                 f"{int(valid7.sum())} valid and {int(live7.sum())} live driver slots, "
+                 f"probed main {pm7} + delta {pd7} postings, {wl7.n_items} descriptor rows")
+    pm7_b, pm7_blk = table_probe_cost(wl7.desc, wl7.n_items, b7_h, 3, TILE, meta_host[0])
+    pd7_b, pd7_blk = table_probe_cost(wl7.desc, wl7.n_items, db7_h, 5, TILE, d_meta1)
+    time_compact("K7p", lambda: pi.streamed_compact_join_packed_cuda(*args7p),
+                 lambda: pi.streamed_compact_join_packed_torch(*args7p),
+                 small7 + slots7 * 4 + out7 + pm7_b + pd7_b,
+                 ops7 + 4 * BLOCK * (pm7_blk + pd7_blk),
+                 f"probes main {pm7_blk} blocks {pm7_b} bytes + delta {pd7_blk} blocks "
+                 f"{pd7_b} bytes")
+
+    # occupancy and per-batch time, all live against 20 of 32 live (the
+    # last 12 inert clones of the 20th, as the scheduler pads)
+    n_live = MAIN_Q - 12
+    pad_batches = [live_cases(b)[1][1] for b in batches]
+    mixes = {"all live": (batches, None),
+             f"{n_live} of {MAIN_Q} live": (pad_batches, np.arange(MAIN_Q) < n_live)}
+    cells = (("static", None), ("fill 1.0", p_views[1.0]))
+
+    def slaves(bs, backend, live, deltas_):
+        kw = {"live_q": live} if backend == "kernel_compact" else {}
+        for b in bs:
+            for s in range(NS):
+                query_topk(raw_shards[s], b, delta=None if deltas_ is None else deltas_[s],
+                           k=k_all, window=MAIN_WINDOW, backend=backend, **kw)
+
+    for mix, (bs, live) in mixes.items():
+        for cell, deltas_ in cells:
+            occ: dict[str, list[float]] = {}
+            for b in bs:
+                for s in range(NS):
+                    reg = MetricsRegistry()
+                    prev = set_registry(reg)
+                    try:
+                        query_topk(raw_shards[s], b, k=k_all, window=MAIN_WINDOW,
+                                   delta=None if deltas_ is None else deltas_[s],
+                                   backend="kernel_compact", live_q=live)
+                    finally:
+                        set_registry(prev)
+                    for name, _, _, series in reg.collect():
+                        if name == "odys_kernel_grid_occupancy":
+                            for labels, g in series:
+                                occ.setdefault(labels["kernel"], []).append(g.value)
+            log(f"[compact] occupancy gauge ({mix}, {cell}; live items / dense-grid "
+                f"steps, mean over {len(bs)} batches x {NS} slaves): " + ", ".join(
+                    f"{k} {np.mean(v):.4f}" for k, v in sorted(occ.items())))
+            order = ("kernel", "kernel_compact", "kernel_compact", "kernel")
+            for backend in order[:2]:
+                slaves(bs[:2], backend, live, deltas_)
+                torch.cuda.synchronize()
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    t = time.perf_counter()
+                    slaves(bs, backend, live, deltas_)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t
+                kern = [e for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA]
+                busy = sum(e.self_device_time_total for e in kern) / 1e6
+                log(f"[trace] slave phase, {backend} ({mix}, {cell}): "
+                    f"{sum(e.count for e in kern) / len(bs):.1f} device ops and "
+                    f"{busy / len(bs) * 1e3:.3f} ms of device time per batch, busy "
+                    f"share {busy / wall:.4f} of {wall * 1e3:.3f} ms traced")
+            ms = []
+            for backend in order:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                slaves(bs, backend, live, deltas_)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t) / len(bs) * 1e3)
+            log(f"[times] slave phase per batch of {MAIN_Q} ({mix}, {cell}; {NS} slaves' "
+                f"query_topk, ms, host clock around synchronize, in turns dense / "
+                f"compact / compact / dense): " + " / ".join(f"{x:.3f}" for x in ms)
+                + f" on {smi}")
+    phase_end("12 compact")
+
     k2_main = k2_rows[("tournament", 1000)]
     fill1 = mor[1.0]
     record = {"kernels": [
@@ -1381,6 +1924,27 @@ def main() -> int:
          "ms": k4p_ms, "plain_ms": k4p_plain, "bound_ms": k4p_bound,
          "bound_by": k4p_by, "library_ms": None},
     ]}
+    for kname, name, source, replaces, launches in (
+        ("K6", "K6 driver_compact_join", "driver_compact.cu",
+         "posting_intersect.py:1762", c_static["K6"]),
+        ("K6p", "K6p driver_compact_join_packed", "driver_compact.cu",
+         "posting_intersect.py:1762", c_static_p["K6p"]),
+        ("K7", "K7 streamed_compact_join", "streamed_compact.cu",
+         "posting_intersect.py:1500", c_mor["K7"]),
+        ("K7p", "K7p streamed_compact_join_packed", "streamed_compact.cu",
+         "posting_intersect.py:1500", c_mor_p["K7p"]),
+        ("K8", "K8 merge_compact", "merge_compact.cu", "delta_merge.py:650",
+         c_mor["K8"]),
+        ("K8p", "K8p merge_compact_packed", "merge_compact.cu", "delta_merge.py:650",
+         c_mor_p["K8p"]),
+    ):
+        ms, plain, bound, by, lib = compact_rows[kname]
+        record["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": f"src/repro/kernels/{replaces}", "launches": launches,
+            "max_abs_err": max_err[kname], "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib})
     print(json.dumps(record), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,7 @@ Shapes are fixed per batch: queries padded to ``t_max`` terms, windows of
 ``window`` postings, results of ``k``.  Other-term membership is against
 each term's first ``window`` postings only, exactly as in the reference.
 
-Two backends, both bit-identical to the reference's ``backend="jnp"``:
+Three backends, all bit-identical to the reference's ``backend="jnp"``:
 
 - ``"torch"``  — plain PyTorch ops: the port of the jnp branch, batched
   over queries instead of ``vmap``-ed;
@@ -29,13 +29,19 @@ Two backends, both bit-identical to the reference's ``backend="jnp"``:
   and live stream, the K4 join against main and delta
   (:func:`~repro_torch.kernels.ops.intersect_streamed`), the ``gather``
   join on the delta's ``doc_site``, then the first k.  On CPU tensors the
-  kernels run their plain versions, so this backend is tested here too.
+  kernels run their plain versions, so this backend is tested here too;
+- ``"kernel_compact"`` — the port of ``_query_topk_batch_pallas_compact``:
+  the same path with each kernel run over a host-built work list of live
+  items (K6 on the static index, K8 then K7 under merge-on-read), so inert
+  padding queries (``live_q``), absent term slots and empty probe spans
+  cost no thread block.
 
 ``codec="packed"`` reads the postings through the block codec: the index
 (and the delta, when one is attached) must carry its packed twin.  The
 ``torch`` backend decodes the whole array first, as the reference's jnp
 branch does; the ``kernel`` backend hands the twins to K1p, or to K3p and
-K4p, which decode block by block on the card, and reads no raw posting.
+K4p (``kernel_compact``: K6p, or K8p and K7p), which decode block by block
+on the card, and reads no raw posting.
 
 Merge-on-read (:class:`MergedPostingSource`): each term's logical list is
 main ∪ delta.  A main posting is live unless its doc is DEAD or
@@ -66,7 +72,7 @@ from repro_torch.obs.registry import get_registry
 
 NO_TERM = np.int32(-1)
 NO_ATTR = np.int32(-1)
-BACKENDS = ("torch", "kernel")
+BACKENDS = ("torch", "kernel", "kernel_compact")
 CODECS = ("raw", "packed")
 STRATEGIES = ("embed", "gather", "site_term")
 _INVALID = int(INVALID_DOC)
@@ -373,12 +379,30 @@ def _query_topk_torch(source, batch: QueryBatch, *, k, window, attr_strategy):
 
 
 def _query_topk_kernel(source, batch: QueryBatch, *, k, window, attr_strategy,
-                       use_packed=False):
+                       use_packed=False, compact=False, live_q=None):
     """Port of the reference's ``_query_topk_batch_pallas``: plan + K1 on
     the static index, or K3 + K4 under merge-on-read; the gather join;
-    first k.  ``use_packed`` runs K1p, or K3p and K4p, on the twins."""
+    first k.  ``use_packed`` runs K1p, or K3p and K4p, on the twins.
+
+    ``compact`` ports ``_query_topk_batch_pallas_compact`` (whose stages
+    ``_compact_prelude``, ``_compact_driver_state`` and ``_compact_finish``
+    are the steps before, between and after the kernels here): each kernel
+    runs over a host-built work list (:mod:`repro_torch.kernels.worklist`),
+    K6 in place of K1, K8 and K7 in place of K3 and K4 (K6p, K8p, K7p with
+    ``use_packed``), so inert queries (``live_q`` false), absent term slots
+    and empty probe spans get no thread block; inert rows come back
+    ``(INVALID_DOC, 0)`` and an all-inert batch launches nothing."""
     from repro_torch.kernels import ops
 
+    if compact:
+        join, merge, probe = (ops.intersect_fullstream_compact,
+                              ops.merge_windows_compact,
+                              ops.intersect_streamed_compact)
+        kw = {"live_q": live_q}
+    else:
+        join, merge, probe = (ops.intersect_fullstream, ops.merge_windows,
+                              ops.intersect_streamed)
+        kw = {}
     index = source.index
     _, d_terms, active = _pick_drivers(source, batch)
     active = active.to(torch.int32)
@@ -394,27 +418,27 @@ def _query_topk_kernel(source, batch: QueryBatch, *, k, window, attr_strategy,
     )
     packed = index.packed if use_packed else None
     if not isinstance(source, MergedPostingSource):
-        docs, mask = ops.intersect_fullstream(
+        docs, mask = join(
             span.off, span.n_eff, batch.terms, active, kernel_filter,
             index.postings, index.attrs, index.offsets, index.lengths,
-            index.block_max, window=window, packed=packed,
+            index.block_max, window=window, packed=packed, **kw,
         )
     else:
         delta = source.delta
         d_packed = delta.packed if use_packed else None
-        docs, attrs, src = ops.merge_windows(
+        docs, attrs, src = merge(
             index.postings, index.attrs, span.off, span.n_eff,
             delta.postings, delta.attrs, delta.offsets, delta.lengths,
             delta.block_max, d_terms, window=window,
-            packed=packed, d_packed=d_packed,
+            packed=packed, d_packed=d_packed, **kw,
         )
         a_flags = source.driver_flags(docs)
         live = source.driver_live(docs, src, a_flags)
-        mask = ops.intersect_streamed(
+        mask = probe(
             docs, attrs, live, batch.terms, active, kernel_filter,
             index.postings, index.offsets, index.lengths, index.block_max,
             delta.postings, delta.offsets, delta.lengths, delta.block_max,
-            a_flags, packed=packed, d_packed=d_packed,
+            a_flags, packed=packed, d_packed=d_packed, **kw,
         )
     mask = mask > 0
     if attr_strategy == "gather":
@@ -432,6 +456,7 @@ def query_topk(
     attr_strategy: str = "embed",
     backend: str = "kernel",
     codec: str = "raw",
+    live_q=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Batched local top-k on the index's device.  Returns ``(docids[Q, k],
     n_hits[Q])``: local docids ascending (= rank order), INVALID_DOC-padded
@@ -446,7 +471,19 @@ def query_topk(
     reference's jnp backend.  ``codec="packed"`` reads the postings from
     the index's (and the delta's) block-codec twin: decoded whole first on
     ``"torch"``, block by block in K1p, K3p and K4p on ``"kernel"``.
+
+    ``backend="kernel_compact"`` runs the same data path through work-list
+    compaction (K6, or K8 and K7; their packed modes with ``codec=
+    "packed"``): kernel work follows live work instead of the batch's
+    shape.  ``live_q`` (bool[Q] on the host, this backend only) marks the
+    inert padding queries: their rows come back ``(INVALID_DOC, 0)``
+    without a thread block, and an all-inert batch launches nothing.  Equal
+    to ``"kernel"`` on live rows.
     """
+    if backend != "kernel_compact" and live_q is not None:
+        raise ValueError(
+            "live_q needs backend='kernel_compact' (the dense kernels "
+            "already mask inert queries)")
     if codec not in CODECS:
         raise ValueError(f"unknown codec {codec!r}")
     if codec == "packed":
@@ -475,10 +512,11 @@ def query_topk(
         if delta is not None:
             delta = delta._replace(
                 postings=unpack_flat_postings_torch(delta.packed))
-    if backend == "kernel":
+    if backend != "torch":
         return _query_topk_kernel(
             make_posting_source(index, delta), batch, k=k, window=window,
-            attr_strategy=attr_strategy, use_packed=codec == "packed")
+            attr_strategy=attr_strategy, use_packed=codec == "packed",
+            compact=backend == "kernel_compact", live_q=live_q)
     return _query_topk_torch(make_posting_source(index, delta), batch, k=k,
                              window=window, attr_strategy=attr_strategy)
 

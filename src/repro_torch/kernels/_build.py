@@ -65,6 +65,24 @@ KERNELS = {
     "streamed_join_packed": Kernel(
         "streamed_join", "streamed_join_packed_launch",
         (_P,) * 21 + (_I,) * 5 + (_P,)),
+    "driver_compact": Kernel(
+        "driver_compact", "driver_compact_launch",
+        (_P,) * 10 + (_I,) * 3 + (_P,)),
+    "driver_compact_packed": Kernel(
+        "driver_compact", "driver_compact_packed_launch",
+        (_P,) * 13 + (_I,) * 4 + (_P,)),
+    "streamed_compact": Kernel(
+        "streamed_compact", "streamed_compact_launch",
+        (_P,) * 12 + (_I,) * 3 + (_P,)),
+    "streamed_compact_packed": Kernel(
+        "streamed_compact", "streamed_compact_packed_launch",
+        (_P,) * 18 + (_I,) * 5 + (_P,)),
+    "merge_compact": Kernel(
+        "merge_compact", "merge_compact_launch",
+        (_P,) * 14 + (_I,) * 4 + (_P,)),
+    "merge_compact_packed": Kernel(
+        "merge_compact", "merge_compact_packed_launch",
+        (_P,) * 21 + (_I,) * 8 + (_P,)),
 }
 #: Every kernel source.
 SOURCES = tuple(dict.fromkeys(k.source for k in KERNELS.values()))

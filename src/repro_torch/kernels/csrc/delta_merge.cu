@@ -33,7 +33,7 @@
 // access.  So K3p is one block of 512 threads per query that first
 // decodes the blocks holding the live main window and the live delta slab
 // (decode.cuh, one warp per block) into one row, then runs K3's co-rank
-// merge (merge_slot, shared by both kernels) out of that row, each thread
+// merge (merge_slot in merge.cuh, shared with K8) out of that row, each thread
 // over every 512th output slot.  Attrs stay raw.  The row holds
 // (ceil(window/128) + 1) * 128 + cap + 128 ints (18.4 KB at window 4096
 // and cap 256) and lives in dynamic shared memory when it fits the card's
@@ -44,57 +44,10 @@
 // 12 descriptor bytes a block, the attrs of the slots that reach the
 // output, and the three outputs; one block per query leaves most SMs idle
 // at 32 queries.
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include "decode.cuh"
+#include "merge.cuh"
 
 #define THREADS 256
 #define P_THREADS 512
-#define INVALID_ATTR (-1)
-
-// Output slot k of the merge of the live streams a[0, na) (main) and
-// b[0, nb) (delta), equal docIDs main first, into row o of the outputs.
-// aa and ba are the streams' attrs.
-__device__ __forceinline__ void merge_slot(
-    const int* a, const int* __restrict__ aa, const int* b,
-    const int* __restrict__ ba, int na, int nb, int k, int64_t o,
-    int* __restrict__ out_docs, int* __restrict__ out_attrs,
-    int* __restrict__ out_src)
-{
-    if (k >= na + nb) {
-        out_docs[o] = INVALID_DOC;
-        out_attrs[o] = INVALID_ATTR;
-        out_src[o] = 0;
-        return;
-    }
-    // co-rank: the number i of main postings among the first k outputs
-    int lo = k - nb > 0 ? k - nb : 0;
-    int hi = k < na ? k : na;
-    while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (a[mid] <= b[k - mid - 1]) lo = mid + 1; else hi = mid;
-    }
-    const int i = lo, j = k - lo;
-    const bool from_main = j >= nb || (i < na && a[i] <= b[j]);
-    out_docs[o] = from_main ? a[i] : b[j];
-    out_attrs[o] = from_main ? aa[i] : ba[j];
-    out_src[o] = from_main ? 0 : 1;
-}
-
-// The live lengths of query q's two streams and its clamped driver term.
-__device__ __forceinline__ void stream_lengths(
-    const int* __restrict__ m_neff, const int* __restrict__ d_lengths,
-    const int* __restrict__ terms, int q, int window, int n_terms, int cap,
-    int& tt, int& na, int& nb)
-{
-    const int t = terms[q];
-    tt = t < 0 ? 0 : (t >= n_terms ? n_terms - 1 : t);
-    na = m_neff[q];
-    na = na < 0 ? 0 : (na > window ? window : na);
-    nb = t < 0 ? 0 : d_lengths[tt];
-    nb = nb < 0 ? 0 : (nb > cap ? cap : nb);
-}
 
 __global__ void __launch_bounds__(THREADS) delta_merge_kernel(
     const int* __restrict__ postings,    // [P]
@@ -142,19 +95,11 @@ __global__ void __launch_bounds__(P_THREADS) delta_merge_packed_kernel(
     extern __shared__ int dyn[];
     const int q = blockIdx.x;
     int* buf = scratch != nullptr ? scratch + (int64_t)q * row : dyn;
-    int tt, na, nb;
-    stream_lengths(m_neff, d_lengths, terms, q, window, n_terms, cap, tt, na, nb);
-    const int64_t m0 = m_off[q], d0 = d_offsets[tt];
     const Packed main_pk{words, blk_base, blk_meta, blk_woff, n_blocks};
     const Packed delta_pk{d_words, d_base, d_meta, d_woff, d_n_blocks};
-    const int lead_a = decode_range(main_pk, m0, na, buf);
-    const int lead_b = decode_range(delta_pk, d0, nb, buf + m_room);
-    __syncthreads();   // also orders the global scratch row's writes
-    const int* a = buf + lead_a;
-    const int* b = buf + m_room + lead_b;
-    for (int k = threadIdx.x; k < window; k += P_THREADS)
-        merge_slot(a, attrs + m0, b, d_attrs + d0, na, nb, k,
-                   (int64_t)q * window + k, out_docs, out_attrs, out_src);
+    packed_merge_row(q, window, buf, main_pk, delta_pk, attrs, m_off, m_neff,
+                     d_attrs, d_offsets, d_lengths, terms, out_docs, out_attrs,
+                     out_src, window, n_terms, cap, m_room);
 }
 
 extern "C" int delta_merge_launch(

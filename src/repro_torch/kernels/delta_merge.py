@@ -33,6 +33,13 @@ main then delta), :func:`merge_delta_windows_cuda` wraps K3 in
 full-array decodes, then the plain merge) and
 :func:`merge_delta_windows_packed_cuda` are K3p's.
 :func:`merge_delta_windows` picks by mode and device.
+
+K8 and K8p are the work-list twins (the reference's
+``_merge_compact_call``, ``pallas_call`` at line 650): one table row per
+main-window tile a live query reads (:mod:`repro_torch.kernels.worklist`),
+K3's merge for the live queries only (``csrc/merge_compact.cu``), and
+``(INVALID_DOC, INVALID_ATTR, 1)`` on the rows of inert queries, as the
+reference gives them; :func:`merge_delta_windows_compact` plans and picks.
 """
 from __future__ import annotations
 
@@ -42,8 +49,17 @@ from repro_torch.core.index import (
     BLOCK,
     INVALID_ATTR,
     INVALID_DOC,
+    TILE,
     PackedFlatArrays,
     unpack_flat_postings_torch,
+)
+from repro_torch.kernels.worklist import (
+    build_merge_worklist,
+    live_rows,
+    output_rows,
+    plan_to_host,
+    table_items,
+    table_to_device,
 )
 
 _INVALID = int(INVALID_DOC)
@@ -77,10 +93,16 @@ def merge_delta_windows_torch(postings, attrs, m_off, m_neff, d_postings,
     m_docs, m_attrs = _stream(postings, attrs, m_off.long(), m_neff.long(), window)
     start, d_len = _slab(terms, d_offsets, d_lengths, cap)
     d_docs, d_attrs_ = _stream(d_postings, d_attrs, start, d_len, cap)
-    keys = torch.cat([m_docs, d_docs], dim=-1)
-    docs, order = keys.sort(dim=-1, stable=True)
+    return _merge_rows(m_docs, m_attrs, d_docs, d_attrs_)
+
+
+def _merge_rows(m_docs, m_attrs, d_docs, d_attrs):
+    """The first ``W`` slots of the stable merge of the main rows (``W``
+    wide) followed by the delta rows: ``(docs, attrs, src)``."""
+    window = m_docs.shape[1]
+    docs, order = torch.cat([m_docs, d_docs], dim=-1).sort(dim=-1, stable=True)
     order = order[:, :window]
-    out_attrs = torch.cat([m_attrs, d_attrs_], dim=-1).gather(-1, order)
+    out_attrs = torch.cat([m_attrs, d_attrs], dim=-1).gather(-1, order)
     src = (order >= window).to(torch.int32)
     return (docs[:, :window].contiguous(), out_attrs.contiguous(),
             src.contiguous())
@@ -219,3 +241,177 @@ def merge_delta_windows(
               m_neff.to(torch.int32).contiguous(), d_src, d_attrs,
               d_offsets, d_lengths, terms.to(torch.int32).contiguous(),
               window=window, cap=cap)
+
+
+# ---------------------------------------------------------------------------
+# K8: the merge over a work list (work-list compaction)
+# ---------------------------------------------------------------------------
+
+_INERT = (_INVALID, int(INVALID_ATTR), 1)   # an inert query's (docs, attrs, src)
+
+
+def merge_compact_torch(desc, heads, postings, attrs, m_off, m_neff, d_postings,
+                        d_attrs, d_offsets, d_lengths, terms, *, window: int,
+                        cap: int):
+    """Plain version of K8, executing the descriptor table: each live
+    query's main window assembled from the tiles its rows name (masked to
+    its live range), then the plain merge with its delta slab.  Inert rows
+    are ``(INVALID_DOC, INVALID_ATTR, 1)``.  Returns ``(docs, attrs,
+    src)``, each int32[Q, window]."""
+    items, group, gq, _ = table_items(desc, heads)
+    dev = postings.device
+    n_groups, s_w = gq.shape[0], -(-window // TILE)
+    q = items[:, 0]
+    pos = items[:, 1:2] * TILE + torch.arange(TILE, device=dev)
+    live = pos < m_neff[q].long().clamp(0, window)[:, None]
+    idx = torch.where(live, m_off[q].long()[:, None] + pos, 0)
+    m_docs = torch.full((n_groups, s_w * TILE), _INVALID, dtype=torch.int32,
+                        device=dev)
+    m_attrs = torch.full_like(m_docs, int(INVALID_ATTR))
+    m_docs[group[:, None], pos] = torch.where(live, postings[idx], _INVALID)
+    m_attrs[group[:, None], pos] = torch.where(live, attrs[idx], int(INVALID_ATTR))
+    start, d_len = _slab(terms[gq], d_offsets, d_lengths, cap)
+    d_docs, d_attrs_ = _stream(d_postings, d_attrs, start, d_len, cap)
+    merged = _merge_rows(m_docs[:, :window], m_attrs[:, :window], d_docs, d_attrs_)
+    out = output_rows(terms.shape[0], window, False, _INERT, dev)
+    for o, m in zip(out, merged):
+        o[gq] = m
+    return tuple(out)
+
+
+def merge_compact_cuda(desc, heads, postings, attrs, m_off, m_neff, d_postings,
+                       d_attrs, d_offsets, d_lengths, terms, *, window: int,
+                       cap: int):
+    """Launch ``csrc/merge_compact.cu`` (K8: one thread per output slot of
+    each live query) on the current stream.  Same signature and result as
+    :func:`merge_compact_torch`."""
+    from repro_torch.kernels import _build
+
+    q_n = terms.shape[0]
+    n_groups = heads.shape[0] - 1
+    _build.check_args(
+        q_n, desc=(desc, (desc.shape[0], 8)), heads=(heads, None),
+        postings=(postings, None), attrs=(attrs, postings.shape),
+        m_off=(m_off, (q_n,)), m_neff=(m_neff, (q_n,)),
+        d_postings=(d_postings, None), d_attrs=(d_attrs, d_postings.shape),
+        d_offsets=(d_offsets, None), d_lengths=(d_lengths, d_offsets.shape),
+        terms=(terms, (q_n,)))
+    launch = _build.kernel("merge_compact")
+    out = output_rows(q_n, window, n_groups == q_n, _INERT, postings.device)
+    ptr = [x.data_ptr() for x in (desc, heads, postings, attrs, m_off, m_neff,
+                                  d_postings, d_attrs, d_offsets, d_lengths,
+                                  terms, *out)]
+    stream = torch.cuda.current_stream(postings.device).cuda_stream
+    err = launch(*ptr, n_groups, window, d_offsets.shape[0], cap, stream)
+    merge_compact_cuda.launches += 1
+    _build.check(err, "merge_compact_launch")
+    return tuple(out)
+
+
+merge_compact_cuda.launches = 0
+
+
+def merge_compact_packed_torch(desc, heads, packed, attrs, m_off, m_neff,
+                               d_packed, d_attrs, d_offsets, d_lengths, terms,
+                               *, window: int, cap: int):
+    """Plain version of K8p: the full-array decodes of both twins, then the
+    raw plain version (:func:`merge_compact_torch`)."""
+    return merge_compact_torch(
+        desc, heads, unpack_flat_postings_torch(packed), attrs, m_off, m_neff,
+        unpack_flat_postings_torch(d_packed), d_attrs, d_offsets, d_lengths,
+        terms, window=window, cap=cap)
+
+
+def merge_compact_packed_cuda(desc, heads, packed, attrs, m_off, m_neff,
+                              d_packed, d_attrs, d_offsets, d_lengths, terms,
+                              *, window: int, cap: int):
+    """Launch ``merge_compact_packed_kernel`` of ``csrc/merge_compact.cu``
+    (K8p: K3p's decode row, one block per live query) on the current
+    stream: the row in dynamic shared memory when it fits, else in a global
+    scratch row per live query.  Same signature and result as
+    :func:`merge_compact_packed_torch`."""
+    from repro_torch.kernels import _build
+
+    q_n = terms.shape[0]
+    n_groups = heads.shape[0] - 1
+    _build.check_args(
+        q_n, desc=(desc, (desc.shape[0], 8)), heads=(heads, None),
+        **_build.packed_args(packed), attrs=(attrs, (packed.n_blocks * BLOCK,)),
+        m_off=(m_off, (q_n,)), m_neff=(m_neff, (q_n,)),
+        **_build.packed_args(d_packed, "d_"),
+        d_attrs=(d_attrs, (d_packed.n_blocks * BLOCK,)),
+        d_offsets=(d_offsets, None), d_lengths=(d_lengths, d_offsets.shape),
+        terms=(terms, (q_n,)))
+    launch = _build.kernel("merge_compact_packed")
+    dev = attrs.device
+    out = output_rows(q_n, window, n_groups == q_n, _INERT, dev)
+    m_room, row = k3p_row(window, cap)
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    scratch = (None if row * 4 <= optin
+               else torch.empty((n_groups, row), dtype=torch.int32, device=dev))
+    ptr = [x.data_ptr() for x in (desc, heads, *packed.arrays(), attrs, m_off,
+                                  m_neff, *d_packed.arrays(), d_attrs, d_offsets,
+                                  d_lengths, terms, *out)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = launch(*ptr, None if scratch is None else scratch.data_ptr(), n_groups,
+                 window, d_offsets.shape[0], cap, packed.n_blocks,
+                 d_packed.n_blocks, m_room, row, stream)
+    merge_compact_packed_cuda.launches += 1
+    _build.check(err, "merge_compact_packed_launch")
+    return tuple(out)
+
+
+merge_compact_packed_cuda.launches = 0
+
+
+def merge_delta_windows_compact(
+    postings, attrs, m_off, m_neff, d_postings, d_attrs, d_offsets, d_lengths,
+    d_block_max, terms, *,
+    window: int,
+    packed: PackedFlatArrays | None = None,
+    d_packed: PackedFlatArrays | None = None,
+    live_q=None,                # bool[Q] on the host; None = every query live
+):
+    """Work-list compacted :func:`merge_delta_windows`: the same ``(docs,
+    attrs, src)`` on live rows, ``(INVALID_DOC, INVALID_ATTR, 1)`` on the
+    rows of inert queries.  ``m_neff`` is pulled to the host, compiled into
+    one row per live main-window tile
+    (:func:`~repro_torch.kernels.worklist.build_merge_worklist`), uploaded
+    in one copy, and K8 (K8p with ``packed`` and ``d_packed``, both or
+    neither) runs over it.  An all-inert batch launches nothing."""
+    if (packed is None) != (d_packed is None):
+        raise ValueError("merge_delta_windows_compact: packed and d_packed go together")
+    q_n = terms.shape[0]
+    dev = attrs.device
+    wl = plan_merge_compact(m_neff, window=window, live_q=live_q,
+                            packed=packed is not None)
+    if wl.n_items == 0:
+        return tuple(output_rows(q_n, window, False, _INERT, dev))
+    desc, heads = table_to_device(wl, dev)
+    cap = d_block_max.shape[0] * BLOCK // d_offsets.shape[0]
+    if packed is None:
+        fn = merge_compact_cuda if postings.is_cuda else merge_compact_torch
+        m_src, d_src = postings, d_postings
+    else:
+        fn = (merge_compact_packed_cuda if packed.words.is_cuda
+              else merge_compact_packed_torch)
+        m_src, d_src = packed, d_packed
+    return fn(desc, heads, m_src, attrs, m_off.to(torch.int32).contiguous(),
+              m_neff.to(torch.int32).contiguous(), d_src, d_attrs, d_offsets,
+              d_lengths, terms.to(torch.int32).contiguous(), window=window,
+              cap=cap)
+
+
+def plan_merge_compact(m_neff, *, window: int, live_q=None, packed: bool = False):
+    """K8's work list: ``m_neff`` pulled to the host and compiled into one
+    row per live main-window tile by
+    :func:`~repro_torch.kernels.worklist.build_merge_worklist` (metrics
+    named for K8p when ``packed``)."""
+    q_n = m_neff.shape[0]
+    s_w = -(-window // TILE)
+    (m_neff_h,) = plan_to_host(m_neff)
+    return build_merge_worklist(
+        m_neff_h, tile=TILE, s_w=s_w, live_q=live_rows(live_q, q_n),
+        kernel="merge_delta_windows_compact" + ("_packed" if packed else ""),
+        dense_steps=q_n * s_w,
+    )

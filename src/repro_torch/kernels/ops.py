@@ -6,10 +6,15 @@ PyTorch version.  Nothing falls back from one to the other.
 """
 from __future__ import annotations
 
-from repro_torch.kernels.delta_merge import merge_delta_windows
+from repro_torch.kernels.delta_merge import (
+    merge_delta_windows,
+    merge_delta_windows_compact,
+)
 from repro_torch.kernels.posting_intersect import (
     intersect_batched_driver_streamed,
+    intersect_batched_driver_streamed_compact,
     intersect_batched_streamed,
+    intersect_batched_streamed_compact,
 )
 from repro_torch.kernels.topk_merge import merge_topk_rows
 
@@ -59,6 +64,50 @@ def merge_windows(postings, attrs, m_off, m_neff, d_postings, d_attrs,
         postings, attrs, m_off, m_neff, d_postings, d_attrs,
         d_offsets, d_lengths, d_block_max, terms, window=window,
         packed=packed, d_packed=d_packed,
+    )
+
+
+def intersect_streamed_compact(a_docs, a_attrs, a_live, terms, active,
+                               attr_filter, postings, offsets, lengths,
+                               block_max, d_postings=None, d_offsets=None,
+                               d_lengths=None, d_block_max=None, a_flags=None,
+                               *, packed=None, d_packed=None, live_q=None):
+    """Work-list compacted :func:`intersect_streamed` (K7, or K7p with the
+    twins): one thread block per live (query, driver tile) over its probe
+    tiles only.  ``live_q`` is the host-side bool[Q] liveness vector (None:
+    every query live); inert rows come back 0, and an all-inert batch
+    launches nothing.  Equal to the dense join on live rows."""
+    return intersect_batched_streamed_compact(
+        a_docs, a_attrs, a_live, terms, active, attr_filter,
+        postings, offsets, lengths, block_max,
+        d_postings, d_offsets, d_lengths, d_block_max, a_flags,
+        packed=packed, d_packed=d_packed, live_q=live_q,
+    )
+
+
+def intersect_fullstream_compact(d_off, d_neff, terms, active, attr_filter,
+                                 postings, attrs, offsets, lengths, block_max,
+                                 *, window, packed=None, live_q=None):
+    """Work-list compacted :func:`intersect_fullstream` (K6, or K6p with
+    ``packed``).  Inert queries come back as (INVALID_DOC, 0)."""
+    return intersect_batched_driver_streamed_compact(
+        d_off, d_neff, terms, active, attr_filter,
+        postings, attrs, offsets, lengths, block_max,
+        window=window, packed=packed, live_q=live_q,
+    )
+
+
+def merge_windows_compact(postings, attrs, m_off, m_neff, d_postings, d_attrs,
+                          d_offsets, d_lengths, d_block_max, terms, *, window,
+                          packed=None, d_packed=None, live_q=None):
+    """Work-list compacted :func:`merge_windows` (K8, or K8p with both
+    twins): the merge runs for live queries only, reading the main-window
+    tiles their work-list rows name.  Inert queries come back as the empty
+    merged window (INVALID_DOC, INVALID_ATTR, src=1)."""
+    return merge_delta_windows_compact(
+        postings, attrs, m_off, m_neff, d_postings, d_attrs,
+        d_offsets, d_lengths, d_block_max, terms,
+        window=window, packed=packed, d_packed=d_packed, live_q=live_q,
     )
 
 

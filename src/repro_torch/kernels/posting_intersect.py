@@ -36,6 +36,16 @@ block by block on the card (``csrc/decode.cuh``).  The plans are the raw
 modes', from the raw skip tables.  A packed kernel's entry point takes no
 raw posting array.
 
+K6 and K7 are their work-list twins (the reference's
+``_driver_compact_call``, ``pallas_call`` at line 1762, and
+``_streamed_compact_call``, at line 1500), K6p and K7p their packed
+modes: the plan is pulled to the host in one copy, compiled into a
+descriptor table of live work items (:mod:`repro_torch.kernels.worklist`)
+and uploaded in one copy, and one thread block walks each (query, driver
+tile) group of the table.  Inert queries (``live_q`` false) have no group
+and come back as ``(INVALID_DOC, 0)`` (K6) or 0 (K7); an all-inert batch
+launches nothing.  Their plain versions execute the same table.
+
 For each kernel the module holds the plan helpers, the plain PyTorch join
 (:func:`driver_streamed_join_torch`, :func:`streamed_join_torch`, and for
 the packed modes the full-array decode followed by those: what the CPU
@@ -59,6 +69,15 @@ from repro_torch.core.index import (
     TILE,
     PackedFlatArrays,
     unpack_flat_postings_torch,
+)
+from repro_torch.kernels.worklist import (
+    FLAG_TERM_START,
+    build_intersect_worklist,
+    live_rows,
+    output_rows,
+    plan_to_host,
+    table_items,
+    table_to_device,
 )
 
 _NEG = -(2**31)  # below every docID; span sentinel
@@ -339,17 +358,26 @@ def driver_streamed_join_packed(d_off, d_neff, active, attr_filter, packed,
               b_tile, n_b, bounds, window=window)
 
 
-def plan_driver_streamed(d_off, d_neff, terms, active, offsets, lengths,
-                         block_max, *, window: int):
-    """The probe plan the join consumes: ``(b_tile, n_b, bounds)``, with
-    ``n_b`` zeroed for inactive slots."""
+def _driver_plan(d_off, d_neff, terms, active, offsets, lengths, block_max,
+                 *, window: int):
+    """``(a_any, b_tile, n_b, bounds)``: the driver tiles that hold live
+    postings (``a_any`` [Q, A], which the work list of K6 needs) and K1's
+    probe plan, ``n_b`` zeroed for inactive slots."""
     num_a = -(-window // TILE)
     a_spans = driver_tile_spans(block_max, d_off, d_neff, s_tiles=num_a)
     b_tile, n_b, bounds = _probe_plan(
         a_spans, terms, offsets, lengths, block_max,
         window=window, s_tiles=num_a + 1,
     )
-    return b_tile, n_b * active[:, :, None], bounds
+    return a_spans[2], b_tile, n_b * active[:, :, None], bounds
+
+
+def plan_driver_streamed(d_off, d_neff, terms, active, offsets, lengths,
+                         block_max, *, window: int):
+    """The probe plan the join consumes: ``(b_tile, n_b, bounds)``, with
+    ``n_b`` zeroed for inactive slots."""
+    return _driver_plan(d_off, d_neff, terms, active, offsets, lengths,
+                        block_max, window=window)[1:]
 
 
 def intersect_batched_driver_streamed(
@@ -528,13 +556,11 @@ def streamed_join_packed(*args, cap: int):
     return fn(*args, cap=cap)
 
 
-def plan_streamed(a_docs, terms, active, offsets, lengths, block_max,
-                  d_offsets, d_lengths, d_block_max):
-    """K4's probe plans from the exact spans of the materialized driver
-    ``a_docs`` [Q, W]: ``(main, delta, cap)``, where ``main`` is ``(b_tile,
-    n_b, bounds)`` over the main lists at the window ``W``, ``delta`` the
-    same over the delta slabs at their capacity ``cap``, and ``n_b`` is
-    zeroed for inactive slots."""
+def _streamed_plans(a_docs, terms, active, offsets, lengths, block_max,
+                    d_offsets, d_lengths, d_block_max):
+    """``(a_any, main, delta, cap)``: the driver tiles of ``a_docs`` that
+    hold a valid slot (``a_any`` [Q, A], which the work list of K7 needs)
+    and K4's plans, as :func:`plan_streamed` returns them."""
     a_spans = _a_tile_spans(_pad_to_tile(a_docs, _INVALID))
 
     def plan(offs, lens, bmax, width):
@@ -549,7 +575,18 @@ def plan_streamed(a_docs, terms, active, offsets, lengths, block_max,
 
     main = plan(offsets, lengths, block_max, a_docs.shape[1])
     cap = d_block_max.shape[0] * BLOCK // d_offsets.shape[0]
-    return main, plan(d_offsets, d_lengths, d_block_max, cap), cap
+    return a_spans[2], main, plan(d_offsets, d_lengths, d_block_max, cap), cap
+
+
+def plan_streamed(a_docs, terms, active, offsets, lengths, block_max,
+                  d_offsets, d_lengths, d_block_max):
+    """K4's probe plans from the exact spans of the materialized driver
+    ``a_docs`` [Q, W]: ``(main, delta, cap)``, where ``main`` is ``(b_tile,
+    n_b, bounds)`` over the main lists at the window ``W``, ``delta`` the
+    same over the delta slabs at their capacity ``cap``, and ``n_b`` is
+    zeroed for inactive slots."""
+    return _streamed_plans(a_docs, terms, active, offsets, lengths, block_max,
+                           d_offsets, d_lengths, d_block_max)[1:]
 
 
 def intersect_batched_streamed(
@@ -594,3 +631,420 @@ def intersect_batched_streamed(
         active, attr_filter.to(torch.int32).contiguous(), m_src, *main,
         d_src, *delta, cap=cap,
     )
+
+
+# ---------------------------------------------------------------------------
+# K6 / K7: the joins over a work list (work-list compaction)
+# ---------------------------------------------------------------------------
+
+def _tile_member(a_it, flat, tile, lo, hi):
+    """Membership ``[N, TILE]`` of each row's driver slots ``a_it`` in its
+    probe tile of ``flat``: the positions ``[tile*TILE, (tile+1)*TILE)``
+    clipped to ``[lo, hi)``, gathered with ``_NEG`` below and INVALID above
+    (so the row stays sorted) and probed with ``searchsorted``.  A row with
+    ``tile < 0`` probes nothing."""
+    p = tile[:, None] * TILE + torch.arange(TILE, device=flat.device)
+    b = flat[p.clamp(0, flat.shape[0] - 1)]
+    b = torch.where(p < lo[:, None], _NEG,
+                    torch.where(p < hi[:, None], b, _INVALID)).contiguous()
+    hit = torch.searchsorted(b, a_it.contiguous()).clamp(max=TILE - 1)
+    return (b.gather(-1, hit) == a_it) & (tile >= 0)[:, None]
+
+
+def _fold_groups(member, items, group, n_groups: int):
+    """``[G, TILE]``: per group, the AND over its term runs (``TERM_START``
+    .. ``TERM_END``) of the OR of the run's rows' ``member``; a group with
+    no run keeps every slot.  Rows before any run probe nothing."""
+    starts = (items[:, 4] & FLAG_TERM_START) != 0
+    run = torch.cumsum(starts, 0) - 1
+    rows = run >= 0
+    dev = member.device
+    found = torch.zeros((int(starts.sum()), TILE), dtype=torch.int32, device=dev)
+    found.index_add_(0, run[rows], member[rows].to(torch.int32))
+    run_group = group[starts]
+    folded = torch.zeros((n_groups, TILE), dtype=torch.int32, device=dev)
+    folded.index_add_(0, run_group, (found > 0).to(torch.int32))
+    return folded == torch.bincount(run_group, minlength=n_groups)[:, None]
+
+
+def _group_driver_tiles(docs, attrs, gq, gi):
+    """The ``[G, TILE]`` driver tiles of the groups from the TILE-padded
+    rows ``docs`` and ``attrs`` [Q, A*TILE]."""
+    q_n = docs.shape[0]
+    return (docs.view(q_n, -1, TILE)[gq, gi], attrs.view(q_n, -1, TILE)[gq, gi])
+
+
+def driver_compact_join_torch(desc, heads, d_off, d_neff, attr_filter, postings,
+                              attrs, bounds, *, window: int):
+    """Plain PyTorch version of K6, executing the descriptor table: per
+    group, K1's driver tile read by position; per row, its probe tile
+    (:func:`_tile_member`); the OR over each term run and the AND over the
+    runs (:func:`_fold_groups`); the validity and filter predicate.  Inert
+    rows are ``(INVALID_DOC, 0)``.  Returns ``(docs, mask)``, int32[Q,
+    window]."""
+    items, group, gq, gi = table_items(desc, heads)
+    q_n, num_a = d_off.shape[0], -(-window // TILE)
+    pos = gi[:, None] * TILE + torch.arange(TILE, device=postings.device)
+    in_win = pos < d_neff[gq][:, None]
+    idx = (d_off[gq][:, None].long() + pos).clamp(max=postings.shape[0] - 1)
+    a = torch.where(in_win, postings[idx], _INVALID)
+    aa = torch.where(in_win, attrs[idx], int(INVALID_ATTR))
+    filt = attr_filter[gq][:, None]
+    keep = (a != _INVALID) & ((filt < 0) | (aa == filt))
+    q, t = items[:, 0], items[:, 2]
+    member = _tile_member(a[group], postings, items[:, 3],
+                          bounds[q, t, 0].long(), bounds[q, t, 1].long())
+    keep &= _fold_groups(member, items, group, gq.shape[0])
+    docs, mask = output_rows(q_n, num_a * TILE, False, (_INVALID, 0),
+                                  postings.device)
+    docs.view(q_n, num_a, TILE)[gq, gi] = a
+    mask.view(q_n, num_a, TILE)[gq, gi] = keep.to(torch.int32)
+    return docs[:, :window].contiguous(), mask[:, :window].contiguous()
+
+
+def driver_compact_join_cuda(desc, heads, d_off, d_neff, attr_filter, postings,
+                             attrs, bounds, *, window: int):
+    """Launch ``csrc/driver_compact.cu`` (K6: one block per (query, driver
+    tile) group of the table) on the current stream.  Same signature and
+    result as :func:`driver_compact_join_torch`."""
+    from repro_torch.kernels import _build
+
+    q_n, t_n = bounds.shape[:2]
+    n_groups = heads.shape[0] - 1
+    _build.check_args(
+        q_n, desc=(desc, (desc.shape[0], 8)), heads=(heads, None),
+        d_off=(d_off, (q_n,)), d_neff=(d_neff, (q_n,)),
+        attr_filter=(attr_filter, (q_n,)), postings=(postings, None),
+        attrs=(attrs, postings.shape), bounds=(bounds, (q_n, t_n, 2)))
+    launch = _build.kernel("driver_compact")
+    docs, mask = output_rows(q_n, window, n_groups == q_n * -(-window // TILE),
+                                  (_INVALID, 0), postings.device)
+    ptr = [x.data_ptr() for x in (desc, heads, d_off, d_neff, attr_filter,
+                                  postings, attrs, bounds, docs, mask)]
+    stream = torch.cuda.current_stream(postings.device).cuda_stream
+    err = launch(*ptr, n_groups, t_n, window, stream)
+    driver_compact_join_cuda.launches += 1
+    _build.check(err, "driver_compact_launch")
+    return docs, mask
+
+
+driver_compact_join_cuda.launches = 0
+
+
+def driver_compact_join(desc, heads, d_off, d_neff, attr_filter, postings,
+                        attrs, bounds, *, window: int):
+    """K6 on CUDA tensors, its plain version on CPU tensors."""
+    fn = driver_compact_join_cuda if postings.is_cuda else driver_compact_join_torch
+    return fn(desc, heads, d_off, d_neff, attr_filter, postings, attrs, bounds,
+              window=window)
+
+
+def driver_compact_join_packed_torch(desc, heads, d_off, d_neff, attr_filter,
+                                     packed, attrs, bounds, *, window: int):
+    """Plain version of K6p: the full-array decode of ``packed``, then the
+    raw plain version (:func:`driver_compact_join_torch`)."""
+    return driver_compact_join_torch(
+        desc, heads, d_off, d_neff, attr_filter,
+        unpack_flat_postings_torch(packed), attrs, bounds, window=window)
+
+
+def driver_compact_join_packed_cuda(desc, heads, d_off, d_neff, attr_filter,
+                                    packed, attrs, bounds, *, window: int):
+    """Launch ``driver_compact_packed_kernel`` of ``csrc/driver_compact.cu``
+    (K6p: K6 with every posting decoded on the card) on the current
+    stream.  Same signature and result as
+    :func:`driver_compact_join_packed_torch`."""
+    from repro_torch.kernels import _build
+
+    q_n, t_n = bounds.shape[:2]
+    n_groups = heads.shape[0] - 1
+    _build.check_args(
+        q_n, desc=(desc, (desc.shape[0], 8)), heads=(heads, None),
+        d_off=(d_off, (q_n,)), d_neff=(d_neff, (q_n,)),
+        attr_filter=(attr_filter, (q_n,)), **_build.packed_args(packed),
+        attrs=(attrs, (packed.n_blocks * BLOCK,)), bounds=(bounds, (q_n, t_n, 2)))
+    launch = _build.kernel("driver_compact_packed")
+    docs, mask = output_rows(q_n, window, n_groups == q_n * -(-window // TILE),
+                                  (_INVALID, 0), attrs.device)
+    ptr = [x.data_ptr() for x in (desc, heads, d_off, d_neff, attr_filter,
+                                  *packed.arrays(), attrs, bounds, docs, mask)]
+    stream = torch.cuda.current_stream(attrs.device).cuda_stream
+    err = launch(*ptr, n_groups, t_n, window, packed.n_blocks, stream)
+    driver_compact_join_packed_cuda.launches += 1
+    _build.check(err, "driver_compact_packed_launch")
+    return docs, mask
+
+
+driver_compact_join_packed_cuda.launches = 0
+
+
+def driver_compact_join_packed(desc, heads, d_off, d_neff, attr_filter, packed,
+                               attrs, bounds, *, window: int):
+    """K6p on a CUDA twin, its plain version on a CPU twin."""
+    fn = (driver_compact_join_packed_cuda if packed.words.is_cuda
+          else driver_compact_join_packed_torch)
+    return fn(desc, heads, d_off, d_neff, attr_filter, packed, attrs, bounds,
+              window=window)
+
+
+def intersect_batched_driver_streamed_compact(
+    d_off: torch.Tensor,        # int32[Q]  driver window start (BLOCK-aligned)
+    d_neff: torch.Tensor,       # int32[Q]  live driver postings (<= window)
+    terms: torch.Tensor,        # int32[Q, T]  term ids per slot (NO_TERM pad)
+    active: torch.Tensor,       # int32[Q, T]  1 iff slot t joins query q
+    attr_filter: torch.Tensor,  # int32[Q]     NO_ATTR(-1) = unrestricted
+    postings: torch.Tensor,     # int32[P]  flat postings (TILE-pad + spare)
+    attrs: torch.Tensor,        # int32[P]  flat embedded attrs (same layout)
+    offsets: torch.Tensor, lengths: torch.Tensor, block_max: torch.Tensor,
+    *,
+    window: int,
+    packed: PackedFlatArrays | None = None,
+    live_q=None,                # bool[Q] on the host; None = every query live
+):
+    """Work-list compacted :func:`intersect_batched_driver_streamed`: the
+    same ``(docs, mask)`` on live rows, ``(INVALID_DOC, 0)`` on the rows of
+    inert queries (``live_q`` false).  K1's plan is pulled to the host in
+    one copy, compiled into a descriptor table
+    (:func:`~repro_torch.kernels.worklist.build_intersect_worklist`),
+    uploaded in one copy, and K6 (K6p with ``packed``) runs over it.  An
+    all-inert batch launches nothing."""
+    dev = attrs.device
+    q_n = terms.shape[0]
+    wl, bounds = plan_driver_compact(
+        d_off, d_neff, terms, active, offsets, lengths, block_max,
+        window=window, live_q=live_q, packed=packed is not None)
+    if wl.n_items == 0:
+        return (torch.full((q_n, window), _INVALID, dtype=torch.int32, device=dev),
+                torch.zeros((q_n, window), dtype=torch.int32, device=dev))
+    desc, heads = table_to_device(wl, dev)
+    join = driver_compact_join if packed is None else driver_compact_join_packed
+    return join(
+        desc, heads, d_off.contiguous(), d_neff.contiguous(),
+        attr_filter.to(torch.int32).contiguous(),
+        postings if packed is None else packed, attrs, bounds,
+        window=window,
+    )
+
+
+def plan_driver_compact(d_off, d_neff, terms, active, offsets, lengths,
+                        block_max, *, window: int, live_q=None,
+                        packed: bool = False):
+    """K6's work list and the term bounds it is read with: K1's plan
+    (:func:`_driver_plan`) pulled to the host in one copy and compiled by
+    :func:`~repro_torch.kernels.worklist.build_intersect_worklist` (whose
+    metrics name K6p's call when ``packed``).  Returns ``(wl, bounds)``."""
+    q_n, t_slots = terms.shape
+    num_a = -(-window // TILE)
+    active = active.to(torch.int32)
+    a_any, b_tile, n_b, bounds = _driver_plan(
+        d_off, d_neff, terms, active, offsets, lengths, block_max, window=window)
+    # The reference clamps n_b to ``s_max``, whose default is the plan's own
+    # tile bound (``_clamp_s_max``); the cap was not ported, so no clamp.
+    active_h, n_b_h, b_tile_h, a_any_h = plan_to_host(active, n_b, b_tile, a_any)
+    wl = build_intersect_worklist(
+        n_b_h, b_tile_h, active_h, a_any_h, live_q=live_rows(live_q, q_n),
+        kernel="intersect_batched_driver_streamed_compact"
+        + ("_packed" if packed else ""),
+        dense_steps=q_n * num_a * t_slots * (num_a + 1),
+    )
+    return wl, bounds.contiguous()
+
+
+def streamed_compact_join_torch(desc, heads, a_docs, a_attrs, a_live, a_flags,
+                                attr_filter, postings, bounds, d_postings,
+                                d_bounds):
+    """Plain PyTorch version of K7, executing the descriptor table: per
+    group, K4's driver tile and predicates; per row, its main tile (slots
+    whose doc is neither DEAD nor SUPERSEDED) and its delta tile (slots
+    whose doc is not DEAD), clipped to the term's bounds; the OR over each
+    term run and the AND over the runs.  Inert rows are 0.  Returns the
+    mask, int32[Q, W]."""
+    items, group, gq, gi = table_items(desc, heads)
+    q_n, window = a_docs.shape
+    num_a = -(-window // TILE)
+    a, aa = _group_driver_tiles(_pad_to_tile(a_docs, _INVALID),
+                                _pad_to_tile(a_attrs, int(INVALID_ATTR)), gq, gi)
+    al, fl = _group_driver_tiles(_pad_to_tile(a_live, 0),
+                                 _pad_to_tile(a_flags, 0), gq, gi)
+    filt = attr_filter[gq][:, None]
+    keep = (a != _INVALID) & (al != 0) & ((filt < 0) | (aa == filt))
+    q, t = items[:, 0], items[:, 2]
+    a_it, f_it = a[group], fl[group]
+    in_main = _tile_member(a_it, postings, items[:, 3], bounds[q, t, 0].long(),
+                           bounds[q, t, 1].long())
+    in_delta = _tile_member(a_it, d_postings, items[:, 5],
+                            d_bounds[q, t, 0].long(), d_bounds[q, t, 1].long())
+    member = ((in_main & ((f_it & int(DOC_DEAD | DOC_SUPERSEDED)) == 0))
+              | (in_delta & ((f_it & int(DOC_DEAD)) == 0)))
+    keep &= _fold_groups(member, items, group, gq.shape[0])
+    (mask,) = output_rows(q_n, num_a * TILE, False, (0,), a_docs.device)
+    mask.view(q_n, num_a, TILE)[gq, gi] = keep.to(torch.int32)
+    return mask[:, :window].contiguous()
+
+
+def streamed_compact_join_cuda(desc, heads, a_docs, a_attrs, a_live, a_flags,
+                               attr_filter, postings, bounds, d_postings,
+                               d_bounds):
+    """Launch ``csrc/streamed_compact.cu`` (K7: one block per (query, driver
+    tile) group of the table) on the current stream.  Same signature and
+    result as :func:`streamed_compact_join_torch`."""
+    from repro_torch.kernels import _build
+
+    q_n, window = a_docs.shape
+    t_n = bounds.shape[1]
+    n_groups = heads.shape[0] - 1
+    drv, span = (q_n, window), (q_n, t_n, 2)
+    _build.check_args(
+        q_n, desc=(desc, (desc.shape[0], 8)), heads=(heads, None),
+        a_docs=(a_docs, drv), a_attrs=(a_attrs, drv), a_live=(a_live, drv),
+        a_flags=(a_flags, drv), attr_filter=(attr_filter, (q_n,)),
+        postings=(postings, None), bounds=(bounds, span),
+        d_postings=(d_postings, None), d_bounds=(d_bounds, span))
+    launch = _build.kernel("streamed_compact")
+    (mask,) = output_rows(q_n, window, n_groups == q_n * -(-window // TILE),
+                               (0,), a_docs.device)
+    ptr = [x.data_ptr() for x in (desc, heads, a_docs, a_attrs, a_live, a_flags,
+                                  attr_filter, postings, bounds, d_postings,
+                                  d_bounds, mask)]
+    stream = torch.cuda.current_stream(a_docs.device).cuda_stream
+    err = launch(*ptr, n_groups, t_n, window, stream)
+    streamed_compact_join_cuda.launches += 1
+    _build.check(err, "streamed_compact_launch")
+    return mask
+
+
+streamed_compact_join_cuda.launches = 0
+
+
+def streamed_compact_join(*args):
+    """K7 on CUDA tensors, its plain version on CPU tensors (arguments as
+    :func:`streamed_compact_join_torch`)."""
+    fn = streamed_compact_join_cuda if args[2].is_cuda else streamed_compact_join_torch
+    return fn(*args)
+
+
+def streamed_compact_join_packed_torch(desc, heads, a_docs, a_attrs, a_live,
+                                       a_flags, attr_filter, packed, bounds,
+                                       d_packed, d_bounds):
+    """Plain version of K7p: the full-array decodes of ``packed`` and
+    ``d_packed``, then the raw plain version
+    (:func:`streamed_compact_join_torch`)."""
+    return streamed_compact_join_torch(
+        desc, heads, a_docs, a_attrs, a_live, a_flags, attr_filter,
+        unpack_flat_postings_torch(packed), bounds,
+        unpack_flat_postings_torch(d_packed), d_bounds)
+
+
+def streamed_compact_join_packed_cuda(desc, heads, a_docs, a_attrs, a_live,
+                                      a_flags, attr_filter, packed, bounds,
+                                      d_packed, d_bounds):
+    """Launch ``streamed_compact_packed_kernel`` of
+    ``csrc/streamed_compact.cu`` (K7p: K7 with the probe blocks decoded on
+    the card) on the current stream.  Same signature and result as
+    :func:`streamed_compact_join_packed_torch`."""
+    from repro_torch.kernels import _build
+
+    q_n, window = a_docs.shape
+    t_n = bounds.shape[1]
+    n_groups = heads.shape[0] - 1
+    drv, span = (q_n, window), (q_n, t_n, 2)
+    _build.check_args(
+        q_n, desc=(desc, (desc.shape[0], 8)), heads=(heads, None),
+        a_docs=(a_docs, drv), a_attrs=(a_attrs, drv), a_live=(a_live, drv),
+        a_flags=(a_flags, drv), attr_filter=(attr_filter, (q_n,)),
+        **_build.packed_args(packed), bounds=(bounds, span),
+        **_build.packed_args(d_packed, "d_"), d_bounds=(d_bounds, span))
+    launch = _build.kernel("streamed_compact_packed")
+    (mask,) = output_rows(q_n, window, n_groups == q_n * -(-window // TILE),
+                               (0,), a_docs.device)
+    ptr = [x.data_ptr() for x in (desc, heads, a_docs, a_attrs, a_live, a_flags,
+                                  attr_filter, *packed.arrays(), bounds,
+                                  *d_packed.arrays(), d_bounds, mask)]
+    stream = torch.cuda.current_stream(a_docs.device).cuda_stream
+    err = launch(*ptr, n_groups, t_n, window, packed.n_blocks, d_packed.n_blocks,
+                 stream)
+    streamed_compact_join_packed_cuda.launches += 1
+    _build.check(err, "streamed_compact_packed_launch")
+    return mask
+
+
+streamed_compact_join_packed_cuda.launches = 0
+
+
+def streamed_compact_join_packed(*args):
+    """K7p on CUDA tensors, its plain version on CPU tensors (arguments as
+    :func:`streamed_compact_join_packed_torch`)."""
+    fn = (streamed_compact_join_packed_cuda if args[2].is_cuda
+          else streamed_compact_join_packed_torch)
+    return fn(*args)
+
+
+def intersect_batched_streamed_compact(
+    a_docs: torch.Tensor,       # int32[Q, W]  driver windows
+    a_attrs: torch.Tensor,      # int32[Q, W]  driver attribute streams
+    a_live: torch.Tensor,       # int32[Q, W]  driver tombstone stream
+    terms: torch.Tensor,        # int32[Q, T]  term ids per slot (NO_TERM pad)
+    active: torch.Tensor,       # int32[Q, T]  1 iff slot t joins query q
+    attr_filter: torch.Tensor,  # int32[Q]     NO_ATTR(-1) = unrestricted
+    postings: torch.Tensor,     # int32[P]     main flat postings
+    offsets: torch.Tensor, lengths: torch.Tensor, block_max: torch.Tensor,
+    d_postings=None, d_offsets=None, d_lengths=None, d_block_max=None,
+    a_flags=None,               # int32[Q, W]  driver doc_flags
+    *,
+    packed: PackedFlatArrays | None = None,
+    d_packed: PackedFlatArrays | None = None,
+    live_q=None,                # bool[Q] on the host; None = every query live
+):
+    """Work-list compacted :func:`intersect_batched_streamed`: the same mask
+    on live rows, 0 on the rows of inert queries.  K4's two plans are pulled
+    to the host in one copy, compiled into one descriptor table (main and
+    delta tiles in lockstep), uploaded in one copy, and K7 (K7p with
+    ``packed`` and ``d_packed``) runs over it.  Merge-on-read only, as K4
+    is here.  An all-inert batch launches nothing."""
+    if any(x is None for x in (d_postings, d_offsets, d_lengths, d_block_max,
+                               a_flags)):
+        raise NotImplementedError(
+            "K7 runs under merge-on-read only: pass d_postings, d_offsets, "
+            "d_lengths, d_block_max and a_flags (the static join is K6, "
+            "intersect_batched_driver_streamed_compact)")
+    if packed is not None and d_packed is None:
+        raise ValueError("packed codec needs d_packed when delta arrays are given")
+    wl, bounds, d_bounds = plan_streamed_compact(
+        a_docs, terms, active, offsets, lengths, block_max, d_offsets,
+        d_lengths, d_block_max, live_q=live_q, packed=packed is not None)
+    if wl.n_items == 0:
+        return torch.zeros(a_docs.shape, dtype=torch.int32, device=a_docs.device)
+    desc, heads = table_to_device(wl, a_docs.device)
+    join, m_src, d_src = ((streamed_compact_join, postings, d_postings)
+                          if packed is None else
+                          (streamed_compact_join_packed, packed, d_packed))
+    return join(
+        desc, heads, a_docs.contiguous(), a_attrs.to(torch.int32).contiguous(),
+        a_live.to(torch.int32).contiguous(), a_flags.to(torch.int32).contiguous(),
+        attr_filter.to(torch.int32).contiguous(), m_src, bounds, d_src, d_bounds,
+    )
+
+
+def plan_streamed_compact(a_docs, terms, active, offsets, lengths, block_max,
+                          d_offsets, d_lengths, d_block_max, *, live_q=None,
+                          packed: bool = False):
+    """K7's work list and the bounds it is read with: K4's two plans
+    (:func:`_streamed_plans`) pulled to the host in one copy and compiled
+    into one table, main and delta tiles in lockstep (metrics named for
+    K7p when ``packed``).  Returns ``(wl, bounds, d_bounds)``."""
+    q_n, n_a = a_docs.shape
+    t_slots = terms.shape[1]
+    num_a = -(-n_a // TILE)
+    active = active.to(torch.int32).contiguous()
+    a_any, (b_tile, n_b, bounds), (d_tile, n_d, d_bounds), cap = _streamed_plans(
+        a_docs, terms, active, offsets, lengths, block_max, d_offsets,
+        d_lengths, d_block_max)
+    active_h, n_b_h, b_tile_h, a_any_h, n_d_h, d_tile_h = plan_to_host(
+        active, n_b, b_tile, a_any, n_d, d_tile)
+    wl = build_intersect_worklist(
+        n_b_h, b_tile_h, active_h, a_any_h, n_d=n_d_h, d_tile=d_tile_h,
+        live_q=live_rows(live_q, q_n),
+        kernel="intersect_batched_streamed_compact" + ("_packed" if packed else ""),
+        dense_steps=q_n * num_a * t_slots * max(num_a + 1, -(-cap // TILE) + 1),
+    )
+    return wl, bounds, d_bounds
