@@ -7,7 +7,8 @@ Phases (any failure exits non-zero; nothing is caught):
 
 1. device  — the card's name, power limit and count;
 2. build   — nvcc builds every kernel (K1–K4, the work-list kernels
-             K6–K8, and the packed modes K1p, K3p, K4p, K6p, K7p, K8p) from
+             K6–K8, the staged joins K9 and K10, the flat sort K11, and the
+             packed modes K1p, K3p, K4p, K6p, K7p, K8p) from
              ``src/repro_torch/kernels/csrc`` (one process per source, all
              at once) and prints ptxas' registers / shared memory / spills;
 3. data    — the deployment: a 4M-page corpus from a seed (100k terms,
@@ -89,7 +90,28 @@ Phases (any failure exits non-zero; nothing is caught):
              versions, the host work per table, the occupancy gauge, and the
              slave phase's per-batch time (dense against compact in turns)
              and its device ops and busy share, at all 32 live and at 20 of
-             32 live.
+             32 live;
+13. staged — the staged comparator (``backend="kernel_staged"``) and the
+             kernel-level ops: K9 bit-exact against its plain version on
+             every slave (main-path shapes with the filter on and off,
+             windows 1000 and 1536, empty drivers and inactive slots,
+             other-term windows narrower and wider than the driver's, and at
+             fill 1.0 with ``a_live``); K10 on the reference kernel tests'
+             shapes, ``bench_kernels.py``'s and the two hottest lists of
+             slave 0 whole; K11 (int32, float32) from 2 to 2**20 keys, the
+             pad quirk with ``inf`` and 3e9, and ``merge_topk``; the static
+             modes of K4, K4p, K7, K7p against their plain versions and K9
+             on the staged windows of the same drivers; the ``ops`` entry
+             points with their launch counts; the 512 queries through
+             ``sequential_reference(backend="kernel_staged")`` with K9 = 4
+             and no other launch per batch, equal to ``"kernel"`` and
+             ``"torch"`` on the static index, and at fill 1.0 equal to a
+             plain oracle of the staged semantics (the count of queries on
+             which those differ from the streamed path's is printed); one
+             packed batch equal to raw; times of K9, K10, K11 and the static
+             modes beside bounds, plain versions and library calls; the
+             staged path against ``"kernel"`` per batch, interleaved, with
+             device ops; an updatable staged service after a mutation.
 
 Every phase prints its seconds.
 
@@ -124,7 +146,9 @@ KERNEL_NAMES = {"K1": "driver_streamed_kernel", "K2": "topk_merge_rows_kernel",
                 "K4p": "streamed_join_packed_kernel",
                 "K6": "driver_compact_kernel", "K6p": "driver_compact_packed_kernel",
                 "K7": "streamed_compact_kernel", "K7p": "streamed_compact_packed_kernel",
-                "K8": "merge_compact_kernel", "K8p": "merge_compact_packed_kernel"}
+                "K8": "merge_compact_kernel", "K8p": "merge_compact_packed_kernel",
+                "K9": "batched_block_skip_kernel", "K10": "intersect_block_skip_kernel",
+                "K11": "bitonic_local"}
 
 
 def log(*a):
@@ -296,12 +320,14 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.core.engine import (
-        MergedPostingSource, StaticPostingSource, _pick_drivers, brute_force_topk,
-        make_query_batch, query_topk)
+        MergedPostingSource, StaticPostingSource, _first_k_by_rank, _pick_drivers,
+        _query_windows, brute_force_topk, make_posting_source, make_query_batch,
+        member_sorted, query_topk, term_window)
     from repro_torch.core.index import (
         BLOCK, INVALID_DOC, PACK_WIDTHS, TILE, InvertedIndex, build_index,
-        build_sharded_index, flat_tile_pad, pack_flat_postings, pack_index,
-        unpack_flat_postings, unpack_flat_postings_torch)
+        build_sharded_index, flat_tile_pad, local_to_global_docids,
+        pack_flat_postings, pack_index, unpack_flat_postings,
+        unpack_flat_postings_torch)
     from repro_torch.core.parallel import sequential_reference, slave_topk_unmerged
     from repro_torch.core.perfmodel import QUERY_MIX_DEFAULT
     from repro_torch.core.queries import WorkloadConfig, generate_workload
@@ -328,7 +354,9 @@ def main() -> int:
                 "K6p": pi.driver_compact_join_packed_cuda,
                 "K7": pi.streamed_compact_join_cuda,
                 "K7p": pi.streamed_compact_join_packed_cuda,
-                "K8": dm.merge_compact_cuda, "K8p": dm.merge_compact_packed_cuda}
+                "K8": dm.merge_compact_cuda, "K8p": dm.merge_compact_packed_cuda,
+                "K9": pi.batched_block_skip_join_cuda, "K10": pi.block_skip_join_cuda,
+                "K11": tm.bitonic_sort_cuda}
     no_launch = {k: 0 for k in wrappers}
 
     def reset_launches():
@@ -396,7 +424,8 @@ def main() -> int:
         return (span.off, span.n_eff, active, attr.contiguous(), idx.postings,
                 idx.attrs, *(p.contiguous() for p in plan))
 
-    max_err = {k: 0 for k in wrappers}
+    # K4s, K4ps, K7s, K7ps: the static modes (no delta arrays) of K4, K4p, K7, K7p
+    max_err = {k: 0 for k in [*wrappers, "K4s", "K4ps", "K7s", "K7ps"]}
 
     def same(kernel, label, got, want, names):
         """Bit-exact or raise; records the largest absolute difference."""
@@ -1878,6 +1907,450 @@ def main() -> int:
                 + f" on {smi}")
     phase_end("12 compact")
 
+    # ------------------------------------------------------------ 13. staged
+    def k9_args(idx, batch, window, filt=True, delta=None, b_window=None):
+        """K9's operands for one slave as the staged backend stages them
+        (``_query_windows``); ``b_window`` re-stages the other-term windows
+        at another width."""
+        docs, attrs, live, others, active = _query_windows(
+            make_posting_source(idx, delta), batch, window=window,
+            attr_strategy="embed")
+        if b_window is not None:
+            others = term_window(idx, batch.terms, b_window)[0]
+        attr = batch.attr_filter if filt else torch.full_like(batch.attr_filter, -1)
+        return pi.batched_block_skip_args(docs, attrs, others, active, attr, live)
+
+    def k9_check(label, a9):
+        got = pi.batched_block_skip_join_cuda(*a9)
+        torch.cuda.synchronize()
+        same("K9", label, (got,), (pi.batched_block_skip_join_torch(*a9),), ("mask",))
+        return int(got.sum())
+
+    n9, sums9 = 0, []
+    for s in range(NS):
+        idx, delta = raw_shards[s], p_views[1.0][s]
+        for label, kw in (
+            ("main filter-on", dict(batch=main_batch, window=MAIN_WINDOW)),
+            ("main filter-off", dict(batch=main_batch, window=MAIN_WINDOW, filt=False)),
+            ("window 1000", dict(batch=main_batch, window=1000)),
+            ("window 1536", dict(batch=main_batch, window=1536)),
+            ("empty drivers, inactive slots", dict(batch=edge_batches[s],
+                                                   window=MAIN_WINDOW)),
+            ("W_a 4096, W_b 3000", dict(batch=main_batch, window=MAIN_WINDOW,
+                                        b_window=3000)),
+            ("W_a 1000, W_b 4096", dict(batch=main_batch, window=1000,
+                                        b_window=MAIN_WINDOW)),
+            ("fill 1.0 a_live filter-on", dict(batch=main_batch, window=MAIN_WINDOW,
+                                               delta=delta)),
+            ("fill 1.0 a_live filter-off", dict(batch=main_batch, window=MAIN_WINDOW,
+                                                delta=delta, filt=False)),
+        ):
+            sums9.append(k9_check(f"shard {s} {label}", k9_args(idx, **kw)))
+            n9 += 1
+    log(f"[staged] K9 bit-exact vs its plain version on {NS} slaves x {n9 // NS} cases "
+        f"(main-path shapes filter on/off, windows 1000 and 1536, empty drivers and "
+        f"inactive slots, W_b 3000 < W_a and W_b 4096 > W_a 1000, fill 1.0 with a_live); "
+        f"mask sums {sums9[:9]}")
+
+    rng13 = np.random.default_rng(args.seed + 13)
+
+    def sorted_list(n, valid, hi):
+        v = np.sort(rng13.choice(hi, size=valid, replace=False)).astype(np.int32)
+        return torch.from_numpy(np.concatenate(
+            [v, np.full(n - valid, INVALID_DOC, np.int32)])).to(dev)
+
+    def k10_check(label, a10):
+        got = pi.block_skip_join_cuda(*a10)
+        torch.cuda.synchronize()
+        same("K10", label, (got,), (pi.block_skip_join_torch(*a10),), ("mask",))
+        return int(got.sum())
+
+    # tests/test_kernels.py's sweep, then benchmarks/bench_kernels.py's shape
+    k10_shapes = [(1024, 1024, 1024, 1024, 50_000), (1024, 500, 2048, 1700, 50_000),
+                  (2048, 2048, 1024, 64, 50_000), (1024, 0, 1024, 512, 50_000),
+                  (4096, 3000, 4096, 4000, 50_000), (512, 300, 768, 400, 50_000),
+                  (4096, 4000, 8192, 8000, 10**6)]
+    for na, va, nb, vb, hi in k10_shapes:
+        a10, b10 = sorted_list(na, va, hi), sorted_list(nb, vb, hi)
+        at10 = torch.from_numpy(rng13.integers(0, 8, na).astype(np.int32)).to(dev)
+        for f in (-1, 2):
+            k10_check(f"{na}/{va} x {nb}/{vb} filter {f}", pi.block_skip_args(
+                a10, at10, b10, f))
+    bench10 = pi.block_skip_args(a10, at10, b10, -1)
+    idx0 = raw_shards[0]
+    hot1, hot2 = (int(t) for t in torch.topk(idx0.lengths, 2).indices)
+
+    def whole(t):
+        off, n = int(idx0.offsets[t]), int(idx0.lengths[t])
+        return idx0.postings[off:off + n], idx0.attrs[off:off + n]
+
+    (a_hot, aa_hot), (b_hot, _) = whole(hot2), whole(hot1)
+    hot_sums = [k10_check(f"hottest lists filter {f}", pi.block_skip_args(
+        a_hot, aa_hot, b_hot, f)) for f in (-1, 3)]
+    hot10 = pi.block_skip_args(a_hot, aa_hot, b_hot, -1)
+    log(f"[staged] K10 bit-exact vs its plain version on {len(k10_shapes)} shapes x "
+        f"filter on/off (tests/test_kernels.py's and bench_kernels.py's 4096 x 8192) "
+        f"and the two hottest lists of slave 0 whole (term {hot2}, "
+        f"{a_hot.numel()} postings, in term {hot1}, {b_hot.numel()}): {hot_sums} hits")
+
+    def k11_check(label, x):
+        got = tm.bitonic_sort_cuda(x)
+        torch.cuda.synchronize()
+        same("K11", label, (got,), (tm.bitonic_sort_torch(x),), ("sorted",))
+        return got
+
+    for dtype in (torch.int32, torch.float32):
+        for n in (2, 7, 777, 4096, 32768, 32769, 1 << 20):
+            x = torch.from_numpy(rng13.integers(-(1 << 30), 1 << 30, n).astype(
+                np.int32)).to(dev).to(dtype)
+            x[: n // 4] = x[n // 2]                         # ties
+            k11_check(f"{dtype} n={n}", x)
+    r4 = k11_check("R4 pad quirk", torch.tensor(
+        [3, float("inf"), -1, 3e9, 5], dtype=torch.float32, device=dev))
+    if r4.tolist() != [-1.0, 3.0, 5.0, 2.0**31, 2.0**31]:
+        raise AssertionError(f"K11: the pad quirk gives {r4.tolist()}")
+    for ns_, k_ in ((16, 128), (4, 1000)):
+        c = torch.from_numpy(np.sort(rng13.integers(0, 1 << 28, (ns_, k_)).astype(
+            np.int32), axis=1)).to(dev)
+        got = tm.merge_topk(c, k_)
+        torch.cuda.synchronize()
+        same("K11", f"merge_topk ({ns_}, {k_})", (got,),
+             (tm.bitonic_sort_torch(c.reshape(-1))[:k_],), ("top-k",))
+    log("[staged] K11 bit-exact vs its plain version, int32 and float32, n in "
+        "{2, 7, 777, 4096, 32768, 32769, 2**20} (one block up to 32768 keys, merge "
+        "stages past it); [3, inf, -1, 3e9, 5] -> [-1, 3, 5, 2**31, 2**31] as the "
+        "reference's pad gives it; merge_topk at (16, 128) and (4, 1000)")
+
+    def static_args(s, batch, window, filt=True):
+        """The static modes' operands on slave s: the staged windows of the
+        drivers, K4's main plan and K7's table, and K9's mask on them."""
+        idx_p = twins[s]
+        docs, attrs, _, others, active = _query_windows(
+            StaticPostingSource(idx_p), batch, window=window, attr_strategy="embed")
+        attr = (batch.attr_filter if filt
+                else torch.full_like(batch.attr_filter, -1)).contiguous()
+        k9 = pi.batched_block_skip_join_cuda(*pi.batched_block_skip_args(
+            docs, attrs, others, active, attr))[:, :window]
+        live = (docs != INVALID_DOC).to(torch.int32)
+        main, _, _ = pi.plan_streamed(docs, batch.terms, active, idx_p.offsets,
+                                      idx_p.lengths, idx_p.block_max)
+        a4 = (docs, attrs, live, None, active, attr, idx_p.postings, *main,
+              None, None, None, None)
+        wl, bounds, _ = pi.plan_streamed_compact(
+            docs, batch.terms, active, idx_p.offsets, idx_p.lengths, idx_p.block_max)
+        desc, heads = wlm.table_to_device(wl, dev)
+        a7 = (desc, heads, docs, attrs, live, None, attr, idx_p.postings, bounds,
+              None, None)
+        return {"K4s": (pi.streamed_join_cuda, pi.streamed_join_torch, a4, {"cap": 0}),
+                "K4ps": (pi.streamed_join_packed_cuda, pi.streamed_join_packed_torch,
+                         a4[:6] + (idx_p.packed,) + a4[7:], {"cap": 0}),
+                "K7s": (pi.streamed_compact_join_cuda, pi.streamed_compact_join_torch,
+                        a7, {}),
+                "K7ps": (pi.streamed_compact_join_packed_cuda,
+                         pi.streamed_compact_join_packed_torch,
+                         a7[:7] + (idx_p.packed,) + a7[8:], {})}, k9, wl
+
+    for s in range(NS):
+        for label, batch, window, filt in (
+            ("main filter-on", main_batch, MAIN_WINDOW, True),
+            ("main filter-off", main_batch, MAIN_WINDOW, False),
+            ("window 1000", main_batch, 1000, True),
+            ("empty drivers", edge_batches[s], MAIN_WINDOW, True),
+        ):
+            modes, k9, _ = static_args(s, batch, window, filt)
+            for key, (cuda_fn, plain_fn, a, kw) in modes.items():
+                got = cuda_fn(*a, **kw)
+                torch.cuda.synchronize()
+                ctx = f"shard {s} {label}"
+                same(key, ctx, (got,), (plain_fn(*a, **kw),), ("mask",))
+                same(key, ctx + " vs K9", (got,), (k9,), ("mask",))
+    log(f"[staged] static K4, K4p, K7, K7p (no delta arrays) bit-exact vs their plain "
+        f"versions and vs K9 on the staged windows of the same drivers, {NS} slaves x "
+        f"4 cases (main filter on/off, window 1000, empty drivers)")
+
+    # the ops entry points, each a path of its own: counts reset, the call,
+    # counts read
+    x4k = torch.from_numpy(rng13.integers(0, 1 << 30, 4096).astype(np.int32)).to(dev)
+    c16 = torch.from_numpy(np.sort(rng13.integers(0, 1 << 28, (16, 128)).astype(
+        np.int32), axis=1)).to(dev)
+    s_docs, s_attrs, _, _, s_active = _query_windows(
+        StaticPostingSource(twins[0]), main_batch, window=MAIN_WINDOW,
+        attr_strategy="embed")
+    s_live = (s_docs != INVALID_DOC).to(torch.int32)
+    t0_ = twins[0]
+    ops_paths = {
+        "K10": lambda: ops.intersect(a_hot, aa_hot, b_hot, -1),
+        "K11": lambda: (ops.sort(x4k), ops.topk_merge(c16, 128)),
+        "K4": lambda: ops.intersect_streamed(
+            s_docs, s_attrs, s_live, main_batch.terms, s_active, main_batch.attr_filter,
+            t0_.postings, t0_.offsets, t0_.lengths, t0_.block_max),
+        "K4p": lambda: ops.intersect_streamed(
+            s_docs, s_attrs, s_live, main_batch.terms, s_active, main_batch.attr_filter,
+            t0_.postings, t0_.offsets, t0_.lengths, t0_.block_max, packed=t0_.packed),
+        "K7": lambda: ops.intersect_streamed_compact(
+            s_docs, s_attrs, s_live, main_batch.terms, s_active, main_batch.attr_filter,
+            t0_.postings, t0_.offsets, t0_.lengths, t0_.block_max),
+        "K7p": lambda: ops.intersect_streamed_compact(
+            s_docs, s_attrs, s_live, main_batch.terms, s_active, main_batch.attr_filter,
+            t0_.postings, t0_.offsets, t0_.lengths, t0_.block_max, packed=t0_.packed),
+    }
+    ops_counts = {}
+    for key, run in ops_paths.items():
+        reset_launches()
+        run()
+        torch.cuda.synchronize()
+        counts = launches_now()
+        if counts != {**no_launch, key: counts[key]} or counts[key] == 0:
+            raise AssertionError(f"ops path {key}: launches {counts}")
+        ops_counts[key] = counts[key]
+    log(f"[staged] ops entry points launch their kernels and nothing else: "
+        f"{ops_counts} (ops.sort + ops.topk_merge for K11; the static modes through "
+        f"ops.intersect_streamed[_compact] without delta arrays)")
+
+    def staged_oracle(shards_, deltas_, batch, k):
+        """The staged path's semantics in plain torch ops, independent of K9
+        and its skip map: per slave the staged windows, membership by
+        ``member_sorted`` per active slot, the fused predicate, first k;
+        merged as ``sequential_reference`` merges."""
+        cands, hits = [], []
+        for s, idx in enumerate(shards_):
+            docs, attrs, live, others, active = _query_windows(
+                make_posting_source(idx, None if deltas_ is None else deltas_[s]),
+                batch, window=MAIN_WINDOW, attr_strategy="embed")
+            f = batch.attr_filter[:, None]
+            mask = (docs != INVALID_DOC) & ((f < 0) | (attrs == f))
+            if live is not None:
+                mask &= live != 0
+            for t in range(others.shape[1]):
+                mask &= member_sorted(docs, others[:, t]) | (active[:, t:t + 1] == 0)
+            d, h = _first_k_by_rank(docs, mask, k)
+            cands.append(local_to_global_docids(d, s, NS))
+            hits.append(h)
+        return (torch.cat(cands, -1).sort(-1).values[:, :k],
+                torch.stack(hits).sum(0, dtype=torch.int32))
+
+    def staged_path(label, deltas_):
+        reset_launches()
+        results = []
+        for b in batches:
+            before = launches_now()
+            results.append(sequential_reference(
+                raw_shards, b, ns=NS, k=k_all, window=MAIN_WINDOW, deltas=deltas_,
+                backend="kernel_staged"))
+            per = {k: v - before[k] for k, v in launches_now().items()}
+            if per != {**no_launch, "K9": NS}:
+                raise AssertionError(f"staged {label}: launches per batch {per}")
+        counts = launches_now()
+        torch.cuda.synchronize()
+        n_diff = {"kernel": 0, "torch": 0}
+        for b, r in zip(batches, results):
+            od, oh = staged_oracle(raw_shards, deltas_, b, k_all)
+            if not (torch.equal(r.docids, od) and torch.equal(r.n_hits, oh)):
+                raise AssertionError(f"staged {label}: differs from the staged oracle")
+            for backend in n_diff:
+                w = sequential_reference(raw_shards, b, ns=NS, k=k_all,
+                                         window=MAIN_WINDOW, deltas=deltas_,
+                                         backend=backend)
+                rows = (r.docids != w.docids).any(1) | (r.n_hits != w.n_hits)
+                n_diff[backend] += int(rows.sum())
+        if deltas_ is None and any(n_diff.values()):
+            raise AssertionError(f"staged {label}: differs from the streamed paths "
+                                 f"on {n_diff} queries")
+        log(f"[staged] {label}: {len(queries)} queries in {len(batches)} batches through "
+            f"sequential_reference(backend='kernel_staged') equal the plain staged "
+            f"oracle; queries differing from backend='kernel' / 'torch': "
+            f"{n_diff['kernel']} / {n_diff['torch']}; launches {counts}, per batch "
+            f"K9 {NS}; total n_hits {sum(int(r.n_hits.sum()) for r in results)}")
+        return results, counts, n_diff
+
+    st_static, st_counts, _ = staged_path("static", None)
+    st_mor, _, st_ndiff = staged_path("fill 1.0", p_views[1.0])
+    for label, dl_raw, dl_blind, want in (("static", None, None, st_static[0]),
+                                          ("fill 1.0", p_views[1.0], blind_deltas,
+                                           st_mor[0])):
+        r = sequential_reference(blind, batches[0], ns=NS, k=k_all, window=MAIN_WINDOW,
+                                 deltas=dl_blind, backend="kernel_staged",
+                                 codec="packed")
+        if not (torch.equal(r.docids, want.docids) and torch.equal(r.n_hits, want.n_hits)):
+            raise AssertionError(f"staged packed {label}: differs from raw")
+    log("[staged] one batch with codec='packed' (every raw posting zeroed, decoded "
+        "whole first) equals raw, static and at fill 1.0")
+
+    # times, slave 0, main-path shapes
+    staged_rows = {}
+
+    def time_row(key, run, plain_run, n_bytes, n_ops, extra, lib=None, lib_name=""):
+        ms, plain = cuda_ms(run), cuda_ms(plain_run, reps=10, warmup=2)
+        dev_ms, plain_dev = device_ms(run), device_ms(plain_run)
+        bound, by = bound_ms(n_bytes, n_ops)
+        lib_ms = None if lib is None else cuda_ms(lib)
+        staged_rows[key] = (ms, plain, bound, by, lib_ms)
+        log(f"[times] {key} {extra}: {ms:.4f} ms/launch (device {dev_ms:.5f} ms); "
+            f"plain {plain:.4f} ms (device {plain_dev:.5f} ms)"
+            + ("" if lib is None else f"; {lib_name} {lib_ms:.4f} ms")
+            + f"; bound {bound:.6f} ms ({by}; {n_bytes} bytes) on {smi}")
+
+    def k9_cost(a9):
+        a, aa, al, b, active, filt, b_start, n_b = a9
+        q_n, w_b = a.shape[0], b.shape[-1]
+        valid = (a != INVALID_DOC).long().sum(1)
+        span = torch.tensor([0, w_b], dtype=torch.int32, device=dev).expand(
+            *active.shape, 2)
+        probed = probed_postings(b_start, n_b, span, TILE)
+        n_bytes = (a.numel() + int(valid[filt >= 0].sum())
+                   + (0 if al is None else int(valid.sum()))
+                   + active.numel() + q_n + 2 * b_start.numel() + probed
+                   + a.numel()) * 4
+        n_ops = int((valid * active.long().sum(1)).sum()) * math.ceil(math.log2(w_b))
+        return n_bytes, n_ops, probed
+
+    for label, a9 in (("static", k9_args(idx0, main_batch, MAIN_WINDOW)),
+                      ("fill 1.0", k9_args(idx0, main_batch, MAIN_WINDOW,
+                                           delta=p_views[1.0][0]))):
+        n_bytes, n_ops, probed = k9_cost(a9)
+        time_row(f"K9 {label}", lambda a9=a9: pi.batched_block_skip_join_cuda(*a9),
+                 lambda a9=a9: pi.batched_block_skip_join_torch(*a9), n_bytes, n_ops,
+                 f"Q={MAIN_Q}, T={MAIN_T}, W={MAIN_WINDOW}, shard 0, {probed} "
+                 f"postings in skip ranges")
+
+    def k10_cost(a10):
+        a, aa, b, filt, b_start, n_b = a10
+        valid = int((a != INVALID_DOC).sum())
+        span = torch.tensor([[[0, b.shape[0]]]], dtype=torch.int32, device=dev)
+        probed = probed_postings(b_start[None, None], n_b[None, None], span, TILE)
+        n_bytes = (a.numel() + (valid if int(filt) >= 0 else 0) + 2 + 2 * b_start.numel()
+                   + probed + a.numel()) * 4
+        return n_bytes, valid * math.ceil(math.log2(max(b.shape[0], 2))), probed
+
+    for label, a10 in (("bench 4096 x 8192", bench10), ("hottest lists", hot10)):
+        n_bytes, n_ops, probed = k10_cost(a10)
+        a_, b_ = a10[0], a10[2]
+        time_row(f"K10 {label}", lambda a10=a10: pi.block_skip_join_cuda(*a10),
+                 lambda a10=a10: pi.block_skip_join_torch(*a10), n_bytes, n_ops,
+                 f"{a_.numel()} x {b_.numel()}, {probed} postings in skip ranges",
+                 lib=lambda a_=a_, b_=b_: torch.isin(a_, b_),
+                 lib_name="torch.isin (membership alone)")
+
+    for label, x in (("int32 n=4096 (bench)", x4k),
+                     ("int32 n=2**20", torch.from_numpy(rng13.integers(
+                         0, 1 << 30, 1 << 20).astype(np.int32)).to(dev)),
+                     ("float32 n=2**20", torch.from_numpy(rng13.normal(
+                         size=1 << 20).astype(np.float32)).to(dev))):
+        n = x.numel()
+        time_row(f"K11 {label}", lambda x=x: tm.bitonic_sort_cuda(x),
+                 lambda x=x: tm.bitonic_sort_torch(x), 8 * n,
+                 n * math.ceil(math.log2(n)), f"{n} keys",
+                 lib=lambda x=x: torch.sort(x), lib_name="torch.sort")
+    time_row("K11 merge_topk (16, 128)", lambda: tm.merge_topk(c16, 128),
+             lambda: tm.bitonic_sort_torch(c16.reshape(-1))[:128], 8 * c16.numel(),
+             c16.numel() * math.ceil(math.log2(c16.numel())), "2048 candidates",
+             lib=lambda: torch.sort(c16.reshape(-1)).values[:128],
+             lib_name="torch.sort")
+
+    modes, _, wl_s = static_args(0, main_batch, MAIN_WINDOW)
+    a4 = modes["K4s"][2]
+    s_valid = (a4[0] != INVALID_DOC).long().sum(1)
+    s_joins = a4[4].long().sum(1)
+    s_slots = (MAIN_Q * MAIN_WINDOW + int(s_valid.sum()) * 2
+               + int(s_valid[a4[5] >= 0].sum()))
+    s_small = sum(x.numel() * 4 for x in a4[7:10]) + 4 * MAIN_Q * (1 + MAIN_T)
+    probe_s = probed_postings(*a4[7:10], TILE)
+    pk_b, pk_blk = probe_block_cost(*a4[7:10], TILE, meta_host[0])
+    ops_s = int((s_valid * s_joins).sum()) * math.ceil(math.log2(MAIN_WINDOW + TILE))
+    out_s = MAIN_Q * MAIN_WINDOW * 4
+    b7_s = modes["K7s"][2][8].long().cpu().numpy()
+    pm7_s = table_probe_cost(wl_s.desc, wl_s.n_items, b7_s, 3, TILE)
+    pm7p_b, pm7p_blk = table_probe_cost(wl_s.desc, wl_s.n_items, b7_s, 3, TILE,
+                                        meta_host[0])
+    tbl_s = 32 * wl_s.n_items + 4 * (wl_s.group_heads().size)
+    for key, n_bytes, n_ops, extra in (
+        ("K4s", s_small + s_slots * 4 + probe_s * 4 + out_s, ops_s,
+         f"probed {probe_s} postings"),
+        ("K4ps", s_small + s_slots * 4 + pk_b + out_s, ops_s + 4 * BLOCK * pk_blk,
+         f"probes {pk_blk} blocks {pk_b} bytes"),
+        ("K7s", tbl_s + s_slots * 4 + pm7_s * 4 + out_s, ops_s,
+         f"probed {pm7_s} postings, {wl_s.n_items} descriptor rows"),
+        ("K7ps", tbl_s + s_slots * 4 + pm7p_b + out_s, ops_s + 4 * BLOCK * pm7p_blk,
+         f"probes {pm7p_blk} blocks {pm7p_b} bytes, {wl_s.n_items} rows"),
+    ):
+        cuda_fn, plain_fn, a, kw = modes[key]
+        time_row(key, lambda c=cuda_fn, a=a, kw=kw: c(*a, **kw),
+                 lambda p=plain_fn, a=a, kw=kw: p(*a, **kw), n_bytes, n_ops,
+                 f"static mode, Q={MAIN_Q}, T={MAIN_T}, W={MAIN_WINDOW}, shard 0, {extra}")
+
+    # the staged path against the streamed one per batch, interleaved
+    def seq(b, backend, deltas_):
+        return sequential_reference(raw_shards, b, ns=NS, k=k_all, window=MAIN_WINDOW,
+                                    deltas=deltas_, backend=backend)
+
+    st_cells = {}
+    for cell, deltas_ in (("static", None), ("fill 1.0", p_views[1.0])):
+        for backend in ("kernel", "kernel_staged"):
+            for b in batches[:2]:
+                seq(b, backend, deltas_)
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                for b in batches[:4]:
+                    seq(b, backend, deltas_)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+            kern = [e for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy = sum(e.self_device_time_total for e in kern) / 1e6
+            log(f"[trace] sequential_reference, {backend} ({cell}): "
+                f"{sum(e.count for e in kern) / 4:.1f} device ops and "
+                f"{busy / 4 * 1e3:.3f} ms of device time per batch, busy share "
+                f"{busy / wall:.4f} of {wall * 1e3:.3f} ms traced; top: " + "; ".join(
+                    f"{e.key[:40]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
+                    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:4]))
+        streamed, staged = [], []
+        for _ in range(3):
+            for b in batches:
+                for backend, out in (("kernel", streamed), ("kernel_staged", staged)):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    seq(b, backend, deltas_)
+                    torch.cuda.synchronize()
+                    out.append((time.perf_counter() - t) * 1e3)
+        ratio = np.array(streamed) / np.array(staged)
+        st_cells[cell] = (float(np.median(streamed)), float(np.median(staged)),
+                          float(np.median(ratio)))
+        log(f"[times] staged vs streamed per batch of {MAIN_Q} ({cell}; "
+            f"sequential_reference over {NS} slaves, host clock around synchronize, "
+            f"{len(ratio)} interleaved pairs): streamed median {st_cells[cell][0]:.3f} ms, "
+            f"staged median {st_cells[cell][1]:.3f} ms, median streamed/staged ratio "
+            f"{st_cells[cell][2]:.4f} (quartiles {np.percentile(ratio, 25):.4f} / "
+            f"{np.percentile(ratio, 75):.4f}) on {smi}")
+
+    # an updatable staged service: a cached query, a mutation, a fresh answer
+    svc_st = SearchService(sharded, meta, writer=p_writer, backend="kernel_staged",
+                           **main_kw)
+    reset_launches()
+    st_got = serve(svc_st, queries[:MAIN_Q], ks[:MAIN_Q])
+    ex = executed_batches(svc_st)
+    if launches_now() != {**no_launch, "K9": NS * ex}:
+        raise AssertionError(f"staged service: launches {launches_now()}")
+    q = next(q for q, h in zip(queries, st_got) if h[0] and h[1] > 1)
+    first = svc_st.search([q])[0]
+    stale0 = svc_st.stats()["cache"]["stale"]
+    victim = next(d for d in first.docids
+                  if d not in p_touched and d not in p_writer.delta_doc_ids)
+    svc_st.delete([victim])
+    after = svc_st.search([q])[0]
+    fresh = SearchService(sharded, meta, writer=p_writer, backend="kernel_staged",
+                          cache_size=0, **main_kw).search([q])[0]
+    if (svc_st.stats()["cache"]["stale"] != stale0 + 1 or after != fresh
+            or victim in after.docids):
+        raise AssertionError("staged service: stale cache check failed")
+    log(f"[staged] updatable SearchService(backend='kernel_staged'): {MAIN_Q} queries, "
+        f"K9 {NS} launches a batch and nothing else; after deleting doc {victim} the "
+        f"cached query {q} was recomputed (stale {stale0} -> {stale0 + 1}), equal to a "
+        f"fresh service, n_hits {first.n_hits} -> {after.n_hits}")
+    phase_end("13 staged")
+
     k2_main = k2_rows[("tournament", 1000)]
     fill1 = mor[1.0]
     record = {"kernels": [
@@ -1944,6 +2417,30 @@ def main() -> int:
             "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": f"src/repro/kernels/{replaces}", "launches": launches,
             "max_abs_err": max_err[kname], "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib})
+    for key, name, source, replaces, launches in (
+        ("K9 static", "K9 intersect_batched_block_skip", "block_skip.cu",
+         "posting_intersect.py:533", st_counts["K9"]),
+        ("K10 bench 4096 x 8192", "K10 intersect_block_skip", "block_skip.cu",
+         "posting_intersect.py:396", ops_counts["K10"]),
+        ("K11 int32 n=4096 (bench)", "K11 bitonic_sort", "bitonic_sort.cu",
+         "topk_merge.py:79", ops_counts["K11"]),
+        ("K4s", "K4s intersect_batched_streamed (static mode)", "streamed_join.cu",
+         "posting_intersect.py:958", ops_counts["K4"]),
+        ("K4ps", "K4ps intersect_batched_streamed_packed (static mode)",
+         "streamed_join.cu", "posting_intersect.py:958", ops_counts["K4p"]),
+        ("K7s", "K7s streamed_compact_join (static mode)", "streamed_compact.cu",
+         "posting_intersect.py:1500", ops_counts["K7"]),
+        ("K7ps", "K7ps streamed_compact_join_packed (static mode)",
+         "streamed_compact.cu", "posting_intersect.py:1500", ops_counts["K7p"]),
+    ):
+        ms, plain, bound, by, lib = staged_rows[key]
+        err_key = key.split()[0]
+        record["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": f"src/repro/kernels/{replaces}", "launches": launches,
+            "max_abs_err": max_err[err_key], "ms": ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": by, "library_ms": lib})
     print(json.dumps(record), flush=True)
     print(smi, flush=True)

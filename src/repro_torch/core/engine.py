@@ -15,7 +15,8 @@ Shapes are fixed per batch: queries padded to ``t_max`` terms, windows of
 ``window`` postings, results of ``k``.  Other-term membership is against
 each term's first ``window`` postings only, exactly as in the reference.
 
-Three backends, all bit-identical to the reference's ``backend="jnp"``:
+Four backends, the first three bit-identical to the reference's
+``backend="jnp"``, the fourth to its ``backend="pallas_staged"``:
 
 - ``"torch"``  — plain PyTorch ops: the port of the jnp branch, batched
   over queries instead of ``vmap``-ed;
@@ -34,14 +35,26 @@ Three backends, all bit-identical to the reference's ``backend="jnp"``:
   the same path with each kernel run over a host-built work list of live
   items (K6 on the static index, K8 then K7 under merge-on-read), so inert
   padding queries (``live_q``), absent term slots and empty probe spans
-  cost no thread block.
+  cost no thread block;
+- ``"kernel_staged"`` — the port of the reference's legacy staged path
+  (``backend="pallas_staged"``, ``_query_topk_batch_staged``), kept as the
+  comparator that shows what the streamed path saves: every term slot's
+  window is gathered into a ``(Q, T_MAX, window)`` buffer (under
+  merge-on-read the merged windows, each a sort of main ∪ delta), then one
+  K9 launch (:func:`repro_torch.kernels.ops.intersect_batched`) joins the
+  driver window against them with the attribute predicate fused (for
+  ``gather`` the driver's ``doc_site`` stream is the attribute stream).
+  Under merge-on-read it joins against the first ``window`` postings of
+  each merged list, so it equals the others only while the window covers
+  the merged lists, as in the reference.
 
 ``codec="packed"`` reads the postings through the block codec: the index
 (and the delta, when one is attached) must carry its packed twin.  The
-``torch`` backend decodes the whole array first, as the reference's jnp
-branch does; the ``kernel`` backend hands the twins to K1p, or to K3p and
-K4p (``kernel_compact``: K6p, or K8p and K7p), which decode block by block
-on the card, and reads no raw posting.
+``torch`` and ``kernel_staged`` backends decode the whole array first, as
+the reference does for every backend but its streamed Pallas one; the
+``kernel`` backend hands the twins to K1p, or to K3p and K4p
+(``kernel_compact``: K6p, or K8p and K7p), which decode block by block on
+the card, and reads no raw posting.
 
 Merge-on-read (:class:`MergedPostingSource`): each term's logical list is
 main ∪ delta.  A main posting is live unless its doc is DEAD or
@@ -72,7 +85,7 @@ from repro_torch.obs.registry import get_registry
 
 NO_TERM = np.int32(-1)
 NO_ATTR = np.int32(-1)
-BACKENDS = ("torch", "kernel", "kernel_compact")
+BACKENDS = ("torch", "kernel", "kernel_compact", "kernel_staged")
 CODECS = ("raw", "packed")
 STRATEGIES = ("embed", "gather", "site_term")
 _INVALID = int(INVALID_DOC)
@@ -446,6 +459,52 @@ def _query_topk_kernel(source, batch: QueryBatch, *, k, window, attr_strategy,
     return _first_k_by_rank(docs, mask, k)
 
 
+def _query_windows(source, batch: QueryBatch, *, window, attr_strategy):
+    """Stage the batch for K9 (port of the reference's ``_query_windows``):
+    per query the driver window, its attribute stream and its live stream
+    (None on the static index: all live), every term slot's window
+    ``[Q, T_MAX, window]`` and the active slots.
+
+    The driver's slot rides along as an inactive other-term slot.  On the
+    static index the driver window is the driver slot's row.  Under
+    merge-on-read every other-term window is the merged window with
+    tombstones dropped, and the driver is the merged window that keeps them
+    with ``live=0``, so K9 applies the tombstone predicate itself."""
+    slot, d_terms, active = _pick_drivers(source, batch)
+    index = source.index
+    if isinstance(source, MergedPostingSource):
+        delta = source.delta
+        others = merged_term_window(index, delta, batch.terms, window,
+                                    drop_dead=True)[0]
+        docs, attrs, live = merged_term_window(index, delta, d_terms, window,
+                                               drop_dead=False)
+    else:
+        others = term_window(index, batch.terms, window)[0]
+        docs = others.gather(1, slot[:, None, None].expand(-1, 1, window))[:, 0]
+        attrs, live = term_window(index, d_terms, window)[1], None
+    if attr_strategy == "gather":
+        ds = source.doc_site
+        attrs = ds[docs.clamp(0, ds.shape[0] - 1).long()]
+    return docs, attrs, live, others, active.to(torch.int32)
+
+
+def _query_topk_staged(source, batch: QueryBatch, *, k, window, attr_strategy):
+    """Port of the reference's ``_query_topk_batch_staged``: stage the
+    windows (:func:`_query_windows`), one K9 launch, first k.  K9's fused
+    predicate serves ``embed`` and ``gather`` (whose attribute stream is the
+    driver's ``doc_site``), so no join follows it; ``site_term`` has
+    rewritten the restriction into a term and turns the predicate off."""
+    from repro_torch.kernels import ops
+
+    docs, attrs, live, others, active = _query_windows(
+        source, batch, window=window, attr_strategy=attr_strategy)
+    attr_filter = (torch.full_like(batch.attr_filter, int(NO_ATTR))
+                   if attr_strategy == "site_term" else batch.attr_filter)
+    mask = ops.intersect_batched(docs, attrs, others, active, attr_filter,
+                                 a_live=live)
+    return _first_k_by_rank(docs, mask > 0, k)
+
+
 def query_topk(
     index: InvertedIndex,
     batch: QueryBatch,
@@ -479,6 +538,11 @@ def query_topk(
     inert padding queries: their rows come back ``(INVALID_DOC, 0)``
     without a thread block, and an all-inert batch launches nothing.  Equal
     to ``"kernel"`` on live rows.
+
+    ``backend="kernel_staged"`` runs the reference's staged comparator:
+    every term slot's window gathered into ``[Q, T_MAX, window]`` (merged
+    windows under merge-on-read), then K9; packed postings are decoded
+    whole first, as on ``"torch"``.
     """
     if backend != "kernel_compact" and live_q is not None:
         raise ValueError(
@@ -507,18 +571,22 @@ def query_topk(
                          f"{index.postings.device}")
     if not 1 <= k <= window:
         raise ValueError(f"need 1 <= k <= window, got k={k}, window={window}")
-    if codec == "packed" and backend == "torch":
+    if codec == "packed" and backend in ("torch", "kernel_staged"):
         index = index._replace(postings=unpack_flat_postings_torch(index.packed))
         if delta is not None:
             delta = delta._replace(
                 postings=unpack_flat_postings_torch(delta.packed))
-    if backend != "torch":
-        return _query_topk_kernel(
-            make_posting_source(index, delta), batch, k=k, window=window,
-            attr_strategy=attr_strategy, use_packed=codec == "packed",
-            compact=backend == "kernel_compact", live_q=live_q)
-    return _query_topk_torch(make_posting_source(index, delta), batch, k=k,
-                             window=window, attr_strategy=attr_strategy)
+    source = make_posting_source(index, delta)
+    if backend == "torch":
+        return _query_topk_torch(source, batch, k=k, window=window,
+                                 attr_strategy=attr_strategy)
+    if backend == "kernel_staged":
+        return _query_topk_staged(source, batch, k=k, window=window,
+                                  attr_strategy=attr_strategy)
+    return _query_topk_kernel(
+        source, batch, k=k, window=window, attr_strategy=attr_strategy,
+        use_packed=codec == "packed", compact=backend == "kernel_compact",
+        live_q=live_q)
 
 
 def single_keyword_topk(

@@ -46,7 +46,8 @@ class SearchResult(NamedTuple):
 
 def _row_topk(cands: torch.Tensor, k: int, backend: str) -> torch.Tensor:
     """Per-query best-k of concatenated candidates, ascending: K2 under
-    ``backend="kernel"``, a plain sort otherwise."""
+    ``backend="kernel"``, a plain sort otherwise (``"kernel_staged"``
+    included, as the reference sorts plainly for ``"pallas_staged"``)."""
     if backend == "kernel":
         from repro_torch.kernels import ops
 
@@ -121,9 +122,12 @@ def distributed_query_topk(
 ) -> SearchResult:
     """Broadcast the batch to all slaves, local top-k, merge to the global
     top-k.  ``delta`` attaches the slaves' deltas (merge-on-read: live
-    traffic sees every mutation of the snapshot).  ``backend`` selects the engine on both sides: K1 in every slave
-    and K2 in the master merge under ``"kernel"``, plain PyTorch under
-    ``"torch"``."""
+    traffic sees every mutation of the snapshot).  ``backend`` selects the
+    engine on both sides: K1 in every slave and K2 in the master merge under
+    ``"kernel"``, plain PyTorch under ``"torch"``; the slaves run their
+    staged K9 join and the master sorts plainly under ``"kernel_staged"``
+    (any backend of :func:`~repro_torch.core.engine.query_topk` passes
+    through)."""
     if merge not in ("tournament", "allgather"):
         raise ValueError(f"unknown merge {merge!r}")
     local = slave_topk_unmerged(index, batch, delta, ns=ns, k=k, window=window,

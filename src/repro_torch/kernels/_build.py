@@ -2,8 +2,9 @@
 
 Each ``csrc/<source>.cu`` compiles, on its own, into a shared library with
 plain C entry points (no PyTorch headers, so a build takes seconds) under
-``build/kernels/`` at the repository root; a source may hold a kernel and
-its packed mode, each with its own entry point.  The file name carries a hash of
+``build/kernels/`` at the repository root; a source may hold several
+kernels (a kernel and its packed mode, K9 and K10, K11's two dtypes), each
+with its own entry point.  The file name carries a hash of
 the source, of every header it includes from ``csrc/`` (``#include
 "name"``) and of the flags, so an edited source or header is rebuilt and a
 stale library is never loaded.  Every entry point takes raw pointers, ints and
@@ -61,10 +62,10 @@ KERNELS = {
         (_P,) * 19 + (_I,) * 8 + (_P,)),
     "streamed_join": Kernel(
         "streamed_join", "streamed_join_launch",
-        (_P,) * 15 + (_I,) * 3 + (_P,)),
+        (_P,) * 15 + (_I,) * 4 + (_P,)),
     "streamed_join_packed": Kernel(
         "streamed_join", "streamed_join_packed_launch",
-        (_P,) * 21 + (_I,) * 5 + (_P,)),
+        (_P,) * 21 + (_I,) * 6 + (_P,)),
     "driver_compact": Kernel(
         "driver_compact", "driver_compact_launch",
         (_P,) * 10 + (_I,) * 3 + (_P,)),
@@ -73,16 +74,25 @@ KERNELS = {
         (_P,) * 13 + (_I,) * 4 + (_P,)),
     "streamed_compact": Kernel(
         "streamed_compact", "streamed_compact_launch",
-        (_P,) * 12 + (_I,) * 3 + (_P,)),
+        (_P,) * 12 + (_I,) * 4 + (_P,)),
     "streamed_compact_packed": Kernel(
         "streamed_compact", "streamed_compact_packed_launch",
-        (_P,) * 18 + (_I,) * 5 + (_P,)),
+        (_P,) * 18 + (_I,) * 6 + (_P,)),
     "merge_compact": Kernel(
         "merge_compact", "merge_compact_launch",
         (_P,) * 14 + (_I,) * 4 + (_P,)),
     "merge_compact_packed": Kernel(
         "merge_compact", "merge_compact_packed_launch",
         (_P,) * 21 + (_I,) * 8 + (_P,)),
+    "batched_block_skip": Kernel(
+        "block_skip", "batched_block_skip_launch",
+        (_P,) * 9 + (_I,) * 4 + (_P,)),
+    "block_skip": Kernel(
+        "block_skip", "block_skip_launch", (_P,) * 7 + (_I,) * 2 + (_P,)),
+    "bitonic_sort_i32": Kernel(
+        "bitonic_sort", "bitonic_sort_i32_launch", (_P, _I, _P, _I, _P)),
+    "bitonic_sort_f32": Kernel(
+        "bitonic_sort", "bitonic_sort_f32_launch", (_P, _I, _P, _I, _P)),
 }
 #: Every kernel source.
 SOURCES = tuple(dict.fromkeys(k.source for k in KERNELS.values()))

@@ -17,8 +17,9 @@
 // passes the attribute filter, and for every term run is in one of the
 // run's main tiles (clipped to the term's window) with its doc neither
 // DEAD nor SUPERSEDED, or in one of its delta tiles (clipped to the slab)
-// with its doc not DEAD.  Inert queries have no group; the wrapper fills
-// their rows with 0.
+// with its doc not DEAD.  With has_delta 0 (the static mode: no delta
+// arrays, no flags, every row's delta tile -1) only main tiles are probed.
+// Inert queries have no group; the wrapper fills their rows with 0.
 //
 // What bounds it on the H100: bytes and latency, as K4: one 1024-slot
 // driver tile (docIDs, attrs, live, flags) per group, each named probe
@@ -49,7 +50,7 @@ __device__ __forceinline__ void streamed_compact_body(
     const int* __restrict__ bounds,       // [Q, T, 2]
     const int* __restrict__ d_bounds,     // [Q, T, 2]
     int* __restrict__ out_mask,           // [Q, window]
-    int t_slots, int window)
+    int t_slots, int window, int has_delta)
 {
     __shared__ int sb[STAGE];
     const int g = blockIdx.x;
@@ -68,7 +69,7 @@ __device__ __forceinline__ void streamed_compact_body(
         const int doc = in_win ? a_docs[o] : INVALID_DOC;
         const int at = in_win ? a_attrs[o] : INVALID_ATTR;
         const int lv = in_win ? a_live[o] : 0;
-        const int fl = in_win ? a_flags[o] : 0;
+        const int fl = in_win && has_delta ? a_flags[o] : 0;
         a[r] = doc;
         keep[r] = doc != INVALID_DOC && (filt < 0 || at == filt) && lv != 0;
         main_ok[r] = (fl & (DOC_DEAD | DOC_SUPERSEDED)) == 0;
@@ -79,7 +80,7 @@ __device__ __forceinline__ void streamed_compact_body(
 
     for (int n = r0; n < r1; ++n) {
         const int* d = desc + 8 * (int64_t)n;
-        const int t = d[2], mt = d[3], flags = d[4], dt = d[5];
+        const int t = d[2], mt = d[3], flags = d[4], dt = has_delta ? d[5] : -1;
         if (flags & FLAG_TERM_START) {
 #pragma unroll
             for (int r = 0; r < ITEMS; ++r) in_m[r] = in_d[r] = false;
@@ -135,11 +136,12 @@ __global__ void __launch_bounds__(THREADS) streamed_compact_kernel(
     const int* __restrict__ bounds,
     const int* __restrict__ d_postings,   // [D]
     const int* __restrict__ d_bounds, int* __restrict__ out_mask,
-    int t_slots, int window)
+    int t_slots, int window, int has_delta)
 {
     streamed_compact_body(RawList{postings}, RawList{d_postings}, desc, heads,
                           a_docs, a_attrs, a_live, a_flags, attr_filter,
-                          bounds, d_bounds, out_mask, t_slots, window);
+                          bounds, d_bounds, out_mask, t_slots, window,
+                          has_delta);
 }
 
 __global__ void __launch_bounds__(THREADS) streamed_compact_packed_kernel(
@@ -154,13 +156,13 @@ __global__ void __launch_bounds__(THREADS) streamed_compact_packed_kernel(
     const int* __restrict__ d_base, const int* __restrict__ d_meta,
     const int* __restrict__ d_woff, const int* __restrict__ d_bounds,
     int* __restrict__ out_mask,
-    int t_slots, int window, int n_blocks, int d_n_blocks)
+    int t_slots, int window, int n_blocks, int d_n_blocks, int has_delta)
 {
     const PackedList m{Packed{words, blk_base, blk_meta, blk_woff, n_blocks}};
     const PackedList d{Packed{d_words, d_base, d_meta, d_woff, d_n_blocks}};
     streamed_compact_body(m, d, desc, heads, a_docs, a_attrs, a_live, a_flags,
                           attr_filter, bounds, d_bounds, out_mask, t_slots,
-                          window);
+                          window, has_delta);
 }
 
 extern "C" int streamed_compact_launch(
@@ -168,14 +170,14 @@ extern "C" int streamed_compact_launch(
     const void* a_attrs, const void* a_live, const void* a_flags,
     const void* attr_filter, const void* postings, const void* bounds,
     const void* d_postings, const void* d_bounds, void* out_mask,
-    int n_groups, int t_slots, int window, void* stream)
+    int n_groups, int t_slots, int window, int has_delta, void* stream)
 {
     streamed_compact_kernel<<<n_groups, THREADS, 0, (cudaStream_t)stream>>>(
         (const int*)desc, (const int*)heads, (const int*)a_docs,
         (const int*)a_attrs, (const int*)a_live, (const int*)a_flags,
         (const int*)attr_filter, (const int*)postings, (const int*)bounds,
         (const int*)d_postings, (const int*)d_bounds, (int*)out_mask,
-        t_slots, window);
+        t_slots, window, has_delta);
     return (int)cudaGetLastError();
 }
 
@@ -187,7 +189,7 @@ extern "C" int streamed_compact_packed_launch(
     const void* d_words, const void* d_base, const void* d_meta,
     const void* d_woff, const void* d_bounds, void* out_mask,
     int n_groups, int t_slots, int window, int n_blocks, int d_n_blocks,
-    void* stream)
+    int has_delta, void* stream)
 {
     streamed_compact_packed_kernel<<<n_groups, THREADS, 0, (cudaStream_t)stream>>>(
         (const int*)desc, (const int*)heads, (const int*)a_docs,
@@ -196,6 +198,6 @@ extern "C" int streamed_compact_packed_launch(
         (const int*)blk_meta, (const int*)blk_woff, (const int*)bounds,
         (const uint32_t*)d_words, (const int*)d_base, (const int*)d_meta,
         (const int*)d_woff, (const int*)d_bounds, (int*)out_mask,
-        t_slots, window, n_blocks, d_n_blocks);
+        t_slots, window, n_blocks, d_n_blocks, has_delta);
     return (int)cudaGetLastError();
 }

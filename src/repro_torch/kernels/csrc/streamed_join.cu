@@ -16,7 +16,9 @@
 // DEAD nor SUPERSEDED, or in the term's delta probe range and its flags
 // lack DEAD.  The mask is 1 where every active term holds.  The probe
 // plans (main at window, delta at cap) come from the skip tables and the
-// exact spans of the driver tiles, before the launch.
+// exact spans of the driver tiles, before the launch.  With has_delta 0
+// (the static mode: no delta arrays, no flags; their pointers may be null)
+// a slot is a member when it is in the term's main probe range.
 //
 // What bounds it on the H100: bytes and latency, as K1.  Each block reads
 // one 1024-slot driver tile (docIDs, attrs, live, flags: 16 KB) and, per
@@ -59,7 +61,7 @@ __device__ __forceinline__ void streamed_join_body(
     const int* __restrict__ n_d,          // [Q, T, A]
     const int* __restrict__ d_bounds,     // [Q, T, 2]
     int* __restrict__ out_mask,           // [Q, window]
-    int t_slots, int num_a, int window)
+    int t_slots, int num_a, int window, int has_delta)
 {
     __shared__ int sb[STAGE];
     const int i = blockIdx.x;   // driver tile
@@ -77,7 +79,7 @@ __device__ __forceinline__ void streamed_join_body(
         const int doc = in_win ? a_docs[o] : INVALID_DOC;
         const int at = in_win ? a_attrs[o] : INVALID_ATTR;
         const int lv = in_win ? a_live[o] : 0;
-        const int fl = in_win ? a_flags[o] : 0;
+        const int fl = in_win && has_delta ? a_flags[o] : 0;
         a[r] = doc;
         keep[r] = doc != INVALID_DOC && (filt < 0 || at == filt) && lv != 0;
         main_ok[r] = (fl & (DOC_DEAD | DOC_SUPERSEDED)) == 0;
@@ -98,11 +100,17 @@ __device__ __forceinline__ void streamed_join_body(
 #pragma unroll
         for (int r = 0; r < ITEMS; ++r) need[r] = keep[r] && main_ok[r];
         main_src.probe(rlo, rhi, sb, a, need, in_main);
-        planned_range(d_tile[qti], n_d[qti], d_bounds[2 * qt],
-                      d_bounds[2 * qt + 1], rlo, rhi);
+        // has_delta is uniform across the block, so is the probe's barrier
+        if (has_delta) {
+            planned_range(d_tile[qti], n_d[qti], d_bounds[2 * qt],
+                          d_bounds[2 * qt + 1], rlo, rhi);
 #pragma unroll
-        for (int r = 0; r < ITEMS; ++r) need[r] = keep[r] && delta_ok[r];
-        delta_src.probe(rlo, rhi, sb, a, need, in_delta);
+            for (int r = 0; r < ITEMS; ++r) need[r] = keep[r] && delta_ok[r];
+            delta_src.probe(rlo, rhi, sb, a, need, in_delta);
+        } else {
+#pragma unroll
+            for (int r = 0; r < ITEMS; ++r) in_delta[r] = false;
+        }
         alive = false;
 #pragma unroll
         for (int r = 0; r < ITEMS; ++r) {
@@ -128,12 +136,12 @@ __global__ void __launch_bounds__(THREADS) streamed_join_kernel(
     const int* __restrict__ d_postings,   // [D]
     const int* __restrict__ d_tile, const int* __restrict__ n_d,
     const int* __restrict__ d_bounds, int* __restrict__ out_mask,
-    int t_slots, int num_a, int window)
+    int t_slots, int num_a, int window, int has_delta)
 {
     streamed_join_body(RawList{postings}, RawList{d_postings}, a_docs, a_attrs,
                        a_live, a_flags, active, attr_filter, b_tile, n_b,
                        bounds, d_tile, n_d, d_bounds, out_mask, t_slots, num_a,
-                       window);
+                       window, has_delta);
 }
 
 __global__ void __launch_bounds__(THREADS) streamed_join_packed_kernel(
@@ -150,13 +158,14 @@ __global__ void __launch_bounds__(THREADS) streamed_join_packed_kernel(
     const int* __restrict__ d_woff,
     const int* __restrict__ d_tile, const int* __restrict__ n_d,
     const int* __restrict__ d_bounds, int* __restrict__ out_mask,
-    int t_slots, int num_a, int window, int n_blocks, int d_n_blocks)
+    int t_slots, int num_a, int window, int n_blocks, int d_n_blocks,
+    int has_delta)
 {
     const PackedList m{Packed{words, blk_base, blk_meta, blk_woff, n_blocks}};
     const PackedList d{Packed{d_words, d_base, d_meta, d_woff, d_n_blocks}};
     streamed_join_body(m, d, a_docs, a_attrs, a_live, a_flags, active,
                        attr_filter, b_tile, n_b, bounds, d_tile, n_d, d_bounds,
-                       out_mask, t_slots, num_a, window);
+                       out_mask, t_slots, num_a, window, has_delta);
 }
 
 extern "C" int streamed_join_launch(
@@ -165,7 +174,7 @@ extern "C" int streamed_join_launch(
     const void* postings, const void* b_tile, const void* n_b,
     const void* bounds, const void* d_postings, const void* d_tile,
     const void* n_d, const void* d_bounds, void* out_mask,
-    int q_n, int t_slots, int window, void* stream)
+    int q_n, int t_slots, int window, int has_delta, void* stream)
 {
     const int num_a = (window + TILE - 1) / TILE;
     dim3 grid(num_a, q_n);
@@ -175,7 +184,7 @@ extern "C" int streamed_join_launch(
         (const int*)postings, (const int*)b_tile, (const int*)n_b,
         (const int*)bounds, (const int*)d_postings, (const int*)d_tile,
         (const int*)n_d, (const int*)d_bounds, (int*)out_mask,
-        t_slots, num_a, window);
+        t_slots, num_a, window, has_delta);
     return (int)cudaGetLastError();
 }
 
@@ -188,7 +197,7 @@ extern "C" int streamed_join_packed_launch(
     const void* d_meta, const void* d_woff, const void* d_tile,
     const void* n_d, const void* d_bounds, void* out_mask,
     int q_n, int t_slots, int window, int n_blocks, int d_n_blocks,
-    void* stream)
+    int has_delta, void* stream)
 {
     const int num_a = (window + TILE - 1) / TILE;
     dim3 grid(num_a, q_n);
@@ -200,6 +209,6 @@ extern "C" int streamed_join_packed_launch(
         (const int*)bounds, (const uint32_t*)d_words, (const int*)d_base,
         (const int*)d_meta, (const int*)d_woff, (const int*)d_tile,
         (const int*)n_d, (const int*)d_bounds, (int*)out_mask,
-        t_slots, num_a, window, n_blocks, d_n_blocks);
+        t_slots, num_a, window, n_blocks, d_n_blocks, has_delta);
     return (int)cudaGetLastError();
 }

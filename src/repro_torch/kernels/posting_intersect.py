@@ -46,6 +46,21 @@ tile) group of the table.  Inert queries (``live_q`` false) have no group
 and come back as ``(INVALID_DOC, 0)`` (K6) or 0 (K7); an all-inert batch
 launches nothing.  Their plain versions execute the same table.
 
+K4 and K7 also run without the delta arrays (their static mode, as the
+reference's ``has_delta = d_postings is not None``): a driver slot then
+joins a term when it is in the term's main window, and only the main
+probe runs.  This is a switch of the same kernels, not a second kernel.
+
+K9 and K10 replace the staged joins
+``repro/kernels/posting_intersect.py:intersect_batched_block_skip``
+(``pallas_call`` at line 533, body ``_intersect_batched_kernel`` at 409)
+and ``intersect_block_skip`` (``pallas_call`` at line 396, body
+``_intersect_kernel`` at 92).  Their B operand is a materialized window
+(K9: ``[Q, T, W_b]``, staged by the engine's ``kernel_staged`` backend;
+K10: one list), and :func:`compute_skip_map` gives each driver tile the
+run of B tiles whose docID span can overlap it, on the device.  Both run
+``csrc/block_skip.cu``.
+
 For each kernel the module holds the plan helpers, the plain PyTorch join
 (:func:`driver_streamed_join_torch`, :func:`streamed_join_torch`, and for
 the packed modes the full-array decode followed by those: what the CPU
@@ -53,8 +68,9 @@ runs, and the reference the card's kernel is held against) and the
 wrapper of its CUDA source (:func:`driver_streamed_join_cuda` and
 :func:`driver_streamed_join_packed_cuda` of ``csrc/driver_streamed.cu``,
 :func:`streamed_join_cuda` and :func:`streamed_join_packed_cuda` of
-``csrc/streamed_join.cu``).  The dispatchers pick by the device of the
-tensors they are given; there is no fallback.
+``csrc/streamed_join.cu``, and so on for K6, K7, K9 and K10).  The
+dispatchers pick by the device of the tensors they are given; there is no
+fallback.
 """
 from __future__ import annotations
 
@@ -131,6 +147,25 @@ def _pad_to_tile(x: torch.Tensor, fill: int) -> torch.Tensor:
     """``x`` [Q, W] padded with ``fill`` to a multiple of TILE columns."""
     pad = -x.shape[-1] % TILE
     return torch.nn.functional.pad(x, (0, pad), value=fill) if pad else x
+
+
+def _ptr(x) -> int:
+    """A tensor's device pointer for a kernel's C entry point; 0 for an
+    array a mode of the kernel does not read."""
+    return 0 if x is None else x.data_ptr()
+
+
+def _int32(x):
+    return None if x is None else x.to(torch.int32).contiguous()
+
+
+def _delta_given(*arrays) -> bool:
+    """Whether the merge-on-read arrays of a join are given: all or none."""
+    given = [x is not None for x in arrays]
+    if any(given) and not all(given):
+        raise ValueError("pass all of d_postings, d_offsets, d_lengths, "
+                         "d_block_max and a_flags (merge-on-read) or none")
+    return all(given)
 
 
 def _a_tile_spans(a: torch.Tensor):
@@ -427,7 +462,9 @@ def streamed_join_torch(
     A driver slot survives when it is valid, live, passes the attribute
     filter, and for every active term is in the term's main probe range
     with its flags free of DEAD and SUPERSEDED, or in its delta probe range
-    with its flags free of DEAD.  Returns the mask, int32[Q, W].
+    with its flags free of DEAD.  In the static mode (``d_postings`` None,
+    and with it ``a_flags`` and the delta plan) only the main probe runs
+    and no flag is read.  Returns the mask, int32[Q, W].
     """
     q_n, window = a_docs.shape
     a = _pad_to_tile(a_docs, _INVALID)
@@ -438,12 +475,13 @@ def streamed_join_torch(
         (attr_filter[:, None] < 0) | (aa == attr_filter[:, None])
     )
     a_tiles = a.view(q_n, num_a, TILE)
-    in_main = _probe_member(a_tiles, postings, b_tile, n_b, bounds, window)
-    in_delta = _probe_member(a_tiles, d_postings, d_tile, n_d, d_bounds, cap)
-    flags = _pad_to_tile(a_flags, 0).view(q_n, 1, num_a, TILE)
-    main_ok = (flags & int(DOC_DEAD | DOC_SUPERSEDED)) == 0
-    delta_ok = (flags & int(DOC_DEAD)) == 0
-    member = (in_main & main_ok) | (in_delta & delta_ok)
+    member = _probe_member(a_tiles, postings, b_tile, n_b, bounds, window)
+    if d_postings is not None:
+        in_delta = _probe_member(a_tiles, d_postings, d_tile, n_d, d_bounds, cap)
+        flags = _pad_to_tile(a_flags, 0).view(q_n, 1, num_a, TILE)
+        main_ok = (flags & int(DOC_DEAD | DOC_SUPERSEDED)) == 0
+        delta_ok = (flags & int(DOC_DEAD)) == 0
+        member = (member & main_ok) | (in_delta & delta_ok)
     member = member | (active == 0)[:, :, None, None]
     mask = keep & member.all(dim=1).reshape(q_n, num_a * TILE)
     return mask[:, :window].to(torch.int32).contiguous()
@@ -455,32 +493,32 @@ def streamed_join_cuda(
     cap: int,
 ):
     """Launch ``csrc/streamed_join.cu`` (one block per query and driver
-    tile) on the current stream.  Same signature and result as
-    :func:`streamed_join_torch`."""
+    tile) on the current stream; the static mode (``d_postings`` None)
+    launches the same kernel with its delta probe switched off.  Same
+    signature and result as :func:`streamed_join_torch`."""
     from repro_torch.kernels import _build
 
     q_n, window = a_docs.shape
     t_n = active.shape[1]
     drv, plan, span = (q_n, window), (q_n, t_n, -(-window // TILE)), (q_n, t_n, 2)
+    has_delta = d_postings is not None
+    delta = dict(a_flags=(a_flags, drv), d_postings=(d_postings, None),
+                 d_tile=(d_tile, plan), n_d=(n_d, plan),
+                 d_bounds=(d_bounds, span)) if has_delta else {}
     _build.check_args(
         q_n, a_docs=(a_docs, drv), a_attrs=(a_attrs, drv), a_live=(a_live, drv),
-        a_flags=(a_flags, drv), active=(active, (q_n, t_n)),
-        attr_filter=(attr_filter, (q_n,)), postings=(postings, None),
-        b_tile=(b_tile, plan), n_b=(n_b, plan), bounds=(bounds, span),
-        d_postings=(d_postings, None), d_tile=(d_tile, plan), n_d=(n_d, plan),
-        d_bounds=(d_bounds, span))
+        active=(active, (q_n, t_n)), attr_filter=(attr_filter, (q_n,)),
+        postings=(postings, None), b_tile=(b_tile, plan), n_b=(n_b, plan),
+        bounds=(bounds, span), **delta)
     launch = _build.kernel("streamed_join")
     mask = torch.empty((q_n, window), dtype=torch.int32, device=a_docs.device)
     if q_n == 0:
         return mask
     stream = torch.cuda.current_stream(a_docs.device).cuda_stream
-    err = launch(
-        a_docs.data_ptr(), a_attrs.data_ptr(), a_live.data_ptr(),
-        a_flags.data_ptr(), active.data_ptr(), attr_filter.data_ptr(),
-        postings.data_ptr(), b_tile.data_ptr(), n_b.data_ptr(),
-        bounds.data_ptr(), d_postings.data_ptr(), d_tile.data_ptr(),
-        n_d.data_ptr(), d_bounds.data_ptr(), mask.data_ptr(), q_n, t_n, window,
-        stream)
+    ptr = [_ptr(x) for x in (a_docs, a_attrs, a_live, a_flags, active,
+                             attr_filter, postings, b_tile, n_b, bounds,
+                             d_postings, d_tile, n_d, d_bounds, mask)]
+    err = launch(*ptr, q_n, t_n, window, int(has_delta), stream)
     streamed_join_cuda.launches += 1
     _build.check(err, "streamed_join_launch")
     return mask
@@ -502,11 +540,13 @@ def streamed_join_packed_torch(
     cap: int,
 ):
     """Plain version of K4p: the full-array decodes of ``packed`` and
-    ``d_packed``, then the raw plain join (:func:`streamed_join_torch`)."""
+    ``d_packed`` (None in the static mode), then the raw plain join
+    (:func:`streamed_join_torch`)."""
     return streamed_join_torch(
         a_docs, a_attrs, a_live, a_flags, active, attr_filter,
         unpack_flat_postings_torch(packed), b_tile, n_b, bounds,
-        unpack_flat_postings_torch(d_packed), d_tile, n_d, d_bounds, cap=cap)
+        None if d_packed is None else unpack_flat_postings_torch(d_packed),
+        d_tile, n_d, d_bounds, cap=cap)
 
 
 def streamed_join_packed_cuda(
@@ -523,24 +563,27 @@ def streamed_join_packed_cuda(
     q_n, window = a_docs.shape
     t_n = active.shape[1]
     drv, plan, span = (q_n, window), (q_n, t_n, -(-window // TILE)), (q_n, t_n, 2)
+    has_delta = d_packed is not None
+    delta = dict(a_flags=(a_flags, drv), **_build.packed_args(d_packed, "d_"),
+                 d_tile=(d_tile, plan), n_d=(n_d, plan),
+                 d_bounds=(d_bounds, span)) if has_delta else {}
     _build.check_args(
         q_n, a_docs=(a_docs, drv), a_attrs=(a_attrs, drv), a_live=(a_live, drv),
-        a_flags=(a_flags, drv), active=(active, (q_n, t_n)),
-        attr_filter=(attr_filter, (q_n,)), **_build.packed_args(packed),
-        b_tile=(b_tile, plan), n_b=(n_b, plan), bounds=(bounds, span),
-        **_build.packed_args(d_packed, "d_"), d_tile=(d_tile, plan), n_d=(n_d, plan),
-        d_bounds=(d_bounds, span))
+        active=(active, (q_n, t_n)), attr_filter=(attr_filter, (q_n,)),
+        **_build.packed_args(packed), b_tile=(b_tile, plan), n_b=(n_b, plan),
+        bounds=(bounds, span), **delta)
     launch = _build.kernel("streamed_join_packed")
     mask = torch.empty((q_n, window), dtype=torch.int32, device=a_docs.device)
     if q_n == 0:
         return mask
-    ptr = [x.data_ptr() for x in (
+    d_arrays = d_packed.arrays() if has_delta else (None,) * 4
+    ptr = [_ptr(x) for x in (
         a_docs, a_attrs, a_live, a_flags, active, attr_filter,
-        *packed.arrays(), b_tile, n_b, bounds, *d_packed.arrays(), d_tile, n_d,
+        *packed.arrays(), b_tile, n_b, bounds, *d_arrays, d_tile, n_d,
         d_bounds, mask)]
     stream = torch.cuda.current_stream(a_docs.device).cuda_stream
-    err = launch(*ptr, q_n, t_n, window, packed.n_blocks, d_packed.n_blocks,
-                 stream)
+    err = launch(*ptr, q_n, t_n, window, packed.n_blocks,
+                 d_packed.n_blocks if has_delta else 0, int(has_delta), stream)
     streamed_join_packed_cuda.launches += 1
     _build.check(err, "streamed_join_packed_launch")
     return mask
@@ -557,7 +600,7 @@ def streamed_join_packed(*args, cap: int):
 
 
 def _streamed_plans(a_docs, terms, active, offsets, lengths, block_max,
-                    d_offsets, d_lengths, d_block_max):
+                    d_offsets=None, d_lengths=None, d_block_max=None):
     """``(a_any, main, delta, cap)``: the driver tiles of ``a_docs`` that
     hold a valid slot (``a_any`` [Q, A], which the work list of K7 needs)
     and K4's plans, as :func:`plan_streamed` returns them."""
@@ -574,17 +617,20 @@ def _streamed_plans(a_docs, terms, active, offsets, lengths, block_max,
                 bounds.contiguous())
 
     main = plan(offsets, lengths, block_max, a_docs.shape[1])
+    if d_offsets is None:
+        return a_spans[2], main, None, 0
     cap = d_block_max.shape[0] * BLOCK // d_offsets.shape[0]
     return a_spans[2], main, plan(d_offsets, d_lengths, d_block_max, cap), cap
 
 
 def plan_streamed(a_docs, terms, active, offsets, lengths, block_max,
-                  d_offsets, d_lengths, d_block_max):
+                  d_offsets=None, d_lengths=None, d_block_max=None):
     """K4's probe plans from the exact spans of the materialized driver
     ``a_docs`` [Q, W]: ``(main, delta, cap)``, where ``main`` is ``(b_tile,
     n_b, bounds)`` over the main lists at the window ``W``, ``delta`` the
     same over the delta slabs at their capacity ``cap``, and ``n_b`` is
-    zeroed for inactive slots."""
+    zeroed for inactive slots.  Without the delta's arrays (the static
+    mode) ``delta`` is None and ``cap`` 0."""
     return _streamed_plans(a_docs, terms, active, offsets, lengths, block_max,
                            d_offsets, d_lengths, d_block_max)[1:]
 
@@ -606,18 +652,15 @@ def intersect_batched_streamed(
 ):
     """Batched ZigZag join over a materialized driver window, other-term
     lists probed in place: plans, then K4, or K4p when ``packed`` (and, as
-    in the reference, then also ``d_packed``) is given, which probes the
-    twins and never reads ``postings`` or ``d_postings``.  The port runs it
-    under merge-on-read only, so the delta arrays and ``a_flags`` are
-    required (the static path is K1, :func:`intersect_batched_driver_streamed`).
-    Returns int32[Q, W] in {0, 1}."""
-    if any(x is None for x in (d_postings, d_offsets, d_lengths, d_block_max,
-                               a_flags)):
-        raise NotImplementedError(
-            "K4 runs under merge-on-read only: pass d_postings, d_offsets, "
-            "d_lengths, d_block_max and a_flags (the static join is K1, "
-            "intersect_batched_driver_streamed)")
-    if packed is not None and d_packed is None:
+    in the reference, then also ``d_packed`` under merge-on-read) is
+    given, which probes the twins and never reads ``postings`` or
+    ``d_postings``.  The delta arrays and ``a_flags`` (all or none) turn on
+    merge-on-read; without them a driver slot joins a term when it is in
+    the term's main window ``[offset, offset + min(len, W))``, and only the
+    main probe runs.  Returns int32[Q, W] in {0, 1}."""
+    has_delta = _delta_given(d_postings, d_offsets, d_lengths, d_block_max,
+                             a_flags)
+    if packed is not None and has_delta and d_packed is None:
         raise ValueError("packed codec needs d_packed when delta arrays are given")
     active = active.to(torch.int32).contiguous()
     main, delta, cap = plan_streamed(a_docs, terms, active, offsets, lengths,
@@ -627,9 +670,9 @@ def intersect_batched_streamed(
                           else (streamed_join_packed, packed, d_packed))
     return join(
         a_docs.contiguous(), a_attrs.to(torch.int32).contiguous(),
-        a_live.to(torch.int32).contiguous(), a_flags.to(torch.int32).contiguous(),
+        a_live.to(torch.int32).contiguous(), _int32(a_flags),
         active, attr_filter.to(torch.int32).contiguous(), m_src, *main,
-        d_src, *delta, cap=cap,
+        d_src if has_delta else None, *(delta or (None,) * 3), cap=cap,
     )
 
 
@@ -667,11 +710,12 @@ def _fold_groups(member, items, group, n_groups: int):
     return folded == torch.bincount(run_group, minlength=n_groups)[:, None]
 
 
-def _group_driver_tiles(docs, attrs, gq, gi):
-    """The ``[G, TILE]`` driver tiles of the groups from the TILE-padded
-    rows ``docs`` and ``attrs`` [Q, A*TILE]."""
-    q_n = docs.shape[0]
-    return (docs.view(q_n, -1, TILE)[gq, gi], attrs.view(q_n, -1, TILE)[gq, gi])
+def _group_driver_tiles(gq, gi, *rows):
+    """The ``[G, TILE]`` driver tiles of the groups from each of ``rows``
+    ([Q, W], padded here with its fill to a multiple of TILE), given as
+    ``(row, fill)`` pairs."""
+    return tuple(_pad_to_tile(x, fill).view(x.shape[0], -1, TILE)[gq, gi]
+                 for x, fill in rows)
 
 
 def driver_compact_join_torch(desc, heads, d_off, d_neff, attr_filter, postings,
@@ -857,25 +901,26 @@ def streamed_compact_join_torch(desc, heads, a_docs, a_attrs, a_live, a_flags,
     group, K4's driver tile and predicates; per row, its main tile (slots
     whose doc is neither DEAD nor SUPERSEDED) and its delta tile (slots
     whose doc is not DEAD), clipped to the term's bounds; the OR over each
-    term run and the AND over the runs.  Inert rows are 0.  Returns the
-    mask, int32[Q, W]."""
+    term run and the AND over the runs.  In the static mode (``d_postings``,
+    ``a_flags`` and ``d_bounds`` None) only the main tiles are probed and
+    no flag is read.  Inert rows are 0.  Returns the mask, int32[Q, W]."""
     items, group, gq, gi = table_items(desc, heads)
     q_n, window = a_docs.shape
     num_a = -(-window // TILE)
-    a, aa = _group_driver_tiles(_pad_to_tile(a_docs, _INVALID),
-                                _pad_to_tile(a_attrs, int(INVALID_ATTR)), gq, gi)
-    al, fl = _group_driver_tiles(_pad_to_tile(a_live, 0),
-                                 _pad_to_tile(a_flags, 0), gq, gi)
+    a, aa, al = _group_driver_tiles(gq, gi, (a_docs, _INVALID),
+                                    (a_attrs, int(INVALID_ATTR)), (a_live, 0))
     filt = attr_filter[gq][:, None]
     keep = (a != _INVALID) & (al != 0) & ((filt < 0) | (aa == filt))
     q, t = items[:, 0], items[:, 2]
-    a_it, f_it = a[group], fl[group]
-    in_main = _tile_member(a_it, postings, items[:, 3], bounds[q, t, 0].long(),
-                           bounds[q, t, 1].long())
-    in_delta = _tile_member(a_it, d_postings, items[:, 5],
-                            d_bounds[q, t, 0].long(), d_bounds[q, t, 1].long())
-    member = ((in_main & ((f_it & int(DOC_DEAD | DOC_SUPERSEDED)) == 0))
-              | (in_delta & ((f_it & int(DOC_DEAD)) == 0)))
+    a_it = a[group]
+    member = _tile_member(a_it, postings, items[:, 3], bounds[q, t, 0].long(),
+                          bounds[q, t, 1].long())
+    if d_postings is not None:
+        f_it = _group_driver_tiles(gq, gi, (a_flags, 0))[0][group]
+        in_delta = _tile_member(a_it, d_postings, items[:, 5],
+                                d_bounds[q, t, 0].long(), d_bounds[q, t, 1].long())
+        member = ((member & ((f_it & int(DOC_DEAD | DOC_SUPERSEDED)) == 0))
+                  | (in_delta & ((f_it & int(DOC_DEAD)) == 0)))
     keep &= _fold_groups(member, items, group, gq.shape[0])
     (mask,) = output_rows(q_n, num_a * TILE, False, (0,), a_docs.device)
     mask.view(q_n, num_a, TILE)[gq, gi] = keep.to(torch.int32)
@@ -894,20 +939,22 @@ def streamed_compact_join_cuda(desc, heads, a_docs, a_attrs, a_live, a_flags,
     t_n = bounds.shape[1]
     n_groups = heads.shape[0] - 1
     drv, span = (q_n, window), (q_n, t_n, 2)
+    has_delta = d_postings is not None
+    delta = dict(a_flags=(a_flags, drv), d_postings=(d_postings, None),
+                 d_bounds=(d_bounds, span)) if has_delta else {}
     _build.check_args(
         q_n, desc=(desc, (desc.shape[0], 8)), heads=(heads, None),
         a_docs=(a_docs, drv), a_attrs=(a_attrs, drv), a_live=(a_live, drv),
-        a_flags=(a_flags, drv), attr_filter=(attr_filter, (q_n,)),
-        postings=(postings, None), bounds=(bounds, span),
-        d_postings=(d_postings, None), d_bounds=(d_bounds, span))
+        attr_filter=(attr_filter, (q_n,)), postings=(postings, None),
+        bounds=(bounds, span), **delta)
     launch = _build.kernel("streamed_compact")
     (mask,) = output_rows(q_n, window, n_groups == q_n * -(-window // TILE),
                                (0,), a_docs.device)
-    ptr = [x.data_ptr() for x in (desc, heads, a_docs, a_attrs, a_live, a_flags,
-                                  attr_filter, postings, bounds, d_postings,
-                                  d_bounds, mask)]
+    ptr = [_ptr(x) for x in (desc, heads, a_docs, a_attrs, a_live, a_flags,
+                             attr_filter, postings, bounds, d_postings,
+                             d_bounds, mask)]
     stream = torch.cuda.current_stream(a_docs.device).cuda_stream
-    err = launch(*ptr, n_groups, t_n, window, stream)
+    err = launch(*ptr, n_groups, t_n, window, int(has_delta), stream)
     streamed_compact_join_cuda.launches += 1
     _build.check(err, "streamed_compact_launch")
     return mask
@@ -927,12 +974,13 @@ def streamed_compact_join_packed_torch(desc, heads, a_docs, a_attrs, a_live,
                                        a_flags, attr_filter, packed, bounds,
                                        d_packed, d_bounds):
     """Plain version of K7p: the full-array decodes of ``packed`` and
-    ``d_packed``, then the raw plain version
+    ``d_packed`` (None in the static mode), then the raw plain version
     (:func:`streamed_compact_join_torch`)."""
     return streamed_compact_join_torch(
         desc, heads, a_docs, a_attrs, a_live, a_flags, attr_filter,
         unpack_flat_postings_torch(packed), bounds,
-        unpack_flat_postings_torch(d_packed), d_bounds)
+        None if d_packed is None else unpack_flat_postings_torch(d_packed),
+        d_bounds)
 
 
 def streamed_compact_join_packed_cuda(desc, heads, a_docs, a_attrs, a_live,
@@ -948,21 +996,24 @@ def streamed_compact_join_packed_cuda(desc, heads, a_docs, a_attrs, a_live,
     t_n = bounds.shape[1]
     n_groups = heads.shape[0] - 1
     drv, span = (q_n, window), (q_n, t_n, 2)
+    has_delta = d_packed is not None
+    delta = dict(a_flags=(a_flags, drv), **_build.packed_args(d_packed, "d_"),
+                 d_bounds=(d_bounds, span)) if has_delta else {}
     _build.check_args(
         q_n, desc=(desc, (desc.shape[0], 8)), heads=(heads, None),
         a_docs=(a_docs, drv), a_attrs=(a_attrs, drv), a_live=(a_live, drv),
-        a_flags=(a_flags, drv), attr_filter=(attr_filter, (q_n,)),
-        **_build.packed_args(packed), bounds=(bounds, span),
-        **_build.packed_args(d_packed, "d_"), d_bounds=(d_bounds, span))
+        attr_filter=(attr_filter, (q_n,)), **_build.packed_args(packed),
+        bounds=(bounds, span), **delta)
     launch = _build.kernel("streamed_compact_packed")
     (mask,) = output_rows(q_n, window, n_groups == q_n * -(-window // TILE),
                                (0,), a_docs.device)
-    ptr = [x.data_ptr() for x in (desc, heads, a_docs, a_attrs, a_live, a_flags,
-                                  attr_filter, *packed.arrays(), bounds,
-                                  *d_packed.arrays(), d_bounds, mask)]
+    d_arrays = d_packed.arrays() if has_delta else (None,) * 4
+    ptr = [_ptr(x) for x in (desc, heads, a_docs, a_attrs, a_live, a_flags,
+                             attr_filter, *packed.arrays(), bounds, *d_arrays,
+                             d_bounds, mask)]
     stream = torch.cuda.current_stream(a_docs.device).cuda_stream
-    err = launch(*ptr, n_groups, t_n, window, packed.n_blocks, d_packed.n_blocks,
-                 stream)
+    err = launch(*ptr, n_groups, t_n, window, packed.n_blocks,
+                 d_packed.n_blocks if has_delta else 0, int(has_delta), stream)
     streamed_compact_join_packed_cuda.launches += 1
     _build.check(err, "streamed_compact_packed_launch")
     return mask
@@ -999,15 +1050,12 @@ def intersect_batched_streamed_compact(
     on live rows, 0 on the rows of inert queries.  K4's two plans are pulled
     to the host in one copy, compiled into one descriptor table (main and
     delta tiles in lockstep), uploaded in one copy, and K7 (K7p with
-    ``packed`` and ``d_packed``) runs over it.  Merge-on-read only, as K4
-    is here.  An all-inert batch launches nothing."""
-    if any(x is None for x in (d_postings, d_offsets, d_lengths, d_block_max,
-                               a_flags)):
-        raise NotImplementedError(
-            "K7 runs under merge-on-read only: pass d_postings, d_offsets, "
-            "d_lengths, d_block_max and a_flags (the static join is K6, "
-            "intersect_batched_driver_streamed_compact)")
-    if packed is not None and d_packed is None:
+    ``packed``, and ``d_packed`` under merge-on-read) runs over it.  Without
+    the delta arrays (the static mode) the table holds main tiles only.  An
+    all-inert batch launches nothing."""
+    has_delta = _delta_given(d_postings, d_offsets, d_lengths, d_block_max,
+                             a_flags)
+    if packed is not None and has_delta and d_packed is None:
         raise ValueError("packed codec needs d_packed when delta arrays are given")
     wl, bounds, d_bounds = plan_streamed_compact(
         a_docs, terms, active, offsets, lengths, block_max, d_offsets,
@@ -1020,31 +1068,263 @@ def intersect_batched_streamed_compact(
                           (streamed_compact_join_packed, packed, d_packed))
     return join(
         desc, heads, a_docs.contiguous(), a_attrs.to(torch.int32).contiguous(),
-        a_live.to(torch.int32).contiguous(), a_flags.to(torch.int32).contiguous(),
-        attr_filter.to(torch.int32).contiguous(), m_src, bounds, d_src, d_bounds,
+        a_live.to(torch.int32).contiguous(), _int32(a_flags),
+        attr_filter.to(torch.int32).contiguous(), m_src, bounds,
+        d_src if has_delta else None, d_bounds,
     )
 
 
 def plan_streamed_compact(a_docs, terms, active, offsets, lengths, block_max,
-                          d_offsets, d_lengths, d_block_max, *, live_q=None,
-                          packed: bool = False):
+                          d_offsets=None, d_lengths=None, d_block_max=None, *,
+                          live_q=None, packed: bool = False):
     """K7's work list and the bounds it is read with: K4's two plans
     (:func:`_streamed_plans`) pulled to the host in one copy and compiled
     into one table, main and delta tiles in lockstep (metrics named for
-    K7p when ``packed``).  Returns ``(wl, bounds, d_bounds)``."""
+    K7p when ``packed``).  Without the delta's arrays the table holds the
+    main plan alone and ``d_bounds`` is None.  Returns ``(wl, bounds,
+    d_bounds)``."""
     q_n, n_a = a_docs.shape
     t_slots = terms.shape[1]
     num_a = -(-n_a // TILE)
     active = active.to(torch.int32).contiguous()
-    a_any, (b_tile, n_b, bounds), (d_tile, n_d, d_bounds), cap = _streamed_plans(
+    a_any, (b_tile, n_b, bounds), delta, cap = _streamed_plans(
         a_docs, terms, active, offsets, lengths, block_max, d_offsets,
         d_lengths, d_block_max)
-    active_h, n_b_h, b_tile_h, a_any_h, n_d_h, d_tile_h = plan_to_host(
-        active, n_b, b_tile, a_any, n_d, d_tile)
+    d_tile, n_d, d_bounds = delta or (None,) * 3
+    active_h, n_b_h, b_tile_h, a_any_h, *delta_h = plan_to_host(
+        active, n_b, b_tile, a_any, *(() if delta is None else (n_d, d_tile)))
+    n_d_h, d_tile_h = delta_h or (None, None)
     wl = build_intersect_worklist(
         n_b_h, b_tile_h, active_h, a_any_h, n_d=n_d_h, d_tile=d_tile_h,
         live_q=live_rows(live_q, q_n),
         kernel="intersect_batched_streamed_compact" + ("_packed" if packed else ""),
-        dense_steps=q_n * num_a * t_slots * max(num_a + 1, -(-cap // TILE) + 1),
+        dense_steps=q_n * num_a * t_slots * max(
+            num_a + 1, 0 if delta is None else -(-cap // TILE) + 1),
     )
     return wl, bounds, d_bounds
+
+
+# ---------------------------------------------------------------------------
+# K9 / K10: the joins over staged windows, with block skipping
+# ---------------------------------------------------------------------------
+
+def _tile_spans(x: torch.Tensor):
+    """``(first, max valid, any valid)`` of each TILE of the TILE-padded
+    rows ``x`` [..., n], each ``[..., n // TILE]``."""
+    t = x.reshape(*x.shape[:-1], -1, TILE)
+    valid = t != _INVALID
+    return t[..., 0], torch.where(valid, t, -1).amax(-1), valid.any(-1)
+
+
+def compute_skip_map(a_docs: torch.Tensor, b_docs: torch.Tensor):
+    """Per A tile, the run of B tiles ``[b_start, b_start + n_b)`` whose
+    docID span can overlap it: the sub-index lookup of the paper, the port
+    of the reference's ``compute_skip_map`` (``searchsorted`` over the B
+    tiles' ``[first, max valid]`` spans; all-pad B tiles span ``[INVALID,
+    INVALID]``, an A tile with no valid posting gets ``n_b = 0``).
+
+    ``a_docs`` [..., n_a] and ``b_docs`` [..., n_b] are TILE-padded; their
+    leading shapes broadcast (the reference nests ``vmap`` for this, one
+    driver window against each of its term slots).  Returns ``(b_start,
+    n_b)``, int32 [lead..., n_a // TILE]."""
+    if a_docs.shape[-1] % TILE or b_docs.shape[-1] % TILE:
+        raise ValueError(f"need TILE-padded rows, got {a_docs.shape[-1]} and "
+                         f"{b_docs.shape[-1]}")
+    a_min, a_max, a_any = _tile_spans(a_docs)
+    b_min, b_max, b_any = _tile_spans(b_docs)
+    b_max = torch.where(b_any, b_max, _INVALID)
+    lead = torch.broadcast_shapes(a_docs.shape[:-1], b_docs.shape[:-1])
+    num_a, num_b = a_min.shape[-1], b_min.shape[-1]
+
+    def full(x, n):
+        return x.expand(*lead, n).contiguous()
+
+    start = torch.searchsorted(full(b_max, num_b), full(a_min, num_a)).clamp(max=num_b)
+    end = torch.searchsorted(full(b_min, num_b), full(a_max, num_a), right=True)
+    n_b = torch.where(full(a_any, num_a), (end - start).clamp(0, num_b), 0)
+    return start.to(torch.int32), n_b.to(torch.int32)
+
+
+def skip_fraction(a_docs: torch.Tensor, b_docs: torch.Tensor) -> torch.Tensor:
+    """Diagnostic: the fraction of B tiles that posting skipping never
+    reads, for 1-D ``a_docs`` against ``b_docs`` (float32 0-d tensor)."""
+    a = _pad_to_tile(a_docs, _INVALID)
+    b = _pad_to_tile(b_docs, _INVALID)
+    _, n_b = compute_skip_map(a, b)
+    return 1.0 - n_b.sum() / ((a.shape[-1] // TILE) * (b.shape[-1] // TILE))
+
+
+def batched_block_skip_join_torch(a_docs, a_attrs, a_live, b_docs, active,
+                                  attr_filter, b_start, n_b):
+    """Plain PyTorch version of K9, on TILE-padded inputs: driver windows
+    ``a_docs``, ``a_attrs`` and ``a_live`` [Q, W_a] (``a_live`` None: all
+    live), other-term windows ``b_docs`` [Q, T, W_b] (each row ascending,
+    INVALID-padded), ``active`` [Q, T], ``attr_filter`` [Q], and the skip
+    map ``b_start``, ``n_b`` [Q, T, W_a // TILE] (``n_b`` zero for inactive
+    slots).
+
+    A driver slot survives when it is valid, live, passes the attribute
+    predicate (``attr_filter >= 0``), and for every active slot occurs in
+    that slot's window inside its skip range: the positions ``[b_start *
+    TILE, (b_start + n_b) * TILE)``.  The row is sorted, so the first
+    occurrence at or past the range's start decides.  Returns the mask,
+    int32[Q, W_a]."""
+    q_n, w_a = a_docs.shape
+    t_n, w_b = b_docs.shape[1:]
+    filt = attr_filter[:, None]
+    keep = (a_docs != _INVALID) & ((filt < 0) | (a_attrs == filt))
+    if a_live is not None:
+        keep &= a_live != 0
+    a = a_docs[:, None].expand(q_n, t_n, w_a).contiguous()
+    first = torch.searchsorted(b_docs.contiguous(), a)
+    rlo = (b_start.long() * TILE).repeat_interleave(TILE, dim=-1)
+    rhi = ((b_start.long() + n_b.long()) * TILE).clamp(max=w_b).repeat_interleave(
+        TILE, dim=-1)
+    pos = torch.maximum(first, rlo)
+    hit = (pos < rhi) & (b_docs.gather(-1, pos.clamp(max=max(w_b - 1, 0))) == a)
+    member = hit | (active == 0)[:, :, None]
+    return (keep & member.all(dim=1)).to(torch.int32)
+
+
+def batched_block_skip_join_cuda(a_docs, a_attrs, a_live, b_docs, active,
+                                 attr_filter, b_start, n_b):
+    """Launch ``batched_block_skip_kernel`` of ``csrc/block_skip.cu`` (K9:
+    one block per driver tile and query) on the current stream.  Same
+    signature and result as :func:`batched_block_skip_join_torch`."""
+    from repro_torch.kernels import _build
+
+    q_n, w_a = a_docs.shape
+    t_n, w_b = b_docs.shape[1:]
+    if w_a % TILE or w_b % TILE:
+        raise ValueError(f"need TILE-padded windows, got {w_a} and {w_b}")
+    drv, plan = (q_n, w_a), (q_n, t_n, w_a // TILE)
+    _build.check_args(
+        q_n, a_docs=(a_docs, drv), a_attrs=(a_attrs, drv),
+        **({} if a_live is None else {"a_live": (a_live, drv)}),
+        b_docs=(b_docs, (q_n, t_n, w_b)), active=(active, (q_n, t_n)),
+        attr_filter=(attr_filter, (q_n,)), b_start=(b_start, plan),
+        n_b=(n_b, plan))
+    launch = _build.kernel("batched_block_skip")
+    mask = torch.empty(drv, dtype=torch.int32, device=a_docs.device)
+    if q_n == 0 or w_a == 0:
+        return mask
+    ptr = [_ptr(x) for x in (a_docs, a_attrs, a_live, b_docs, active,
+                             attr_filter, b_start, n_b, mask)]
+    stream = torch.cuda.current_stream(a_docs.device).cuda_stream
+    err = launch(*ptr, q_n, t_n, w_a // TILE, w_b, stream)
+    batched_block_skip_join_cuda.launches += 1
+    _build.check(err, "batched_block_skip_launch")
+    return mask
+
+
+batched_block_skip_join_cuda.launches = 0
+
+
+def batched_block_skip_join(a_docs, a_attrs, a_live, b_docs, active,
+                            attr_filter, b_start, n_b):
+    """K9 on CUDA tensors, its plain version on CPU tensors."""
+    fn = (batched_block_skip_join_cuda if a_docs.is_cuda
+          else batched_block_skip_join_torch)
+    return fn(a_docs, a_attrs, a_live, b_docs, active, attr_filter, b_start, n_b)
+
+
+def intersect_batched_block_skip(
+    a_docs: torch.Tensor,       # int32[Q, W_a]    driver windows
+    a_attrs: torch.Tensor,      # int32[Q, W_a]    driver attribute streams
+    b_docs: torch.Tensor,       # int32[Q, T, W_b] other-term windows
+    active: torch.Tensor,       # int32[Q, T]      1 iff slot t joins query q
+    attr_filter: torch.Tensor,  # int32[Q]         NO_ATTR(-1) = unrestricted
+    *,
+    a_live: torch.Tensor | None = None,  # int32[Q, W_a]; None = all live
+):
+    """Batched ZigZag join over staged windows (K9): the mask of each
+    query's driver postings that occur in every active other-term window,
+    fused with validity, the attribute predicate and ``a_live``.  The
+    operands (:func:`batched_block_skip_args`), then the join.  Returns
+    int32[Q, W_a] in {0, 1}."""
+    return batched_block_skip_join(*batched_block_skip_args(
+        a_docs, a_attrs, b_docs, active, attr_filter, a_live))[:, :a_docs.shape[1]]
+
+
+def batched_block_skip_args(a_docs, a_attrs, b_docs, active, attr_filter,
+                            a_live=None):
+    """K9's operands as its join takes them: each window padded to TILE
+    (INVALID_DOC, attrs -1, live 0), and the skip map computed on the
+    device (:func:`compute_skip_map`), zeroed for inactive slots."""
+    a = _pad_to_tile(a_docs.to(torch.int32), _INVALID).contiguous()
+    b = _pad_to_tile(b_docs.to(torch.int32), _INVALID).contiguous()
+    active = active.to(torch.int32).contiguous()
+    b_start, n_b = compute_skip_map(a[:, None], b)
+    return (a, _pad_to_tile(a_attrs.to(torch.int32), int(INVALID_ATTR)).contiguous(),
+            None if a_live is None else _pad_to_tile(a_live.to(torch.int32), 0).contiguous(),
+            b, active, attr_filter.to(torch.int32).contiguous(), b_start,
+            (n_b * active[:, :, None]).contiguous())
+
+
+def block_skip_join_torch(a_docs, a_attrs, b_docs, attr_filter, b_start, n_b):
+    """Plain PyTorch version of K10, on TILE-padded 1-D inputs (``b_docs``
+    ascending, INVALID-padded), ``attr_filter`` int32[1] and the skip map
+    ``b_start``, ``n_b`` [n_a // TILE]: K9's plain version for one query
+    and one active slot, with no live stream.  Returns int32[n_a]."""
+    one = torch.ones((1, 1), dtype=torch.int32, device=a_docs.device)
+    return batched_block_skip_join_torch(
+        a_docs[None], a_attrs[None], None, b_docs[None, None], one,
+        attr_filter.reshape(1), b_start[None, None], n_b[None, None])[0]
+
+
+def block_skip_join_cuda(a_docs, a_attrs, b_docs, attr_filter, b_start, n_b):
+    """Launch ``intersect_block_skip_kernel`` of ``csrc/block_skip.cu`` (K10: one block
+    per driver tile, K9's device function for one query) on the current
+    stream.  Same signature and result as :func:`block_skip_join_torch`."""
+    from repro_torch.kernels import _build
+
+    (w_a,), (w_b,) = a_docs.shape, b_docs.shape
+    if w_a % TILE or w_b % TILE:
+        raise ValueError(f"need TILE-padded lists, got {w_a} and {w_b}")
+    _build.check_args(
+        1, a_docs=(a_docs, (w_a,)), a_attrs=(a_attrs, (w_a,)),
+        b_docs=(b_docs, (w_b,)), attr_filter=(attr_filter, (1,)),
+        b_start=(b_start, (w_a // TILE,)), n_b=(n_b, (w_a // TILE,)))
+    launch = _build.kernel("block_skip")
+    mask = torch.empty(w_a, dtype=torch.int32, device=a_docs.device)
+    if w_a == 0:
+        return mask
+    ptr = [x.data_ptr() for x in (a_docs, a_attrs, b_docs, attr_filter,
+                                  b_start, n_b, mask)]
+    stream = torch.cuda.current_stream(a_docs.device).cuda_stream
+    err = launch(*ptr, w_a // TILE, w_b, stream)
+    block_skip_join_cuda.launches += 1
+    _build.check(err, "block_skip_launch")
+    return mask
+
+
+block_skip_join_cuda.launches = 0
+
+
+def block_skip_join(a_docs, a_attrs, b_docs, attr_filter, b_start, n_b):
+    """K10 on CUDA tensors, its plain version on CPU tensors."""
+    fn = block_skip_join_cuda if a_docs.is_cuda else block_skip_join_torch
+    return fn(a_docs, a_attrs, b_docs, attr_filter, b_start, n_b)
+
+
+def intersect_block_skip(a_docs: torch.Tensor, a_attrs: torch.Tensor,
+                         b_docs: torch.Tensor, attr_filter=-1) -> torch.Tensor:
+    """Membership mask of ``a_docs`` in the ascending ``b_docs`` (K10), fused
+    with validity and the attribute predicate (``attr_filter``, an int or a
+    0-d tensor, on when >= 0).  The operands (:func:`block_skip_args`),
+    then the join.  Returns int32[len(a_docs)] in {0, 1}."""
+    return block_skip_join(*block_skip_args(
+        a_docs, a_attrs, b_docs, attr_filter))[:a_docs.shape[0]]
+
+
+def block_skip_args(a_docs, a_attrs, b_docs, attr_filter=-1):
+    """K10's operands as its join takes them: each list padded to TILE
+    (INVALID_DOC, attrs -1), the filter as int32[1] on the lists' device,
+    and the skip map computed on the device."""
+    a = _pad_to_tile(a_docs.to(torch.int32), _INVALID).contiguous()
+    b = _pad_to_tile(b_docs.to(torch.int32), _INVALID).contiguous()
+    b_start, n_b = compute_skip_map(a, b)
+    filt = torch.as_tensor(attr_filter, dtype=torch.int32,
+                           device=a.device).reshape(1)
+    return (a, _pad_to_tile(a_attrs.to(torch.int32), int(INVALID_ATTR)).contiguous(),
+            b, filt, b_start, n_b)

@@ -1,4 +1,5 @@
-"""The master merge (K2): row-wise best-k of concatenated slave candidates.
+"""The master merge (K2): row-wise best-k of concatenated slave candidates;
+and the flat sort (K11) behind ``ops.sort`` and ``ops.topk_merge``.
 
 Replaces the TPU kernel ``repro/kernels/topk_merge.py:merge_topk_rows``
 (``pallas_call`` at line 122).  Each row of ``cands`` int32[Q, m] is padded
@@ -11,6 +12,18 @@ all-gather merge.
 reference for the card), :func:`merge_topk_rows_cuda` wraps
 ``csrc/topk_merge_rows.cu`` (one block per row, bitonic sort in shared
 memory), and :func:`merge_topk_rows` picks by device.
+
+K11 replaces ``repro/kernels/topk_merge.py:bitonic_sort`` (``pallas_call``
+at line 79, body ``_sort_kernel`` / ``_bitonic_sort_flat`` at 51 and 28)
+and its wrapper ``merge_topk`` (line 89).  A 1-D int32 or float32 vector
+of length n is padded with ``INVALID_DOC`` cast to its dtype (2147483648.0
+in float32) to ``max(256, next_pow2(n))``, sorted ascending, and its first
+n values are kept: as in the reference, a float value above the pad (inf,
+3e9) comes back as the pad.  NaN is outside the contract (the reference's
+min/max network spreads it).  :func:`bitonic_sort_torch` is the plain
+version (``torch.sort`` of the padded vector, equal to the network for
+every non-NaN input), :func:`bitonic_sort_cuda` wraps
+``csrc/bitonic_sort.cu``, and :func:`bitonic_sort` picks by device.
 """
 from __future__ import annotations
 
@@ -72,3 +85,68 @@ def merge_topk_rows(cands: torch.Tensor, k: int) -> torch.Tensor:
     if cands.is_cuda:
         return merge_topk_rows_cuda(cands, k)
     return merge_topk_rows_torch(cands, k)
+
+
+# ---------------------------------------------------------------------------
+# K11: the flat sort
+# ---------------------------------------------------------------------------
+
+#: The largest padded length the CUDA sort takes (its stage sizes are int).
+MAX_SORT = 1 << 30
+
+
+def _padded(x: torch.Tensor) -> torch.Tensor:
+    """``x`` padded with ``INVALID_DOC`` (cast to its dtype) to
+    :func:`_padded_width`."""
+    padded = torch.full((_padded_width(x.shape[0]),), int(INVALID_DOC),
+                        dtype=x.dtype, device=x.device)
+    padded[:x.shape[0]] = x
+    return padded
+
+
+def bitonic_sort_torch(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K11: pad, sort, keep the first n."""
+    return _padded(x).sort().values[:x.shape[0]]
+
+
+def bitonic_sort_cuda(x: torch.Tensor) -> torch.Tensor:
+    """Launch ``csrc/bitonic_sort.cu`` on the current stream: one block
+    sorts the padded vector in shared memory up to 32768 keys, and past
+    that a launch per global merge stage.  Same result as
+    :func:`bitonic_sort_torch`; the result is a prefix of the padded
+    scratch vector."""
+    from repro_torch.kernels import _build
+
+    names = {torch.int32: "bitonic_sort_i32", torch.float32: "bitonic_sort_f32"}
+    if x.dim() != 1 or x.dtype not in names or not x.is_cuda:
+        raise ValueError(f"need a 1-D int32 or float32 CUDA tensor, got "
+                         f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    x = x.contiguous()
+    n = x.shape[0]
+    m = _padded_width(n)
+    if m > MAX_SORT:
+        raise ValueError(f"{n} keys pad to {m} > {MAX_SORT}")
+    out = torch.empty(m, dtype=x.dtype, device=x.device)
+    launch = _build.kernel(names[x.dtype])
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = launch(x.data_ptr(), n, out.data_ptr(), m, stream)
+    bitonic_sort_cuda.launches += 1
+    _build.check(err, names[x.dtype] + "_launch")
+    return out[:n]
+
+
+bitonic_sort_cuda.launches = 0
+
+
+def bitonic_sort(x: torch.Tensor) -> torch.Tensor:
+    """Ascending sort of a 1-D int32 or float32 vector, with the
+    reference's padding: the kernel on a CUDA tensor, the plain version on
+    a CPU tensor."""
+    return bitonic_sort_cuda(x) if x.is_cuda else bitonic_sort_torch(x)
+
+
+def merge_topk(cands: torch.Tensor, k: int) -> torch.Tensor:
+    """The global best ``k`` (smallest ids) of the stacked candidates
+    ``cands`` [ns, k'], ascending: the first k of :func:`bitonic_sort` of
+    the flattened array (the loser tree's output)."""
+    return bitonic_sort(cands.reshape(-1))[:k]

@@ -12,7 +12,9 @@ synchronous :meth:`SearchService.search` and the
 The service runs on ``cuda`` unless given ``device="cpu"``; with no card
 and no device it raises.  ``backend="kernel"`` (the default) runs the
 hand-written kernels on a card and their plain versions on the CPU;
-``backend="torch"`` runs plain PyTorch ops.
+``backend="torch"`` runs plain PyTorch ops; ``backend="kernel_staged"``
+the staged comparator (K9 in every slave, a plain master merge).  The
+backend passes through to :func:`distributed_query_topk`.
 
 **Online updates**: ``updatable=True`` with the base ``corpus`` (or a
 ready :class:`~repro_torch.indexing.delta.DeltaWriter` on the service's

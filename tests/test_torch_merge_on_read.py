@@ -200,8 +200,9 @@ def test_k4_plain_matches_jnp_join(setup, fill, filt):
 def test_k4_plan_and_static_variant(setup):
     """The delta plan reads the delta's valid-max skip table at ``cap``;
     with an empty delta K4 is the static join over a materialized driver
-    (its mask equals K1's on the same driver window); a call without the
-    delta arrays is refused (the static path is K1)."""
+    (its mask equals K1's on the same driver window), and so is its static
+    mode, a call without the delta arrays; a call with only some of them
+    is refused."""
     corpus, ridx, pidx, meta = setup
     _, pqb = _batches(QUERIES, meta)
     source = pt_engine.StaticPostingSource(pidx)
@@ -224,10 +225,15 @@ def test_k4_plan_and_static_variant(setup):
                                    empty.postings, empty.offsets,
                                    empty.lengths, empty.block_max, flags)
     assert torch.equal(mask4, mask1) and int(mask1.sum()) > 0
-    with pytest.raises(NotImplementedError, match="merge-on-read only"):
+    # the static mode (no delta arrays): the main probe alone
+    static = ops.intersect_streamed(docs, attrs, live, pqb.terms, active,
+                                    pqb.attr_filter, pidx.postings,
+                                    pidx.offsets, pidx.lengths, pidx.block_max)
+    assert torch.equal(static, mask1)
+    with pytest.raises(ValueError, match="all of d_postings"):
         ops.intersect_streamed(docs, attrs, live, pqb.terms, active,
                                pqb.attr_filter, pidx.postings, pidx.offsets,
-                               pidx.lengths, pidx.block_max)
+                               pidx.lengths, pidx.block_max, empty.postings)
     w = _writer_at_fill(corpus, meta, 1.0, cap=384)
     pdelta = _carry_delta(ref_delta.local_delta(w.device_delta()))
     main, delta, cap = pi.plan_streamed(
@@ -254,11 +260,20 @@ def test_query_topk_matches_reference(setup, strategy, fill):
         want = ref_engine.query_topk(ridx, rqb, delta=rdelta, k=10,
                                      window=window, attr_strategy=strategy,
                                      backend="jnp")
+        # The staged comparator joins against the first `window` postings of
+        # each merged list, the jnp path against the main window and the
+        # whole delta slab: they agree while the window covers the merged
+        # lists (not at 256 here), so it is held against the reference's
+        # staged path.
+        staged = ref_engine.query_topk(ridx, rqb, delta=rdelta, k=10,
+                                       window=window, attr_strategy=strategy,
+                                       backend="pallas_staged", interpret=True)
         for backend in pt_engine.BACKENDS:
             got = pt_engine.query_topk(pidx, pqb, delta=pdelta, k=10,
                                        window=window, attr_strategy=strategy,
                                        backend=backend)
-            _assert_result(got, want, (backend, window))
+            _assert_result(got, staged if backend == "kernel_staged" else want,
+                           (backend, window))
         assert int(np.asarray(want[1]).sum()) > 0
     # the window covers every merged list here: equal to a rebuild
     got = pt_engine.query_topk(pidx, pqb, delta=pdelta, k=10, window=WINDOW,

@@ -572,10 +572,11 @@ def test_compact_cuda_wrappers_refuse_cpu_tensors(setup):
         ops.merge_windows_compact(pidx.postings, *k8, pdelta.postings, *d8[:3],
                                   pdelta.block_max, one, window=WINDOW,
                                   packed=pidx.packed)
-    with pytest.raises(NotImplementedError, match="merge-on-read"):
+    with pytest.raises(ValueError, match="all of d_postings"):
         ops.intersect_streamed_compact(row, row, row, bounds[..., 0], one[None],
                                        one, pidx.postings, pidx.offsets,
-                                       pidx.lengths, pidx.block_max)
+                                       pidx.lengths, pidx.block_max,
+                                       pidx.postings)
 
 
 # ------------------------------------------------------- the engine -------
