@@ -7,8 +7,9 @@ Phases (any failure exits non-zero; nothing is caught):
 
 1. device  — the card's name, power limit and count;
 2. build   — nvcc builds every kernel (K1–K4, the work-list kernels
-             K6–K8, the staged joins K9 and K10, the flat sort K11, and the
-             packed modes K1p, K3p, K4p, K6p, K7p, K8p) from
+             K6–K8, the staged joins K9 and K10, the flat sort K11, the
+             flash-attention forward K12, and the packed modes K1p, K3p,
+             K4p, K6p, K7p, K8p) from
              ``src/repro_torch/kernels/csrc`` (one process per source, all
              at once) and prints ptxas' registers / shared memory / spills;
 3. data    — the deployment: a 4M-page corpus from a seed (100k terms,
@@ -111,7 +112,32 @@ Phases (any failure exits non-zero; nothing is caught):
              packed batch equal to raw; times of K9, K10, K11 and the static
              modes beside bounds, plain versions and library calls; the
              staged path against ``"kernel"`` per batch, interleaved, with
-             device ops; an updatable staged service after a mutation.
+             device ops; an updatable staged service after a mutation;
+14. flash  — K12 (``flash_attention_fwd``) within rtol = atol = 2e-5
+             (float32) and 2e-2 (bfloat16) of its plain version and of
+             ``flash_attention_ref`` at every shape of
+             ``tests/test_flash_kernel.py`` and at the full attention width
+             of phi4-mini-3.8b (H 24, KV 8, hd 128; S = T = 4096, float32
+             and bfloat16) and gemma-2b (H 8, KV 1, hd 256; S = T = 2048),
+             a rectangular-chunk and a non-causal T > S case, one launch a
+             call; at the phi4-mini shape CUDA-event and profiler times
+             beside the bound, the plain version and
+             ``scaled_dot_product_attention(enable_gqa=True)``;
+15. ingest — multi-master ingest on phase 3's index: a
+             ``ShardedDeltaWriter`` (term capacity 256, doc headroom 4096)
+             takes phase 8's stream from 4 ingest threads through its
+             queues, one drain worker a shard, while the main thread serves
+             the 512 queries; every executed batch equals
+             ``backend="torch"`` on the snapshot it read; after the joins
+             the snapshot equals a sequential ``DeltaWriter`` oracle field
+             by field, ``sum(version.seqs)`` the ops applied and the
+             conflicts counter the ops dropped; the 512 queries with K3 =
+             K4 = 4 and K2 = 2 launches a batch; a query cached before a
+             mutation on another shard is recomputed; publish seconds
+             (base writer, one shard moved, four), ingest ops/s at 1 and 4
+             threads, peak memory; three ``compact(verify=True)`` racing
+             two insert threads on the 3000-page corpus, then hits equal
+             brute force.
 
 Every phase prints its seconds.
 
@@ -126,6 +152,7 @@ import json
 import math
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -134,6 +161,8 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 INT32_OPS_PER_S = 67e12        # 32-bit CUDA-core peak (the fp32 figure)
+FP32_FLOPS_PER_S = 67e12       # float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12      # bf16 tensor cores, dense
 MAIN_WINDOW, MAIN_Q, MAIN_T, NS = 4096, 32, 4, 4
 TERM_CAPACITY, DOC_HEADROOM = 256, 4096
 FILLS = (0.0, 0.5, 1.0)
@@ -148,7 +177,7 @@ KERNEL_NAMES = {"K1": "driver_streamed_kernel", "K2": "topk_merge_rows_kernel",
                 "K7": "streamed_compact_kernel", "K7p": "streamed_compact_packed_kernel",
                 "K8": "merge_compact_kernel", "K8p": "merge_compact_packed_kernel",
                 "K9": "batched_block_skip_kernel", "K10": "intersect_block_skip_kernel",
-                "K11": "bitonic_local"}
+                "K11": "bitonic_local", "K12": "flash_attention_kernel"}
 
 
 def log(*a):
@@ -328,16 +357,18 @@ def main() -> int:
         build_sharded_index, flat_tile_pad, local_to_global_docids,
         pack_flat_postings, pack_index, unpack_flat_postings,
         unpack_flat_postings_torch)
-    from repro_torch.core.parallel import sequential_reference, slave_topk_unmerged
+    from repro_torch.core.parallel import (
+        distributed_query_topk, sequential_reference, slave_topk_unmerged)
     from repro_torch.core.perfmodel import QUERY_MIX_DEFAULT
     from repro_torch.core.queries import WorkloadConfig, generate_workload
     from repro_torch.data.corpus import (
-        CorpusConfig, MutationConfig, corpus_from_docs, generate_corpus,
+        CorpusConfig, Mutation, MutationConfig, corpus_from_docs, generate_corpus,
         generate_mutations)
     from repro_torch.indexing.compaction import compact
-    from repro_torch.indexing.delta import DeltaWriter
+    from repro_torch.indexing.delta import DeltaFullError, DeltaWriter, ShardedDeltaWriter
     from repro_torch.kernels import _build
     from repro_torch.kernels import delta_merge as dm
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import posting_intersect as pi
     from repro_torch.kernels import ops
     from repro_torch.kernels import topk_merge as tm
@@ -356,7 +387,7 @@ def main() -> int:
                 "K7p": pi.streamed_compact_join_packed_cuda,
                 "K8": dm.merge_compact_cuda, "K8p": dm.merge_compact_packed_cuda,
                 "K9": pi.batched_block_skip_join_cuda, "K10": pi.block_skip_join_cuda,
-                "K11": tm.bitonic_sort_cuda}
+                "K11": tm.bitonic_sort_cuda, "K12": fa.flash_attention_fwd_cuda}
     no_launch = {k: 0 for k in wrappers}
 
     def reset_launches():
@@ -2351,6 +2382,475 @@ def main() -> int:
         f"fresh service, n_hits {first.n_hits} -> {after.n_hits}")
     phase_end("13 staged")
 
+    # ------------------------------------------------------------ 14. flash
+    # K12 at the reference test's shapes and at two configurations' full
+    # attention width: phi4-mini-3.8b (H 24, KV 8, hd 128) and gemma-2b (H 8,
+    # KV 1, hd 256).  Products in full float32 for the plain versions.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32, bf16 = torch.float32, torch.bfloat16
+    flash_tol = {f32: 2e-5, bf16: 2e-2}
+    gen = torch.Generator().manual_seed(args.seed)
+
+    def qkv(b, s, t, h, kv, hd, dtype):
+        return tuple(torch.randn(shape, generator=gen).to(dev, dtype)
+                     for shape in ((b, s, h, hd), (b, t, kv, hd), (b, t, kv, hd)))
+
+    phi4 = (1, 4096, 4096, 24, 8, 128)
+    flash_cases = [  # (label, (B, S, T, H, KV, hd), q_chunk, k_chunk, causal, dtype)
+        *((f"test {c[:6]} causal {causal}", c[:6], c[6], c[7], causal, f32)
+          for c in ((1, 256, 256, 4, 4, 64, 128, 128), (2, 256, 256, 4, 2, 64, 128, 128),
+                    (1, 256, 256, 4, 1, 64, 128, 128), (1, 512, 512, 2, 2, 128, 128, 256),
+                    (1, 128, 384, 2, 2, 64, 128, 128))
+          for causal in (True, False)),
+        ("test bf16", (1, 256, 256, 2, 2, 64), 128, 128, True, bf16),
+        ("phi4-mini f32", phi4, 128, 128, True, f32),
+        ("phi4-mini bf16", phi4, 128, 128, True, bf16),
+        ("gemma-2b f32", (1, 2048, 2048, 8, 1, 256), 128, 128, True, f32),
+        ("phi4-mini heads, chunks 128 x 256", (1, 1024, 1024, 24, 8, 128), 128, 256,
+         True, f32),
+        ("phi4-mini heads, T > S, non-causal", (1, 1024, 2048, 24, 8, 128), 128, 128,
+         False, f32),
+    ]
+    flash_in = [qkv(*shape, dtype) for _, shape, _, _, _, dtype in flash_cases]
+    reset_launches()
+    flash_out = [fa.flash_attention_fwd(q, k, v, causal=causal, q_chunk=cq, k_chunk=ck)
+                 for (_, _, cq, ck, causal, _), (q, k, v) in zip(flash_cases, flash_in)]
+    flash_launches = launches_now()
+    if flash_launches != {**no_launch, "K12": len(flash_cases)}:
+        raise AssertionError(f"flash: launches {flash_launches}, expected one K12 "
+                             f"a call ({len(flash_cases)})")
+    torch.cuda.synchronize()
+    for (label, shape, cq, ck, causal, dtype), (q, k, v), got in zip(
+            flash_cases, flash_in, flash_out):
+        errs = []
+        for name, want in (
+                ("plain", fa.flash_attention_fwd_torch(q, k, v, causal=causal,
+                                                       q_chunk=cq, k_chunk=ck)),
+                ("ref", fa.flash_attention_ref(q, k, v, causal=causal))):
+            if got.shape != want.shape or got.dtype != want.dtype \
+                    or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"K12 {label}: {got.dtype} {tuple(got.shape)} vs "
+                                     f"{want.dtype} {tuple(want.shape)} or not finite")
+            g, w = got.float(), want.float()
+            err = float((g - w).abs().max())
+            max_err["K12"] = max(max_err["K12"], err)
+            errs.append(f"{name} {err:.3g}")
+            tol = flash_tol[dtype]
+            if not torch.allclose(g, w, rtol=tol, atol=tol):
+                raise AssertionError(f"K12 {label}: max abs err vs {name} {err} "
+                                     f"beyond rtol = atol = {tol}")
+            del want, g, w
+        log(f"[flash] K12 {label} {shape} chunks ({cq}, {ck}) causal {causal} "
+            f"{str(dtype)[6:]}: within rtol = atol = {flash_tol[dtype]:g} of the plain "
+            f"version and flash_attention_ref; max abs err " + ", ".join(errs))
+    del flash_out, flash_in
+    log(f"[flash] launches {flash_launches['K12']} K12 for {len(flash_cases)} "
+        f"flash_attention_fwd calls; max abs err over every case {max_err['K12']:.3g}")
+
+    flash_rows = {}
+    for dtype, peak in ((f32, FP32_FLOPS_PER_S), (bf16, BF16_FLOPS_PER_S)):
+        b_, s_, t_, h_, kv_, hd_ = phi4
+        q, k, v = qkv(*phi4, dtype)
+        run = lambda: fa.flash_attention_fwd_cuda(q, k, v)  # noqa: E731
+        plain = lambda: fa.flash_attention_fwd_torch(q, k, v)  # noqa: E731
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        sdpa_err = float((sdpa().transpose(1, 2).float() - run().float()).abs().max())
+        ms, dev_ms = cuda_ms(run, reps=20, warmup=3), device_ms(run, reps=10)
+        plain_ms = cuda_ms(plain, reps=3, warmup=1)
+        plain_dev = device_ms(plain, reps=2)
+        lib_ms, lib_dev = cuda_ms(sdpa, reps=20, warmup=3), device_ms(sdpa, reps=10)
+        n_bytes = 2 * (q.numel() + k.numel() + v.numel()) * q.element_size()
+        flops = 4 * b_ * h_ * s_ * t_ * hd_ // 2
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
+        bound, by = max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                                 else "operations")
+        flash_rows[dtype] = (ms, plain_ms, bound, by, lib_ms)
+        log(f"[times] K12 phi4-mini {phi4} causal {str(dtype)[6:]}: {ms:.4f} ms/launch "
+            f"(CUDA events), device {dev_ms:.4f} ms (profiler); plain {plain_ms:.4f} ms "
+            f"(device {plain_dev:.4f} ms); SDPA (enable_gqa, same dtype) {lib_ms:.4f} ms "
+            f"(device {lib_dev:.4f} ms; max abs diff from K12 {sdpa_err:.3g}); bound "
+            f"{bound:.4f} ms ({by}: {flops} flops at {peak / 1e12:.0f} TFLOP/s, "
+            f"{n_bytes} bytes at 3.35 TB/s); K12 / SDPA {ms / lib_ms:.2f}x, "
+            f"K12 / bound {ms / bound:.2f}x on {smi}")
+        del q, k, v, qt, kt, vt
+    q, k, v = qkv(1, 2048, 2048, 8, 1, 256, f32)
+    g_ms = cuda_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v), reps=20, warmup=3)
+    g_flops = 4 * 8 * 2048 * 2048 * 256 // 2
+    log(f"[times] K12 gemma-2b (1, 2048, 2048, 8, 1, 256) causal float32: {g_ms:.4f} "
+        f"ms/launch; bound {g_flops / FP32_FLOPS_PER_S * 1e3:.4f} ms (operations) "
+        f"on {smi}")
+    del q, k, v
+    phase_end("14 flash")
+
+    # ------------------------------------------------------------ 15. ingest
+    # Multi-master ingest on phase 3's index: phase 8's stream split across 4
+    # ingest threads into a ShardedDeltaWriter's queues, one drain worker a
+    # shard, the main thread serving meanwhile.
+    torch.cuda.reset_peak_memory_stats()
+    base_n, vocab = corpus.n_docs, meta.vocab_size
+
+    def capacity_safe_ops(stream, n_docs, meta_, cap, ns):
+        """The stream's inserts and its deletes and updates of base docs, as
+        the longest prefix whose delta lists cannot pass ``cap`` in any
+        interleaving: per (shard, term) every insert (its shard is known
+        only at apply time) plus the base docs of that shard ever given the
+        term."""
+        worst = np.zeros((ns, meta_.n_terms), np.int64)
+        pairs, sites_now, kept = set(), {}, []
+        for m in stream:
+            if m.op != "insert" and m.docid >= n_docs:
+                continue
+            add = np.zeros_like(worst)
+            if m.op != "delete":
+                site = m.site if m.site is not None else sites_now.get(m.docid)
+                if site is None:
+                    site = int(corpus.doc_site[m.docid])
+                terms = set(np.unique(np.asarray(m.terms)).tolist())
+                if meta_.include_site_terms:
+                    terms.add(meta_.vocab_size + site)
+                if m.op == "insert":
+                    add[:, sorted(terms)] = 1
+                else:
+                    new = [t for t in terms if (m.docid, t) not in pairs]
+                    add[m.docid % ns, new] = 1
+            if ((worst + add) > cap).any():
+                break
+            worst += add
+            if m.op == "update":
+                pairs.update((m.docid, t) for t in terms)
+                if m.site is not None:
+                    sites_now[m.docid] = m.site
+            kept.append(m)
+        return kept
+
+    ing_ops = capacity_safe_ops(muts, base_n, meta, TERM_CAPACITY, NS)
+    n_threads = 4
+    owner = {}
+    per_thread = [[] for _ in range(n_threads)]
+    for i, m in enumerate(ing_ops):
+        tid = i % n_threads if m.op == "insert" else owner.setdefault(
+            m.docid, (m.docid // NS) % n_threads)
+        per_thread[tid].append(m)
+    # deliberate conflicts: an unknown docID, and an update of a doc its own
+    # thread deleted before (same home queue, so always after the delete)
+    n_conflicts = 0
+    for tid, mine in enumerate(per_thread):
+        mine.append(Mutation("delete", 10**9 + tid, None, None))
+        dead = [m.docid for m in mine if m.op == "delete" and m.docid < base_n]
+        n_conflicts += 1
+        if dead:
+            mine.append(Mutation("update", dead[0], np.array([1], np.int32), None))
+            n_conflicts += 1
+    n_submitted = sum(len(m) for m in per_thread)
+    ing_kinds = {k: sum(m.op == k for m in ing_ops) for k in ("insert", "delete", "update")}
+
+    class PublishedWriter(ShardedDeltaWriter):
+        """Keeps the snapshot of the last publish: the one the service's
+        batch reads (the service publishes from this thread only)."""
+
+        def device_delta(self):
+            self.last_snapshot = super().device_delta()
+            self.last_stamp = self._snapshot_version
+            return self.last_snapshot
+
+    ing_reg = MetricsRegistry()
+    t0 = time.perf_counter()
+    w = PublishedWriter(corpus, meta, NS, term_capacity=TERM_CAPACITY,
+                        doc_headroom=DOC_HEADROOM, device=dev, registry=ing_reg)
+    log(f"[ingest] ShardedDeltaWriter(term_capacity={TERM_CAPACITY}, doc_headroom="
+        f"{DOC_HEADROOM}) over the {base_n}-page corpus in "
+        f"{time.perf_counter() - t0:.2f} s; phase 8's stream cut to the {len(ing_ops)} "
+        f"ops ({ing_kinds}) that cannot fill a list in any order, split across "
+        f"{n_threads} ingest threads (inserts round-robin, deletes and updates by "
+        f"doc), plus {n_conflicts} deliberate conflicts: {n_submitted} submissions")
+
+    def submit(m):
+        if m.op == "insert":
+            w.submit_insert(m.terms, m.site)
+        elif m.op == "delete":
+            w.submit_delete(m.docid)
+        else:
+            w.submit_update(m.docid, m.terms, m.site)
+
+    submitted_all = threading.Event()
+    n_done, applied_by, errs = [0], [0] * NS, []
+
+    def ingest(tid):
+        try:
+            for m in per_thread[tid]:
+                submit(m)
+                time.sleep(0.025)   # arrivals spread over the serving window
+        except BaseException as e:  # surfaced in the main thread
+            errs.append(e)
+        finally:
+            with count_lock:
+                n_done[0] += 1
+                if n_done[0] == n_threads:
+                    submitted_all.set()
+
+    def drainer(s):
+        try:
+            while True:
+                done = submitted_all.is_set()
+                applied_by[s] += w.drain(s)
+                if done and w.queue_depth(s) == 0:
+                    return
+                time.sleep(0.0005)
+        except BaseException as e:
+            errs.append(e)
+
+    count_lock = threading.Lock()
+    threads = ([threading.Thread(target=ingest, args=(i,)) for i in range(n_threads)]
+               + [threading.Thread(target=drainer, args=(s,)) for s in range(NS)])
+    svc_i = SearchService(sharded, meta, writer=w, **main_kw)
+    orig_exec = svc_i.scheduler.executor
+    checked, during, snaps = [0], [0], set()
+
+    def checked_exec(qs, t_max, k, set_id):
+        """The kernel batch, then backend="torch" on the very snapshot it
+        read (an immutable value, however far ingest has moved since)."""
+        during[0] += any(t.is_alive() for t in threads)
+        hits = orig_exec(qs, t_max, k, set_id)
+        snap = w.last_snapshot
+        snaps.add(w.last_stamp)
+        want = distributed_query_topk(
+            sharded, make_query_batch(qs, t_max=t_max, meta=meta, device=dev), snap,
+            ns=NS, k=k, window=MAIN_WINDOW, backend="torch")
+        w_docs, w_hits = want.docids.cpu().numpy(), want.n_hits.cpu().numpy()
+        for h, row, n in zip(hits, w_docs, w_hits):
+            if h.docids != [int(d) for d in row if d != INVALID_DOC] or h.n_hits != n:
+                raise AssertionError("ingest: a served batch differs from "
+                                     "backend='torch' on its snapshot")
+        checked[0] += 1
+        return hits
+
+    svc_i.scheduler.executor = checked_exec
+    reset_launches()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    rounds = 0
+    while rounds == 0 or any(t.is_alive() for t in threads):
+        serve(svc_i, queries, ks)
+        rounds += 1
+    for t in threads:
+        t.join()
+    t_ing = time.perf_counter() - t0
+    if errs:
+        raise errs[0]
+    ing_counts = launches_now()
+    ex = executed_batches(svc_i)
+    want_counts = {**no_launch, "K2": int(math.log2(NS)) * ex, "K3": NS * ex,
+                   "K4": NS * ex}
+    if ing_counts != want_counts or ex == 0 or checked[0] != ex:
+        raise AssertionError(f"ingest: launches {ing_counts} vs {want_counts}, "
+                             f"{checked[0]} checked of {ex} executed")
+    applied = sum(applied_by)
+    conflicts = ing_reg.counter("odys_ingest_conflicts_total").value
+    log(f"[ingest] {rounds} rounds of the {len(queries)} queries served while ingest "
+        f"ran ({t_ing:.2f} s): {ex} executed batches over {len(snaps)} distinct "
+        f"snapshots ({during[0]} batches started while ingest threads were alive), each equal "
+        f"to backend='torch' on the snapshot it read; launches {ing_counts}")
+    if sum(w.version.seqs) != applied or applied + conflicts != n_submitted \
+            or conflicts != n_conflicts or w.queue_depth() != 0:
+        raise AssertionError(f"ingest: seqs {w.version}, applied {applied}, "
+                             f"conflicts {conflicts} (expected {n_conflicts}), "
+                             f"submitted {n_submitted}")
+
+    # the published snapshot against a sequential DeltaWriter oracle: the
+    # concurrent run's inserts in docID order, then each doc's own ops in the
+    # order its thread submitted them
+    t0 = time.perf_counter()
+    oracle = DeltaWriter(corpus, meta, NS, term_capacity=TERM_CAPACITY,
+                         doc_headroom=DOC_HEADROOM, device=dev)
+    for gid in range(base_n, w.n_docs):
+        terms = [int(t) for t in w._terms_of(gid)]
+        oracle.insert_docs([(terms or [0], w._site_of(gid))])
+        if not terms:
+            oracle.delete_docs([gid])
+    for mine in per_thread:
+        for m in mine:
+            if m.op == "insert":
+                continue
+            try:
+                if m.op == "delete":
+                    oracle.delete_docs([m.docid])
+                else:
+                    oracle.update_docs([(m.docid, m.terms, m.site)])
+            except KeyError:
+                pass
+    got_snap, want_snap = w.device_delta(), oracle.device_delta()
+    for name, g, r in zip(got_snap._fields, got_snap, want_snap):
+        if not torch.equal(g, r):
+            raise AssertionError(f"ingest: snapshot field {name} differs from the "
+                                 f"sequential oracle")
+    log(f"[ingest] after the joins: {w.n_docs - base_n} inserts, {applied} ops applied "
+        f"= sum(version.seqs) of {w.version}; {int(conflicts)} dropped = "
+        f"odys_ingest_conflicts_total; the snapshot equals the sequential "
+        f"DeltaWriter oracle field by field (torch.equal; oracle "
+        f"{time.perf_counter() - t0:.2f} s)")
+
+    # the 512 queries on the final snapshot
+    reset_launches()
+    svc_f = SearchService(sharded, meta, writer=w, **main_kw)
+    f_got = serve(svc_f, queries, ks)
+    f_counts, ex = launches_now(), executed_batches(svc_f)
+    want_counts = {**no_launch, "K2": int(math.log2(NS)) * ex, "K3": NS * ex,
+                   "K4": NS * ex}
+    if f_counts != want_counts or ex == 0:
+        raise AssertionError(f"ingest: launches {f_counts} vs {want_counts}")
+    if f_got != serve(SearchService(sharded, meta, writer=w, backend="torch",
+                                    **main_kw), queries, ks):
+        raise AssertionError("ingest: final hits differ from backend='torch'")
+    log(f"[ingest] the {len(queries)} queries on the final snapshot equal "
+        f"backend='torch'; K3 = K4 = {NS} and K2 = {int(math.log2(NS))} launches a "
+        f"batch over {ex} batches ({f_counts})")
+
+    # a query cached before a mutation on a different shard than the last
+    # one is recomputed: the delete moves only that shard's seq
+    w.insert_docs([([vocab - 1], meta.n_sites - 1)])
+    last_shard = (w.n_docs - 1) % NS
+    q, first = next((q, h) for q, h in zip(
+        queries, svc_f.search(queries)) if h.n_hits > 1 and any(
+            d % NS != last_shard and d not in w.delta_doc_ids for d in h.docids))
+    victim = next(d for d in first.docids
+                  if d % NS != last_shard and d not in w.delta_doc_ids)
+    stale0 = svc_f.stats()["cache"]["stale"]
+    v_before = w.version
+    w.delete_docs([victim])
+    moved = [s for s in range(NS) if w.version.seqs[s] != v_before.seqs[s]]
+    after = svc_f.search([q])[0]
+    fresh = SearchService(sharded, meta, writer=w, backend="torch",
+                          **main_kw).search([q])[0]
+    if (moved != [victim % NS] or svc_f.stats()["cache"]["stale"] != stale0 + 1
+            or after != fresh or victim in after.docids
+            or after.n_hits != first.n_hits - 1):
+        raise AssertionError(f"ingest: stale cache check failed ({moved}, "
+                             f"{first.n_hits} -> {after.n_hits})")
+    log(f"[ingest] query {q} cached at {v_before} (the last mutation on shard "
+        f"{last_shard}); deleting doc {victim} moved shard {moved[0]} alone, to "
+        f"{w.version}, and the query was recomputed (stale {stale0} -> "
+        f"{stale0 + 1}), n_hits {first.n_hits} -> {after.n_hits}, equal to "
+        f"backend='torch'")
+
+    # publish seconds: the base writer's full copy against the sharded
+    # writer's copy of the shards that moved
+    def publish_s(writer, n_docs):
+        out = []
+        for _ in range(3):
+            writer.insert_docs([([vocab - 1], meta.n_sites - 1)] * n_docs)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            writer.device_delta()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t)
+        return float(np.median(out)), out
+
+    pub = {"base DeltaWriter": publish_s(oracle, 1),
+           "sharded, 1 of 4 shards moved": publish_s(w, 1),
+           "sharded, 4 of 4 shards moved": publish_s(w, NS)}
+    log("[ingest] publish seconds (device_delta(), host clock around synchronize, "
+        "median of 3): " + "; ".join(f"{k} {v[0]:.4f} s {[round(x, 4) for x in v[1]]}"
+                                     for k, v in pub.items()) + f" on {smi}")
+
+    # ingest ops/s with the thread-safe calls, 1 thread against 4
+    def apply_direct(wr, ops_):
+        for m in ops_:
+            try:
+                if m.op == "insert":
+                    wr.insert_docs([(m.terms, m.site)])
+                elif m.op == "delete":
+                    wr.delete_docs([m.docid])
+                else:
+                    wr.update_docs([(m.docid, m.terms, m.site)])
+            except KeyError:
+                pass
+
+    ops_s = {}
+    for nt in (1, n_threads):
+        wr = ShardedDeltaWriter(corpus, meta, NS, term_capacity=TERM_CAPACITY,
+                                doc_headroom=DOC_HEADROOM, device=dev)
+        parts = ([sum(per_thread, [])] if nt == 1 else per_thread)
+        ths = [threading.Thread(target=apply_direct, args=(wr, p)) for p in parts]
+        t = time.perf_counter()
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join()
+        ops_s[nt] = n_submitted / (time.perf_counter() - t)
+        if sum(wr.version.seqs) != n_submitted - n_conflicts:
+            raise AssertionError(f"ingest: {nt} threads applied {wr.version}")
+        del wr
+    log(f"[ingest] {n_submitted} ops through insert_docs/delete_docs/update_docs "
+        f"(host numpy under the GIL): {ops_s[1]:.1f} ops/s on 1 thread, "
+        f"{ops_s[n_threads]:.1f} ops/s on {n_threads}; peak device memory "
+        f"{torch.cuda.max_memory_allocated()} bytes (index {sharded.nbytes()}, "
+        f"snapshot {w.device_delta().nbytes()})")
+    del w, oracle, svc_i, svc_f, got_snap, want_snap
+
+    # compaction racing two insert threads on the 3000-page corpus
+    sw = ShardedDeltaWriter(small, s_meta, NS, term_capacity=512, doc_headroom=2048,
+                            device=dev)
+    svc_c = SearchService(s_idx, s_meta, writer=sw, **main_kw)
+    stop = threading.Event()
+    landed = [[], []]
+
+    def insert_loop(tid):
+        try:
+            i = 0
+            while not stop.is_set():
+                term = (i * 7 + tid) % s_meta.vocab_size
+                (gid,) = sw.insert_docs([([term], tid % s_meta.n_sites)])
+                landed[tid].append((gid, term, sw.version.epoch))
+                i += 1
+                time.sleep(0.0002)
+        except DeltaFullError:
+            pass
+        except BaseException as e:
+            errs.append(e)
+
+    ths = [threading.Thread(target=insert_loop, args=(i,)) for i in range(2)]
+    for th in ths:
+        th.start()
+    t0 = time.perf_counter()
+    try:
+        for i in range(3):
+            # let inserts land in every generation before it is folded
+            while sum(map(len, landed)) < 50 * (i + 1) and any(
+                    th.is_alive() for th in ths):
+                time.sleep(0.001)
+            svc_c.compact(verify=True)
+    finally:
+        stop.set()
+        for th in ths:
+            th.join()
+    t_c = time.perf_counter() - t0
+    if errs:
+        raise errs[0]
+    ins = sorted(x for lst in landed for x in lst)
+    mutated = sw.mutated_corpus()
+    if (sw.version.epoch != 3 or sw.n_docs != small.n_docs + len(ins)
+            or [g for g, _, _ in ins] != list(range(small.n_docs, sw.n_docs))
+            or any(list(mutated.terms_of(g)) != [t] for g, t, _ in ins)):
+        raise AssertionError(f"ingest: compaction race lost or doubled an insert "
+                             f"({sw.version}, {sw.n_docs}, {len(ins)})")
+    per_epoch = [sum(e == ep for _, _, e in ins) for ep in range(4)]
+    c_q = s_q + [([t], None) for t in sorted({t for _, t, _ in ins})[:32]]
+    c_ks = s_ks + [10] * (len(c_q) - len(s_q))
+    c_got = serve(svc_c, c_q, c_ks)
+    c_truth = brute_force_topk(mutated, c_q, mutated.n_docs)
+    if c_got != [(t[:k], len(t)) for t, k in zip(c_truth, c_ks)]:
+        raise AssertionError("ingest: hits after the raced compactions differ from "
+                             "brute force")
+    log(f"[ingest] 3 x compact(verify=True) in {t_c:.2f} s raced 2 insert threads on "
+        f"the 3000-page corpus: epoch {sw.version.epoch}, {len(ins)} inserts (by the "
+        f"epoch they landed in: {per_epoch}), none lost or doubled; {len(c_q)} queries "
+        f"equal brute force over the mutated corpus")
+    phase_end("15 ingest")
+
     k2_main = k2_rows[("tournament", 1000)]
     fill1 = mor[1.0]
     record = {"kernels": [
@@ -2442,6 +2942,14 @@ def main() -> int:
             "replaces": f"src/repro/kernels/{replaces}", "launches": launches,
             "max_abs_err": max_err[err_key], "ms": ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": by, "library_ms": lib})
+    for dtype, label in ((f32, "float32"), (bf16, "bfloat16")):
+        ms, plain, bound, by, lib = flash_rows[dtype]
+        record["kernels"].append({
+            "name": f"K12 flash_attention_fwd (phi4-mini, causal, {label})",
+            "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:136",
+            "launches": flash_launches["K12"], "max_abs_err": max_err["K12"], "ms": ms,
+            "plain_ms": plain, "bound_ms": bound, "bound_by": by, "library_ms": lib})
     print(json.dumps(record), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

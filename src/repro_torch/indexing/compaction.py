@@ -15,6 +15,8 @@ corpus (the reference loops over every document in Python).
 """
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -95,23 +97,34 @@ def compact(
     against a from-scratch build over the writer's mutated-corpus record;
     a mismatch raises :class:`CompactionMismatch` and leaves the writer
     untouched.  ``term_capacity``/``doc_headroom`` re-size the delta
-    generation at the boundary (:meth:`DeltaWriter.rebase`)."""
-    folded = fold_corpus(writer)
-    new_index, new_meta = build_sharded_index(
-        folded, writer.ns, include_site_terms=writer.include_site_terms,
-        device=writer.device,
-    )
-    if verify:
-        ref_index, ref_meta = build_sharded_index(
-            writer.mutated_corpus(), writer.ns,
-            include_site_terms=writer.include_site_terms, device=writer.device,
+    generation at the boundary (:meth:`DeltaWriter.rebase`).
+
+    A :class:`~repro_torch.indexing.delta.ShardedDeltaWriter` is frozen
+    (every shard quiesced) for the whole fold -> verify -> rebase, so
+    compaction can race active ingest: the applied state folds
+    consistently, and ops still queued (or blocked on the freeze) apply
+    afterwards onto the new generation."""
+    freeze = getattr(writer, "frozen", None)
+    with freeze() if callable(freeze) else contextlib.nullcontext():
+        folded = fold_corpus(writer)
+        new_index, new_meta = build_sharded_index(
+            folded, writer.ns, include_site_terms=writer.include_site_terms,
+            device=writer.device,
         )
-        if new_meta != ref_meta:
-            raise CompactionMismatch(f"meta: {new_meta} != {ref_meta}")
-        for name, got, want in zip(ShardedIndex._fields, new_index, ref_index):
-            if not torch.equal(got, want):
-                raise CompactionMismatch(f"field {name!r} diverged")
-    writer.rebase(folded, term_capacity=term_capacity, doc_headroom=doc_headroom)
+        if verify:
+            ref_index, ref_meta = build_sharded_index(
+                writer.mutated_corpus(), writer.ns,
+                include_site_terms=writer.include_site_terms,
+                device=writer.device,
+            )
+            if new_meta != ref_meta:
+                raise CompactionMismatch(f"meta: {new_meta} != {ref_meta}")
+            for name, got, want in zip(ShardedIndex._fields, new_index,
+                                       ref_index):
+                if not torch.equal(got, want):
+                    raise CompactionMismatch(f"field {name!r} diverged")
+        writer.rebase(folded, term_capacity=term_capacity,
+                      doc_headroom=doc_headroom)
     return new_index, new_meta
 
 

@@ -30,12 +30,21 @@ With ``codec="packed"``, :meth:`DeltaWriter.shard_deltas` gives each view
 the block-codec twin of its slab, re-encoded per version on the writer's
 device and cached like the snapshot; :meth:`DeltaWriter.device_delta`
 stays raw, so one packed writer serves the raw service and the packed read
-path.  The multi-master ``ShardedDeltaWriter`` / ``VectorVersion`` are a
-later slice of the port.
+path.
+
+**ShardedDeltaWriter** is the multi-master writer (the paper's deployment
+shape, §6, where several masters feed one engine's write path): thread-safe
+per-doc ops under one lock per shard, per-shard write queues drained by
+workers, and publishes stamped with a :class:`VectorVersion` ``(epoch,
+per-shard seqs)`` that re-copy to the device only the shards that moved.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import itertools
+import threading
+from collections import deque
 from typing import Mapping, NamedTuple, Sequence
 
 import numpy as np
@@ -57,6 +66,7 @@ from repro_torch.core.index import (
     resolve_device,
 )
 from repro_torch.data.corpus import Corpus
+from repro_torch.obs.registry import MetricsRegistry, get_registry
 
 
 class DeltaFullError(RuntimeError):
@@ -373,7 +383,8 @@ class DeltaWriter:
     def _shard_of(self, gid: int) -> tuple[_ShardState, int]:
         return self._shards[gid % self.ns], gid // self.ns
 
-    def _bump(self):
+    def _bump(self, shard: int | None = None):
+        """Count one change: a mutation of ``shard``, or (None) a rebase."""
         self._version += 1
 
     # ------------------------------------------------------------------
@@ -418,7 +429,7 @@ class DeltaWriter:
         self._sites_over[gid] = int(site)
         self._delta_docs.add(gid)
         self.n_docs += 1
-        self._bump()
+        self._bump(gid % self.ns)
         return gid
 
     def delete_docs(self, docids: Sequence[int]) -> None:
@@ -440,7 +451,7 @@ class DeltaWriter:
             self._delta_docs.discard(gid)
         st.doc_flags[local] |= DOC_DEAD
         self._terms_over[gid] = np.zeros(0, dtype=np.int32)
-        self._bump()
+        self._bump(gid % self.ns)
 
     def update_docs(
         self, updates: Sequence[tuple[int, Sequence[int], int | None]]
@@ -490,7 +501,7 @@ class DeltaWriter:
         self._terms_over[gid] = terms_u
         self._sites_over[gid] = new_site
         self._delta_docs.add(gid)
-        self._bump()
+        self._bump(gid % self.ns)
 
     def apply(self, mutations) -> None:
         """Apply a :func:`repro_torch.data.corpus.generate_mutations` stream."""
@@ -530,47 +541,51 @@ class DeltaWriter:
     def device_delta(self) -> ShardedDelta:
         """Snapshot the host mirrors into a :class:`ShardedDelta` on the
         writer's device, cached per version.  Shapes are fixed per
-        generation.  The skip table is computed on the device from the
-        copied slabs: per block, the max of its valid postings, and
-        ``INVALID_DOC`` for a block with none."""
-        if self._snapshot is not None and self._snapshot_version == self._version:
-            return self._snapshot
-        ns, cap, n_terms, dev = self.ns, self.term_capacity, self.n_terms, self.device
+        generation.  The snapshot is a value: later mutations never write
+        into it."""
+        if self._snapshot is None or self._snapshot_version != self._version:
+            self._publish([self._device_rows(st) for st in self._shards],
+                          self._version)
+        return self._snapshot
+
+    def _device_rows(self, st: _ShardState) -> tuple[torch.Tensor, ...]:
+        """One shard's mirror copied to the writer's device, in
+        :class:`ShardedDelta` field order after ``offsets``.  The skip
+        table is computed on the device from the copied slab: per block,
+        the max of its valid postings, and ``INVALID_DOC`` for a block
+        with none."""
+        cap, n_terms, dev = self.term_capacity, self.n_terms, self.device
         flat = n_terms * cap
-        flat_pad = flat_tile_pad(flat)
-        bpt = cap // BLOCK
         i32 = torch.int32
-        postings = torch.full((ns, flat_pad), int(INVALID_DOC), dtype=i32, device=dev)
-        attrs = torch.full((ns, flat_pad), int(INVALID_ATTR), dtype=i32, device=dev)
-        block_max = torch.empty((ns, n_terms * bpt), dtype=i32, device=dev)
-        lengths = torch.from_numpy(
-            np.stack([st.lengths for st in self._shards])).to(dev)
-        slot = torch.arange(cap, dtype=i32, device=dev)
-        for s, st in enumerate(self._shards):
-            p = postings[s, :flat]
-            p.copy_(torch.from_numpy(st.postings.reshape(-1)))
-            attrs[s, :flat].copy_(torch.from_numpy(st.attrs.reshape(-1)))
-            valid = slot < lengths[s][:, None]                     # [n_terms, cap]
-            m = torch.where(valid, p.view(n_terms, cap), -1)
-            m = m.view(n_terms, bpt, BLOCK).amax(-1).view(-1)
-            block_max[s] = torch.where(m >= 0, m, int(INVALID_DOC))
-        offsets = (torch.arange(n_terms, dtype=i32, device=dev) * cap).expand(
-            ns, n_terms).contiguous()
-        self._snapshot = ShardedDelta(
-            offsets=offsets,
-            lengths=lengths,
-            postings=postings,
-            attrs=attrs,
-            block_max=block_max,
-            doc_flags=torch.from_numpy(
-                np.stack([st.doc_flags for st in self._shards])).to(dev),
-            doc_site=torch.from_numpy(
-                np.stack([st.doc_site for st in self._shards])).to(dev),
-        )
-        self._snapshot_version = self._version
+
+        def copied(a: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(a).to(dev, copy=True)
+
+        postings = torch.full((flat_tile_pad(flat),), int(INVALID_DOC),
+                              dtype=i32, device=dev)
+        attrs = torch.full_like(postings, int(INVALID_ATTR))
+        postings[:flat].copy_(torch.from_numpy(st.postings.reshape(-1)))
+        attrs[:flat].copy_(torch.from_numpy(st.attrs.reshape(-1)))
+        lengths = copied(st.lengths)
+        valid = torch.arange(cap, dtype=i32, device=dev) < lengths[:, None]
+        m = torch.where(valid, postings[:flat].view(n_terms, cap), -1)
+        m = m.view(n_terms, cap // BLOCK, BLOCK).amax(-1).view(-1)
+        block_max = torch.where(m >= 0, m, int(INVALID_DOC))
+        return (lengths, postings, attrs, block_max, copied(st.doc_flags),
+                copied(st.doc_site))
+
+    def _publish(self, rows, version) -> None:
+        """Stack the shards' device rows into a new snapshot stamped
+        ``version``."""
+        n_terms, dev = self.n_terms, self.device
+        offsets = (torch.arange(n_terms, dtype=torch.int32, device=dev)
+                   * self.term_capacity).expand(len(rows), n_terms).contiguous()
+        self._snapshot = ShardedDelta(offsets,
+                                      *(torch.stack(col) for col in zip(*rows)))
+        self._snapshot_version = version
+        postings = self._snapshot.postings
         export_index_bytes(postings.numel() * postings.element_size(), None,
                            kind="delta")
-        return self._snapshot
 
     def shard_deltas(self) -> list[DeltaIndex]:
         """Per-shard views of the current snapshot.
@@ -631,3 +646,287 @@ class DeltaWriter:
         drain it), so it is not a trigger; its exhaustion surfaces as
         :class:`DeltaFullError` at insert time."""
         return self.posting_fill() >= threshold
+
+
+# ---------------------------------------------------------------------------
+# Multi-master ingest: concurrent streams, vector-versioned publish
+# ---------------------------------------------------------------------------
+
+
+class VectorVersion(NamedTuple):
+    """Snapshot stamp of a :class:`ShardedDeltaWriter` publish.
+
+    ``epoch`` counts structural transitions (rebase, compaction); ``seqs``
+    is each shard's mutation sequence.  Hashable and compared by value, so
+    the version-stamped result cache and the snapshot caches keyed on
+    ``writer.version`` work unchanged: any shard's mutation (or an epoch
+    bump) makes the stamp unequal, and a stale result is never served
+    across it, with no global write lock imposing a total order first."""
+
+    epoch: int
+    seqs: tuple[int, ...]
+
+
+class ShardedDeltaWriter(DeltaWriter):
+    """Multi-master ingest over the per-shard delta.
+
+    - ``insert_docs`` / ``delete_docs`` / ``update_docs`` are thread safe
+      and may be called from concurrent ingest streams.  Allocating a
+      docID is a short serial section under the alloc lock; every posting
+      mutation runs under the lock of the doc's shard only, so streams on
+      different shards proceed side by side.  Locks are always taken in
+      the order alloc -> shard.
+    - ``submit_insert`` / ``submit_delete`` / ``submit_update`` put ops on
+      per-shard queues (deletes and updates by their docID's home shard
+      ``gid % ns``; inserts round-robin, since their shard is fixed only
+      when the docID is allocated at apply time).  :meth:`drain` applies
+      them FIFO per shard and may run as one worker per shard.  A queued
+      op that raises ``KeyError`` (unknown or deleted docID) or
+      :class:`DeltaFullError` is dropped and counted on
+      ``odys_ingest_conflicts_total`` instead of stopping the queue.
+    - :meth:`device_delta` publishes under :meth:`frozen` and stamps the
+      snapshot with the :class:`VectorVersion`.  Each shard's device rows
+      are cached by ``(epoch, seq)``, so a publish copies host -> device
+      only the shards that moved and stacks the new snapshot from the
+      cached rows (a device-side copy: the snapshot stays a value, and a
+      cached row is never written after a publish used it).
+
+    Unlike the base writer, a concurrent insert reserves its docID before
+    the capacity check (the shard is a function of the docID), so an
+    insert that fails for capacity leaves a dead, empty placeholder doc;
+    global docIDs stay dense either way.
+    """
+
+    def __init__(
+        self,
+        corpus: Corpus,
+        meta: IndexMeta,
+        ns: int,
+        *,
+        term_capacity: int = 2 * BLOCK,
+        doc_headroom: int = 1024,
+        codec: str = "raw",
+        device=None,
+        registry: MetricsRegistry | None = None,
+    ):
+        super().__init__(corpus, meta, ns, term_capacity=term_capacity,
+                         doc_headroom=doc_headroom, codec=codec, device=device)
+        self._alloc_lock = threading.RLock()
+        self._shard_locks = [threading.RLock() for _ in range(ns)]
+        self._count_lock = threading.Lock()    # counters and version bumps
+        self._epoch = 0
+        self._seqs = [0] * ns
+        self._queues: list[deque] = [deque() for _ in range(ns)]
+        self._rr = itertools.count()           # insert striping cursor
+        # per-shard publish cache: ((epoch, seq), device rows)
+        self._shard_rows: list[tuple | None] = [None] * ns
+        reg = registry if registry is not None else get_registry()
+        self._m_ops = {
+            op: reg.counter("odys_ingest_ops_total",
+                            help="ingest operations applied to the delta", op=op)
+            for op in ("insert", "delete", "update")
+        }
+        self._m_conflicts = reg.counter(
+            "odys_ingest_conflicts_total",
+            help="queued ops dropped at apply time (cross-stream conflict "
+                 "or capacity exhaustion)")
+        self._m_depth = [
+            reg.gauge("odys_ingest_queue_depth",
+                      help="ops enqueued and not yet drained", shard=str(s))
+            for s in range(ns)
+        ]
+        self._m_publish = [
+            reg.gauge("odys_ingest_publish_seq",
+                      help="per-shard mutation sequence at the last "
+                           "published snapshot", shard=str(s))
+            for s in range(ns)
+        ]
+
+    # ------------------------------------------------------------------
+    # vector version
+    # ------------------------------------------------------------------
+
+    @property
+    def version(self) -> VectorVersion:
+        return VectorVersion(self._epoch, tuple(self._seqs))
+
+    def _bump(self, shard: int | None = None):
+        with self._count_lock:
+            self._version += 1       # total change count (packed-cache key)
+            if shard is None:
+                self._epoch += 1     # structural: rebase / compaction
+            else:
+                self._seqs[shard] += 1
+
+    def _count(self, counter) -> None:
+        with self._count_lock:       # Counter.inc is not atomic
+            counter.inc()
+
+    @contextlib.contextmanager
+    def frozen(self):
+        """Exclusive section: allocation and every shard quiesced.
+
+        Publish and compaction run under it so that they see a state
+        consistent across shards.  The locks are re-entrant, so
+        compaction's fold -> publish -> rebase nesting works.  Submissions
+        still enqueue during a freeze; they drain once it lifts."""
+        self._alloc_lock.acquire()
+        for lock in self._shard_locks:
+            lock.acquire()
+        try:
+            yield
+        finally:
+            for lock in reversed(self._shard_locks):
+                lock.release()
+            self._alloc_lock.release()
+
+    # ------------------------------------------------------------------
+    # thread-safe per-doc ops
+    # ------------------------------------------------------------------
+
+    def _insert_one(self, terms: Sequence[int], site: int) -> int:
+        terms_u = np.unique(np.asarray(terms, dtype=np.int64)).astype(np.int32)
+        self._check_terms(terms_u, site)
+        with self._alloc_lock:
+            gid = self.n_docs
+            st, local = self._shard_of(gid)
+            if local >= self._doc_limit_local:
+                raise DeltaFullError("document headroom exhausted")
+            shard = gid % self.ns
+            lock = self._shard_locks[shard]
+            # The shard lock is taken before the allocation is published:
+            # a rebase (frozen) then never sees an allocated but unapplied
+            # doc, which it would fold into the main index while the
+            # insert still lands its delta postings afterwards.
+            lock.acquire()
+            self.n_docs += 1
+            self._terms_over[gid] = terms_u
+            self._sites_over[gid] = int(site)
+        try:
+            plist = [int(t) for t in terms_u]
+            if self.include_site_terms:
+                plist.append(self.vocab_size + int(site))
+            for t in plist:
+                if st.lengths[t] >= self.term_capacity:
+                    # the docID is allocated: leave a dead, empty
+                    # placeholder so that global docIDs stay dense
+                    st.doc_flags[local] |= DOC_DEAD
+                    self._terms_over[gid] = np.zeros(0, dtype=np.int32)
+                    self._bump(shard)
+                    raise DeltaFullError(f"delta list full for term {t}")
+            for t in plist:
+                self._insert_posting(st, t, local, site)
+            st.doc_site[local] = site
+            self._delta_docs.add(gid)
+            self._bump(shard)
+        finally:
+            lock.release()
+        self._count(self._m_ops["insert"])
+        return gid
+
+    def _delete_one(self, gid: int) -> None:
+        with self._shard_locks[gid % self.ns]:
+            super()._delete_one(gid)
+        self._count(self._m_ops["delete"])
+
+    def _update_one(self, gid: int, terms: Sequence[int],
+                    site: int | None) -> None:
+        with self._shard_locks[gid % self.ns]:
+            super()._update_one(gid, terms, site)
+        self._count(self._m_ops["update"])
+
+    # ------------------------------------------------------------------
+    # per-shard write queues
+    # ------------------------------------------------------------------
+
+    def submit_insert(self, terms: Sequence[int], site: int) -> None:
+        """Enqueue an insert (applied at the next :meth:`drain`)."""
+        self._enqueue(next(self._rr) % self.ns,
+                      ("insert", tuple(int(t) for t in terms), int(site)))
+
+    def submit_delete(self, docid: int) -> None:
+        self._enqueue(int(docid) % self.ns, ("delete", int(docid)))
+
+    def submit_update(self, docid: int, terms: Sequence[int],
+                      site: int | None = None) -> None:
+        self._enqueue(int(docid) % self.ns,
+                      ("update", int(docid), tuple(int(t) for t in terms), site))
+
+    def _enqueue(self, shard: int, op: tuple) -> None:
+        q = self._queues[shard]
+        q.append(op)                 # deque.append is atomic
+        self._m_depth[shard].set(float(len(q)))
+
+    def queue_depth(self, shard: int | None = None) -> int:
+        qs = self._queues if shard is None else [self._queues[shard]]
+        return sum(len(q) for q in qs)
+
+    def drain(self, shard: int | None = None) -> int:
+        """Apply queued ops FIFO per shard; returns how many applied.
+
+        Safe to call concurrently (one worker per shard): ops pop
+        atomically and apply under their shard's lock.  An op that raises
+        ``KeyError`` or :class:`DeltaFullError` is dropped and counted."""
+        shards = range(self.ns) if shard is None else (int(shard),)
+        applied = 0
+        for s in shards:
+            q = self._queues[s]
+            while True:
+                try:
+                    op = q.popleft()
+                except IndexError:
+                    break
+                try:
+                    self._apply_queued(op)
+                    applied += 1
+                except (KeyError, DeltaFullError):
+                    self._count(self._m_conflicts)
+                self._m_depth[s].set(float(len(q)))
+        return applied
+
+    def _apply_queued(self, op: tuple) -> None:
+        kind = op[0]
+        if kind == "insert":
+            self._insert_one(list(op[1]), op[2])
+        elif kind == "delete":
+            self._delete_one(op[1])
+        elif kind == "update":
+            self._update_one(op[1], list(op[2]), op[3])
+        else:
+            raise ValueError(f"unknown queued op {kind!r}")
+
+    # ------------------------------------------------------------------
+    # vector-versioned publish
+    # ------------------------------------------------------------------
+
+    def rebase(self, folded: Corpus, **kw) -> None:
+        with self.frozen():
+            super().rebase(folded, **kw)
+            self._shard_rows = [None] * self.ns
+
+    def device_delta(self) -> ShardedDelta:
+        """Publish: the snapshot of every shard's mirror, stamped with the
+        :class:`VectorVersion`.  A shard whose ``(epoch, seq)`` did not
+        move since the last publish reuses its cached device rows."""
+        with self.frozen():
+            ver = self.version
+            if self._snapshot is not None and self._snapshot_version == ver:
+                return self._snapshot
+            rows = []
+            for s, st in enumerate(self._shards):
+                key = (self._epoch, self._seqs[s])
+                cached = self._shard_rows[s]
+                if cached is None or cached[0] != key:
+                    cached = self._shard_rows[s] = (key, self._device_rows(st))
+                rows.append(cached[1])
+                self._m_publish[s].set(float(self._seqs[s]))
+            self._publish(rows, ver)
+            return self._snapshot
+
+    def shard_deltas(self) -> list[DeltaIndex]:
+        with self.frozen():
+            return super().shard_deltas()
+
+    def mutated_corpus(self) -> Corpus:
+        with self.frozen():
+            return super().mutated_corpus()

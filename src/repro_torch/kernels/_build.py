@@ -3,9 +3,9 @@
 Each ``csrc/<source>.cu`` compiles, on its own, into a shared library with
 plain C entry points (no PyTorch headers, so a build takes seconds) under
 ``build/kernels/`` at the repository root; a source may hold several
-kernels (a kernel and its packed mode, K9 and K10, K11's two dtypes), each
-with its own entry point.  The file name carries a hash of
-the source, of every header it includes from ``csrc/`` (``#include
+kernels (a kernel and its packed mode, K9 and K10, the two dtypes of K11
+and of K12), each with its own entry point.  The file name carries a hash
+of the source, of every header it includes from ``csrc/`` (``#include
 "name"``) and of the flags, so an edited source or header is rebuilt and a
 stale library is never loaded.  Every entry point takes raw pointers, ints and
 the CUDA stream, launches on that stream and returns ``cudaGetLastError()``;
@@ -93,6 +93,12 @@ KERNELS = {
         "bitonic_sort", "bitonic_sort_i32_launch", (_P, _I, _P, _I, _P)),
     "bitonic_sort_f32": Kernel(
         "bitonic_sort", "bitonic_sort_f32_launch", (_P, _I, _P, _I, _P)),
+    "flash_attention_f32": Kernel(
+        "flash_attention", "flash_attention_f32_launch",
+        (_P,) * 4 + (_I,) * 7 + (_P,)),
+    "flash_attention_bf16": Kernel(
+        "flash_attention", "flash_attention_bf16_launch",
+        (_P,) * 4 + (_I,) * 7 + (_P,)),
 }
 #: Every kernel source.
 SOURCES = tuple(dict.fromkeys(k.source for k in KERNELS.values()))

@@ -1,0 +1,152 @@
+"""GQA flash-attention forward (K12), online softmax in float32.
+
+Replaces the TPU kernel ``repro/kernels/flash_attention.py:flash_attention_fwd``
+(``pallas_call`` at line 136, body ``_flash_kernel`` at line 49), with the
+same layout and contract: ``q`` (B, S, H, hd), ``k`` and ``v`` (B, T, KV,
+hd), result (B, S, H, hd) in ``q.dtype``.  Rows are flattened (B, KV, G)
+with ``G = H // KV``, so q head ``h`` reads k/v head ``h // G`` (no repeat
+of the grouped heads).  Logits are ``q . k / sqrt(hd)``; under ``causal``
+a key at position ``kpos > qpos`` (both from 0) is masked to ``-1e30``.
+Both products and the softmax run in float32, and the result is
+``acc / max(l, 1e-30)``.  Chunks are ``cq, ck = min(q_chunk, S),
+min(k_chunk, T)``; S and T must be multiples of them, as the reference
+asserts.
+
+:func:`flash_attention_fwd_torch` is the plain version: the reference's
+online-softmax recurrence over (cq, ck) chunks, k chunks wholly past a q
+chunk's last row skipped under ``causal``.  :func:`flash_attention_ref` is
+the reference's full-logits oracle.  :func:`flash_attention_fwd_cuda`
+wraps ``csrc/flash_attention.cu`` (float32 and bfloat16), and
+:func:`flash_attention_fwd` picks by device.  Forward only, as the
+reference: it has no backward and no ``ops`` entry point.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e30
+#: Head widths the CUDA kernel is instantiated for (its register tile).
+CUDA_HEAD_DIMS = (64, 128, 256)
+_CUDA_ENTRY = {torch.float32: "flash_attention_f32",
+               torch.bfloat16: "flash_attention_bf16"}
+
+
+def _chunks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            q_chunk: int, k_chunk: int) -> tuple[int, int]:
+    """Check the shapes and return ``(cq, ck)``."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"need q (B,S,H,hd) and k, v (B,T,KV,hd), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, S, H, hd = q.shape
+    if k.shape[0] != B or k.shape[3] != hd or H % k.shape[2]:
+        raise ValueError(f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
+    T = k.shape[1]
+    cq, ck = min(q_chunk, S), min(k_chunk, T)
+    if S % cq or T % ck:
+        raise ValueError(f"pad S/T to chunk multiples first (S={S}, cq={cq}, "
+                         f"T={T}, ck={ck})")
+    return cq, ck
+
+
+def flash_attention_fwd_torch(q, k, v, *, causal: bool = True,
+                              q_chunk: int = 128, k_chunk: int = 128):
+    """Plain PyTorch version of K12: the online-softmax recurrence."""
+    cq, ck = _chunks(q, k, v, q_chunk, k_chunk)
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    f32 = torch.float32
+    # rows flattened (B, KV, G): [B, KV, G, S, hd] and [B, KV, T, hd]
+    qf = q.to(f32).reshape(B, S, KV, G, hd).permute(0, 2, 3, 1, 4)
+    kf = k.to(f32).permute(0, 2, 1, 3)
+    vf = v.to(f32).permute(0, 2, 1, 3)
+    out = torch.empty((B, KV, G, S, hd), dtype=f32, device=q.device)
+    pos = torch.arange(max(cq, ck), device=q.device)
+    for qi in range(S // cq):
+        qc = qf[..., qi * cq:(qi + 1) * cq, :]
+        m = torch.full((B, KV, G, cq), NEG_INF, dtype=f32, device=q.device)
+        l = torch.zeros((B, KV, G, cq), dtype=f32, device=q.device)
+        acc = torch.zeros((B, KV, G, cq, hd), dtype=f32, device=q.device)
+        for ki in range(T // ck):
+            if causal and ki * ck > qi * cq + (cq - 1):
+                continue
+            kc = kf[:, :, None, ki * ck:(ki + 1) * ck, :]
+            vc = vf[:, :, None, ki * ck:(ki + 1) * ck, :]
+            s = torch.matmul(qc, kc.transpose(-1, -2)) * scale
+            if causal:
+                live = (ki * ck + pos[:ck])[None, :] <= (qi * cq + pos[:cq])[:, None]
+                s = torch.where(live, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.matmul(p, vc)
+            m = m_new
+        out[..., qi * cq:(qi + 1) * cq, :] = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(q.dtype)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True):
+    """Full-logits oracle (the reference's ``flash_attention_ref``): the
+    softmax over every key in float32, GQA by the (B, KV, G) grouping."""
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    f32 = torch.float32
+    qg = q.to(f32).reshape(B, S, KV, H // KV, hd)
+    s = torch.einsum("bskgh,btkh->bkgst", qg, k.to(f32)) / math.sqrt(hd)
+    if causal:
+        mask = (torch.arange(T, device=q.device)[None, :]
+                <= torch.arange(S, device=q.device)[:, None])
+        s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgst,btkh->bskgh", p, v.to(f32))
+    return o.reshape(B, S, H, hd).to(q.dtype)
+
+
+def flash_attention_fwd_cuda(q, k, v, *, causal: bool = True,
+                             q_chunk: int = 128, k_chunk: int = 128):
+    """Launch ``csrc/flash_attention.cu`` on the current stream: one block
+    per (row of the (B, KV, G) flattening, 64-row q tile), walking its k
+    tiles with the running max, denominator and accumulator on chip.  The
+    chunk arguments are checked as the reference checks them; the kernel's
+    own tiles are its choice and change only the order of the sums."""
+    from repro_torch.kernels import _build
+
+    _chunks(q, k, v, q_chunk, k_chunk)
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.dtype not in _CUDA_ENTRY or x.dtype != q.dtype or not x.is_cuda:
+            raise ValueError(f"{name}: need float32 or bfloat16 CUDA tensors of "
+                             f"one dtype, got {x.dtype} on {x.device}")
+        if x.numel() >= 2**31:
+            raise ValueError(f"{name}: {x.numel()} elements need int64 offsets")
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    if hd not in CUDA_HEAD_DIMS:
+        raise ValueError(f"head width {hd} not in {CUDA_HEAD_DIMS}")
+    if math.ceil(S / 64) >= 65536:
+        raise ValueError(f"{S} query positions exceed the grid's y extent")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    launch = _build.kernel(_CUDA_ENTRY[q.dtype])
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 B, S, T, H, KV, hd, int(causal), stream)
+    flash_attention_fwd_cuda.launches += 1
+    _build.check(err, _CUDA_ENTRY[q.dtype] + "_launch")
+    return out
+
+
+flash_attention_fwd_cuda.launches = 0
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool = True,
+                        q_chunk: int = 128, k_chunk: int = 128):
+    """GQA flash-attention forward, (B, S, H, hd) in ``q.dtype``: the
+    kernel on CUDA tensors, the plain version on CPU tensors."""
+    fn = flash_attention_fwd_cuda if q.is_cuda else flash_attention_fwd_torch
+    return fn(q, k, v, causal=causal, q_chunk=q_chunk, k_chunk=k_chunk)

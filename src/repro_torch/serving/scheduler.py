@@ -16,8 +16,10 @@ distributed query engine.
   shapes, whatever the mix of ``t_max`` in the workload.
 
 - **LRU result cache**, keyed on ``(terms, site, k)`` and stamped with the
-  index snapshot version at dispatch time (always 0 until the port has
-  online updates).  A lookup whose stamp no longer matches the live version is evicted
+  index snapshot version at dispatch time (any hashable stamp compared by
+  value: the writer's int version, or a multi-master writer's
+  ``VectorVersion``; 0 for a read-only service).  A lookup whose stamp no
+  longer matches the live version is evicted
   (lazy invalidation), so merge-on-read freshness is preserved: a cached
   result is never served across an insert/delete/update/compaction.
   Orlando et al. (PAPERS.md) put the broker's result cache first among the
@@ -53,7 +55,7 @@ import dataclasses
 import math
 import time
 from collections import OrderedDict, deque
-from typing import Any, Callable, Sequence
+from typing import Any, Callable, Hashable, Sequence
 
 from repro_torch.core.perfmodel import sojourn
 from repro_torch.obs.registry import MetricsRegistry, get_registry
@@ -133,9 +135,10 @@ class CacheStats:
 class ResultCache:
     """LRU result cache with snapshot-version invalidation.
 
-    Entries are stored as ``key -> (version, result)``.  ``get`` only
-    returns an entry whose stored version equals the caller's current
-    version; a mismatch evicts the entry and counts as ``stale`` (every
+    Entries are stored as ``key -> (version, result)``; a version is any
+    hashable stamp compared by value (an int, or a ``VectorVersion``).
+    ``get`` only returns an entry whose stored version equals the caller's
+    current version; a mismatch evicts the entry and counts as ``stale`` (every
     mutation and every compaction bumps the writer version, so staleness
     needs no explicit invalidation hook on the write path).
 
@@ -147,7 +150,7 @@ class ResultCache:
     def __init__(self, capacity: int, registry: MetricsRegistry | None = None):
         assert capacity > 0
         self.capacity = capacity
-        self._entries: OrderedDict[tuple, tuple[int, Any]] = OrderedDict()
+        self._entries: OrderedDict[tuple, tuple[Hashable, float, Any]] = OrderedDict()
         self.stats = CacheStats()
         reg = registry if registry is not None else get_registry()
         self._c_hits = reg.counter(
@@ -172,7 +175,7 @@ class ResultCache:
         self._c_misses.inc()
         self._g_hit_rate.set(self.stats.hit_rate())
 
-    def get(self, key: tuple, version: int, now: float = math.inf,
+    def get(self, key: tuple, version: Hashable, now: float = math.inf,
             *, count_miss: bool = True):
         """Version- and maturity-checked lookup.
 
@@ -209,7 +212,7 @@ class ResultCache:
         self._g_hit_rate.set(self.stats.hit_rate())
         return result
 
-    def put(self, key: tuple, version: int, result,
+    def put(self, key: tuple, version: Hashable, result,
             available_at: float = 0.0) -> None:
         self._entries[key] = (version, available_at, result)
         self._entries.move_to_end(key)
@@ -364,7 +367,7 @@ class MasterScheduler:
         authoritative everywhere (dispatch, stats, self-fitted capacity).
     version_fn:
         Snapshot-version source for cache stamping/invalidation (the
-        search service wires ``DeltaWriter.version`` here).
+        search service wires the writer's ``version`` here).
     width_fn:
         Effective padded width of ``(terms, site)`` — lets the service
         account for the ``site_term`` strategy's extra join term.
@@ -407,7 +410,7 @@ class MasterScheduler:
         adaptive_wait: bool = False,
         capacity_qps: float | None = None,
         router: "MultiSetRouter | None" = None,
-        version_fn: Callable[[], int] | None = None,
+        version_fn: Callable[[], Hashable] | None = None,
         width_fn: Callable[[tuple, int | None], int] | None = None,
         clock: Callable[[], float] = time.perf_counter,
         wall_clock: Callable[[], float] = time.perf_counter,

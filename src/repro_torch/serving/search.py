@@ -23,7 +23,11 @@ device) attaches the write path.  :meth:`SearchService.insert` /
 delta; every executed batch runs merge-on-read against the writer's
 current snapshot, so the next batch sees each mutation.  Every mutation
 bumps the writer version, which is the result cache's stamp, so a cached
-result is never served across a mutation.  :meth:`SearchService.compact`
+result is never served across a mutation.  A multi-master
+:class:`~repro_torch.indexing.delta.ShardedDeltaWriter` may be attached
+as ``writer``: its ingest threads mutate while the service serves, each
+batch reads one published snapshot, and its ``VectorVersion`` is the
+stamp.  :meth:`SearchService.compact`
 (or ``auto_compact``) folds the delta into a fresh main index.
 
 Health-aware routing (``set_health``) and per-set devices
@@ -209,9 +213,10 @@ class SearchService:
     # read path
     # ------------------------------------------------------------------
 
-    def _snapshot_version(self) -> int:
+    def _snapshot_version(self):
         """Cache stamp: the writer's version (every mutation and every
-        compaction bumps it); 0 for a read-only service."""
+        compaction moves it; a :class:`VectorVersion` for a
+        ``ShardedDeltaWriter``); 0 for a read-only service."""
         return 0 if self.writer is None else self.writer.version
 
     def _query_width(self, terms, site) -> int:

@@ -30,6 +30,8 @@ def _modules():
 def test_every_module_imports_with_jax_and_repro_blocked():
     mods = _modules()
     assert "repro_torch.kernels.posting_intersect" in mods
+    assert "repro_torch.kernels.flash_attention" in mods
+    assert "repro_torch.indexing.delta" in mods
     code = "\n".join([
         "import sys",
         *(f"sys.modules[{b!r}] = None" for b in BLOCKED),
