@@ -89,10 +89,10 @@ KERNELS = {
         (_P,) * 9 + (_I,) * 4 + (_P,)),
     "block_skip": Kernel(
         "block_skip", "block_skip_launch", (_P,) * 7 + (_I,) * 2 + (_P,)),
-    "bitonic_sort_i32": Kernel(
-        "bitonic_sort", "bitonic_sort_i32_launch", (_P, _I, _P, _I, _P)),
-    "bitonic_sort_f32": Kernel(
-        "bitonic_sort", "bitonic_sort_f32_launch", (_P, _I, _P, _I, _P)),
+    "flat_sort_i32": Kernel(
+        "flat_sort", "flat_sort_i32_launch", (_P, _I, _P, _P, _I, _P)),
+    "flat_sort_f32": Kernel(
+        "flat_sort", "flat_sort_f32_launch", (_P, _I, _P, _P, _I, _P)),
     "flash_attention_f32": Kernel(
         "flash_attention", "flash_attention_f32_launch",
         (_P,) * 4 + (_I,) * 7 + (_P,)),

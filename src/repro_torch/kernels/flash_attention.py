@@ -7,10 +7,13 @@ hd), result (B, S, H, hd) in ``q.dtype``.  Rows are flattened (B, KV, G)
 with ``G = H // KV``, so q head ``h`` reads k/v head ``h // G`` (no repeat
 of the grouped heads).  Logits are ``q . k / sqrt(hd)``; under ``causal``
 a key at position ``kpos > qpos`` (both from 0) is masked to ``-1e30``.
-Both products and the softmax run in float32, and the result is
-``acc / max(l, 1e-30)``.  Chunks are ``cq, ck = min(q_chunk, S),
-min(k_chunk, T)``; S and T must be multiples of them, as the reference
-asserts.
+The softmax runs in float32 and the result is ``acc / max(l, 1e-30)``;
+the products run in float32, except in the bfloat16 kernel, which
+multiplies bfloat16 operands on the tensor cores and rounds P to bfloat16
+before P.V (within the bfloat16 contract, rtol = atol = 2e-2 and a
+row-relative error of :data:`BF16_ROW_REL_TOL`).  Chunks
+are ``cq, ck = min(q_chunk, S), min(k_chunk, T)``; S and T must be
+multiples of them, as the reference asserts.
 
 :func:`flash_attention_fwd_torch` is the plain version: the reference's
 online-softmax recurrence over (cq, ck) chunks, k chunks wholly past a q
@@ -29,6 +32,12 @@ import torch
 NEG_INF = -1e30
 #: Head widths the CUDA kernel is instantiated for (its register tile).
 CUDA_HEAD_DIMS = (64, 128, 256)
+#: The bfloat16 contract's second bound, beside rtol = atol = 2e-2: the
+#: largest :func:`max_row_rel_err`.  A causal row at position n averages
+#: about n / e keys, so its outputs are small (about sqrt(e / n)) and the
+#: elementwise bound alone would pass a lost or misplaced k/v tile in a
+#: long row; that tile moves the row by a share of its own norm.
+BF16_ROW_REL_TOL = 0.05
 _CUDA_ENTRY = {torch.float32: "flash_attention_f32",
                torch.bfloat16: "flash_attention_bf16"}
 
@@ -106,13 +115,25 @@ def flash_attention_ref(q, k, v, *, causal: bool = True):
     return o.reshape(B, S, H, hd).to(q.dtype)
 
 
+def max_row_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest ``||got - want|| / ||want||`` over the head width of any
+    (b, s, h) row, in float32."""
+    g, w = got.float(), want.float()
+    return float(((g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)).max())
+
+
 def flash_attention_fwd_cuda(q, k, v, *, causal: bool = True,
                              q_chunk: int = 128, k_chunk: int = 128):
     """Launch ``csrc/flash_attention.cu`` on the current stream: one block
-    per (row of the (B, KV, G) flattening, 64-row q tile), walking its k
-    tiles with the running max, denominator and accumulator on chip.  The
-    chunk arguments are checked as the reference checks them; the kernel's
-    own tiles are its choice and change only the order of the sums."""
+    per (row of the (B, KV, G) flattening, q tile), walking its k tiles
+    with the running max, denominator and accumulator on chip.  float32:
+    64-row q tiles and 64-key k tiles on the CUDA cores.  bfloat16: 128-row
+    q tiles split between two warpgroups that take turns on the tensor
+    cores (``wgmma`` for both products), k and v tiles of 128 keys (64 at
+    hd 256) streamed by TMA through a ring of 3 slots (2 at hd 256), P
+    rounded to bfloat16 before P.V.  The chunk arguments are checked as
+    the reference checks them; the kernel's own tiles are its choice and
+    change only the order of the sums."""
     from repro_torch.kernels import _build
 
     _chunks(q, k, v, q_chunk, k_chunk)
@@ -128,7 +149,9 @@ def flash_attention_fwd_cuda(q, k, v, *, causal: bool = True,
         raise ValueError(f"head width {hd} not in {CUDA_HEAD_DIMS}")
     if math.ceil(S / 64) >= 65536:
         raise ValueError(f"{S} query positions exceed the grid's y extent")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # TMA (the bfloat16 kernel) reads from 16-byte aligned addresses only
+    q, k, v = (x.contiguous() if x.data_ptr() % 16 == 0 else x.clone(
+        memory_format=torch.contiguous_format) for x in (q, k, v))
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

@@ -23,7 +23,9 @@ n values are kept: as in the reference, a float value above the pad (inf,
 min/max network spreads it).  :func:`bitonic_sort_torch` is the plain
 version (``torch.sort`` of the padded vector, equal to the network for
 every non-NaN input), :func:`bitonic_sort_cuda` wraps
-``csrc/bitonic_sort.cu``, and :func:`bitonic_sort` picks by device.
+``csrc/flat_sort.cu`` (a merge-path merge sort: any correct sort of the
+padded vector gives the same bits), and :func:`bitonic_sort` picks by
+device; the names are the reference's.
 """
 from __future__ import annotations
 
@@ -91,8 +93,10 @@ def merge_topk_rows(cands: torch.Tensor, k: int) -> torch.Tensor:
 # K11: the flat sort
 # ---------------------------------------------------------------------------
 
-#: The largest padded length the CUDA sort takes (its stage sizes are int).
+#: The largest padded length the CUDA sort takes (its lengths are int).
 MAX_SORT = 1 << 30
+#: Keys one block of the CUDA sort sorts on its own (``csrc/flat_sort.cu``).
+SORT_TILE = 4096
 
 
 def _padded(x: torch.Tensor) -> torch.Tensor:
@@ -110,14 +114,16 @@ def bitonic_sort_torch(x: torch.Tensor) -> torch.Tensor:
 
 
 def bitonic_sort_cuda(x: torch.Tensor) -> torch.Tensor:
-    """Launch ``csrc/bitonic_sort.cu`` on the current stream: one block
-    sorts the padded vector in shared memory up to 32768 keys, and past
-    that a launch per global merge stage.  Same result as
+    """Launch ``csrc/flat_sort.cu`` on the current stream: a merge sort
+    with merge-path partitions, one block a tile of :data:`SORT_TILE` keys
+    and then one merge pass per doubling of the sorted runs (1 +
+    log2(m / SORT_TILE) launches; one for m <= SORT_TILE).  Same result as
     :func:`bitonic_sort_torch`; the result is a prefix of the padded
-    scratch vector."""
+    output, and past one tile the passes alternate with a scratch vector
+    of the padded length."""
     from repro_torch.kernels import _build
 
-    names = {torch.int32: "bitonic_sort_i32", torch.float32: "bitonic_sort_f32"}
+    names = {torch.int32: "flat_sort_i32", torch.float32: "flat_sort_f32"}
     if x.dim() != 1 or x.dtype not in names or not x.is_cuda:
         raise ValueError(f"need a 1-D int32 or float32 CUDA tensor, got "
                          f"{x.dtype} {tuple(x.shape)} on {x.device}")
@@ -127,9 +133,11 @@ def bitonic_sort_cuda(x: torch.Tensor) -> torch.Tensor:
     if m > MAX_SORT:
         raise ValueError(f"{n} keys pad to {m} > {MAX_SORT}")
     out = torch.empty(m, dtype=x.dtype, device=x.device)
+    scratch = torch.empty(m, dtype=x.dtype, device=x.device) if m > SORT_TILE else None
     launch = _build.kernel(names[x.dtype])
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = launch(x.data_ptr(), n, out.data_ptr(), m, stream)
+    err = launch(x.data_ptr(), n, out.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), m, stream)
     bitonic_sort_cuda.launches += 1
     _build.check(err, names[x.dtype] + "_launch")
     return out[:n]

@@ -14,8 +14,10 @@ Held exactly, on the same numpy inputs:
 - ``compute_skip_map`` (flat and batched over a driver and its term slots)
   and ``skip_fraction`` against the reference's;
 - K11's plain version against the reference's bitonic network, int32 and
-  float32, including a float vector holding ``inf`` and 3e9, which both
-  return as the pad value 2147483648.0 (ROADMAP R4);
+  float32, at the CUDA sort's tile edges and past 2**18, on sorted,
+  reversed, one-value and all-pad vectors, and on a float vector holding
+  ``inf`` and 3e9, which both return as the pad value 2147483648.0
+  (ROADMAP R4);
 - the static modes of K4 and K7 (raw and packed; no delta arrays) against
   the reference's K9 on the windows ``repro.core.engine._query_windows``
   stages, on a corpus whose lists exceed one TILE;
@@ -192,15 +194,28 @@ def test_batched_skip_map_and_skip_fraction_match_reference():
 
 
 # ----------------------------------------------------------------- K11 --
-@pytest.mark.parametrize("n", [2, 7, 100, 256, 777, 2048])
+SORT_TILE = tm.SORT_TILE
+# (order, n): the CUDA sort's tile edges ride on the random sizes; these are
+# the orders a merge sort can get wrong, at one size past three tiles
+K11_ORDERS = [pytest.param((order, 3 * SORT_TILE + 5), id=f"{order}-{3 * SORT_TILE + 5}")
+              for order in ("sorted", "reversed", "one-value", "all-pad")]
+
+
+@pytest.mark.parametrize("n", [2, 7, 100, 256, 777, 2048, SORT_TILE - 1, SORT_TILE,
+                               SORT_TILE + 1, 2 * SORT_TILE, (1 << 18) + 1, *K11_ORDERS])
 @pytest.mark.parametrize("dtype", [np.int32, np.float32])
 def test_k11_plain_matches_reference(n, dtype):
-    rng = np.random.default_rng(n)
-    if dtype == np.int32:
-        x = rng.integers(-(1 << 30), 1 << 30, size=n).astype(dtype)
-        x[: n // 3] = x[n // 2]                     # ties
+    if isinstance(n, tuple):
+        order, n = n
+        x = {"sorted": np.arange(n), "reversed": np.arange(n, 0, -1),
+             "one-value": np.full(n, -7), "all-pad": np.full(n, INV)}[order].astype(dtype)
     else:
-        x = rng.normal(size=n).astype(dtype) * 1e4
+        rng = np.random.default_rng(n)
+        if dtype == np.int32:
+            x = rng.integers(-(1 << 30), 1 << 30, size=n).astype(dtype)
+            x[: n // 3] = x[n // 2]                     # ties
+        else:
+            x = rng.normal(size=n).astype(dtype) * 1e4
     got = ops.sort(_t(x))
     assert got.dtype == torch.from_numpy(x).dtype and got.shape == (n,)
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref_ops.sort(jnp.asarray(x))))

@@ -6,8 +6,12 @@ version and ``flash_attention_ref``, at every case of
 ``tests/test_flash_kernel.py``: float32 within rtol = atol = 2e-5 and
 bfloat16 within 2e-2 (the reference test's figures; the sums run in
 another order).  Also: the models' XLA-level ``_flash_gqa`` at that file's
-shape, the reference's refusal of S or T that are not chunk multiples, and
-that a CPU tensor never reaches the kernel wrapper.  The CUDA kernel itself
+shape, the CUDA bf16 kernel's rounding of P (emulated here) within the
+bf16 tolerance of the reference's oracle and within its row-relative
+bound, which a lost or misplaced k/v tile in a long row would break, the
+reference's refusal of S or
+T that are not chunk multiples, and that a CPU tensor never reaches the
+kernel wrapper.  The CUDA kernel itself
 is held against the plain version on the card by ``chip_smoke.py``."""
 import os
 import subprocess
@@ -81,6 +85,108 @@ def test_bf16_matches_the_reference(causal):
     _close(got.float().numpy(), want, tol)
     _close(got_ref.float().numpy(), want_ref, tol)
     _close(got.float().numpy(), got_ref.float().numpy(), tol)
+
+
+def _bf16_p_recurrence(q, k, v, *, causal, q_chunk, k_chunk):
+    """The plain online-softmax recurrence with the bf16 kernel's rounding:
+    P rounded to bfloat16 before P.V, ``l`` summed from the unrounded P,
+    everything else in float32 (the tensor cores sum bf16 products in
+    float32)."""
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G, f32 = H // KV, torch.float32
+    qf = q.to(f32).reshape(B, S, KV, G, hd).permute(0, 2, 3, 1, 4)
+    kf, vf = (x.to(f32).permute(0, 2, 1, 3)[:, :, None] for x in (k, v))
+    out = torch.empty((B, KV, G, S, hd), dtype=f32)
+    for q0 in range(0, S, q_chunk):
+        qc = qf[..., q0:q0 + q_chunk, :]
+        qpos = torch.arange(q0, q0 + q_chunk)
+        m = torch.full(qc.shape[:-1], pt_fa.NEG_INF)
+        l = torch.zeros(qc.shape[:-1])
+        acc = torch.zeros(qc.shape)
+        for k0 in range(0, T, k_chunk):
+            if causal and k0 > q0 + q_chunk - 1:
+                continue
+            s = qc @ kf[..., k0:k0 + k_chunk, :].transpose(-1, -2) / np.sqrt(hd)
+            if causal:
+                live = torch.arange(k0, k0 + k_chunk)[None, :] <= qpos[:, None]
+                s = torch.where(live, s, pt_fa.NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            pv = p.to(torch.bfloat16).to(f32) @ vf[..., k0:k0 + k_chunk, :]
+            acc = acc * alpha[..., None] + pv
+            m = m_new
+        out[..., q0:q0 + q_chunk, :] = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("h,kv", [(6, 2), (4, 1)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_rounded_p_stays_within_the_bf16_tolerance(hd, h, kv, causal):
+    """The CUDA bf16 kernel's arithmetic on the CPU: P rounded to bfloat16
+    before P.V, at its own tiles (128 q rows, 128 keys, 64 at hd 256),
+    within rtol = atol = 2e-2 of the reference's full-logits oracle."""
+    s, t = 256, 384
+    q, k, v = (x.astype(np.float32) for x in _inputs(hd + h + causal, 1, s, t, h, kv, hd))
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    want = ref_fa.flash_attention_ref(jq, jk, jv, causal=causal)
+    got = _bf16_p_recurrence(tq, tk, tv, causal=causal, q_chunk=128,
+                             k_chunk=128 if hd <= 128 else 64)
+    assert got.dtype == torch.bfloat16 and got.shape == (1, s, h, hd)
+    _close(got.float().numpy(), want, TOL["bfloat16"])
+    want_t = torch.from_numpy(np.asarray(want, np.float32))
+    assert pt_fa.max_row_rel_err(got, want_t) < pt_fa.BF16_ROW_REL_TOL
+    # and against the port's plain version, which keeps P in float32
+    plain = pt_fa.flash_attention_fwd(tq, tk, tv, causal=causal)
+    _close(got.float().numpy(), plain.float().numpy(), TOL["bfloat16"])
+    assert pt_fa.max_row_rel_err(got, plain) < pt_fa.BF16_ROW_REL_TOL
+
+
+def _last_rows(q, k, v, rows, *, round_p=False, dropped=None):
+    """Causal attention (S = T) of the last ``rows`` query rows, full logits
+    in float32; keys in the slice ``dropped`` are left out, and with
+    ``round_p`` P is rounded to bfloat16 before P.V (``l`` unrounded)."""
+    S, hd, G = q.shape[1], q.shape[3], q.shape[2] // k.shape[2]
+    qf = q[:, S - rows:].float().transpose(1, 2)
+    kf, vf = (x.float().repeat_interleave(G, dim=2).transpose(1, 2) for x in (k, v))
+    s = qf @ kf.transpose(-1, -2) / np.sqrt(hd)
+    s = s.masked_fill(torch.arange(S)[None, :] > torch.arange(S - rows, S)[:, None],
+                      pt_fa.NEG_INF)
+    if dropped is not None:
+        s[..., dropped] = -torch.inf
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    if round_p:
+        p = p.to(torch.bfloat16).float()
+    return ((p @ vf) / l).transpose(1, 2).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("fault", ["dropped", "wrong slot"])
+@pytest.mark.parametrize("hd,bk,stages", [(128, 128, 3), (256, 64, 2)])
+@pytest.mark.parametrize("s", [2048, 4096])
+def test_row_relative_bound_catches_a_lost_kv_tile(fault, hd, bk, stages, s):
+    """The bf16 kernel's row-relative bound tells a ring fault from rounding
+    in the long causal rows, where rtol = atol = 2e-2 is about as large as
+    a typical output: the last q tile with one k/v tile of the middle of
+    the row left out, or with V read from the slot's previous tile, is past
+    ``BF16_ROW_REL_TOL``; the kernel's rounding of P is well inside it."""
+    rows, j = 128, s // bk // 2
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
+               for x in _inputs(s + hd, 1, s, s, 2, 1, hd))
+    want = _last_rows(q, k, v, rows)
+    assert pt_fa.max_row_rel_err(_last_rows(q, k, v, rows, round_p=True), want) \
+        < pt_fa.BF16_ROW_REL_TOL / 4
+    if fault == "dropped":
+        bad = _last_rows(q, k, v, rows, dropped=slice(j * bk, (j + 1) * bk))
+    else:
+        v2 = v.clone()
+        v2[:, j * bk:(j + 1) * bk] = v[:, (j - stages) * bk:(j - stages + 1) * bk]
+        bad = _last_rows(q, k, v2, rows)
+    assert pt_fa.max_row_rel_err(bad, want) > 2 * pt_fa.BF16_ROW_REL_TOL
 
 
 def test_matches_the_models_flash_path():
