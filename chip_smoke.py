@@ -27,10 +27,16 @@ Phases (any failure exits non-zero; nothing is caught):
              with the launch counters its batches imply; 96 queries on a
              small corpus equal brute force; the gather and site_term
              strategies and the allgather merge;
-7. times   — static path: K1/K2 CUDA-event times beside bounds, plain
-             versions and the library call; served queries/s, per-batch
-             mean and p99; peak memory; a traced pass (phase split, busy
-             share, the hand-written kernels among the device events);
+7. times   — static path: K1/K2 CUDA-event and profiler times beside
+             bounds, plain versions and the library call (K2 at all six of
+             phase 5's shapes); K1's staging precondition on its plan; its
+             staging from the plans on the host, the first design's
+             (1024-slot tiles, 2048-posting chunks) beside this one's
+             (blocks, postings staged in all and by the busiest block, the
+             longest chain, shared memory a block); served queries/s,
+             per-batch mean and p99; peak memory; a traced pass (phase
+             split, busy share, the hand-written kernels among the device
+             events);
 8. updates — merge-on-read on the same index: a packed DeltaWriter (term
              capacity 256, doc headroom 4096; the service reads its raw
              snapshot) takes a mixed insert/delete/update
@@ -50,9 +56,11 @@ Phases (any failure exits non-zero; nothing is caught):
              delta postings: K3/K4 bit-exact; served hits equal brute force
              over the mutated corpus, before and after compact(verify=True);
 10. mor-times — at fill 1.0: K3/K4 CUDA-event times beside bounds, plain
-             versions and the library sort; peak device memory; a traced
-             pass; then the full-size delta compacted into a fresh index,
-             served equal to backend="torch";
+             versions and the library sort; K4's staging precondition and
+             its staging before and after, as K1's in phase 7;
+             peak device memory; a traced pass; then the full-size delta
+             compacted into a fresh index, served equal to
+             backend="torch";
 11. packed — the block-codec read path (K5): each slave packed with
              ``pack_index`` (seconds, bytes, the width histogram, which must
              hold widths 0 and 32; the decode equals the raw postings; one
@@ -71,8 +79,9 @@ Phases (any failure exits non-zero; nothing is caught):
              no raw join; the 3000-page corpus with a packed writer of term
              capacity 384 against brute force before and after
              ``compact(verify=True)`` and ``pack_index``; K1p/K3p/K4p times
-             beside bounds and plain versions; packed against raw per-batch
-             time, interleaved;
+             beside bounds and plain versions, and for K1p and K4p the
+             staging precondition on the twins and the staging before and
+             after; packed against raw per-batch time, interleaved;
 12. compact — work-list compaction (``backend="kernel_compact"``): K6 and
              K6p bit-exact against their plain versions (which execute the
              descriptor table) and, on live rows, against K1 / K1p, on every
@@ -159,6 +168,7 @@ Without a CUDA device the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import math
 import re
@@ -246,27 +256,49 @@ def cuda_ms(fn, *, reps: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, *, reps: int = 20) -> float:
+def device_ms(fn, *, reps: int = 20, kernel: str | None = None) -> float:
     """Device milliseconds per call of ``fn()``: the profiler's device time
     summed over every kernel the call launches, averaged over ``reps``
     calls.  Unlike ``cuda_ms`` it leaves out the gaps in which the device
-    waits for the host to launch the next call.  A window in which the
-    profiler recorded no device event is taken again, up to three times;
-    0.0 means not measured."""
+    waits for the host to launch the next call.  The profiler loses the
+    first few events of a window, more of them the longer the process has
+    run (none early, 3 to 8 by the later phases, whatever the kernels),
+    and a window that lost some under-reads: so each window opens with 64
+    short spin kernels (left out of the reading), and it counts only when
+    its count is right.  With ``kernel`` (a key of ``KERNEL_NAMES``, for a
+    call that launches that kernel once and nothing else) only that
+    kernel's events are read, and the window must hold exactly ``reps`` of
+    them; without, every device event is read, and two windows in a row
+    must hold the same count, a whole number per call.  Up to four
+    windows; 0.0 (not measured, with the counts logged) when none counts."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    names = None if kernel is None else kernel_names(kernel)
+    want = None if kernel is None else reps
+    counts = []
+    for _ in range(4):
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(64):
+                torch.cuda._sleep(1000)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
-        if total > 0:
-            break
-    return total / reps / 1e3
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "spin_kernel" not in e.key
+                  and (names is None or any(n in e.key for n in names))]
+        count = sum(e.count for e in events)
+        total = sum(e.self_device_time_total for e in events)
+        counts.append(count)
+        if total > 0 and count == want:
+            return total / reps / 1e3
+        if names is None:
+            want = count if count > 0 and count % reps == 0 else None
+    log(f"[profiler] not measured: {kernel or 'all'} events in {len(counts)} windows "
+        f"of {reps} calls: {counts}")
+    return 0.0
 
 
 def union_length(lo: np.ndarray, hi: np.ndarray) -> int:
@@ -376,6 +408,164 @@ def table_probe_cost(desc_h, n_items, bounds_h, col, tile, meta_host=None):
             c = packed_block_cost(range_blocks(lo[m], hi[m], 128), meta_host)
             n_bytes, n_blocks = n_bytes + c[0], n_blocks + c[1]
     return postings if meta_host is None else (n_bytes, n_blocks)
+
+
+# the first design's staging (probe.cuh: one block a 1024-slot tile,
+# 2048-posting chunks, a static buffer of CHUNK + BLOCK ints)
+OLD_CHUNK, OLD_SMEM = 2048, (2048 + 128) * 4
+
+
+def probe_streams_host(plans, act):
+    """Each stream's planned ranges ``(rlo, rhi)`` [Q, S, A] (S = T * kinds,
+    stream t * kinds + kind) from the plans (main, then delta), with the
+    ranges of inactive terms emptied."""
+    rl, rh = [], []
+    for b_tile, n_b, bounds in plans:
+        lo, hi = probed_ranges(b_tile, n_b, bounds, 1024)
+        rl.append(lo)
+        rh.append(np.maximum(hi, lo))
+    rlo = np.stack(rl, axis=2).reshape(lo.shape[0], -1, lo.shape[2])
+    rhi = np.stack(rh, axis=2).reshape(lo.shape[0], -1, lo.shape[2])
+    on = np.repeat(act.astype(bool), len(plans), axis=1)[..., None]
+    return rlo, np.where(on, rhi, rlo)
+
+
+def chain_before(rlo, rhi, widths=None):
+    """The first design's staging, per (query, 1024-slot tile) block: every
+    planned range in 2048-posting chunks, one load and two barriers each
+    (packed: each chunk's blocks decoded from global memory, a descriptor
+    and a word load per block, eight warps).  Returns ``(blocks, staged,
+    busiest, longest)``: postings staged in all and by the busiest block,
+    and the most dependent loads on one block's chain."""
+    n = np.maximum(rhi - rlo, 0)
+    chunks = -(-n // OLD_CHUNK)
+    if widths is None:
+        loads = chunks.sum(1)
+    else:   # 2 loads per decode pass of 8 blocks, per chunk of 16 blocks
+        loads = (chunks * 2 * 2).sum(1)
+    per_block = n.sum(1)
+    return (int(n.shape[0] * n.shape[2]), int(n.sum()), int(per_block.max()),
+            int(1 + loads.max()))
+
+
+def form_rounds(streams, caps, woff=None):
+    """The rounds that csrc/probe_async.cuh's form_round makes of one
+    block's streams, lane by lane as its producer warp does (``caps``: its
+    constants, from ``probe_round_caps``).  Raw (``woff`` None):
+    ``streams[j] = (lo, hi)``, positions; packed: ``(b0, b1, w0, w1)``, the
+    blocks to decode and their words, ``woff[kind]`` the twin's word
+    offsets, stream j of kind j % len(woff).  Returns ``(rounds, staged)``:
+    the rounds on the block's chain and the positions it stages (raw:
+    postings; packed: 128 a decoded block)."""
+    _, raw_cap, word_cap, dec_blks, max_seg, max_open = caps
+    n, j, cur, rounds, staged = len(streams), 0, None, 0, 0
+    while True:
+        rounds += 1
+        start = wstart = nseg = 0
+        stop, resume = None, None
+        n_mine = min(max_open, n - j)
+        for lane in range(n_mine):
+            s = streams[j + lane]
+            wend = 0
+            if woff is None:
+                lo, hi = (cur if lane == 0 and cur is not None else s[0]), s[1]
+                left, lead = max(hi - lo, 0), lo & 3
+                size = min((lead + left + 3) & ~3, raw_cap) if left else 0
+                room = raw_cap - start - lead if start < raw_cap - lead else 0
+                take = min(left, room)
+                start += size
+            else:
+                cb, cw = cur if lane == 0 and cur is not None else (s[0], s[2])
+                left, lead = max(s[1] - cb + 1, 0), cw & 3
+                size = min(left, dec_blks)
+                nw = ((s[3] + 3) & ~3) - (cw - lead) if left else 0
+                if start >= dec_blks or wstart >= word_cap:
+                    take = 0
+                elif start + left <= dec_blks and wstart + nw <= word_cap:
+                    take, wend = left, s[3]
+                else:   # cut where the words surely fit: 128 a block at most
+                    take = min(left, dec_blks - start,
+                               (word_cap - wstart - lead) // 128)
+                    if take > 0:
+                        wend = int(woff[(j + lane) % len(woff)][cb + take])
+                start += size
+                wstart += min(nw, word_cap)
+            if take > 0 and nseg == max_seg:
+                take = 0
+            nseg += take > 0
+            staged += take if woff is None else 128 * take
+            if left and take < left and stop is None:
+                stop = lane
+                resume = (lo + take if woff is None
+                          else (cb + take, wend if take else cw))
+        nj = j + (stop if stop is not None else n_mine)
+        if nj >= n:
+            return rounds, staged
+        j, cur = nj, resume
+
+
+def chain_after(rlo, rhi, docs, keep, *, caps, fences=None, widths=None):
+    """csrc/probe_async.cuh's staging, per block of ``caps[0]`` driver
+    slots: raw, every planned range whole, the copies issued with the plan;
+    packed, each range first narrowed to the blocks that can hold the
+    block's live docIDs [smin, smax] (on their first docIDs ``fences[kind]``;
+    ``widths[kind]`` the blocks' bit widths), and nothing when no slot is
+    live; then the rounds (``form_rounds``).  ``docs``/``keep`` [Q, W]: the
+    driver and its live slots.  Returns ``(blocks, staged, busiest,
+    longest_rounds, narrowing_passes)``: postings staged (packed: decoded)
+    in all and by the busiest block, the most rounds on one block, and the
+    most 64-block narrowing passes on one block."""
+    q_n, s_n, num_a = rlo.shape
+    sub = caps[0]
+    nsub = 1024 // sub
+    w = num_a * 1024
+    d = np.full((q_n, w), np.iinfo(np.int32).max, np.int64)
+    k = np.zeros((q_n, w), bool)
+    d[:, :docs.shape[1]] = docs
+    k[:, :keep.shape[1]] = keep
+    d, k = d.reshape(q_n, num_a * nsub, sub), k.reshape(q_n, num_a * nsub, sub)
+    smin = np.where(k, d, np.iinfo(np.int64).max).min(-1)
+    smax = np.where(k, d, np.iinfo(np.int64).min).max(-1)
+    alive = k.any(-1)
+    woff = None
+    if widths is not None:
+        woff = [np.concatenate([[0], np.cumsum(4 * wd.astype(np.int64))])
+                for wd in widths]
+    total, busiest, rounds_max, passes_max, blocks = 0, 0, 0, 0, 0
+    for q in range(q_n):
+        for b in range(num_a * nsub):
+            blocks += 1
+            if widths is not None and not alive[q, b]:
+                continue
+            i = b // nsub
+            streams, passes = [], 0
+            for j in range(s_n):
+                lo, hi = int(rlo[q, j, i]), int(rhi[q, j, i])
+                if widths is None:
+                    streams.append((lo, hi))
+                    continue
+                if hi <= lo:
+                    streams.append((0, -1, 0, 0))
+                    continue
+                kind = j % len(fences)
+                b0, b1 = lo >> 7, (hi - 1) >> 7
+                f = fences[kind][b0:b1 + 1]
+                above = np.nonzero(f > smax[q, b])[0]
+                last = int(above[0]) if above.size else f.size - 1
+                passes = max(passes, last // 64 + 1)
+                c_lo = int((f <= smin[q, b]).sum())
+                c_hi = int((f <= smax[q, b]).sum())
+                if c_hi == 0:
+                    streams.append((0, -1, 0, 0))
+                    continue
+                k0, k1 = b0 + max(c_lo - 1, 0), b0 + c_hi - 1
+                streams.append((k0, k1, int(woff[kind][k0]), int(woff[kind][k1 + 1])))
+            rounds, staged = form_rounds(streams, caps, woff)
+            total += staged
+            busiest = max(busiest, staged)
+            passes_max = max(passes_max, passes)
+            rounds_max = max(rounds_max, rounds)
+    return blocks, total, busiest, rounds_max, passes_max
 
 
 def main() -> int:
@@ -506,6 +696,28 @@ def main() -> int:
             if not torch.equal(g, w):
                 bad = int((g != w).sum())
                 raise AssertionError(f"{kernel} {label}: {what} differs in {bad} slots")
+
+    probe_lib = ctypes.CDLL(str(_build.build(["driver_streamed"])[
+        "driver_streamed"].path))
+    caps_c = (ctypes.c_int * 6)()
+    probe_lib.probe_round_caps(caps_c)
+    probe_caps = tuple(caps_c)   # JOIN_SUB, RAW_CAP, WORD_CAP, DEC_BLKS, MAX_SEG, MAX_OPEN
+
+    def chain_log(key, plans, act, docs, keep, fences=None, widths=None):
+        """The main-shape launch's staging from its plans on the host: the
+        first design's and this one's (chain_before, chain_after)."""
+        rlo, rhi = probe_streams_host(plans, act.cpu().numpy())
+        b = chain_before(rlo, rhi, widths)
+        a = chain_after(rlo, rhi, docs.cpu().numpy(), keep.cpu().numpy(),
+                        caps=probe_caps, fences=fences, widths=widths)
+        smem = probe_lib.probe_smem_bytes(rlo.shape[1], int(widths is not None))
+        what = "decoded" if widths is not None else "staged"
+        log(f"[chain] {key} main shape, from its plans: first design {b[0]} blocks, "
+            f"{b[1]} postings {what} ({b[2]} by the busiest block), {b[3]} dependent "
+            f"loads on the longest chain, {OLD_SMEM} bytes of shared memory a block; "
+            f"sub-tile {probe_caps[0]}: {a[0]} blocks, {a[1]} postings {what} ({a[2]} "
+            f"by the busiest block), {a[3]} rounds and {a[4]} narrowing passes on the "
+            f"longest chain, {smem} bytes of dynamic shared memory a block")
 
     def k1_check(label, args_, window):
         got = pi.driver_streamed_join_cuda(*args_, window=window)
@@ -672,8 +884,20 @@ def main() -> int:
         f"{k1_ms:.4f} ms/launch, {NS} launches/batch; plain {k1_plain:.4f} ms; "
         f"bound {k1_bound:.5f} ms ({k1_bytes} bytes: driver {drv} postings, "
         f"probed {probe} postings) on {smi}")
-    log(f"[times] K1 device time (profiler): kernel {device_ms(lambda: pi.driver_streamed_join_cuda(*k1_args, window=MAIN_WINDOW)):.5f} ms/launch, "
+    log(f"[times] K1 device time (profiler): kernel {device_ms(lambda: pi.driver_streamed_join_cuda(*k1_args, window=MAIN_WINDOW), kernel='K1'):.5f} ms/launch, "
         f"plain {device_ms(lambda: pi.driver_streamed_join_torch(*k1_args, window=MAIN_WINDOW)):.5f} ms on {smi}")
+    idx0 = sharded.shard(0)
+    n_ranges = pi.probe_staging_check(b_tile, n_b, bounds,
+                                      n_postings=idx0.postings.numel())
+    log(f"[chain] K1 main shape: the staging precondition holds on all {n_ranges} "
+        f"planned ranges (16-byte starts and rounded ends inside the array)")
+    pos = torch.arange(MAIN_WINDOW, device=dev)
+    gi = (d_off[:, None].long() + pos).clamp(max=idx0.postings.numel() - 1)
+    in_win = pos[None] < d_neff[:, None]
+    k1_docs = torch.where(in_win, idx0.postings[gi], INVALID_DOC)
+    k1_keep = in_win & (k1_docs != INVALID_DOC) & (
+        (k1_args[3][:, None] < 0) | (idx0.attrs[gi] == k1_args[3][:, None]))
+    chain_log("K1", [(b_tile, n_b, bounds)], active, k1_docs, k1_keep)
 
     k2_rows = {}
     for (merge, k), x in k2_inputs.items():
@@ -681,20 +905,18 @@ def main() -> int:
         plain = cuda_ms(lambda x=x, k=k: tm.merge_topk_rows_torch(x, k))
         lib = cuda_ms(lambda x=x, k=k: torch.topk(x, k, dim=-1, largest=False,
                                                   sorted=True))
-        mpad = tm._padded_width(x.shape[1])
-        stages = int(math.log2(mpad)) * (int(math.log2(mpad)) + 1) // 2
         k2_bytes = x.numel() * 4 + x.shape[0] * k * 4
-        k2_ops = x.shape[0] * (mpad // 2) * stages * 2
+        # the function, not the network: a selection of k of m keys takes
+        # about m * ceil(log2 k) compares a row
+        k2_ops = x.numel() * math.ceil(math.log2(k))
         bound, by = bound_ms(k2_bytes, k2_ops)
         k2_rows[(merge, k)] = (ms, plain, lib, bound, by)
-        log(f"[times] K2 {merge} k={k} {tuple(x.shape)}: {ms:.4f} ms; plain "
-            f"{plain:.4f} ms; torch.topk {lib:.4f} ms; bound {bound:.6f} ms "
-            f"({by}) on {smi}")
-    x = k2_inputs[("tournament", 1000)]
-    log(f"[times] K2 tournament k=1000 device time (profiler): kernel "
-        f"{device_ms(lambda: tm.merge_topk_rows_cuda(x, 1000)):.5f} ms/launch, plain "
-        f"{device_ms(lambda: tm.merge_topk_rows_torch(x, 1000)):.5f} ms, torch.topk "
-        f"{device_ms(lambda: torch.topk(x, 1000, dim=-1, largest=False)):.5f} ms on {smi}")
+        log(f"[times] K2 {merge} k={k} {tuple(x.shape)}: {ms:.4f} ms (device "
+            f"{device_ms(lambda x=x, k=k: tm.merge_topk_rows_cuda(x, k), kernel='K2'):.5f} ms, "
+            f"{tm._padded_width(x.shape[1])} keys a row); plain {plain:.4f} ms (device "
+            f"{device_ms(lambda x=x, k=k: tm.merge_topk_rows_torch(x, k)):.5f} ms); "
+            f"torch.topk {lib:.4f} ms (device {device_ms(lambda x=x, k=k: torch.topk(x, k, dim=-1, largest=False)):.5f} "
+            f"ms); bound {bound:.6f} ms ({by}) on {smi}")
 
     def timed_serve(svc, label):
         """Served queries/s and per-batch times after a warm-up, cache off."""
@@ -1085,7 +1307,7 @@ def main() -> int:
         f"{k3_lib:.4f} ms; bound {k3_bound:.6f} ms ({k3_by}; {k3_bytes} bytes: "
         f"{k3_read} of main {int(na.sum())} + delta {int(nb.sum())} postings "
         f"read) on {smi}")
-    log(f"[times] K3 device time (profiler): kernel {device_ms(lambda: dm.merge_delta_windows_cuda(*k3m, window=MAIN_WINDOW, cap=cap)):.5f} "
+    log(f"[times] K3 device time (profiler): kernel {device_ms(lambda: dm.merge_delta_windows_cuda(*k3m, window=MAIN_WINDOW, cap=cap), kernel='K3'):.5f} "
         f"ms/launch, plain {device_ms(lambda: dm.merge_delta_windows_torch(*k3m, window=MAIN_WINDOW, cap=cap)):.5f} ms, "
         f"torch.sort(stable) {device_ms(lambda: torch.sort(keys, dim=-1, stable=True)):.5f} ms on {smi}")
 
@@ -1118,8 +1340,18 @@ def main() -> int:
         f"{int(valid.sum())} valid and {int(live_slots.sum())} live driver slots, "
         f"probed main {probe_m} + delta {probe_d} postings) on {smi}")
     log(f"[times] K4 device time (profiler): kernel "
-        f"{device_ms(lambda: pi.streamed_join_cuda(*k4m, cap=cap)):.5f} ms/launch, "
+        f"{device_ms(lambda: pi.streamed_join_cuda(*k4m, cap=cap), kernel='K4'):.5f} ms/launch, "
         f"plain {device_ms(lambda: pi.streamed_join_torch(*k4m, cap=cap)):.5f} ms on {smi}")
+    n_ranges = (pi.probe_staging_check(mb_tile, mn_b, mbounds,
+                                       n_postings=idx0.postings.numel())
+                + pi.probe_staging_check(db_tile, dn_b, dbounds,
+                                         n_postings=delta0.postings.numel()))
+    log(f"[chain] K4 main shape: the staging precondition holds on all {n_ranges} "
+        f"planned main and delta ranges")
+    k4_keep = (a_docs != INVALID_DOC) & (a_live != 0) & (
+        (a_filter[:, None] < 0) | (k4m[1] == a_filter[:, None]))
+    chain_log("K4", [(mb_tile, mn_b, mbounds), (db_tile, dn_b, dbounds)], a_active,
+              a_docs, k4_keep)
 
     traced(lambda reg: SearchService(sharded, meta, writer=writer, cache_size=0,
                                      registry=reg, **main_kw), "fill 1.0")
@@ -1396,7 +1628,7 @@ def main() -> int:
     k1p_plain_run = lambda: pi.driver_streamed_join_packed_torch(*k1p_args, window=MAIN_WINDOW)
     k1p_ms = cuda_ms(k1p_run)
     k1p_plain = cuda_ms(k1p_plain_run, reps=10, warmup=2)
-    k1p_dev, k1p_plain_dev = device_ms(k1p_run), device_ms(k1p_plain_run)
+    k1p_dev, k1p_plain_dev = device_ms(k1p_run, kernel="K1p"), device_ms(k1p_plain_run)
     drv_b, drv_blk = span_block_cost(d_off, d_neff, meta_host[0])
     prb_b, prb_blk = probe_block_cost(b_tile, n_b, bounds, TILE, meta_host[0])
     drv = int(d_neff.sum())
@@ -1413,6 +1645,13 @@ def main() -> int:
         f"{k1p_plain:.4f} ms (device {k1p_plain_dev:.5f} ms); bound {k1p_bound:.6f} ms "
         f"({k1p_by}; {k1p_bytes} bytes: driver {drv_blk} blocks {drv_b} bytes, probes "
         f"{prb_blk} blocks {prb_b} bytes, {drv} attrs) on {smi}")
+    pk0 = twins[0].packed
+    n_ranges = pi.probe_staging_check(b_tile, n_b, bounds, packed=pk0)
+    log(f"[chain] K1p main shape: the staging precondition holds on all {n_ranges} "
+        f"planned ranges (their blocks' words 16-byte aligned inside the words)")
+    p_fences = [pk0.blk_base[:pk0.n_blocks].long().cpu().numpy()]
+    chain_log("K1p", [(b_tile, n_b, bounds)], active, k1_docs, k1_keep, p_fences,
+              [meta_host[0] & 63])
 
     pd0 = p_deltas[0]
     cap = pd0.term_capacity
@@ -1424,7 +1663,7 @@ def main() -> int:
                                                                 cap=cap)
     k3p_ms = cuda_ms(k3p_run)
     k3p_plain = cuda_ms(k3p_plain_run, reps=10, warmup=2)
-    k3p_dev, k3p_plain_dev = device_ms(k3p_run), device_ms(k3p_plain_run)
+    k3p_dev, k3p_plain_dev = device_ms(k3p_run, kernel="K3p"), device_ms(k3p_plain_run)
     d_meta_host = pd0.packed.blk_meta[:pd0.packed.n_blocks].cpu().numpy()
     na = k3m[3].long().clamp(max=MAIN_WINDOW)
     start, d_len = dm._slab(k3m[8], pd0.offsets, pd0.lengths, cap)
@@ -1450,7 +1689,7 @@ def main() -> int:
     k4p_plain_run = lambda: pi.streamed_join_packed_torch(*pk4, cap=cap)
     k4p_ms = cuda_ms(k4p_run)
     k4p_plain = cuda_ms(k4p_plain_run, reps=10, warmup=2)
-    k4p_dev, k4p_plain_dev = device_ms(k4p_run), device_ms(k4p_plain_run)
+    k4p_dev, k4p_plain_dev = device_ms(k4p_run, kernel="K4p"), device_ms(k4p_plain_run)
     pm_b, pm_blk = probe_block_cost(mb_tile, mn_b, mbounds, TILE, meta_host[0])
     pdd_b, pdd_blk = probe_block_cost(db_tile, dn_b, dbounds, TILE, d_meta_host)
     live_slots = (a_live != 0).long().sum(1)
@@ -1470,6 +1709,16 @@ def main() -> int:
         f"{k4p_plain:.4f} ms (device {k4p_plain_dev:.5f} ms); bound {k4p_bound:.6f} ms "
         f"({k4p_by}; {k4p_bytes} bytes: probes main {pm_blk} blocks {pm_b} bytes + "
         f"delta {pdd_blk} blocks {pdd_b} bytes) on {smi}")
+    n_ranges = (pi.probe_staging_check(mb_tile, mn_b, mbounds, packed=pk0)
+                + pi.probe_staging_check(db_tile, dn_b, dbounds, packed=pd0.packed))
+    log(f"[chain] K4p main shape: the staging precondition holds on all {n_ranges} "
+        f"planned main and delta ranges")
+    pk4_keep = (a_docs != INVALID_DOC) & (a_live != 0) & (
+        (a_filter[:, None] < 0) | (pk4[1] == a_filter[:, None]))
+    chain_log("K4p", [(mb_tile, mn_b, mbounds), (db_tile, dn_b, dbounds)], a_active,
+              a_docs, pk4_keep,
+              p_fences + [pd0.packed.blk_base[:pd0.packed.n_blocks].long().cpu().numpy()],
+              [meta_host[0] & 63, d_meta_host & 63])
 
     def seq_batch_ms(shards_, deltas_, codec):
         torch.cuda.synchronize()
@@ -2096,7 +2345,10 @@ def main() -> int:
     x20 = torch.from_numpy(rng13.integers(0, 1 << 30, 1 << 20).astype(np.int32)).to(dev)
     tm.bitonic_sort_cuda(x20)
     torch.cuda.synchronize()
-    for _ in range(3):   # a window with no device event is taken again
+    want_launches = 1 + int(math.log2((1 << 20) // tile))
+    # a window in which the profiler dropped device events (none, or the
+    # first few of the sort) is taken again, up to three times
+    for _ in range(3):
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -2105,9 +2357,8 @@ def main() -> int:
         k11_events = {e.key: e.count for e in prof.key_averages()
                       if e.device_type == torch.autograd.DeviceType.CUDA
                       and any(name in e.key for name in kernel_names("K11"))}
-        if k11_events:
+        if sum(k11_events.values()) == want_launches:
             break
-    want_launches = 1 + int(math.log2((1 << 20) // tile))
     if sum(k11_events.values()) != want_launches:
         raise AssertionError(f"K11: a 2**20 sort launched {k11_events}, expected "
                              f"1 + log2(m / {tile}) = {want_launches}")
@@ -2285,9 +2536,10 @@ def main() -> int:
     # times, slave 0, main-path shapes
     staged_rows = {}
 
-    def time_row(key, run, plain_run, n_bytes, n_ops, extra, lib=None, lib_name=""):
+    def time_row(key, run, plain_run, n_bytes, n_ops, extra, lib=None, lib_name="",
+                 kernel=None):
         ms, plain = cuda_ms(run), cuda_ms(plain_run, reps=10, warmup=2)
-        dev_ms, plain_dev = device_ms(run), device_ms(plain_run)
+        dev_ms, plain_dev = device_ms(run, kernel=kernel), device_ms(plain_run)
         bound, by = bound_ms(n_bytes, n_ops)
         lib_ms = None if lib is None else cuda_ms(lib)
         staged_rows[key] = (ms, plain, bound, by, lib_ms)
@@ -2382,7 +2634,8 @@ def main() -> int:
         cuda_fn, plain_fn, a, kw = modes[key]
         time_row(key, lambda c=cuda_fn, a=a, kw=kw: c(*a, **kw),
                  lambda p=plain_fn, a=a, kw=kw: p(*a, **kw), n_bytes, n_ops,
-                 f"static mode, Q={MAIN_Q}, T={MAIN_T}, W={MAIN_WINDOW}, shard 0, {extra}")
+                 f"static mode, Q={MAIN_Q}, T={MAIN_T}, W={MAIN_WINDOW}, shard 0, {extra}",
+                 kernel={"K4s": "K4", "K4ps": "K4p"}.get(key))
 
     # the staged path against the streamed one per batch, interleaved
     def seq(b, backend, deltas_):

@@ -206,6 +206,23 @@ def check_args(q_n: int, **args) -> None:
         raise ValueError(f"{q_n} queries exceed the grid's y extent (65535)")
 
 
+def check_aligned(**arrays) -> None:
+    """Raise unless each array (None: skipped) starts on 16 bytes and holds
+    a whole number of 16-byte chunks: the bulk copies of
+    ``csrc/probe_async.cuh`` move whole chunks, rounding a range's ends out
+    to them, and stay inside such an array."""
+    for name, x in arrays.items():
+        if x is None:
+            continue
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: starts at {x.data_ptr():#x}; the probe's "
+                             "bulk copies need 16-byte alignment")
+        if x.numel() * x.element_size() % 16:
+            raise ValueError(f"{name}: {x.numel()} elements of {x.element_size()} "
+                             "bytes; the probe's bulk copies need a multiple of 16 "
+                             "bytes")
+
+
 def packed_args(packed, label: str = "") -> dict:
     """:func:`check_args` entries of a block-codec twin's four arrays
     (``repro_torch.core.index.PackedFlatArrays``), names prefixed by

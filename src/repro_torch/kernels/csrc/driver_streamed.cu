@@ -10,38 +10,43 @@
 // driver_streamed_join_packed_cuda, and the plain versions they are held
 // against).
 //
-// What bounds it on the H100: bytes and latency, not arithmetic.  Each
-// block reads one 1024-posting driver tile (docIDs + attrs, 8 KB) and, per
-// active other term, the planned run of that term's list (at most
-// window + TILE postings); the work per byte is one binary search of a few
-// steps, far below the card's operations-per-byte balance.  The plan comes
-// from the skip table before the launch, so postings outside the
-// overlapping tiles are never read (the paper's posting skipping).
+// What bounds it on the H100: the latency of dependent loads.  A block
+// reads its driver slots (docIDs and attrs) and, per active other term,
+// the planned run of that term's list (at most window + TILE postings).
+// The work per byte is one binary search of a few steps, and the bytes of
+// a main-path launch (Q 32, T 4, window 4096) take about 0.6 us at the
+// card's memory rate; what costs is each round trip that a search waits
+// for.  The first design (one block of 256 threads per 1024-slot tile,
+// 128 blocks on 132 SMs, each range staged 2048 postings at a time behind
+// two barriers) ran 11x that bound.  The plan comes from the skip table
+// before the launch, so postings outside the overlapping tiles are never
+// read (the paper's posting skipping).
 //
-// Design: one block of 256 threads per (driver tile, query).  Each thread
-// keeps 4 driver postings in registers (coalesced loads: thread x reads
-// window positions x, x+256, x+512, x+768 of the tile).  For each active
-// term the block probes the planned range of the term's list through
-// shared memory (probe_range in probe.cuh, shared with K4).  Membership is
-// ANDed over terms; validity and the attribute filter are applied first,
-// and a block whose postings have all died stops probing
-// (__syncthreads_or).  The TPU kernel's (8,128) broadcast-compare and its
-// clamped unblocked BlockSpecs are not carried over: the driver tile is
-// read by position and masked, so no read passes a list's live range.
+// Design (probe_async.cuh): a block owns JOIN_SUB = 256 slots of a
+// driver tile (the grid is (tiles * TILE / JOIN_SUB, Q)), one a consumer
+// thread (coalesced), and one producer warp reads the plan of every term
+// and, with it, issues bulk copies of the terms' planned ranges into
+// shared memory (two rounds in flight) while the consumers read the
+// driver.  Each consumer then searches its slot in each landed range,
+// starting from an interpolated window.  Membership is ANDed over active
+// terms; validity and the attribute filter are applied first, and a block
+// whose postings have all died stops.  The TPU kernel's (8,128)
+// broadcast-compare and its clamped unblocked BlockSpecs are not carried
+// over: the driver is read by position and masked, so no read passes a
+// list's live range.
 //
-// K1p runs the same body over PackedList sources (probe.cuh, decode.cuh):
-// the driver tile's blocks are decoded one per warp into shared memory
-// before the threads pick their postings, and each probe chunk's blocks
-// are decoded before it is searched.  Attrs stay raw.  Its entry point
-// takes the words and descriptors and no raw posting pointer.  What bounds
-// it: the same latency as K1, with the packed words (about half the raw
-// bytes at full size) plus 12 descriptor bytes per decoded block in place
-// of the raw postings, and a few shifts and one warp scan per block.
-#include "probe.cuh"
+// K1p runs the same body over the codec: the sub-tile's driver blocks are
+// decoded one per warp into shared memory (decode.cuh); the block reduces
+// its live docIDs' interval, each probe range is narrowed on blk_base to
+// the blocks that can hold it, and only their words are staged and
+// decoded (from shared memory).  Attrs stay raw.  Its entry point takes
+// the words and descriptors and no raw posting pointer.
+#include "probe_async.cuh"
 
-template <class Src>
+template <bool PACKED>
 __device__ __forceinline__ void driver_streamed_body(
-    const Src& src,
+    const int* __restrict__ postings,     // [P] (raw)
+    const Packed& pk,                     // (packed)
     const int* __restrict__ d_off,        // [Q]
     const int* __restrict__ d_neff,       // [Q]
     const int* __restrict__ active,       // [Q, T]
@@ -54,60 +59,59 @@ __device__ __forceinline__ void driver_streamed_body(
     int* __restrict__ out_mask,           // [Q, window]
     int t_slots, int num_a, int window)
 {
-    __shared__ int sb[STAGE];
-    const int i = blockIdx.x;   // driver tile
-    const int q = blockIdx.y;   // query
-    const int64_t off = d_off[q];
+    constexpr int NSUB = TILE / JOIN_SUB;
+    extern __shared__ __align__(128) unsigned char smem[];
+    const ProbeLayout L = probe_layout(t_slots, PACKED);
+    const int i = blockIdx.x / NSUB;                          // driver tile
+    const int t0 = i * TILE + (blockIdx.x % NSUB) * JOIN_SUB; // first slot
+    const int q = blockIdx.y;
+    const long long off = d_off[q];
     const int neff = d_neff[q];
     const int filt = attr_filter[q];
-    const int t0 = i * TILE;
-    const int n_tile = neff - t0 < 0 ? 0 : (neff - t0 < TILE ? neff - t0 : TILE);
-    const int* drv = src.stage(off + t0, n_tile, sb);
+    const Sources src{{postings, postings}, {pk, pk}};
 
-    int a[ITEMS];
-    bool keep[ITEMS];
-    bool alive = false;
-#pragma unroll
-    for (int r = 0; r < ITEMS; ++r) {
-        const int w = t0 + r * THREADS + threadIdx.x;
-        const bool in_win = w < neff;
-        const int doc = in_win ? drv[w - t0] : INVALID_DOC;
-        const int at = in_win ? attrs[off + w] : INVALID_ATTR;
-        a[r] = doc;
-        keep[r] = doc != INVALID_DOC && (filt < 0 || at == filt);
-        alive |= keep[r];
-    }
-
-    for (int t = 0; t < t_slots; ++t) {
-        // Uniform across the block: stop once no posting survives.
-        if (!__syncthreads_or(alive)) break;
-        const int64_t qt = (int64_t)q * t_slots + t;
-        if (active[qt] == 0) continue;
-        const int64_t qti = qt * num_a + i;
-        int64_t rlo, rhi;
-        planned_range(b_tile[qti], n_b[qti], bounds[2 * qt], bounds[2 * qt + 1],
-                      rlo, rhi);
-        bool found[ITEMS];
-        src.probe(rlo, rhi, sb, a, keep, found);
-        alive = false;
-#pragma unroll
-        for (int r = 0; r < ITEMS; ++r) {
-            keep[r] = keep[r] && found[r];
-            alive |= keep[r];
+    // the plan of every term, one stream a term
+    Cursor c;
+    probe_begin<PACKED>(smem, src, t_slots, 1, [&](StreamRange* st, int lane) {
+        for (int t = lane; t < t_slots; t += 32) {
+            // every load at once: the plan row does not wait for active
+            const long long qt = (long long)q * t_slots + t;
+            const long long qti = qt * num_a + i;
+            const int act = active[qt] != 0;
+            const int bt = b_tile[qti], nb = n_b[qti];
+            const int lo = bounds[2 * qt], hi = bounds[2 * qt + 1];
+            // (not under `if (act)`: the loads would wait for active)
+            long long rlo, rhi;
+            plan_range(bt, nb, lo, hi, rlo, rhi);
+            if (!act) rlo = rhi = 0;
+            stream_set(st[t], rlo, rhi, act);
         }
-    }
+    }, c);
 
-#pragma unroll
-    for (int r = 0; r < ITEMS; ++r) {
-        const int w = t0 + r * THREADS + threadIdx.x;
-        if (w < window) {
-            out_docs[(int64_t)q * window + w] = a[r];
-            out_mask[(int64_t)q * window + w] = keep[r] ? 1 : 0;
-        }
+    const int n_sub = neff - t0 < 0 ? 0 : (neff - t0 < JOIN_SUB ? neff - t0 : JOIN_SUB);
+    const int* drv = postings + off + t0;
+    if (PACKED) {
+        int* dec = (int*)(smem + L.dec);
+        const int lead = decode_range(pk, off + t0, n_sub, dec);
+        __syncthreads();
+        drv = dec + lead;
+    }
+    const int k = threadIdx.x;
+    const bool in_win = k < JOIN_SUB && k < n_sub;
+    const int x = in_win ? drv[k] : INVALID_DOC;
+    const int at = in_win ? attrs[off + t0 + k] : INVALID_ATTR;
+    bool keep = x != INVALID_DOC && (filt < 0 || at == filt);
+
+    probe_streams<PACKED>(smem, src, t_slots, 1, x, 1u, keep, c);
+
+    const int w = t0 + k;
+    if (k < JOIN_SUB && w < window) {
+        out_docs[(long long)q * window + w] = x;
+        out_mask[(long long)q * window + w] = keep ? 1 : 0;
     }
 }
 
-__global__ void __launch_bounds__(THREADS) driver_streamed_kernel(
+__global__ void __launch_bounds__(JOIN_SUB + 32) driver_streamed_kernel(
     const int* __restrict__ d_off, const int* __restrict__ d_neff,
     const int* __restrict__ active, const int* __restrict__ attr_filter,
     const int* __restrict__ postings,     // [P]
@@ -116,12 +120,13 @@ __global__ void __launch_bounds__(THREADS) driver_streamed_kernel(
     int* __restrict__ out_docs, int* __restrict__ out_mask,
     int t_slots, int num_a, int window)
 {
-    driver_streamed_body(RawList{postings}, d_off, d_neff, active, attr_filter,
-                         attrs, b_tile, n_b, bounds, out_docs, out_mask,
-                         t_slots, num_a, window);
+    const Packed none{nullptr, nullptr, nullptr, nullptr, 0};
+    driver_streamed_body<false>(
+        postings, none, d_off, d_neff, active, attr_filter, attrs, b_tile, n_b,
+        bounds, out_docs, out_mask, t_slots, num_a, window);
 }
 
-__global__ void __launch_bounds__(THREADS) driver_streamed_packed_kernel(
+__global__ void __launch_bounds__(JOIN_SUB + 32) driver_streamed_packed_kernel(
     const int* __restrict__ d_off, const int* __restrict__ d_neff,
     const int* __restrict__ active, const int* __restrict__ attr_filter,
     const uint32_t* __restrict__ words,   // [Wd]
@@ -133,10 +138,10 @@ __global__ void __launch_bounds__(THREADS) driver_streamed_packed_kernel(
     int* __restrict__ out_docs, int* __restrict__ out_mask,
     int t_slots, int num_a, int window, int n_blocks)
 {
-    const PackedList src{Packed{words, blk_base, blk_meta, blk_woff, n_blocks}};
-    driver_streamed_body(src, d_off, d_neff, active, attr_filter, attrs,
-                         b_tile, n_b, bounds, out_docs, out_mask,
-                         t_slots, num_a, window);
+    const Packed pk{words, blk_base, blk_meta, blk_woff, n_blocks};
+    driver_streamed_body<true>(
+        nullptr, pk, d_off, d_neff, active, attr_filter, attrs, b_tile, n_b,
+        bounds, out_docs, out_mask, t_slots, num_a, window);
 }
 
 extern "C" int driver_streamed_launch(
@@ -146,13 +151,17 @@ extern "C" int driver_streamed_launch(
     void* out_docs, void* out_mask,
     int q_n, int t_slots, int window, void* stream)
 {
+    static int allowed = 48 * 1024;
     const int num_a = (window + TILE - 1) / TILE;
-    dim3 grid(num_a, q_n);
-    driver_streamed_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+    const int smem = probe_layout(t_slots, false).total;
+    const cudaError_t err = allow_smem(driver_streamed_kernel, smem, allowed);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid(num_a * (TILE / JOIN_SUB), q_n);
+    driver_streamed_kernel<<<grid, JOIN_SUB + 32, smem, (cudaStream_t)stream>>>(
         (const int*)d_off, (const int*)d_neff, (const int*)active,
         (const int*)attr_filter, (const int*)postings, (const int*)attrs,
-        (const int*)b_tile, (const int*)n_b, (const int*)bounds,
-        (int*)out_docs, (int*)out_mask, t_slots, num_a, window);
+        (const int*)b_tile, (const int*)n_b, (const int*)bounds, (int*)out_docs,
+        (int*)out_mask, t_slots, num_a, window);
     return (int)cudaGetLastError();
 }
 
@@ -164,13 +173,33 @@ extern "C" int driver_streamed_packed_launch(
     void* out_docs, void* out_mask,
     int q_n, int t_slots, int window, int n_blocks, void* stream)
 {
+    static int allowed = 48 * 1024;
     const int num_a = (window + TILE - 1) / TILE;
-    dim3 grid(num_a, q_n);
-    driver_streamed_packed_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+    const int smem = probe_layout(t_slots, true).total;
+    const cudaError_t err = allow_smem(driver_streamed_packed_kernel, smem, allowed);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid(num_a * (TILE / JOIN_SUB), q_n);
+    driver_streamed_packed_kernel<<<grid, JOIN_SUB + 32, smem, (cudaStream_t)stream>>>(
         (const int*)d_off, (const int*)d_neff, (const int*)active,
         (const int*)attr_filter, (const uint32_t*)words, (const int*)blk_base,
         (const int*)blk_meta, (const int*)blk_woff, (const int*)attrs,
-        (const int*)b_tile, (const int*)n_b, (const int*)bounds,
-        (int*)out_docs, (int*)out_mask, t_slots, num_a, window, n_blocks);
+        (const int*)b_tile, (const int*)n_b, (const int*)bounds, (int*)out_docs,
+        (int*)out_mask, t_slots, num_a, window, n_blocks);
     return (int)cudaGetLastError();
+}
+
+// The dynamic shared memory of one block of K1 or K4 (nstr = the terms'
+// streams: t_slots, or 2 * t_slots for K4 with its delta), raw or packed.
+extern "C" int probe_smem_bytes(int nstr, int packed)
+{
+    return probe_layout(nstr, packed != 0).total;
+}
+
+// The staging constants of probe_async.cuh, for host-side accounting of
+// the rounds: out[0..5] = JOIN_SUB, RAW_CAP, WORD_CAP, DEC_BLKS, MAX_SEG,
+// MAX_OPEN.
+extern "C" void probe_round_caps(int* out)
+{
+    const int caps[] = {JOIN_SUB, RAW_CAP, WORD_CAP, DEC_BLKS, MAX_SEG, MAX_OPEN};
+    for (int k = 0; k < 6; ++k) out[k] = caps[k];
 }

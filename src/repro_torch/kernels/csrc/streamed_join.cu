@@ -20,34 +20,39 @@
 // (the static mode: no delta arrays, no flags; their pointers may be null)
 // a slot is a member when it is in the term's main probe range.
 //
-// What bounds it on the H100: bytes and latency, as K1.  Each block reads
-// one 1024-slot driver tile (docIDs, attrs, live, flags: 16 KB) and, per
+// What bounds it on the H100: the latency of dependent loads, as K1.  A
+// block reads its driver slots (docIDs, attrs, live, flags) and, per
 // active term, the planned run of the term's main list (at most window +
 // TILE postings) and of its delta slab (at most cap + TILE); the work per
-// byte is one binary search of a few steps.
+// byte is one binary search of a few steps.  The first design (one block
+// per 1024-slot tile, main then delta range staged 2048 postings at a
+// time, each chunk a round trip behind two barriers) ran 16-18x its bound.
 //
-// Design: K1's block structure.  One block of 256 threads per (driver
-// tile, query), four driver slots a thread; per active term, the main
-// range and then the delta range are staged through shared memory and
-// binary-searched (probe_range in probe.cuh, shared with K1); a slot is
-// searched in a stream only where its flags let that stream count.  The
-// fold uses the driver tile's flags.  The TPU kernel's (8,128)
+// Design: K1's (probe_async.cuh).  A block owns JOIN_SUB = 256 slots of
+// a driver tile; each term is two streams, its main range and its delta
+// range (one, the main, in the static mode), staged by bulk copies that
+// the producer warp issues with the plan, two rounds in flight, while the
+// consumers read the driver.  A slot is searched in a stream only where
+// its flags let that stream count.  The TPU kernel's (8,128)
 // broadcast-compare and its (Q, A, T, S) sequential grid are not carried
 // over.
 //
-// K4p runs the same body with PackedList sources for the main and delta
-// probes (probe.cuh, decode.cuh): each probe chunk's blocks are decoded
-// one per warp into shared memory, then searched.  The driver is K3p's
-// output and stays raw.  Its entry point takes both twins' words and
-// descriptors and no raw posting pointer.
-#include "probe.cuh"
+// K4p runs the same body with the codec for the main and delta probes:
+// the block reduces its live docIDs' interval, each range is narrowed on
+// blk_base, and only the words of the blocks that can match are staged
+// and decoded, one warp a block.  The driver is K3p's output and stays
+// raw.  Its entry point takes both twins' words and descriptors and no raw
+// posting pointer.
+#include "probe_async.cuh"
 
 #define DOC_DEAD 1
 #define DOC_SUPERSEDED 2
 
-template <class Src>
+template <bool PACKED>
 __device__ __forceinline__ void streamed_join_body(
-    const Src& main_src, const Src& delta_src,
+    const int* __restrict__ postings,     // [P] (raw)
+    const int* __restrict__ d_postings,   // [D] (raw)
+    const Packed& pk, const Packed& dpk,  // (packed)
     const int* __restrict__ a_docs,       // [Q, window]
     const int* __restrict__ a_attrs,      // [Q, window]
     const int* __restrict__ a_live,       // [Q, window]
@@ -63,70 +68,62 @@ __device__ __forceinline__ void streamed_join_body(
     int* __restrict__ out_mask,           // [Q, window]
     int t_slots, int num_a, int window, int has_delta)
 {
-    __shared__ int sb[STAGE];
-    const int i = blockIdx.x;   // driver tile
-    const int q = blockIdx.y;   // query
+    constexpr int NSUB = TILE / JOIN_SUB;
+    extern __shared__ __align__(128) unsigned char smem[];
+    const int spt = has_delta ? 2 : 1;
+    const int i = blockIdx.x / NSUB;                          // driver tile
+    const int t0 = i * TILE + (blockIdx.x % NSUB) * JOIN_SUB; // first slot
+    const int q = blockIdx.y;
+    const Sources src{{postings, d_postings}, {pk, dpk}};
     const int filt = attr_filter[q];
+    const int w = t0 + threadIdx.x;
+    const bool in_win = threadIdx.x < JOIN_SUB && w < window;
+    const long long o = (long long)q * window + w;
+    const int x = in_win ? a_docs[o] : INVALID_DOC;
+    const int at = in_win ? a_attrs[o] : INVALID_ATTR;
+    const int lv = in_win ? a_live[o] : 0;
+    const int fl = in_win && has_delta ? a_flags[o] : 0;
+    bool keep = x != INVALID_DOC && (filt < 0 || at == filt) && lv != 0;
+    // bit 0: the main stream counts, bit 1: the delta
+    const unsigned ok = ((fl & (DOC_DEAD | DOC_SUPERSEDED)) == 0 ? 1u : 0u) |
+                        ((fl & DOC_DEAD) == 0 ? 2u : 0u);
 
-    int a[ITEMS];
-    bool keep[ITEMS], main_ok[ITEMS], delta_ok[ITEMS];
-    bool alive = false;
-#pragma unroll
-    for (int r = 0; r < ITEMS; ++r) {
-        const int w = i * TILE + r * THREADS + threadIdx.x;
-        const bool in_win = w < window;
-        const int64_t o = (int64_t)q * window + w;
-        const int doc = in_win ? a_docs[o] : INVALID_DOC;
-        const int at = in_win ? a_attrs[o] : INVALID_ATTR;
-        const int lv = in_win ? a_live[o] : 0;
-        const int fl = in_win && has_delta ? a_flags[o] : 0;
-        a[r] = doc;
-        keep[r] = doc != INVALID_DOC && (filt < 0 || at == filt) && lv != 0;
-        main_ok[r] = (fl & (DOC_DEAD | DOC_SUPERSEDED)) == 0;
-        delta_ok[r] = (fl & DOC_DEAD) == 0;
-        alive |= keep[r];
-    }
-
-    for (int t = 0; t < t_slots; ++t) {
-        // Uniform across the block: stop once no slot survives.
-        if (!__syncthreads_or(alive)) break;
-        const int64_t qt = (int64_t)q * t_slots + t;
-        if (active[qt] == 0) continue;
-        const int64_t qti = qt * num_a + i;
-        bool need[ITEMS], in_main[ITEMS], in_delta[ITEMS];
-        int64_t rlo, rhi;
-        planned_range(b_tile[qti], n_b[qti], bounds[2 * qt], bounds[2 * qt + 1],
-                      rlo, rhi);
-#pragma unroll
-        for (int r = 0; r < ITEMS; ++r) need[r] = keep[r] && main_ok[r];
-        main_src.probe(rlo, rhi, sb, a, need, in_main);
-        // has_delta is uniform across the block, so is the probe's barrier
-        if (has_delta) {
-            planned_range(d_tile[qti], n_d[qti], d_bounds[2 * qt],
-                          d_bounds[2 * qt + 1], rlo, rhi);
-#pragma unroll
-            for (int r = 0; r < ITEMS; ++r) need[r] = keep[r] && delta_ok[r];
-            delta_src.probe(rlo, rhi, sb, a, need, in_delta);
-        } else {
-#pragma unroll
-            for (int r = 0; r < ITEMS; ++r) in_delta[r] = false;
+    // the plans of every term: stream t * spt the main range, + 1 the delta
+    Cursor c;
+    probe_begin<PACKED>(smem, src, t_slots * spt, spt, [&](StreamRange* st, int lane) {
+        for (int t = lane; t < t_slots; t += 32) {
+            // every load at once: the plan rows do not wait for active
+            const long long qt = (long long)q * t_slots + t;
+            const long long qti = qt * num_a + i;
+            const int act = active[qt] != 0;
+            const int bt = b_tile[qti], nb = n_b[qti];
+            const int lo = bounds[2 * qt], hi = bounds[2 * qt + 1];
+            int dt = 0, nd = 0, dlo = 0, dhi = 0;
+            if (has_delta) {
+                dt = d_tile[qti];
+                nd = n_d[qti];
+                dlo = d_bounds[2 * qt];
+                dhi = d_bounds[2 * qt + 1];
+            }
+            // (not under `if (act)`: the loads would wait for active)
+            long long rlo, rhi;
+            plan_range(bt, nb, lo, hi, rlo, rhi);
+            if (!act) rlo = rhi = 0;
+            stream_set(st[t * spt], rlo, rhi, act);
+            if (has_delta) {
+                plan_range(dt, nd, dlo, dhi, rlo, rhi);
+                if (!act) rlo = rhi = 0;
+                stream_set(st[t * spt + 1], rlo, rhi, act);
+            }
         }
-        alive = false;
-#pragma unroll
-        for (int r = 0; r < ITEMS; ++r) {
-            keep[r] = keep[r] && (in_main[r] || in_delta[r]);
-            alive |= keep[r];
-        }
-    }
+    }, c);
 
-#pragma unroll
-    for (int r = 0; r < ITEMS; ++r) {
-        const int w = i * TILE + r * THREADS + threadIdx.x;
-        if (w < window) out_mask[(int64_t)q * window + w] = keep[r] ? 1 : 0;
-    }
+    probe_streams<PACKED>(smem, src, t_slots * spt, spt, x, ok, keep, c);
+
+    if (in_win) out_mask[o] = keep ? 1 : 0;
 }
 
-__global__ void __launch_bounds__(THREADS) streamed_join_kernel(
+__global__ void __launch_bounds__(JOIN_SUB + 32) streamed_join_kernel(
     const int* __restrict__ a_docs, const int* __restrict__ a_attrs,
     const int* __restrict__ a_live, const int* __restrict__ a_flags,
     const int* __restrict__ active, const int* __restrict__ attr_filter,
@@ -138,13 +135,14 @@ __global__ void __launch_bounds__(THREADS) streamed_join_kernel(
     const int* __restrict__ d_bounds, int* __restrict__ out_mask,
     int t_slots, int num_a, int window, int has_delta)
 {
-    streamed_join_body(RawList{postings}, RawList{d_postings}, a_docs, a_attrs,
-                       a_live, a_flags, active, attr_filter, b_tile, n_b,
-                       bounds, d_tile, n_d, d_bounds, out_mask, t_slots, num_a,
-                       window, has_delta);
+    const Packed none{nullptr, nullptr, nullptr, nullptr, 0};
+    streamed_join_body<false>(
+        postings, d_postings, none, none, a_docs, a_attrs, a_live, a_flags,
+        active, attr_filter, b_tile, n_b, bounds, d_tile, n_d, d_bounds,
+        out_mask, t_slots, num_a, window, has_delta);
 }
 
-__global__ void __launch_bounds__(THREADS) streamed_join_packed_kernel(
+__global__ void __launch_bounds__(JOIN_SUB + 32) streamed_join_packed_kernel(
     const int* __restrict__ a_docs, const int* __restrict__ a_attrs,
     const int* __restrict__ a_live, const int* __restrict__ a_flags,
     const int* __restrict__ active, const int* __restrict__ attr_filter,
@@ -161,11 +159,12 @@ __global__ void __launch_bounds__(THREADS) streamed_join_packed_kernel(
     int t_slots, int num_a, int window, int n_blocks, int d_n_blocks,
     int has_delta)
 {
-    const PackedList m{Packed{words, blk_base, blk_meta, blk_woff, n_blocks}};
-    const PackedList d{Packed{d_words, d_base, d_meta, d_woff, d_n_blocks}};
-    streamed_join_body(m, d, a_docs, a_attrs, a_live, a_flags, active,
-                       attr_filter, b_tile, n_b, bounds, d_tile, n_d, d_bounds,
-                       out_mask, t_slots, num_a, window, has_delta);
+    const Packed m{words, blk_base, blk_meta, blk_woff, n_blocks};
+    const Packed d{d_words, d_base, d_meta, d_woff, d_n_blocks};
+    streamed_join_body<true>(
+        nullptr, nullptr, m, d, a_docs, a_attrs, a_live, a_flags, active,
+        attr_filter, b_tile, n_b, bounds, d_tile, n_d, d_bounds, out_mask,
+        t_slots, num_a, window, has_delta);
 }
 
 extern "C" int streamed_join_launch(
@@ -176,15 +175,19 @@ extern "C" int streamed_join_launch(
     const void* n_d, const void* d_bounds, void* out_mask,
     int q_n, int t_slots, int window, int has_delta, void* stream)
 {
+    static int allowed = 48 * 1024;
     const int num_a = (window + TILE - 1) / TILE;
-    dim3 grid(num_a, q_n);
-    streamed_join_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+    const int smem = probe_layout(t_slots * (has_delta ? 2 : 1), false).total;
+    const cudaError_t err = allow_smem(streamed_join_kernel, smem, allowed);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid(num_a * (TILE / JOIN_SUB), q_n);
+    streamed_join_kernel<<<grid, JOIN_SUB + 32, smem, (cudaStream_t)stream>>>(
         (const int*)a_docs, (const int*)a_attrs, (const int*)a_live,
         (const int*)a_flags, (const int*)active, (const int*)attr_filter,
         (const int*)postings, (const int*)b_tile, (const int*)n_b,
         (const int*)bounds, (const int*)d_postings, (const int*)d_tile,
-        (const int*)n_d, (const int*)d_bounds, (int*)out_mask,
-        t_slots, num_a, window, has_delta);
+        (const int*)n_d, (const int*)d_bounds, (int*)out_mask, t_slots, num_a,
+        window, has_delta);
     return (int)cudaGetLastError();
 }
 
@@ -199,16 +202,20 @@ extern "C" int streamed_join_packed_launch(
     int q_n, int t_slots, int window, int n_blocks, int d_n_blocks,
     int has_delta, void* stream)
 {
+    static int allowed = 48 * 1024;
     const int num_a = (window + TILE - 1) / TILE;
-    dim3 grid(num_a, q_n);
-    streamed_join_packed_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+    const int smem = probe_layout(t_slots * (has_delta ? 2 : 1), true).total;
+    const cudaError_t err = allow_smem(streamed_join_packed_kernel, smem, allowed);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid(num_a * (TILE / JOIN_SUB), q_n);
+    streamed_join_packed_kernel<<<grid, JOIN_SUB + 32, smem, (cudaStream_t)stream>>>(
         (const int*)a_docs, (const int*)a_attrs, (const int*)a_live,
         (const int*)a_flags, (const int*)active, (const int*)attr_filter,
         (const uint32_t*)words, (const int*)blk_base, (const int*)blk_meta,
         (const int*)blk_woff, (const int*)b_tile, (const int*)n_b,
         (const int*)bounds, (const uint32_t*)d_words, (const int*)d_base,
         (const int*)d_meta, (const int*)d_woff, (const int*)d_tile,
-        (const int*)n_d, (const int*)d_bounds, (int*)out_mask,
-        t_slots, num_a, window, n_blocks, d_n_blocks, has_delta);
+        (const int*)n_d, (const int*)d_bounds, (int*)out_mask, t_slots, num_a,
+        window, n_blocks, d_n_blocks, has_delta);
     return (int)cudaGetLastError();
 }

@@ -70,7 +70,11 @@ wrapper of its CUDA source (:func:`driver_streamed_join_cuda` and
 :func:`streamed_join_cuda` and :func:`streamed_join_packed_cuda` of
 ``csrc/streamed_join.cu``, and so on for K6, K7, K9 and K10).  The
 dispatchers pick by the device of the tensors they are given; there is no
-fallback.
+fallback.  K1 and K4 stage their probe ranges with bulk copies of whole
+16-byte chunks, each range's ends rounded out to them: the wrappers refuse
+an array that does not start on 16 bytes or hold whole chunks, and
+:func:`probe_staging_check` checks that a plan's ranges start on 16 bytes
+and end, rounded, inside their arrays.
 """
 from __future__ import annotations
 
@@ -300,8 +304,8 @@ def driver_streamed_join_cuda(
     d_off, d_neff, active, attr_filter, postings, attrs, b_tile, n_b, bounds,
     *, window: int,
 ):
-    """Launch ``csrc/driver_streamed.cu`` (one block per query and driver
-    tile) on the current stream.  Same signature and result as
+    """Launch ``csrc/driver_streamed.cu`` (one block per query and 256
+    driver slots) on the current stream.  Same signature and result as
     :func:`driver_streamed_join_torch`."""
     from repro_torch.kernels import _build
 
@@ -312,6 +316,7 @@ def driver_streamed_join_cuda(
         active=(active, None), attr_filter=(attr_filter, (q_n,)),
         postings=(postings, None), attrs=(attrs, postings.shape),
         b_tile=(b_tile, plan), n_b=(n_b, plan), bounds=(bounds, (q_n, t_n, 2)))
+    _build.check_aligned(postings=postings)
     launch = _build.kernel("driver_streamed")
     docs = torch.empty((q_n, window), dtype=torch.int32, device=postings.device)
     mask = torch.empty_like(docs)
@@ -354,8 +359,8 @@ def driver_streamed_join_packed_cuda(
     *, window: int,
 ):
     """Launch ``driver_streamed_packed_kernel`` of ``csrc/driver_streamed.cu``
-    (K1p: one block per query and driver tile, blocks decoded on the card)
-    on the current stream.  Same signature and result as
+    (K1p: one block per query and 256 driver slots, blocks decoded on the
+    card) on the current stream.  Same signature and result as
     :func:`driver_streamed_join_packed_torch`."""
     from repro_torch.kernels import _build
 
@@ -366,6 +371,7 @@ def driver_streamed_join_packed_cuda(
         active=(active, None), attr_filter=(attr_filter, (q_n,)),
         **_build.packed_args(packed), attrs=(attrs, (packed.n_blocks * BLOCK,)),
         b_tile=(b_tile, plan), n_b=(n_b, plan), bounds=(bounds, (q_n, t_n, 2)))
+    _build.check_aligned(words=packed.words)
     launch = _build.kernel("driver_streamed_packed")
     docs = torch.empty((q_n, window), dtype=torch.int32, device=attrs.device)
     mask = torch.empty_like(docs)
@@ -492,9 +498,9 @@ def streamed_join_cuda(
     postings, b_tile, n_b, bounds, d_postings, d_tile, n_d, d_bounds, *,
     cap: int,
 ):
-    """Launch ``csrc/streamed_join.cu`` (one block per query and driver
-    tile) on the current stream; the static mode (``d_postings`` None)
-    launches the same kernel with its delta probe switched off.  Same
+    """Launch ``csrc/streamed_join.cu`` (one block per query and 256
+    driver slots) on the current stream; the static mode (``d_postings``
+    None) launches the same kernel with its delta probe switched off.  Same
     signature and result as :func:`streamed_join_torch`."""
     from repro_torch.kernels import _build
 
@@ -510,6 +516,7 @@ def streamed_join_cuda(
         active=(active, (q_n, t_n)), attr_filter=(attr_filter, (q_n,)),
         postings=(postings, None), b_tile=(b_tile, plan), n_b=(n_b, plan),
         bounds=(bounds, span), **delta)
+    _build.check_aligned(postings=postings, d_postings=d_postings)
     launch = _build.kernel("streamed_join")
     mask = torch.empty((q_n, window), dtype=torch.int32, device=a_docs.device)
     if q_n == 0:
@@ -555,8 +562,8 @@ def streamed_join_packed_cuda(
     cap: int,
 ):
     """Launch ``streamed_join_packed_kernel`` of ``csrc/streamed_join.cu``
-    (K4p: one block per query and driver tile, probe blocks decoded on the
-    card) on the current stream.  Same signature and result as
+    (K4p: one block per query and 256 driver slots, probe blocks decoded on
+    the card) on the current stream.  Same signature and result as
     :func:`streamed_join_packed_torch`."""
     from repro_torch.kernels import _build
 
@@ -572,6 +579,8 @@ def streamed_join_packed_cuda(
         active=(active, (q_n, t_n)), attr_filter=(attr_filter, (q_n,)),
         **_build.packed_args(packed), b_tile=(b_tile, plan), n_b=(n_b, plan),
         bounds=(bounds, span), **delta)
+    _build.check_aligned(words=packed.words,
+                         d_words=d_packed.words if has_delta else None)
     launch = _build.kernel("streamed_join_packed")
     mask = torch.empty((q_n, window), dtype=torch.int32, device=a_docs.device)
     if q_n == 0:
@@ -633,6 +642,42 @@ def plan_streamed(a_docs, terms, active, offsets, lengths, block_max,
     mode) ``delta`` is None and ``cap`` 0."""
     return _streamed_plans(a_docs, terms, active, offsets, lengths, block_max,
                            d_offsets, d_lengths, d_block_max)[1:]
+
+
+def probe_staging_check(b_tile, n_b, bounds, *, n_postings: int | None = None,
+                        packed: PackedFlatArrays | None = None) -> int:
+    """Check a probe plan ``(b_tile, n_b, bounds)`` of K1 or K4 against the
+    kernels' bulk copies (``csrc/probe_async.cuh``), which round a range's
+    ends out to 16 bytes: every non-empty planned range ``[max(b_tile*TILE,
+    lo), min((b_tile + n_b)*TILE, hi))`` starts on 16 bytes (a multiple of 4
+    postings, so its copy reads nothing before it) and, with
+    ``n_postings``, ends inside a raw array of that length once rounded up;
+    with ``packed``, the words of its blocks, ``[blk_woff[b0], blk_woff[b1 +
+    1])``, start and end on 16 bytes inside ``packed.words``.  The index's
+    and the delta writer's layouts meet it.  Returns the number of ranges
+    checked; raises ``ValueError`` on the first that fails."""
+    lo = bounds[..., 0:1].long()
+    hi = bounds[..., 1:2].long()
+    bt = b_tile.long() * TILE
+    rlo = torch.maximum(bt, lo)
+    rhi = torch.minimum(bt + n_b.long() * TILE, hi)
+    live = (n_b > 0) & (rhi > rlo)
+    rlo, rhi = rlo[live], rhi[live]
+    bad = rlo % 4 != 0
+    if n_postings is not None:
+        bad |= (rhi + 3) // 4 * 4 > n_postings
+    if packed is not None:
+        woff = packed.blk_woff.long()
+        b0, b1 = rlo // BLOCK, (rhi - 1) // BLOCK
+        past = b1 + 1 >= woff.shape[0]
+        w0 = woff[b0.clamp(max=woff.shape[0] - 1)]
+        w1 = woff[(b1 + 1).clamp(max=woff.shape[0] - 1)]
+        bad |= past | (w0 % 4 != 0) | (w1 % 4 != 0) | (w1 > packed.words.shape[0])
+    if bool(bad.any()):
+        k = int(torch.nonzero(bad)[0, 0])
+        raise ValueError(f"probe range [{int(rlo[k])}, {int(rhi[k])}) cannot be "
+                         "staged by 16-byte bulk copies inside its array")
+    return int(rlo.numel())
 
 
 def intersect_batched_streamed(
