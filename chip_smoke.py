@@ -11,7 +11,8 @@ Phases (any failure exits non-zero; nothing is caught):
              flash-attention forward K12, and the packed modes K1p, K3p,
              K4p, K6p, K7p, K8p) from
              ``src/repro_torch/kernels/csrc`` (one process per source, all
-             at once) and prints ptxas' registers / shared memory / spills;
+             at once) and prints ptxas' registers / shared memory / spills
+             (K2, K3 and K3p on a line of their own); a spill fails;
 3. data    — the deployment: a 4M-page corpus from a seed (100k terms,
              mean 64 terms a page, 10k sites), site terms on, striped over
              4 slaves stacked on the card;
@@ -21,15 +22,18 @@ Phases (any failure exits non-zero; nothing is caught):
              windows 1000 and 1536, empty lists and the last list of the
              flat array;
 5. K2      — the master-merge kernel against its plain version, bit-exact,
-             at (Q*ns, 2k) and (Q, ns*k) for k in {10, 50, 1000};
+             at (Q*ns, 2k) and (Q, ns*k) for k in {10, 50, 1000}, and on
+             edge rows: m = 1, 257 and 4000 with k past m, duplicates,
+             INT_MIN, all-INVALID_DOC, a single row;
 6. serve   — the static path: SearchService answers 512 queries of the
              default mix (k in {10, 50, 1000}) equal to backend="torch",
              with the launch counters its batches imply; 96 queries on a
              small corpus equal brute force; the gather and site_term
              strategies and the allgather merge;
 7. times   — static path: K1/K2 CUDA-event and profiler times beside
-             bounds, plain versions and the library call (K2 at all six of
-             phase 5's shapes); K1's staging precondition on its plan; its
+             bounds, plain versions and the library calls (K2 at all six of
+             phase 5's shapes, beside torch.sort of the padded rows and
+             torch.topk); K1's staging precondition on its plan; its
              staging from the plans on the host, the first design's
              (1024-slot tiles, 2048-posting chunks) beside this one's
              (blocks, postings staged in all and by the busiest block, the
@@ -49,14 +53,19 @@ Phases (any failure exits non-zero; nothing is caught):
              queries equal to backend="torch" with K3 = K4 = 4, K2 = 2 and
              K1 = 0 launches per executed batch; served queries/s and
              per-batch times, cache off; a query repeated after a mutation
-             is recomputed, not served stale;
+             is recomputed, not served stale; then K3 at the chunk edges of
+             ``merge_edge_inputs`` (equal docIDs at chunk starts, merged
+             lengths ending inside a chunk, empty and full streams) at
+             windows 4096, 1000, 256, 65536 and caps 256, 384, and at
+             window 65536 with cap 16384, merged out of global memory;
 9. small   — a 3000-page corpus with a writer of term capacity 384 (BLOCK-
              but not TILE-aligned), a mixed stream, a driver list
              tombstoned wall to wall and lists empty in the main index with
              delta postings: K3/K4 bit-exact; served hits equal brute force
              over the mutated corpus, before and after compact(verify=True);
 10. mor-times — at fill 1.0: K3/K4 CUDA-event times beside bounds, plain
-             versions and the library sort; K4's staging precondition and
+             versions and the library sort; K3 against the host replay of
+             its chunks, and their staging; K4's staging precondition and
              its staging before and after, as K1's in phase 7;
              peak device memory; a traced pass; then the full-size delta
              compacted into a fresh index, served equal to
@@ -70,8 +79,10 @@ Phases (any failure exits non-zero; nothing is caught):
              synthetic array of every width; a packed writer replaying phase
              8's stream: at fills 0, 0.5, 1.0 K3p and K4p bit-exact against
              their plain versions and raw K3/K4 on every slave (phase 8's
-             cases and a window that takes K3p's global-scratch form), and
-             seconds per packed ``shard_deltas()`` version; the 512 queries
+             cases and window 65536), and seconds per packed
+             ``shard_deltas()`` version; K3p at phase 8's chunk edges and at
+             window 65536 with a cap (16384) that takes its large-cap form,
+             window 65536 at cap 256 through the chunk form; the 512 queries
              through ``sequential_reference(codec="packed",
              backend="kernel")`` with every raw posting array zeroed, equal
              to ``backend="torch", codec="raw"`` and to the raw service, K1p
@@ -79,7 +90,8 @@ Phases (any failure exits non-zero; nothing is caught):
              no raw join; the 3000-page corpus with a packed writer of term
              capacity 384 against brute force before and after
              ``compact(verify=True)`` and ``pack_index``; K1p/K3p/K4p times
-             beside bounds and plain versions, and for K1p and K4p the
+             beside bounds and plain versions, K3p against the host replay
+             of its chunks (blocks decoded); and for K1p and K4p the
              staging precondition on the twins and the staging before and
              after; packed against raw per-batch time, interleaved;
 12. compact — work-list compaction (``backend="kernel_compact"``): K6 and
@@ -189,11 +201,14 @@ MAIN_WINDOW, MAIN_Q, MAIN_T, NS = 4096, 32, 4, 4
 TERM_CAPACITY, DOC_HEADROOM = 256, 4096
 FILLS = (0.0, 0.5, 1.0)
 MOR_WINDOWS = (4096, 1000, 256)
-BIG_WINDOW = 65536             # K3p's decode row exceeds shared memory here
-KERNEL_NAMES = {"K1": "driver_streamed_kernel", "K2": "topk_merge_rows_kernel",
-                "K3": "delta_merge_kernel", "K4": "streamed_join_kernel",
+BIG_WINDOW = 65536             # a window whose whole K3p row passes the opt-in shared memory
+LARGE_CAP = 16384              # K3/K3p's chunk forms pass shared memory here
+KERNEL_NAMES = {"K1": "driver_streamed_kernel",
+                "K2": ("topk_merge_warp_kernel", "topk_merge_runs_kernel"),
+                "K3": "delta_merge_kernel",
+                "K4": "streamed_join_kernel",
                 "K1p": "driver_streamed_packed_kernel",
-                "K3p": "delta_merge_packed_kernel",
+                "K3p": ("delta_merge_packed_kernel", "delta_merge_packed_row_kernel"),
                 "K4p": "streamed_join_packed_kernel",
                 "K6": "driver_compact_kernel", "K6p": "driver_compact_packed_kernel",
                 "K7": "streamed_compact_kernel", "K7p": "streamed_compact_packed_kernel",
@@ -204,7 +219,8 @@ KERNEL_NAMES = {"K1": "driver_streamed_kernel", "K2": "topk_merge_rows_kernel",
 
 
 def kernel_names(key: str) -> tuple:
-    """The ``__global__`` names of kernel ``key`` (K11 and K12 have two)."""
+    """The ``__global__`` names of kernel ``key`` (K2, K3p, K11 and K12 have
+    two)."""
     names = KERNEL_NAMES[key]
     return (names,) if isinstance(names, str) else names
 
@@ -647,9 +663,19 @@ def main() -> int:
     built = _build.build()
     log(f"[build] {len(_build.KERNELS)} kernels from {len(built)} sources in "
         f"{time.perf_counter() - t0:.2f} s (parallel nvcc, sm_90a) on {smi}")
+    spills = {}
     for name, b in built.items():
+        info = ptxas_info(b.log)
         log(f"[build] {name}: nvcc {b.seconds:.2f} s; " + " | ".join(
-            f"{fn}: {info}" for fn, info in ptxas_info(b.log).items()))
+            f"{fn}: {i}" for fn, i in info.items()))
+        spills.update({fn: i for fn, i in info.items()
+                       if re.search(r"[1-9]\d* bytes spill", i)})
+    redesigned = {fn: i for name in ("topk_merge_rows", "delta_merge")
+                  for fn, i in ptxas_info(built[name].log).items()}
+    log("[build] K2, K3, K3p (this design): " + " | ".join(
+        f"{fn}: {i}" for fn, i in redesigned.items()))
+    if spills:
+        raise AssertionError(f"kernels spill registers: {spills}")
     phase_end("2 build")
 
     # ------------------------------------------------------------ 3. data
@@ -785,6 +811,30 @@ def main() -> int:
         same("K2", f"{merge} k={k} {tuple(x.shape)}", (got,),
              (tm.merge_topk_rows_torch(x, k),), ("rows",))
         log(f"[K2] {merge} k={k} shape {tuple(x.shape)}: bit-exact vs plain")
+    # edge rows: k past m, duplicates, INT_MIN, all-INVALID, one row
+    e_rng = np.random.default_rng(args.seed)
+    int_min = -(2**31)
+    edge_rows = {
+        "m=1 k=10": (e_rng.integers(int_min, INVALID_DOC, (5, 1)), 10),
+        "m=257 k=300": (e_rng.integers(int_min, INVALID_DOC, (5, 257)), 300),
+        "m=4000 k=5000": (e_rng.integers(int_min, INVALID_DOC, (5, 4000)), 5000),
+        "duplicates m=257 k=10": (e_rng.integers(0, 7, (8, 257)), 10),
+        "duplicates m=4000 k=1000": (e_rng.integers(0, 7, (8, 4000)), 1000),
+        "INT_MIN m=100 k=50": (np.where(e_rng.random((8, 100)) < 0.3, int_min,
+                                        e_rng.integers(-9, 9, (8, 100))), 50),
+        "INT_MIN m=2000 k=1000": (np.where(e_rng.random((8, 2000)) < 0.3, int_min,
+                                           e_rng.integers(-9, 9, (8, 2000))), 1000),
+        "all-INVALID m=200 k=50": (np.full((4, 200), INVALID_DOC), 50),
+        "all-INVALID m=4000 k=1000": (np.full((4, 4000), INVALID_DOC), 1000),
+        "one row m=20 k=10": (e_rng.integers(int_min, INVALID_DOC, (1, 20)), 10),
+        "one row m=4000 k=1000": (e_rng.integers(int_min, INVALID_DOC, (1, 4000)), 1000),
+    }
+    for label, (rows, k) in edge_rows.items():
+        x = torch.from_numpy(rows.astype(np.int32)).to(dev)
+        got = tm.merge_topk_rows_cuda(x, k)
+        torch.cuda.synchronize()
+        same("K2", label, (got,), (tm.merge_topk_rows_torch(x, k),), ("rows",))
+    log(f"[K2] edge rows bit-exact vs plain: {', '.join(edge_rows)}")
     phase_end("5 K2")
 
     # ------------------------------------------------------------ 6. serve
@@ -903,8 +953,14 @@ def main() -> int:
     for (merge, k), x in k2_inputs.items():
         ms = cuda_ms(lambda x=x, k=k: tm.merge_topk_rows_cuda(x, k))
         plain = cuda_ms(lambda x=x, k=k: tm.merge_topk_rows_torch(x, k))
-        lib = cuda_ms(lambda x=x, k=k: torch.topk(x, k, dim=-1, largest=False,
-                                                  sorted=True))
+        # the library calls: torch.sort of the padded rows (the function
+        # K2 computes) and torch.topk of the rows
+        padded = torch.full((x.shape[0], tm._padded_width(x.shape[1])), INVALID_DOC,
+                            dtype=torch.int32, device=dev)
+        padded[:, :x.shape[1]] = x
+        lib = cuda_ms(lambda p=padded: torch.sort(p, dim=-1))
+        topk = cuda_ms(lambda x=x, k=k: torch.topk(x, k, dim=-1, largest=False,
+                                                   sorted=True))
         k2_bytes = x.numel() * 4 + x.shape[0] * k * 4
         # the function, not the network: a selection of k of m keys takes
         # about m * ceil(log2 k) compares a row
@@ -915,7 +971,9 @@ def main() -> int:
             f"{device_ms(lambda x=x, k=k: tm.merge_topk_rows_cuda(x, k), kernel='K2'):.5f} ms, "
             f"{tm._padded_width(x.shape[1])} keys a row); plain {plain:.4f} ms (device "
             f"{device_ms(lambda x=x, k=k: tm.merge_topk_rows_torch(x, k)):.5f} ms); "
-            f"torch.topk {lib:.4f} ms (device {device_ms(lambda x=x, k=k: torch.topk(x, k, dim=-1, largest=False)):.5f} "
+            f"torch.sort of the padded rows {lib:.4f} ms (device "
+            f"{device_ms(lambda p=padded: torch.sort(p, dim=-1)):.5f} ms); "
+            f"torch.topk {topk:.4f} ms (device {device_ms(lambda x=x, k=k: torch.topk(x, k, dim=-1, largest=False)):.5f} "
             f"ms); bound {bound:.6f} ms ({by}) on {smi}")
 
     def timed_serve(svc, label):
@@ -1055,6 +1113,31 @@ def main() -> int:
             *k3, window=window, cap=cap), names)
         return pk3
 
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+
+    def merge_edges(packed):
+        """K3 (with ``packed`` K3p, also against raw K3) bit-exact at the
+        chunk edges of ``dm.merge_edge_inputs`` (equal docIDs at chunk
+        starts, merged lengths ending before, at and inside a chunk, empty
+        and full streams, an inert driver) at windows 4096, 1000, 256 and
+        BIG_WINDOW, caps 256 and 384, and at BIG_WINDOW with LARGE_CAP,
+        whose ranges pass the opt-in shared memory (K3 merges out of global
+        memory there, K3p takes its large-cap form)."""
+        shapes = [(w, c) for w in (*MOR_WINDOWS, BIG_WINDOW) for c in (TERM_CAPACITY, 384)]
+        forms = [dm.chunk_fits(w, c, optin, packed=packed) for w, c in shapes]
+        if not all(forms) or dm.chunk_fits(BIG_WINDOW, LARGE_CAP, optin, packed=packed):
+            raise AssertionError(f"the chunk form must take {shapes} and not "
+                                 f"({BIG_WINDOW}, {LARGE_CAP})")
+        shapes.append((BIG_WINDOW, LARGE_CAP))
+        for window, cap_ in shapes:
+            raw, twins = dm.merge_edge_inputs(window, cap_, seed=args.seed, device=dev)
+            label = f"chunk edges w{window} cap {cap_}"
+            if packed:
+                k3p_check(label, raw, twins[0], twins[1], window, cap_)
+            else:
+                k3_check(label, raw, window, cap_)
+        return shapes
+
     def k4p_check(label, k4, m_twin, d_twin, cap):
         """K4p against its plain version and raw K4 on the same inputs."""
         pk4 = k4[:6] + (m_twin,) + k4[7:10] + (d_twin,) + k4[11:]
@@ -1073,7 +1156,7 @@ def main() -> int:
         per slave the terms of ``extra_terms``), windows 4096, 1000, 256.
         With ``twins`` (the slaves' packed indexes; the writer is packed)
         K3p and K4p too, against their plain versions and raw K3/K4, and
-        K3p at BIG_WINDOW (its global-scratch form)."""
+        K3p at BIG_WINDOW (the chunk form)."""
         deltas = writer.shard_deltas()
         n_cases, sums = 0, []
         for s in range(writer.ns):
@@ -1222,6 +1305,11 @@ def main() -> int:
             extra_terms = route_to_empty_lists(writer, sharded, touched)
             log(f"[updates] lists empty in the main index given delta postings: "
                 f"{sorted(extra_terms.items())}")
+    log(f"[updates] K3 bit-exact vs plain at the chunk edges, (window, cap) "
+        f"{merge_edges(False)}: the chunk form (8 * (m_room + d_room) = "
+        f"{8 * sum(dm.chunk_rooms(BIG_WINDOW, TERM_CAPACITY, packed=False))} bytes "
+        f"of shared memory at window {BIG_WINDOW} cap {TERM_CAPACITY}), unstaged "
+        f"at cap {LARGE_CAP}")
     peak = torch.cuda.max_memory_allocated()
     log(f"[updates] peak device memory with the delta attached {peak} bytes "
         f"(index {sharded.nbytes()}, delta snapshot {writer.device_delta().nbytes()})")
@@ -1310,6 +1398,14 @@ def main() -> int:
     log(f"[times] K3 device time (profiler): kernel {device_ms(lambda: dm.merge_delta_windows_cuda(*k3m, window=MAIN_WINDOW, cap=cap), kernel='K3'):.5f} "
         f"ms/launch, plain {device_ms(lambda: dm.merge_delta_windows_torch(*k3m, window=MAIN_WINDOW, cap=cap)):.5f} ms, "
         f"torch.sort(stable) {device_ms(lambda: torch.sort(keys, dim=-1, stable=True)):.5f} ms on {smi}")
+    replay, r_stats = dm.merge_chunks_replay(*k3m, window=MAIN_WINDOW, cap=cap)
+    same("K3", "main shape vs the host replay of its chunks",
+         dm.merge_delta_windows_cuda(*k3m, window=MAIN_WINDOW, cap=cap),
+         tuple(x.to(dev) for x in replay), ("docs", "attrs", "src"))
+    log(f"[merge] K3 main shape, from the host replay of its chunks (equal to the "
+        f"kernel): {r_stats['chunks']} of {MAIN_Q * -(-MAIN_WINDOW // dm.K3_CHUNK)} "
+        f"chunks of {dm.K3_CHUNK} slots read postings, at most {r_stats['main']} main "
+        f"+ {r_stats['delta']} delta postings staged a chunk in one round of loads")
 
     (a_docs, _, a_live, _, a_active, a_filter, _, mb_tile, mn_b, mbounds, _,
      db_tile, dn_b, dbounds) = k4m
@@ -1528,6 +1624,12 @@ def main() -> int:
                    p_extra, twins=twins)
         if fill == 0.0:
             p_extra = route_to_empty_lists(p_writer, sharded, p_touched)
+    log(f"[packed] K3p bit-exact vs plain and raw K3 at the chunk edges, (window, "
+        f"cap) {merge_edges(True)}: the chunk form at window {BIG_WINDOW} cap "
+        f"{TERM_CAPACITY} ({8 * sum(dm.chunk_rooms(BIG_WINDOW, TERM_CAPACITY, packed=True))} "
+        f"bytes of shared memory a block, no scratch), the large-cap form at cap "
+        f"{LARGE_CAP} ({8 * sum(dm.chunk_rooms(BIG_WINDOW, LARGE_CAP, packed=True))} "
+        f"bytes > {optin})")
 
     # the packed path end to end, every raw posting array zeroed
     k_all = max(ks)
@@ -1682,6 +1784,16 @@ def main() -> int:
         f"{k3p_plain_dev:.5f} ms); bound {k3p_bound:.6f} ms ({k3p_by}; {k3p_bytes} "
         f"bytes: main {m_blk} blocks {m_b} bytes, delta {dd_blk} blocks {dd_b} bytes, "
         f"{k3p_read} attrs) on {smi}")
+    dec = (unpack_flat_postings_torch(pk3[0]),) + pk3[1:4] + (
+        unpack_flat_postings_torch(pk3[4]),) + pk3[5:]
+    replay, r_stats = dm.merge_chunks_replay(*dec, window=MAIN_WINDOW, cap=cap,
+                                             packed=True)
+    same("K3p", "main shape vs the host replay of its chunks", k3p_run(),
+         tuple(x.to(dev) for x in replay), ("docs", "attrs", "src"))
+    log(f"[merge] K3p main shape, from the host replay of its chunks (equal to the "
+        f"kernel): {r_stats['chunks']} chunks of {dm.K3P_CHUNK} slots read postings, "
+        f"{r_stats['blocks']} blocks decoded in all, at most {r_stats['main_blocks']} "
+        f"main + {r_stats['delta_blocks']} delta a chunk")
 
     (a_docs, _, a_live, _, a_active, a_filter, _, mb_tile, mn_b, mbounds, _,
      db_tile, dn_b, dbounds) = pk4
@@ -2346,12 +2458,16 @@ def main() -> int:
     tm.bitonic_sort_cuda(x20)
     torch.cuda.synchronize()
     want_launches = 1 + int(math.log2((1 << 20) // tile))
-    # a window in which the profiler dropped device events (none, or the
-    # first few of the sort) is taken again, up to three times
+    # the window opens with 64 short spins, as device_ms' do (the profiler
+    # loses a window's first events late in a run); a window in which it
+    # dropped some of the sort's all the same is taken again, up to three
+    # times
     for _ in range(3):
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(64):
+                torch.cuda._sleep(1000)
             tm.bitonic_sort_cuda(x20)
             torch.cuda.synchronize()
         k11_events = {e.key: e.count for e in prof.key_averages()

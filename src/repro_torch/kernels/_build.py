@@ -56,9 +56,12 @@ KERNELS = {
         "topk_merge_rows", "topk_merge_rows_launch",
         (_P, _P) + (_I,) * 4 + (_P,)),
     "delta_merge": Kernel(
-        "delta_merge", "delta_merge_launch", (_P,) * 12 + (_I,) * 4 + (_P,)),
+        "delta_merge", "delta_merge_launch", (_P,) * 12 + (_I,) * 5 + (_P,)),
     "delta_merge_packed": Kernel(
         "delta_merge", "delta_merge_packed_launch",
+        (_P,) * 18 + (_I,) * 6 + (_P,)),
+    "delta_merge_packed_row": Kernel(
+        "delta_merge", "delta_merge_packed_row_launch",
         (_P,) * 19 + (_I,) * 8 + (_P,)),
     "streamed_join": Kernel(
         "streamed_join", "streamed_join_launch",

@@ -89,8 +89,10 @@ constexpr size_t smem_bytes()
                             (size_t)BK * HD + (size_t)BQ * (BK + 1));
 }
 
+// At least 2 blocks an SM: ptxas then gives hd 64 96 registers; left to
+// itself it took 64 and spilled 8 bytes.
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o, int S,
                        int T_len, int H, int KV, int causal, float scale)

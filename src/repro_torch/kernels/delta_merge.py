@@ -32,7 +32,12 @@ main then delta), :func:`merge_delta_windows_cuda` wraps K3 in
 ``csrc/delta_merge.cu``; :func:`merge_delta_windows_packed_torch` (the
 full-array decodes, then the plain merge) and
 :func:`merge_delta_windows_packed_cuda` are K3p's.
-:func:`merge_delta_windows` picks by mode and device.
+:func:`merge_delta_windows` picks by mode and device.  Both kernels give
+each block a chunk of output slots and merge out of shared memory
+(``csrc/merge_path.cuh``); :func:`chunk_ranges`, :func:`range_blocks`,
+:func:`chunk_rooms` and :func:`merge_chunks_replay` replay their
+arithmetic on the host, so that the CPU tests hold it against the plain
+version.
 
 K8 and K8p are the work-list twins (the reference's
 ``_merge_compact_call``, ``pallas_call`` at line 650): one table row per
@@ -43,14 +48,18 @@ reference gives them; :func:`merge_delta_windows_compact` plans and picks.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.index import (
     BLOCK,
+    DESC_PAD,
     INVALID_ATTR,
     INVALID_DOC,
     TILE,
     PackedFlatArrays,
+    flat_tile_pad,
+    pack_flat_postings,
     unpack_flat_postings_torch,
 )
 from repro_torch.kernels.worklist import (
@@ -111,9 +120,11 @@ def _merge_rows(m_docs, m_attrs, d_docs, d_attrs):
 def merge_delta_windows_cuda(postings, attrs, m_off, m_neff, d_postings,
                              d_attrs, d_offsets, d_lengths, terms, *,
                              window: int, cap: int):
-    """Launch ``csrc/delta_merge.cu`` (one thread per output slot) on the
-    current stream.  Same signature and result as
-    :func:`merge_delta_windows_torch`."""
+    """Launch K3 (``csrc/delta_merge.cu``) on the current stream: a block
+    a chunk of :data:`K3_CHUNK` output slots, one a thread, merging out of
+    its staged ranges where they fit the card's shared memory
+    (:func:`chunk_fits`), else out of the global streams.  Same signature
+    and result as :func:`merge_delta_windows_torch`."""
     from repro_torch.kernels import _build
 
     q_n = terms.shape[0]
@@ -123,23 +134,247 @@ def merge_delta_windows_cuda(postings, attrs, m_off, m_neff, d_postings,
         d_postings=(d_postings, None), d_attrs=(d_attrs, d_postings.shape),
         d_offsets=(d_offsets, None), d_lengths=(d_lengths, d_offsets.shape),
         terms=(terms, (q_n,)))
-    launch = _build.kernel("delta_merge")
-    docs = torch.empty((q_n, window), dtype=torch.int32, device=postings.device)
+    dev = postings.device
+    docs = torch.empty((q_n, window), dtype=torch.int32, device=dev)
     out_attrs = torch.empty_like(docs)
     src = torch.empty_like(docs)
     if q_n == 0:
         return docs, out_attrs, src
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    stage = int(chunk_fits(window, cap, optin, packed=False))
     ptr = [x.data_ptr() for x in (postings, attrs, m_off, m_neff, d_postings,
                                   d_attrs, d_offsets, d_lengths, terms, docs,
                                   out_attrs, src)]
-    stream = torch.cuda.current_stream(postings.device).cuda_stream
-    err = launch(*ptr, q_n, window, d_offsets.shape[0], cap, stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _build.kernel("delta_merge")(*ptr, q_n, window, d_offsets.shape[0], cap,
+                                       stage, stream)
     merge_delta_windows_cuda.launches += 1
     _build.check(err, "delta_merge_launch")
     return docs, out_attrs, src
 
 
 merge_delta_windows_cuda.launches = 0
+
+
+#: ``csrc/delta_merge.cu``'s output slots a block for K3 and K3p (one a
+#: thread).
+K3_CHUNK = K3P_CHUNK = 256
+
+
+def chunk_ranges(na: int, nb: int, k0: int, chunk: int = K3_CHUNK):
+    """The positions the chunk of slots ``[k0, k0 + chunk)`` can read (its
+    slots' co-ranks lie in ``[max(0, k - nb), min(k, na)]``), which K3 and
+    K3p stage: main ``[max(0, k0 - nb), min(na, k0 + chunk))`` and delta
+    ``[max(0, k0 - na), min(nb, k0 + chunk))``."""
+    return max(0, k0 - nb), min(na, k0 + chunk), max(0, k0 - na), min(nb, k0 + chunk)
+
+
+def staged_main(na: int, k0: int, cap: int, chunk: int = K3_CHUNK) -> tuple[int, int]:
+    """The main range a chunk at ``k0`` stages before it knows the slab's
+    length ``nb`` (so the loads overlap its lookup): every main position
+    a slab of at most ``cap`` postings lets it read, ``[max(0, k0 - cap),
+    min(na, k0 + chunk))``, which holds :func:`chunk_ranges`' main range."""
+    return max(0, k0 - cap), min(na, k0 + chunk)
+
+
+def range_blocks(p0: int, lo: int, hi: int) -> tuple[int, int]:
+    """The codec blocks that hold flat positions ``[p0 + lo, p0 + hi)``:
+    ``(first block, count)``, count 0 for an empty range."""
+    first = (p0 + lo) // BLOCK
+    return first, ((p0 + hi - 1) // BLOCK - first + 1 if hi > lo else 0)
+
+
+def chunk_rooms(window: int, cap: int, *, packed: bool) -> tuple[int, int]:
+    """Ints a block of the chunk form stages a stream, ``(m_room,
+    d_room)``: a main range of at most ``min(window, cap + chunk)``
+    postings and a delta range of at most ``min(cap, window + chunk)``,
+    for K3p the codec blocks that hold such a range starting anywhere.  A
+    block uses ``2 * (m_room + d_room)`` ints of shared memory (the
+    postings and their attrs)."""
+    chunk = K3P_CHUNK if packed else K3_CHUNK
+    widths = min(window, cap + chunk), min(cap, window + chunk)
+    if packed:
+        return tuple((-(-w // BLOCK) + 1) * BLOCK for w in widths)
+    return widths
+
+
+def chunk_fits(window: int, cap: int, optin: int, *, packed: bool) -> bool:
+    """Whether the staged ranges of K3 (K3p with ``packed``) fit ``optin``
+    bytes of shared memory a block; else K3 merges out of the global
+    streams and K3p takes its large-cap form."""
+    return 8 * sum(chunk_rooms(window, cap, packed=packed)) <= optin
+
+
+def staging_check(ranges, na: int, nb: int) -> None:
+    """Raise unless the staged main range ``[ilo, ihi)`` and delta range
+    ``[jlo, jhi)`` lie inside the live ranges ``[0, na)`` and ``[0, nb)``."""
+    ilo, ihi, jlo, jhi = ranges
+    if not (0 <= ilo <= ihi <= na and 0 <= jlo <= jhi <= nb):
+        raise ValueError(f"staged ranges main [{ilo}, {ihi}) delta [{jlo}, {jhi}) "
+                         f"leave the live ranges [0, {na}) and [0, {nb})")
+
+
+def _merge_staged(a, aa, b, ba, ranges, ks):
+    """Host replay of ``merge_staged_slot`` for the slots ``ks`` of one
+    chunk, vectorised: ``a``/``aa`` and ``b``/``ba`` are the streams'
+    docIDs and attrs, of which only the staged positions ``[ilo, ihi)``
+    and ``[jlo, jhi)`` may be read (raises otherwise)."""
+    ilo, ihi, jlo, jhi = ranges
+
+    def at(x, pos, lo, hi):
+        if pos.size and (pos.min() < lo or pos.max() >= hi):
+            raise IndexError(f"a read at {pos.min()}..{pos.max()} leaves the "
+                             f"staged range [{lo}, {hi})")
+        return x[pos]
+
+    lo = np.maximum(ilo, ks - jhi)
+    hi = np.minimum(ihi, ks - jlo)
+    while True:
+        act = np.nonzero(lo < hi)[0]
+        if not act.size:
+            break
+        mid = (lo[act] + hi[act]) >> 1
+        le = at(a, mid, ilo, ihi) <= at(b, ks[act] - mid - 1, jlo, jhi)
+        lo[act] = np.where(le, mid + 1, lo[act])
+        hi[act] = np.where(le, hi[act], mid)
+    i, j = lo, ks - lo
+    main = j >= jhi
+    both = ~main & (i < ihi)
+    main[both] = at(a, i[both], ilo, ihi) <= at(b, j[both], jlo, jhi)
+    docs, attrs = np.empty(ks.size, np.int64), np.empty(ks.size, np.int64)
+    docs[main], attrs[main] = at(a, i[main], ilo, ihi), at(aa, i[main], ilo, ihi)
+    docs[~main] = at(b, j[~main], jlo, jhi)
+    attrs[~main] = at(ba, j[~main], jlo, jhi)
+    return docs, attrs, (~main).astype(np.int64)
+
+
+def merge_chunks_replay(postings, attrs, m_off, m_neff, d_postings, d_attrs,
+                        d_offsets, d_lengths, terms, *, window: int, cap: int,
+                        packed: bool = False):
+    """Host replay of K3 (``packed``: K3p) chunk by chunk: for each query
+    and each chunk of slots that starts below ``na + nb``, the staged
+    ranges (main :func:`staged_main`, delta :func:`chunk_ranges`), checked
+    to stay inside the live ranges (:func:`staging_check`), to hold
+    :func:`chunk_ranges` and, as staged (K3p: whole codec blocks), to fit
+    the rooms of :func:`chunk_rooms`; then every slot merged reading only
+    :func:`chunk_ranges`' positions; slots past ``na + nb`` are ``(INVALID_DOC,
+    INVALID_ATTR, 0)``.  The arguments are
+    :func:`merge_delta_windows_torch`'s, on any device (for K3p, the twins'
+    decodes: the decode itself is the codec's, tested on its own); each
+    query's live ranges are copied to the host.  Returns ``((docs,
+    attrs, src), stats)``, the outputs int32[Q, window] equal to the plain
+    version's, ``stats`` the chunks that read postings, the largest staged
+    ranges and (K3p) blocks of any chunk, and the blocks decoded in all."""
+    chunk = K3P_CHUNK if packed else K3_CHUNK
+    rooms = chunk_rooms(window, cap, packed=packed)
+    q_n = terms.shape[0]
+    m_off_h, m_neff_h, terms_h, d_off_h, d_len_h = (
+        x.cpu().numpy().astype(np.int64)
+        for x in (m_off, m_neff, terms, d_offsets, d_lengths))
+    n_terms = d_off_h.shape[0]
+
+    def live(flat, start, n):
+        return flat[start:start + n].cpu().numpy().astype(np.int64)
+
+    # the [Q, window] outputs, not a flat posting layout
+    docs = np.full((q_n, window), _INVALID, np.int64)
+    # lint: allow(posting-alloc)
+    out_attrs = np.full((q_n, window), int(INVALID_ATTR), np.int64)
+    src = np.zeros((q_n, window), np.int64)
+    stats = dict(chunks=0, main=0, delta=0, main_blocks=0, delta_blocks=0, blocks=0)
+    for q in range(q_n):
+        t = int(terms_h[q])
+        tt = min(max(t, 0), n_terms - 1)
+        na = min(max(int(m_neff_h[q]), 0), window)
+        nb = 0 if t < 0 else min(max(int(d_len_h[tt]), 0), cap)
+        m0, d0 = int(m_off_h[q]), int(d_off_h[tt])
+        # the live ranges alone: any read past them raises
+        a, aa = live(postings, m0, na), live(attrs, m0, na)
+        b, ba = live(d_postings, d0, nb), live(d_attrs, d0, nb)
+        for k0 in range(0, min(window, na + nb), chunk):
+            ranges = chunk_ranges(na, nb, k0, chunk)
+            mlo, mhi = staged_main(na, k0, cap, chunk)
+            staged = (mlo, max(mlo, mhi)) + ranges[2:]
+            staging_check(staged, na, nb)
+            if not (mlo <= ranges[0] and ranges[1] <= max(mlo, mhi)):
+                raise ValueError(f"chunk {k0}: main range {ranges[:2]} not staged "
+                                 f"in [{mlo}, {mhi})")
+            if packed:
+                used = (range_blocks(m0, *staged[:2])[1] * BLOCK,
+                        range_blocks(d0, *ranges[2:])[1] * BLOCK)
+                stats["main_blocks"] = max(stats["main_blocks"], used[0] // BLOCK)
+                stats["delta_blocks"] = max(stats["delta_blocks"], used[1] // BLOCK)
+                stats["blocks"] += sum(used) // BLOCK
+            else:
+                used = staged[1] - staged[0], staged[3] - staged[2]
+            if used[0] > rooms[0] or used[1] > rooms[1]:
+                raise ValueError(f"chunk {k0}: {used} ints overflow the rooms {rooms}")
+            stats["chunks"] += 1
+            stats["main"] = max(stats["main"], staged[1] - staged[0])
+            stats["delta"] = max(stats["delta"], staged[3] - staged[2])
+            ks = np.arange(k0, min(k0 + chunk, window, na + nb), dtype=np.int64)
+            got = _merge_staged(a, aa, b, ba, ranges, ks)
+            for out, g in zip((docs, out_attrs, src), got):
+                out[q, ks] = g
+    as32 = [torch.from_numpy(x.astype(np.int32)) for x in (docs, out_attrs, src)]
+    return tuple(as32), stats
+
+
+def merge_edge_inputs(window: int, cap: int, *, seed: int = 0, device="cpu"):
+    """Synthetic K3/K3p inputs at the chunks' edges, one query a case, each
+    with its own main list and its own delta term: equal docIDs of the two
+    streams at output slots ``k0 - 1`` (main) and ``k0`` (delta) for the
+    chunk starts ``k0`` of :data:`K3_CHUNK` below the window (as far as the
+    cap allows); merged lengths ending one slot before, at and inside a
+    chunk; ``na = 0`` with a full slab; a full window with no slab; a full
+    window and a full slab interleaved at random with ties; an inert
+    driver (term -1); ``m_neff`` past the window.  Returns ``(raw, twins)``:
+    :func:`merge_delta_windows_torch`'s positional arguments, and the main
+    and delta block-codec twins (for K3p: ``(twins[0],) + raw[1:4] +
+    (twins[1],) + raw[5:]``)."""
+    rng = np.random.default_rng(seed)
+    s = K3_CHUNK
+    evens = lambda n: 2 * np.arange(n, dtype=np.int64)
+    cases = []                      # (main docs, delta docs, m_neff, term live)
+    for k0 in range(s, min(window - 1, 4 * s) + 1, s):
+        c_d = min(cap - 2, k0 // 3)
+        c_m = k0 - 1 - c_d
+        if c_m < c_d or c_m >= window:
+            continue
+        v = 2 * c_m
+        tail = v + 1 + evens(min(cap - c_d - 1, 40))
+        cases.append((evens(min(window, c_m + 300)),
+                      np.r_[evens(c_d) + 1, v, tail], None, True))
+    for n in (s - 1, s, s + 81):
+        nb = min(cap, n // 3)
+        if n - nb <= window:
+            cases.append((evens(n - nb), evens(nb) + 1, None, True))
+    pick = lambda n, hi: np.sort(rng.choice(hi, n, replace=False))
+    cases += [(evens(0), pick(cap, 4 * cap), None, True),
+              (evens(window), evens(0), None, True),
+              (pick(window, 4 * window), pick(cap, 4 * max(window, cap)), None, True),
+              (evens(window // 2), evens(cap // 2), None, False),
+              (evens(window), pick(cap // 2, 2 * window), window + 7, True)]
+    q_n = len(cases)
+    stride = flat_tile_pad(window + BLOCK)
+    post = np.full(q_n * stride, _INVALID, np.int32)
+    att = np.full(q_n * stride, int(INVALID_ATTR), np.int32)
+    d_post = np.full(flat_tile_pad(q_n * cap), _INVALID, np.int32)
+    d_att = np.full(d_post.shape[0], int(INVALID_ATTR), np.int32)
+    m_off, m_neff, d_len, terms = (np.zeros(q_n, np.int32) for _ in range(4))
+    for q, (main, delta, neff, live) in enumerate(cases):
+        m_off[q], m_neff[q] = q * stride, len(main) if neff is None else neff
+        post[q * stride:q * stride + len(main)] = main
+        att[q * stride:q * stride + len(main)] = rng.integers(0, 8, len(main))
+        d_post[q * cap:q * cap + len(delta)] = delta
+        d_att[q * cap:q * cap + len(delta)] = rng.integers(0, 8, len(delta))
+        d_len[q], terms[q] = len(delta), q if live else -1
+    d_off = np.arange(q_n, dtype=np.int32) * cap
+    raw = tuple(torch.from_numpy(x).to(device) for x in (
+        post, att, m_off, m_neff, d_post, d_att, d_off, d_len, terms))
+    twins = (pack_flat_postings(raw[0]),
+             pack_flat_postings(raw[4], span_blocks=max(DESC_PAD, cap // BLOCK)))
+    return raw, twins
 
 
 def merge_delta_windows_packed_torch(packed, attrs, m_off, m_neff, d_packed,
@@ -154,9 +389,10 @@ def merge_delta_windows_packed_torch(packed, attrs, m_off, m_neff, d_packed,
 
 
 def k3p_row(window: int, cap: int) -> tuple[int, int]:
-    """``(m_room, row)``: K3p's per-query decode row in ints, the main
-    window's blocks (one block more than the window, for a start inside a
-    block) and then the delta slab's (likewise)."""
+    """``(m_room, row)``: the per-query decode row of K3p's large-cap form
+    (and of K8p) in ints, the main window's blocks (one block more than the
+    window, for a start inside a block) and then the delta slab's
+    (likewise)."""
     m_room = (-(-window // BLOCK) + 1) * BLOCK
     return m_room, m_room + cap + BLOCK
 
@@ -164,11 +400,13 @@ def k3p_row(window: int, cap: int) -> tuple[int, int]:
 def merge_delta_windows_packed_cuda(packed, attrs, m_off, m_neff, d_packed,
                                     d_attrs, d_offsets, d_lengths, terms, *,
                                     window: int, cap: int):
-    """Launch ``delta_merge_packed_kernel`` of ``csrc/delta_merge.cu`` (K3p:
-    one block per query) on the current stream: its decode row in dynamic
-    shared memory when it fits, else in a global scratch allocated here
-    (the kernel's second form).  Same signature and result as
-    :func:`merge_delta_windows_packed_torch`."""
+    """Launch K3p (``csrc/delta_merge.cu``) on the current stream: the
+    chunk form (``delta_merge_packed_kernel``, a block a chunk of
+    :data:`K3P_CHUNK` slots) where its staged blocks fit the card's
+    shared memory (:func:`chunk_fits`), else the large-cap form
+    (``delta_merge_packed_row_kernel``, one block a query, its decode row
+    in shared memory or in a global scratch allocated here).  Same
+    signature and result as :func:`merge_delta_windows_packed_torch`."""
     from repro_torch.kernels import _build
 
     q_n = terms.shape[0]
@@ -179,26 +417,30 @@ def merge_delta_windows_packed_cuda(packed, attrs, m_off, m_neff, d_packed,
         d_attrs=(d_attrs, (d_packed.n_blocks * BLOCK,)),
         d_offsets=(d_offsets, None), d_lengths=(d_lengths, d_offsets.shape),
         terms=(terms, (q_n,)))
-    launch = _build.kernel("delta_merge_packed")
     dev = attrs.device
     docs = torch.empty((q_n, window), dtype=torch.int32, device=dev)
     out_attrs = torch.empty_like(docs)
     src = torch.empty_like(docs)
     if q_n == 0:
         return docs, out_attrs, src
-    m_room, row = k3p_row(window, cap)
-    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
-    scratch = (None if row * 4 <= optin
-               else torch.empty((q_n, row), dtype=torch.int32, device=dev))
     ptr = [x.data_ptr() for x in (*packed.arrays(), attrs, m_off, m_neff,
                                   *d_packed.arrays(), d_attrs, d_offsets,
                                   d_lengths, terms, docs, out_attrs, src)]
+    sizes = (q_n, window, d_offsets.shape[0], cap, packed.n_blocks, d_packed.n_blocks)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = launch(*ptr, None if scratch is None else scratch.data_ptr(), q_n,
-                 window, d_offsets.shape[0], cap, packed.n_blocks,
-                 d_packed.n_blocks, m_room, row, stream)
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    if chunk_fits(window, cap, optin, packed=True):
+        name = "delta_merge_packed"
+        err = _build.kernel(name)(*ptr, *sizes, stream)
+    else:
+        name = "delta_merge_packed_row"
+        m_room, row = k3p_row(window, cap)
+        scratch = (None if row * 4 <= optin
+                   else torch.empty((q_n, row), dtype=torch.int32, device=dev))
+        err = _build.kernel(name)(*ptr, None if scratch is None else scratch.data_ptr(),
+                                  *sizes, m_room, row, stream)
     merge_delta_windows_packed_cuda.launches += 1
-    _build.check(err, "delta_merge_packed_launch")
+    _build.check(err, name + "_launch")
     return docs, out_attrs, src
 
 

@@ -10,8 +10,13 @@ all-gather merge.
 
 :func:`merge_topk_rows_torch` is the plain version (the CPU path and the
 reference for the card), :func:`merge_topk_rows_cuda` wraps
-``csrc/topk_merge_rows.cu`` (one block per row, bitonic sort in shared
-memory), and :func:`merge_topk_rows` picks by device.
+``csrc/topk_merge_rows.cu`` (a warp sorts 256 keys in registers; past 256
+keys a row, one block a row merges the sorted runs in truncated merge-path
+rounds), and :func:`merge_topk_rows` picks by device.
+:func:`warp_sort_run`, :func:`merge_rounds` and
+:func:`merge_topk_rows_replay` replay the kernel on the host, network step
+by step and round by round, so that the CPU tests hold its index
+arithmetic against the plain version.
 
 K11 replaces ``repro/kernels/topk_merge.py:bitonic_sort`` (``pallas_call``
 at line 79, body ``_sort_kernel`` / ``_bitonic_sort_flat`` at 51 and 28)
@@ -29,9 +34,14 @@ device; the names are the reference's.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from repro_torch.core.index import INVALID_DOC
+
+_INVALID = int(INVALID_DOC)
 
 #: Shared memory one block may use on Hopper (227 KB).
 MAX_SMEM_BYTES = 232_448
@@ -51,8 +61,128 @@ def merge_topk_rows_torch(cands: torch.Tensor, k: int) -> torch.Tensor:
     return padded.sort(dim=-1).values[:, :k].contiguous()
 
 
+#: ``csrc/topk_merge_rows.cu``'s constants: keys a warp sorts in registers,
+#: merged keys a thread a chunk, chunks a thread a round, threads a block.
+RUN, ITEMS, MAX_CHUNKS, MAX_THREADS = 256, 8, 4, 1024
+
+
+class MergeRound(NamedTuple):
+    """One merge round of ``csrc/topk_merge_rows.cu`` on a row: ``groups``
+    pairs of runs of length ``length`` (the last pair ``last_a`` and
+    ``last_b`` long, ``last_b`` 0 for a run without a partner) merged into
+    runs of ``glen`` (the last ``last_len``), ``chunks`` chunks of
+    :data:`ITEMS` keys in all."""
+    groups: int
+    length: int
+    last_a: int
+    last_b: int
+    glen: int
+    last_len: int
+    chunks: int
+
+
+def merge_rounds(m: int, k: int) -> tuple[int, list[MergeRound]]:
+    """The runs kernel's threads and rounds for rows of ``m > RUN`` keys
+    and ``k`` outputs: ``ceil(m / RUN)`` sorted runs (the last padded with
+    ``INVALID_DOC``), merged in pairs until one is left, each merged run
+    cut to its first ``min(k, length)`` keys."""
+    n = -(-m // RUN)
+    threads = min(MAX_THREADS, 32 * n)
+    length, last, rounds = RUN, RUN, []
+    while n > 1:
+        groups = (n + 1) // 2
+        glen = min(k, 2 * length)
+        last_a, last_b = (last, 0) if n % 2 else (length, last)
+        last_len = min(k, last_a + last_b)
+        rounds.append(MergeRound(groups, length, last_a, last_b, glen, last_len,
+                                 groups * -(-glen // ITEMS)))
+        n, length, last = groups, glen, last_len
+    return threads, rounds
+
+
+def _merge_chunk(a, b, pos0: int) -> list[int]:
+    """Keys ``pos0 .. pos0 + ITEMS - 1`` of the merge of the sorted lists
+    ``a`` and ``b``, ``a`` first on ties, ``INVALID_DOC`` past their end:
+    the co-rank search, then ``ITEMS`` sequential steps (``merge_chunk``)."""
+    la, lb = len(a), len(b)
+    lo, hi = max(0, pos0 - lb), min(pos0, la)
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if a[mid] <= b[pos0 - mid - 1]:
+            lo = mid + 1
+        else:
+            hi = mid
+    i, j, out = lo, pos0 - lo, []
+    for _ in range(ITEMS):
+        take_a = i < la and (j >= lb or a[i] <= b[j])
+        out.append(a[i] if take_a else (b[j] if j < lb else _INVALID))
+        i, j = i + take_a, j + (not take_a)
+    return out
+
+
+def warp_sort_run(keys: np.ndarray) -> np.ndarray:
+    """Host replay of ``load_run`` and ``warp_sort_run``: the keys loaded
+    as the kernel's warp loads them (key ``32 r + lane`` in lane ``lane``'s
+    register ``r``), then the bitonic network over network position ``lane
+    * 8 + r``: strides below 8 between a lane's registers, strides 8 .. 128
+    as ``__shfl_xor_sync`` with ``lane ^ (stride / 8)``.  Returns the keys
+    ascending (network position order)."""
+    x = np.asarray(keys, np.int64).reshape(8, 32).T.copy()
+    lane = np.arange(32)
+    for ls in range(1, 9):
+        size = 1 << ls
+        for lt in range(ls - 1, -1, -1):
+            stride = 1 << lt
+            if stride >= 8:
+                lx = stride // 8
+                y = x[lane ^ lx]
+                keep_min = ((lane & lx) != 0) == (((lane * 8) & size) != 0)
+                x = np.where(keep_min[:, None], np.minimum(x, y), np.maximum(x, y))
+                continue
+            for r in range(8):
+                if r & stride == 0:
+                    h = r | stride
+                    desc = ((lane * 8 + r) & size) != 0
+                    lo, hi = np.minimum(x[:, r], x[:, h]), np.maximum(x[:, r], x[:, h])
+                    x[:, r], x[:, h] = np.where(desc, hi, lo), np.where(desc, lo, hi)
+    return x.reshape(-1)
+
+
+def merge_topk_rows_replay(cands: torch.Tensor, k: int) -> torch.Tensor:
+    """Host replay of ``csrc/topk_merge_rows.cu``: each run of :data:`RUN`
+    keys (the last padded with ``INVALID_DOC``) through
+    :func:`warp_sort_run`; past one run, every round of
+    :func:`merge_rounds` chunk by chunk as the kernel's threads merge it,
+    and ``INVALID_DOC`` past the last run.  Equal to
+    :func:`merge_topk_rows_torch`."""
+    q_n, m = cands.shape
+    k = min(k, _padded_width(m))
+    n = max(1, -(-m // RUN))
+    rounds = merge_rounds(m, k)[1] if n > 1 else []
+    keys = np.full((q_n, n * RUN), _INVALID, np.int64)
+    keys[:, :m] = cands.cpu().numpy()
+    out = np.full((q_n, k), _INVALID, np.int64)
+    for r in range(q_n):
+        runs = [warp_sort_run(keys[r, i * RUN:(i + 1) * RUN]).tolist()
+                for i in range(n)]
+        for rd in rounds:
+            nxt = []
+            for g in range(rd.groups):
+                a, b = runs[2 * g], runs[2 * g + 1] if 2 * g + 1 < len(runs) else []
+                olen = rd.last_len if g == rd.groups - 1 else rd.glen
+                merged = []
+                for pos0 in range(0, olen, ITEMS):
+                    merged += _merge_chunk(a, b, pos0)
+                nxt.append(merged[:olen])
+            runs = nxt
+        got = runs[0][:k]
+        out[r, :len(got)] = got
+    return torch.from_numpy(out.astype(np.int32))
+
+
 def merge_topk_rows_cuda(cands: torch.Tensor, k: int) -> torch.Tensor:
-    """Launch ``csrc/topk_merge_rows.cu`` on the current stream."""
+    """Launch ``csrc/topk_merge_rows.cu`` on the current stream: the warp
+    kernel for rows of at most :data:`RUN` keys, else the runs kernel."""
     from repro_torch.kernels import _build
 
     if cands.dtype != torch.int32 or not cands.is_cuda or cands.dim() != 2:
