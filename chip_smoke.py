@@ -102,14 +102,22 @@ Phases (any failure exits non-zero; nothing is caught):
              K4/K4p in phase 8's cases; each under live_q all live, the last
              rows inert clones of the last live query, one live and every
              other live, with inert rows as specified, and an all-inert batch
-             that launches nothing; the 512 queries through
+             that launches nothing; K6/K6p and K7/K7p likewise at window
+             65536 on queries whose groups pass 32 rows and hold dead-term
+             and no-op groups, and K7/K7p over tables recompiled with two
+             more tiles in each run of one kind (delta tiles outlasting
+             main ones, and the reverse); the 512 queries through
              ``sequential_reference(backend="kernel_compact")`` on the static
              index and at fill 1.0, raw and packed (raw postings zeroed),
              equal to ``backend="kernel"`` and ``"torch"`` with K6 (K6p) = 4
              and K8 = K7 = 4 (K8p, K7p) launches per batch and no dense
              join; the 3000-page corpus against brute force before and after
              ``compact(verify=True)``; K6–K8p times beside bounds and plain
-             versions, the host work per table, the occupancy gauge, and the
+             versions; for K6, K6p, K7, K7p the staging from the table's
+             streams, the first design's (one block a group, one
+             synchronous tile a row) beside this one's, and device ms
+             beside the dense twins K1, K1p, K4, K4p at all 32 and at 20 of
+             32 live; the host work per table, the occupancy gauge, and the
              slave phase's per-batch time (dense against compact in turns)
              and its device ops and busy share, at all 32 live and at 20 of
              32 live;
@@ -134,7 +142,8 @@ Phases (any failure exits non-zero; nothing is caught):
              plain oracle of the staged semantics (the count of queries on
              which those differ from the streamed path's is printed); one
              packed batch equal to raw; times of K9, K10, K11 and the static
-             modes beside bounds, plain versions and library calls; the
+             modes beside bounds, plain versions and library calls, and
+             K7s/K7ps beside K4s/K4ps at all 32 and at 20 of 32 live; the
              staged path against ``"kernel"`` per batch, interleaved, with
              device ops; an updatable staged service after a mutation;
 14. flash  — K12 (``flash_attention_fwd``) within rtol = atol = 2e-5
@@ -520,7 +529,51 @@ def form_rounds(streams, caps, woff=None):
         j, cur = nj, resume
 
 
-def chain_after(rlo, rhi, docs, keep, *, caps, fences=None, widths=None):
+def chain_before_table(items, tbounds, packed=False):
+    """The first design of the work-list joins K6 and K7: one block of 256
+    threads a (query, driver tile) group, walking its rows in turn, each
+    row's main (and delta) tile staged synchronously, one load and two
+    barriers a tile (packed: its blocks decoded, two passes of eight
+    blocks, a descriptor and a word load each).  ``items`` [N, 8] are the
+    table's live rows, ``tbounds`` the bounds of each kind (main, delta)
+    [Q, T, 2].  Returns ``(blocks, staged, busiest, longest)``: postings
+    staged (packed: decoded) in all and by the busiest block, and the most
+    dependent loads on one block's chain (the group's head and row, the
+    driver, then the tiles)."""
+    group = np.cumsum(items[:, 4] & 1) - 1
+    n_groups = int(group[-1]) + 1 if items.size else 0
+    staged = np.zeros(n_groups, np.int64)
+    loads = np.zeros(n_groups, np.int64)
+    for kind, b in enumerate(tbounds):
+        tile = items[:, 3 + 2 * kind].astype(np.int64)
+        on = tile >= 0
+        bq = b[items[on, 0], items[on, 2]].astype(np.int64)
+        lo = np.maximum(tile[on] * 1024, bq[:, 0])
+        hi = np.maximum(np.minimum((tile[on] + 1) * 1024, bq[:, 1]), lo)
+        n = hi - lo
+        if packed:
+            n = np.where(n > 0, ((hi - 1) // 128 - lo // 128 + 1) * 128, 0)
+        np.add.at(staged, group[on], n)
+        np.add.at(loads, group[on], 4 if packed else 1)
+    return (n_groups, int(staged.sum()), int(staged.max(initial=0)),
+            3 + int(loads.max(initial=0)))
+
+
+def group_kinds(wl):
+    """``(most rows, dead-term groups, no-op groups)`` of a work list: the
+    rows of its largest group, the groups of one TERM_START|TERM_END row
+    with no tile, and the groups with no term run."""
+    it = wl.desc[:wl.n_items].astype(np.int64)
+    heads = wl.group_heads().astype(np.int64)
+    size = np.diff(heads)
+    first = it[heads[:-1]]
+    starts = np.add.reduceat(((it[:, 4] & 2) != 0).astype(np.int64), heads[:-1])
+    dead = (size == 1) & ((first[:, 4] & 6) == 6) & (first[:, 3] < 0) & (first[:, 5] < 0)
+    return int(size.max()), int(dead.sum()), int((starts == 0).sum())
+
+
+def chain_after(rlo, rhi, docs, keep, *, caps, fences=None, widths=None,
+                present=None):
     """csrc/probe_async.cuh's staging, per block of ``caps[0]`` driver
     slots: raw, every planned range whole, the copies issued with the plan;
     packed, each range first narrowed to the blocks that can hold the
@@ -530,7 +583,9 @@ def chain_after(rlo, rhi, docs, keep, *, caps, fences=None, widths=None):
     driver and its live slots.  Returns ``(blocks, staged, busiest,
     longest_rounds, narrowing_passes)``: postings staged (packed: decoded)
     in all and by the busiest block, the most rounds on one block, and the
-    most 64-block narrowing passes on one block."""
+    most 64-block narrowing passes on one block.  With ``present`` [Q, A]
+    (a work list's groups) only the blocks of present (query, tile) pairs
+    run."""
     q_n, s_n, num_a = rlo.shape
     sub = caps[0]
     nsub = 1024 // sub
@@ -550,6 +605,8 @@ def chain_after(rlo, rhi, docs, keep, *, caps, fences=None, widths=None):
     total, busiest, rounds_max, passes_max, blocks = 0, 0, 0, 0, 0
     for q in range(q_n):
         for b in range(num_a * nsub):
+            if present is not None and not present[q, b // nsub]:
+                continue
             blocks += 1
             if widths is not None and not alive[q, b]:
                 continue
@@ -1901,6 +1958,8 @@ def main() -> int:
             wl, bounds = pi.plan_driver_compact(
                 a[0], a[1], b.terms, a[2], idx_p.offsets, idx_p.lengths,
                 idx_p.block_max, window=window, live_q=live)
+            if live is None:
+                wl_all = wl
             desc, heads = wlm.table_to_device(wl, dev)
             for kname, src, cuda_fn, plain_fn, dense in (
                 ("K6", idx_p.postings, pi.driver_compact_join_cuda,
@@ -1924,6 +1983,7 @@ def main() -> int:
                 packed=packed, live_q=np.zeros(batch.terms.shape[0], bool)))
             if not (bool((d == INVALID_DOC).all()) and bool((m == 0).all())):
                 raise AssertionError(f"{label}: all-inert rows are not (INVALID_DOC, 0)")
+        return wl_all
 
     def k8_cases(label, idx_p, delta, k3, window, patterns):
         """K8 and K8p against their plain versions and K3 / K3p on the live
@@ -1954,19 +2014,23 @@ def main() -> int:
             if not all(bool((o == v).all()) for o, v in zip(out, (INVALID_DOC, -1, 1))):
                 raise AssertionError(f"{label}: all-inert merge rows are not inert")
 
-    def k7_cases(label, idx_p, delta, batch, window, filt):
-        """K8 on each batch's drivers, then K7 and K7p against their plain
-        versions and K4 / K4p on the live rows, under every live_q
-        pattern; all-inert launches nothing."""
+    def k7_cases(label, idx_p, delta, batch, window, filt, with_k8=True):
+        """K8 on each batch's drivers (``with_k8``), then K7 and K7p against
+        their plain versions and K4 / K4p on the live rows, under every
+        live_q pattern; all-inert launches nothing.  Returns the all-live
+        table."""
         names = ("mask",)
         for pname, b, live in live_cases(batch):
             ctx = f"{label} {pname}"
             k3, k4, cap = k4_inputs(ctx, idx_p, delta, b, window, filt)
-            k8_cases(ctx + " K8", idx_p, delta, k3, window, [(pname, live)])
+            if with_k8:
+                k8_cases(ctx + " K8", idx_p, delta, k3, window, [(pname, live)])
             wl, bounds, d_bounds = pi.plan_streamed_compact(
                 k4[0], b.terms, k4[4], idx_p.offsets, idx_p.lengths,
                 idx_p.block_max, delta.offsets, delta.lengths, delta.block_max,
                 live_q=live)
+            if live is None:
+                wl_all = wl
             desc, heads = wlm.table_to_device(wl, dev)
             pk4 = k4[:6] + (idx_p.packed,) + k4[7:10] + (delta.packed,) + k4[11:]
             for kname, m_src, d_src, cuda_fn, plain_fn, dense in (
@@ -1991,6 +2055,65 @@ def main() -> int:
                         live_q=np.zeros(b.terms.shape[0], bool)))
                     if not bool((m == 0).all()):
                         raise AssertionError(f"{ctx}: all-inert mask rows are not 0")
+        return wl_all
+
+    def k7_lockstep_cases(label, idx_p, delta, batch, window):
+        """K7 and K7p over tables whose runs are longer in one kind than the
+        other: K4's plans compiled again with two more tiles in each run of
+        delta tiles (the delta tiles outlast the main ones, rows with main
+        tile -1) and, separately, of main tiles.  The added tiles follow the
+        last planned one, so they hold no docID of the driver tile: bit-exact
+        against the plain versions (which execute the same table) and K4 /
+        K4p.  Returns the rows where one kind goes on past the other."""
+        k3, k4, cap = k4_inputs(label, idx_p, delta, batch, window, True)
+        a_any, main, dplan, _ = pi._streamed_plans(
+            k4[0], batch.terms, k4[4], idx_p.offsets, idx_p.lengths,
+            idx_p.block_max, delta.offsets, delta.lengths, delta.block_max)
+        act_h, nb_h, bt_h, any_h, nd_h, dt_h = wlm.plan_to_host(
+            k4[4], main[1], main[0], a_any, dplan[1], dplan[0])
+        pk4 = k4[:6] + (idx_p.packed,) + k4[7:10] + (delta.packed,) + k4[11:]
+        dense = {"K7": pi.streamed_join_cuda(*k4, cap=cap),
+                 "K7p": pi.streamed_join_packed_cuda(*pk4, cap=cap)}
+        past = {}
+        for name, nb2, nd2, col in (
+                ("delta tiles outlast main", nb_h, nd_h + 2 * (nd_h > 0), 5),
+                ("main tiles outlast delta", nb_h + 2 * (nb_h > 0), nd_h, 3)):
+            wl = wlm.build_intersect_worklist(nb2, bt_h, act_h, any_h, n_d=nd2,
+                                              d_tile=dt_h, kernel="lockstep check",
+                                              dense_steps=1)
+            it = wl.desc[:wl.n_items].astype(np.int64)
+            run = np.cumsum((it[:, 4] & 2) != 0)   # 0: rows before any run
+            other = 8 - col
+            has_other = np.zeros(run.max() + 1, bool)
+            np.logical_or.at(has_other, run, it[:, other] >= 0)
+            past[name] = int(((it[:, col] >= 0) & (it[:, other] < 0)
+                              & has_other[run]).sum())
+            desc, heads = wlm.table_to_device(wl, dev)
+            for kname, m_src, d_src, cuda_fn, plain_fn in (
+                ("K7", idx_p.postings, delta.postings, pi.streamed_compact_join_cuda,
+                 pi.streamed_compact_join_torch),
+                ("K7p", idx_p.packed, delta.packed, pi.streamed_compact_join_packed_cuda,
+                 pi.streamed_compact_join_packed_torch)):
+                args = (desc, heads, *k4[:4], k4[5], m_src, main[2], d_src, dplan[2])
+                got = (cuda_fn(*args),)
+                torch.cuda.synchronize()
+                ctx = f"{label} {name}"
+                same(kname, ctx, got, (plain_fn(*args),), ("mask",))
+                held(kname, ctx, got, (dense[kname],), None, (0,), ("mask",))
+        return past
+
+    def big_batch(s):
+        """Queries whose groups at window BIG_WINDOW pass 32 rows: a driver
+        of about 8192 postings against the hottest lists' windows, whose
+        1024-posting tiles it spans by the dozen; its tiles past those
+        windows give dead-term groups, its tiles past its own postings and a
+        one-term query no-op groups."""
+        lens = twins[s].lengths.long()
+        hot, hot2 = (int(t) for t in torch.topk(lens, 2).indices)
+        mid = int(torch.argmin((lens - 8192).abs()))
+        return make_query_batch([([mid, hot], None), ([mid], None),
+                                 ([hot, mid, hot2], None), ([mid, hot2], 1)],
+                                t_max=MAIN_T, meta=meta, device=dev)
 
     for s in range(NS):
         for label, batch, window, filt in (
@@ -2005,11 +2128,27 @@ def main() -> int:
     for window in (128, 1000, 1024, 1536):
         k6_cases(f"compact array-edge index window {window}", aux_p, aux_batch, window,
                  True)
+    full_size = corpus.n_docs // NS >= 1 << 19
+    big_kinds = [group_kinds(k6_cases(f"compact shard {s} window {BIG_WINDOW}", twins[s],
+                                      big_batch(s), BIG_WINDOW, True))
+                 for s in range(NS)]
+    most, n_dead, n_noop = (max(k[0] for k in big_kinds), sum(k[1] for k in big_kinds),
+                            sum(k[2] for k in big_kinds))
+    # (a short rehearsal's slaves hold lists too short for groups that long)
+    if full_size and (most <= 32 or n_dead == 0 or n_noop == 0):
+        raise AssertionError(f"window {BIG_WINDOW}: groups of up to {most} rows, "
+                             f"{n_dead} dead-term and {n_noop} no-op groups; the case "
+                             "needs groups past 32 rows and both special groups")
+    log(f"[compact] window {BIG_WINDOW}: K6 and K6p bit-exact likewise on {NS} slaves' "
+        f"[mid, hot], [mid], [hot, mid, hot2], [mid, hot2] site 1 (mid: the list "
+        f"nearest 8192 postings), every live_q pattern: groups of up to {most} rows, "
+        f"{n_dead} dead-term and {n_noop} no-op groups (all live)")
     log(f"[compact] K6 and K6p bit-exact vs their plain versions and, on live rows, "
         f"vs K1 / K1p on {NS} slaves x 6 cases (phase 4's) and the array-edge index, "
         f"under live_q all live / last rows inert clones / one live / alternate; "
         f"all-inert batches launched nothing")
 
+    lockstep, big7 = {}, []
     for fill in FILLS:
         views = p_views[fill]
         for s in range(NS):
@@ -2040,11 +2179,30 @@ def main() -> int:
                     for filt in (True, False):
                         k7_cases(f"{tag} {bname} filter {filt}", idx_p, delta, batch,
                                  window, filt)
+                if fill == 1.0 and window != 256:
+                    for bname, batch in (("main", main_batch), ("edge", edge)):
+                        for name, n in k7_lockstep_cases(f"{tag} {bname}", idx_p, delta,
+                                                         batch, window).items():
+                            lockstep[name] = lockstep.get(name, 0) + n
+            if fill == 1.0:
+                wl_big = k7_cases(f"compact fill {fill} shard {s} w{BIG_WINDOW}",
+                                  idx_p, delta, big_batch(s), BIG_WINDOW, True,
+                                  with_k8=False)
+                big7.append(group_kinds(wl_big))
         log(f"[compact] fill {fill}: K8/K8p and K7/K7p bit-exact vs their plain "
             f"versions and, on live rows, vs K3/K3p and K4/K4p on {NS} slaves (phase "
             f"8's cases: main and edge drivers incl. inert -1 and main-empty lists "
             f"{sorted(p_extra.items())}, filter on/off, windows {MOR_WINDOWS}), every "
             f"live_q pattern; all-inert batches launched nothing")
+    if min(lockstep.values()) == 0 or (full_size and max(k[0] for k in big7) <= 32):
+        raise AssertionError(f"lockstep rows {lockstep}, K7 groups at window "
+                             f"{BIG_WINDOW}: {big7}")
+    log(f"[compact] fill 1.0: K7/K7p bit-exact likewise over tables whose runs are "
+        f"longer in one kind (main and edge drivers, windows 4096 and 1000, {NS} "
+        f"slaves; rows where one kind goes on past the other: {lockstep}) and at "
+        f"window {BIG_WINDOW} on big_batch (groups of up to "
+        f"{max(k[0] for k in big7)} rows, {sum(k[1] for k in big7)} dead-term and "
+        f"{sum(k[2] for k in big7)} no-op groups)")
 
     # the path: 512 queries, 16 batches of 32, through sequential_reference
     def compact_path(label, shards_, deltas_, codec, implied, dense_shards):
@@ -2166,7 +2324,7 @@ def main() -> int:
 
     def time_compact(kname, cuda_run, plain_run, n_bytes, n_ops, extra, lib=None):
         ms, plain = cuda_ms(cuda_run), cuda_ms(plain_run, reps=10, warmup=2)
-        dev_ms, plain_dev = device_ms(cuda_run), device_ms(plain_run)
+        dev_ms, plain_dev = device_ms(cuda_run, kernel=kname), device_ms(plain_run)
         bound, by = bound_ms(n_bytes, n_ops)
         lib_ms = None if lib is None else cuda_ms(lib)
         compact_rows[kname] = (ms, plain, bound, by, lib_ms)
@@ -2273,6 +2431,97 @@ def main() -> int:
                  ops7 + 4 * BLOCK * (pm7_blk + pd7_blk),
                  f"probes main {pm7_blk} blocks {pm7_b} bytes + delta {pd7_blk} blocks "
                  f"{pd7_b} bytes")
+
+    def table_chain_log(key, desc, heads, tbounds, docs, keep, arrays, fences=None,
+                        widths=None):
+        """The main-shape launch's staging from its table's streams on the
+        host (table_streams): the first design's (chain_before_table) and
+        this one's (chain_after over the groups' sub-tiles).  ``arrays``:
+        each kind's staging-check keywords."""
+        lo, hi, _ = pi.table_streams(desc, heads, *tbounds)
+        spt = len(tbounds)
+        n = sum(pi.ranges_staging_check(lo[:, k::spt], hi[:, k::spt], **arrays[k])
+                for k in range(spt))
+        items, _, gq, gi = (x.cpu().numpy() for x in wlm.table_items(desc, heads))
+        b = chain_before_table(items, [x.long().cpu().numpy() for x in tbounds],
+                               widths is not None)
+        q_n, num_a = docs.shape[0], -(-docs.shape[1] // TILE)
+        rlo = np.zeros((q_n, lo.shape[1], num_a), np.int64)
+        rhi = np.zeros_like(rlo)
+        rlo[gq, :, gi] = lo.cpu().numpy()
+        rhi[gq, :, gi] = hi.cpu().numpy()
+        present = np.zeros((q_n, num_a), bool)
+        present[gq, gi] = True
+        a = chain_after(rlo, rhi, docs.cpu().numpy(), keep.cpu().numpy(),
+                        caps=probe_caps, fences=fences, widths=widths, present=present)
+        smem = probe_lib.probe_smem_bytes(lo.shape[1], int(widths is not None))
+        what = "decoded" if widths is not None else "staged"
+        log(f"[chain] {key} main shape, from its table's streams (the staging "
+            f"precondition holds on all {n} of them): first design {b[0]} blocks, one "
+            f"a group, {b[1]} postings {what} ({b[2]} by the busiest block), {b[3]} "
+            f"dependent loads on the longest chain, one synchronous tile a row, "
+            f"{OLD_SMEM} bytes of shared memory a block; sub-tile {probe_caps[0]}: "
+            f"{a[0]} blocks, {a[1]} postings {what} ({a[2]} by the busiest block), 3 "
+            f"dependent loads before the copies (heads, rows, bounds), then {a[3]} "
+            f"rounds and {a[4]} narrowing passes on the longest chain, {smem} bytes of "
+            f"dynamic shared memory a block")
+
+    pos6 = torch.arange(MAIN_WINDOW, device=dev)
+    gpos = (ka[0][:, None].long() + pos6).clamp(max=t_idx.postings.numel() - 1)
+    win6 = pos6[None] < ka[1][:, None]
+    docs6 = torch.where(win6, t_idx.postings[gpos], INVALID_DOC)
+    keep6 = win6 & (docs6 != INVALID_DOC) & (
+        (ka[3][:, None] < 0) | (t_idx.attrs[gpos] == ka[3][:, None]))
+    keep7 = (a7_docs != INVALID_DOC) & (a7_live != 0) & (
+        (a7_filter[:, None] < 0) | (k4m[1] == a7_filter[:, None]))
+    m_fence = t_idx.packed.blk_base[:t_idx.packed.n_blocks].long().cpu().numpy()
+    d_fence = d1.packed.blk_base[:d1.packed.n_blocks].long().cpu().numpy()
+    raw_chk = [{"n_postings": t_idx.postings.numel()},
+               {"n_postings": d1.postings.numel()}]
+    pk_chk = [{"packed": t_idx.packed}, {"packed": d1.packed}]
+    table_chain_log("K6", desc6, heads6, (bounds6,), docs6, keep6, raw_chk)
+    table_chain_log("K6p", desc6, heads6, (bounds6,), docs6, keep6, pk_chk, [m_fence],
+                    [meta_host[0] & 63])
+    table_chain_log("K7", desc7, heads7, (bounds7, dbounds7), a7_docs, keep7, raw_chk)
+    table_chain_log("K7p", desc7, heads7, (bounds7, dbounds7), a7_docs, keep7, pk_chk,
+                    [m_fence, d_fence], [meta_host[0] & 63, d_meta1 & 63])
+
+    # device ms beside the dense twins, all 32 live and 20 of 32 live (the
+    # last 12 inert clones of the 20th, as the scheduler pads)
+    _, pad_batch, pad_live = live_cases(main_batch)[1]
+    for mix, b, live in (("all live", main_batch, None),
+                         (f"{int(pad_live.sum())} of {MAIN_Q} live", pad_batch, pad_live)):
+        a1 = k1_inputs(t_idx, b, MAIN_WINDOW)
+        wl_b, bnd_b = pi.plan_driver_compact(
+            a1[0], a1[1], b.terms, a1[2], t_idx.offsets, t_idx.lengths,
+            t_idx.block_max, window=MAIN_WINDOW, live_q=live)
+        a6 = (*wlm.table_to_device(wl_b, dev), a1[0], a1[1], a1[3], t_idx.postings,
+              a1[5], bnd_b)
+        _, k4b, _ = k4_inputs(f"compact twins {mix}", t_idx, d1, b, MAIN_WINDOW, True)
+        wl7_b, b7_b, db7_b = pi.plan_streamed_compact(
+            k4b[0], b.terms, k4b[4], t_idx.offsets, t_idx.lengths, t_idx.block_max,
+            d1.offsets, d1.lengths, d1.block_max, live_q=live)
+        a7 = (*wlm.table_to_device(wl7_b, dev), *k4b[:4], k4b[5], t_idx.postings, b7_b,
+              d1.postings, db7_b)
+        pk4b = k4b[:6] + (t_idx.packed,) + k4b[7:10] + (d1.packed,) + k4b[11:]
+        runs = (
+            ("K6", lambda: pi.driver_compact_join_cuda(*a6, window=MAIN_WINDOW), "K1",
+             lambda: pi.driver_streamed_join_cuda(*a1, window=MAIN_WINDOW)),
+            ("K6p", lambda: pi.driver_compact_join_packed_cuda(
+                *a6[:5], t_idx.packed, *a6[6:], window=MAIN_WINDOW), "K1p",
+             lambda: pi.driver_streamed_join_packed_cuda(
+                 *a1[:4], t_idx.packed, *a1[5:], window=MAIN_WINDOW)),
+            ("K7", lambda: pi.streamed_compact_join_cuda(*a7), "K4",
+             lambda: pi.streamed_join_cuda(*k4b, cap=cap)),
+            ("K7p", lambda: pi.streamed_compact_join_packed_cuda(
+                *a7[:7], t_idx.packed, b7_b, d1.packed, db7_b), "K4p",
+             lambda: pi.streamed_join_packed_cuda(*pk4b, cap=cap)))
+        log(f"[times] device ms beside the dense twin ({mix}; slave 0, Q={MAIN_Q}, "
+            f"T={MAIN_T}, W={MAIN_WINDOW}, K7 at fill 1.0; tables of {wl_b.n_items} / "
+            f"{wl7_b.n_items} rows (K6 / K7)): " + ", ".join(
+                f"{k} {device_ms(run, kernel=k):.5f} vs {twin} "
+                f"{device_ms(dense_run, kernel=twin):.5f}"
+                for k, run, twin, dense_run in runs) + f" on {smi}")
 
     # occupancy and per-batch time, all live against 20 of 32 live (the
     # last 12 inert clones of the 20th, as the scheduler pads)
@@ -2494,9 +2743,10 @@ def main() -> int:
         f"5] -> [-1, 3, 5, 2**31, 2**31] as the reference's pad gives it; merge_topk "
         f"at (16, 128) and (4, 1000)")
 
-    def static_args(s, batch, window, filt=True):
+    def static_args(s, batch, window, filt=True, live_q=None):
         """The static modes' operands on slave s: the staged windows of the
-        drivers, K4's main plan and K7's table, and K9's mask on them."""
+        drivers, K4's main plan and K7's table (of the ``live_q`` queries),
+        and K9's mask on them."""
         idx_p = twins[s]
         docs, attrs, _, others, active = _query_windows(
             StaticPostingSource(idx_p), batch, window=window, attr_strategy="embed")
@@ -2510,7 +2760,8 @@ def main() -> int:
         a4 = (docs, attrs, live, None, active, attr, idx_p.postings, *main,
               None, None, None, None)
         wl, bounds, _ = pi.plan_streamed_compact(
-            docs, batch.terms, active, idx_p.offsets, idx_p.lengths, idx_p.block_max)
+            docs, batch.terms, active, idx_p.offsets, idx_p.lengths, idx_p.block_max,
+            live_q=live_q)
         desc, heads = wlm.table_to_device(wl, dev)
         a7 = (desc, heads, docs, attrs, live, None, attr, idx_p.postings, bounds,
               None, None)
@@ -2751,7 +3002,19 @@ def main() -> int:
         time_row(key, lambda c=cuda_fn, a=a, kw=kw: c(*a, **kw),
                  lambda p=plain_fn, a=a, kw=kw: p(*a, **kw), n_bytes, n_ops,
                  f"static mode, Q={MAIN_Q}, T={MAIN_T}, W={MAIN_WINDOW}, shard 0, {extra}",
-                 kernel={"K4s": "K4", "K4ps": "K4p"}.get(key))
+                 kernel={"K4s": "K4", "K4ps": "K4p", "K7s": "K7", "K7ps": "K7p"}[key])
+    _, pad_batch, pad_live = live_cases(main_batch)[1]
+    for mix, b, live in (("all live", main_batch, None),
+                         (f"{int(pad_live.sum())} of {MAIN_Q} live", pad_batch, pad_live)):
+        modes_l = static_args(0, b, MAIN_WINDOW, live_q=live)[0]
+        log(f"[times] static modes, device ms beside the dense twin ({mix}; slave 0, "
+            f"Q={MAIN_Q}, T={MAIN_T}, W={MAIN_WINDOW}): " + ", ".join(
+                f"{key} {device_ms(lambda m=modes_l[key]: m[0](*m[2], **m[3]), kernel=kern):.5f}"
+                f" vs {twin} "
+                f"{device_ms(lambda m=modes_l[twin]: m[0](*m[2], **m[3]), kernel=tkern):.5f}"
+                for key, kern, twin, tkern in (("K7s", "K7", "K4s", "K4"),
+                                               ("K7ps", "K7p", "K4ps", "K4p")))
+            + f" on {smi}")
 
     # the staged path against the streamed one per batch, interleaved
     def seq(b, backend, deltas_):

@@ -1,5 +1,6 @@
 // K5: the block-codec decode on the card, shared by the packed kernels K1p
-// (driver_streamed.cu), K3p (delta_merge.cu) and K4p (streamed_join.cu).
+// (driver_streamed.cu), K3p (delta_merge.cu), K4p (streamed_join.cu), K6p
+// (driver_compact.cu), K7p (streamed_compact.cu) and K8p (merge_compact.cu).
 //
 // Replaces the in-VMEM decode of the TPU kernels' packed modes:
 // repro/kernels/posting_intersect.py _decode_block (line 231) and

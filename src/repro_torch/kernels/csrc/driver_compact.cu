@@ -20,109 +20,26 @@
 // FIRST|LAST group with no term keeps validity and the filter.  Inert
 // queries have no group; the wrapper fills their rows.
 //
-// What bounds it on the H100: bytes and latency, as K1: one 1024-posting
-// driver tile (docIDs + attrs) per group, each named probe tile once, 32
-// bytes a descriptor row; one binary search of a few steps per posting and
-// probe.
+// What bounds it on the H100: the latency of dependent loads, as K1 (the
+// bytes of a main-path launch take about 0.6 us at the card's memory
+// rate).  The first design (one block of 256 threads a group, 128 blocks
+// on 132 SMs, walking the group's rows in turn and staging each row's
+// 1024-posting tile behind two barriers, so one round trip a row with
+// nothing in flight) ran about 20x that bound, 3x K1's time.
 //
-// Design: the TPU's 1-D grid, which carries a group's state across
-// contiguous steps in VMEM scratch, becomes one thread block per group:
-// the host derives the groups from the FLAG_FIRST rows (heads[g] ..
-// heads[g + 1] - 1), and the block walks its group's rows in order, so the
-// per-term OR and the fold across terms stay in registers, with no
-// atomics.  Padding rows past the live items are never walked.  The driver
-// tile is staged once, on the group's first row, four postings a thread as
-// in K1; each probe goes through K1's shared-memory probe (probe.cuh).  A
-// block whose postings have all died skips its remaining probes (uniform:
-// __syncthreads_or).  K6p runs the same body over PackedList sources: the
-// driver tile's blocks are decoded into the staging buffer and read into
-// registers before any probe chunk overwrites it (probe.cuh's barrier at
-// the start of each chunk).
-#include "probe.cuh"
+// Design: K1's body and probe (slave_join.cuh, probe_async.cuh), with the
+// table as its plan (TablePlan).  The grid is groups * NSUB blocks, a
+// block JOIN_SUB = 256 slots of its group's driver tile; the producer warp
+// reads the group's rows and sets one stream a term slot: the run's tiles
+// are consecutive (the dense plan's steps), so their union is K1's planned
+// range, staged by bulk copies, two rounds in flight, and searched from an
+// interpolated window.  Against K1 a block waits for two more dependent
+// loads: the group's head (heads[g], then its row) before the driver, and
+// its rows before the term bounds.  K6p decodes the sub-tile's driver
+// blocks and narrows each packed range on blk_base, as K1p.
+#include "slave_join.cuh"
 
-#define FLAG_TERM_START 2
-#define FLAG_TERM_END 4
-
-template <class Src>
-__device__ __forceinline__ void driver_compact_body(
-    const Src& src,
-    const int* __restrict__ desc,         // [n_pad, 8]
-    const int* __restrict__ heads,        // [n_groups + 1]
-    const int* __restrict__ d_off,        // [Q]
-    const int* __restrict__ d_neff,       // [Q]
-    const int* __restrict__ attr_filter,  // [Q]
-    const int* __restrict__ attrs,        // [P]
-    const int* __restrict__ bounds,       // [Q, T, 2]
-    int* __restrict__ out_docs,           // [Q, window]
-    int* __restrict__ out_mask,           // [Q, window]
-    int t_slots, int window)
-{
-    __shared__ int sb[STAGE];
-    const int g = blockIdx.x;
-    const int r0 = heads[g], r1 = heads[g + 1];
-    const int q = desc[8 * r0], i = desc[8 * r0 + 1];
-    const int64_t off = d_off[q];
-    const int neff = d_neff[q];
-    const int filt = attr_filter[q];
-    const int t0 = i * TILE;
-    const int n_tile = neff - t0 < 0 ? 0 : (neff - t0 < TILE ? neff - t0 : TILE);
-    const int* drv = src.stage(off + t0, n_tile, sb);
-
-    int a[ITEMS];
-    bool keep[ITEMS], found[ITEMS];
-    bool alive = false;
-#pragma unroll
-    for (int r = 0; r < ITEMS; ++r) {
-        const int w = t0 + r * THREADS + threadIdx.x;
-        const bool in_win = w < neff;
-        const int doc = in_win ? drv[w - t0] : INVALID_DOC;
-        const int at = in_win ? attrs[off + w] : INVALID_ATTR;
-        a[r] = doc;
-        keep[r] = doc != INVALID_DOC && (filt < 0 || at == filt);
-        found[r] = false;
-        alive |= keep[r];
-    }
-
-    for (int n = r0; n < r1; ++n) {
-        const int* d = desc + 8 * (int64_t)n;
-        const int t = d[2], tile = d[3], flags = d[4];
-        if (flags & FLAG_TERM_START) {
-#pragma unroll
-            for (int r = 0; r < ITEMS; ++r) found[r] = false;
-        }
-        // tile is uniform across the block, so is the barrier
-        if (tile >= 0 && __syncthreads_or(alive)) {
-            const int64_t qt = (int64_t)q * t_slots + t;
-            int64_t rlo, rhi;
-            planned_range(tile, 1, bounds[2 * qt], bounds[2 * qt + 1], rlo, rhi);
-            bool need[ITEMS], hit[ITEMS];
-#pragma unroll
-            for (int r = 0; r < ITEMS; ++r) need[r] = keep[r] && !found[r];
-            src.probe(rlo, rhi, sb, a, need, hit);
-#pragma unroll
-            for (int r = 0; r < ITEMS; ++r) found[r] = found[r] || hit[r];
-        }
-        if (flags & FLAG_TERM_END) {
-            alive = false;
-#pragma unroll
-            for (int r = 0; r < ITEMS; ++r) {
-                keep[r] = keep[r] && found[r];
-                alive |= keep[r];
-            }
-        }
-    }
-
-#pragma unroll
-    for (int r = 0; r < ITEMS; ++r) {
-        const int w = t0 + r * THREADS + threadIdx.x;
-        if (w < window) {
-            out_docs[(int64_t)q * window + w] = a[r];
-            out_mask[(int64_t)q * window + w] = keep[r] ? 1 : 0;
-        }
-    }
-}
-
-__global__ void __launch_bounds__(THREADS) driver_compact_kernel(
+__global__ void __launch_bounds__(JOIN_SUB + 32) driver_compact_kernel(
     const int* __restrict__ desc, const int* __restrict__ heads,
     const int* __restrict__ d_off, const int* __restrict__ d_neff,
     const int* __restrict__ attr_filter,
@@ -131,12 +48,13 @@ __global__ void __launch_bounds__(THREADS) driver_compact_kernel(
     int* __restrict__ out_docs, int* __restrict__ out_mask,
     int t_slots, int window)
 {
-    driver_compact_body(RawList{postings}, desc, heads, d_off, d_neff,
-                        attr_filter, attrs, bounds, out_docs, out_mask,
-                        t_slots, window);
+    const Packed none{nullptr, nullptr, nullptr, nullptr, 0};
+    const TablePlan plan{desc, heads, bounds, nullptr, t_slots, 0};
+    driver_join_body<false>(plan, postings, none, d_off, d_neff, attr_filter, attrs,
+                            out_docs, out_mask, t_slots, window);
 }
 
-__global__ void __launch_bounds__(THREADS) driver_compact_packed_kernel(
+__global__ void __launch_bounds__(JOIN_SUB + 32) driver_compact_packed_kernel(
     const int* __restrict__ desc, const int* __restrict__ heads,
     const int* __restrict__ d_off, const int* __restrict__ d_neff,
     const int* __restrict__ attr_filter,
@@ -148,9 +66,10 @@ __global__ void __launch_bounds__(THREADS) driver_compact_packed_kernel(
     int* __restrict__ out_docs, int* __restrict__ out_mask,
     int t_slots, int window, int n_blocks)
 {
-    const PackedList src{Packed{words, blk_base, blk_meta, blk_woff, n_blocks}};
-    driver_compact_body(src, desc, heads, d_off, d_neff, attr_filter, attrs,
-                        bounds, out_docs, out_mask, t_slots, window);
+    const Packed pk{words, blk_base, blk_meta, blk_woff, n_blocks};
+    const TablePlan plan{desc, heads, bounds, nullptr, t_slots, 0};
+    driver_join_body<true>(plan, nullptr, pk, d_off, d_neff, attr_filter, attrs,
+                           out_docs, out_mask, t_slots, window);
 }
 
 extern "C" int driver_compact_launch(
@@ -159,7 +78,12 @@ extern "C" int driver_compact_launch(
     const void* attrs, const void* bounds, void* out_docs, void* out_mask,
     int n_groups, int t_slots, int window, void* stream)
 {
-    driver_compact_kernel<<<n_groups, THREADS, 0, (cudaStream_t)stream>>>(
+    static int allowed = 48 * 1024;
+    const int smem = probe_layout(t_slots, false).total;
+    const cudaError_t err = allow_smem(driver_compact_kernel, smem, allowed);
+    if (err != cudaSuccess) return (int)err;
+    driver_compact_kernel<<<n_groups * NSUB, JOIN_SUB + 32, smem,
+                            (cudaStream_t)stream>>>(
         (const int*)desc, (const int*)heads, (const int*)d_off,
         (const int*)d_neff, (const int*)attr_filter, (const int*)postings,
         (const int*)attrs, (const int*)bounds, (int*)out_docs,
@@ -174,7 +98,12 @@ extern "C" int driver_compact_packed_launch(
     const void* attrs, const void* bounds, void* out_docs, void* out_mask,
     int n_groups, int t_slots, int window, int n_blocks, void* stream)
 {
-    driver_compact_packed_kernel<<<n_groups, THREADS, 0, (cudaStream_t)stream>>>(
+    static int allowed = 48 * 1024;
+    const int smem = probe_layout(t_slots, true).total;
+    const cudaError_t err = allow_smem(driver_compact_packed_kernel, smem, allowed);
+    if (err != cudaSuccess) return (int)err;
+    driver_compact_packed_kernel<<<n_groups * NSUB, JOIN_SUB + 32, smem,
+                                   (cudaStream_t)stream>>>(
         (const int*)desc, (const int*)heads, (const int*)d_off,
         (const int*)d_neff, (const int*)attr_filter, (const uint32_t*)words,
         (const int*)blk_base, (const int*)blk_meta, (const int*)blk_woff,

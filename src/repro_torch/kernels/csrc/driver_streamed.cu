@@ -22,8 +22,9 @@
 // before the launch, so postings outside the overlapping tiles are never
 // read (the paper's posting skipping).
 //
-// Design (probe_async.cuh): a block owns JOIN_SUB = 256 slots of a
-// driver tile (the grid is (tiles * TILE / JOIN_SUB, Q)), one a consumer
+// Design (probe_async.cuh; the block body, slave_join.cuh, is K6's too,
+// with the plan arrays as its DensePlan): a block owns JOIN_SUB = 256
+// slots of a driver tile (the grid is (tiles * NSUB, Q)), one a consumer
 // thread (coalesced), and one producer warp reads the plan of every term
 // and, with it, issues bulk copies of the terms' planned ranges into
 // shared memory (two rounds in flight) while the consumers read the
@@ -41,75 +42,7 @@
 // the blocks that can hold it, and only their words are staged and
 // decoded (from shared memory).  Attrs stay raw.  Its entry point takes
 // the words and descriptors and no raw posting pointer.
-#include "probe_async.cuh"
-
-template <bool PACKED>
-__device__ __forceinline__ void driver_streamed_body(
-    const int* __restrict__ postings,     // [P] (raw)
-    const Packed& pk,                     // (packed)
-    const int* __restrict__ d_off,        // [Q]
-    const int* __restrict__ d_neff,       // [Q]
-    const int* __restrict__ active,       // [Q, T]
-    const int* __restrict__ attr_filter,  // [Q]
-    const int* __restrict__ attrs,        // [P]
-    const int* __restrict__ b_tile,       // [Q, T, A]
-    const int* __restrict__ n_b,          // [Q, T, A]
-    const int* __restrict__ bounds,       // [Q, T, 2]
-    int* __restrict__ out_docs,           // [Q, window]
-    int* __restrict__ out_mask,           // [Q, window]
-    int t_slots, int num_a, int window)
-{
-    constexpr int NSUB = TILE / JOIN_SUB;
-    extern __shared__ __align__(128) unsigned char smem[];
-    const ProbeLayout L = probe_layout(t_slots, PACKED);
-    const int i = blockIdx.x / NSUB;                          // driver tile
-    const int t0 = i * TILE + (blockIdx.x % NSUB) * JOIN_SUB; // first slot
-    const int q = blockIdx.y;
-    const long long off = d_off[q];
-    const int neff = d_neff[q];
-    const int filt = attr_filter[q];
-    const Sources src{{postings, postings}, {pk, pk}};
-
-    // the plan of every term, one stream a term
-    Cursor c;
-    probe_begin<PACKED>(smem, src, t_slots, 1, [&](StreamRange* st, int lane) {
-        for (int t = lane; t < t_slots; t += 32) {
-            // every load at once: the plan row does not wait for active
-            const long long qt = (long long)q * t_slots + t;
-            const long long qti = qt * num_a + i;
-            const int act = active[qt] != 0;
-            const int bt = b_tile[qti], nb = n_b[qti];
-            const int lo = bounds[2 * qt], hi = bounds[2 * qt + 1];
-            // (not under `if (act)`: the loads would wait for active)
-            long long rlo, rhi;
-            plan_range(bt, nb, lo, hi, rlo, rhi);
-            if (!act) rlo = rhi = 0;
-            stream_set(st[t], rlo, rhi, act);
-        }
-    }, c);
-
-    const int n_sub = neff - t0 < 0 ? 0 : (neff - t0 < JOIN_SUB ? neff - t0 : JOIN_SUB);
-    const int* drv = postings + off + t0;
-    if (PACKED) {
-        int* dec = (int*)(smem + L.dec);
-        const int lead = decode_range(pk, off + t0, n_sub, dec);
-        __syncthreads();
-        drv = dec + lead;
-    }
-    const int k = threadIdx.x;
-    const bool in_win = k < JOIN_SUB && k < n_sub;
-    const int x = in_win ? drv[k] : INVALID_DOC;
-    const int at = in_win ? attrs[off + t0 + k] : INVALID_ATTR;
-    bool keep = x != INVALID_DOC && (filt < 0 || at == filt);
-
-    probe_streams<PACKED>(smem, src, t_slots, 1, x, 1u, keep, c);
-
-    const int w = t0 + k;
-    if (k < JOIN_SUB && w < window) {
-        out_docs[(long long)q * window + w] = x;
-        out_mask[(long long)q * window + w] = keep ? 1 : 0;
-    }
-}
+#include "slave_join.cuh"
 
 __global__ void __launch_bounds__(JOIN_SUB + 32) driver_streamed_kernel(
     const int* __restrict__ d_off, const int* __restrict__ d_neff,
@@ -121,9 +54,10 @@ __global__ void __launch_bounds__(JOIN_SUB + 32) driver_streamed_kernel(
     int t_slots, int num_a, int window)
 {
     const Packed none{nullptr, nullptr, nullptr, nullptr, 0};
-    driver_streamed_body<false>(
-        postings, none, d_off, d_neff, active, attr_filter, attrs, b_tile, n_b,
-        bounds, out_docs, out_mask, t_slots, num_a, window);
+    const DensePlan plan{active, b_tile, n_b, bounds, nullptr, nullptr, nullptr,
+                         t_slots, num_a, 0};
+    driver_join_body<false>(plan, postings, none, d_off, d_neff, attr_filter, attrs,
+                            out_docs, out_mask, t_slots, window);
 }
 
 __global__ void __launch_bounds__(JOIN_SUB + 32) driver_streamed_packed_kernel(
@@ -139,9 +73,10 @@ __global__ void __launch_bounds__(JOIN_SUB + 32) driver_streamed_packed_kernel(
     int t_slots, int num_a, int window, int n_blocks)
 {
     const Packed pk{words, blk_base, blk_meta, blk_woff, n_blocks};
-    driver_streamed_body<true>(
-        nullptr, pk, d_off, d_neff, active, attr_filter, attrs, b_tile, n_b,
-        bounds, out_docs, out_mask, t_slots, num_a, window);
+    const DensePlan plan{active, b_tile, n_b, bounds, nullptr, nullptr, nullptr,
+                         t_slots, num_a, 0};
+    driver_join_body<true>(plan, nullptr, pk, d_off, d_neff, attr_filter, attrs,
+                           out_docs, out_mask, t_slots, window);
 }
 
 extern "C" int driver_streamed_launch(
@@ -156,7 +91,7 @@ extern "C" int driver_streamed_launch(
     const int smem = probe_layout(t_slots, false).total;
     const cudaError_t err = allow_smem(driver_streamed_kernel, smem, allowed);
     if (err != cudaSuccess) return (int)err;
-    dim3 grid(num_a * (TILE / JOIN_SUB), q_n);
+    dim3 grid(num_a * NSUB, q_n);
     driver_streamed_kernel<<<grid, JOIN_SUB + 32, smem, (cudaStream_t)stream>>>(
         (const int*)d_off, (const int*)d_neff, (const int*)active,
         (const int*)attr_filter, (const int*)postings, (const int*)attrs,
@@ -178,7 +113,7 @@ extern "C" int driver_streamed_packed_launch(
     const int smem = probe_layout(t_slots, true).total;
     const cudaError_t err = allow_smem(driver_streamed_packed_kernel, smem, allowed);
     if (err != cudaSuccess) return (int)err;
-    dim3 grid(num_a * (TILE / JOIN_SUB), q_n);
+    dim3 grid(num_a * NSUB, q_n);
     driver_streamed_packed_kernel<<<grid, JOIN_SUB + 32, smem, (cudaStream_t)stream>>>(
         (const int*)d_off, (const int*)d_neff, (const int*)active,
         (const int*)attr_filter, (const uint32_t*)words, (const int*)blk_base,

@@ -1,30 +1,28 @@
-// The membership probe shared by the slave joins K1 (driver_streamed.cu)
-// and K4 (streamed_join.cu), over raw postings or, for their packed modes
-// K1p and K4p, over block-codec words (decode.cuh).
+// The synchronous membership probe of the staged joins K9 and K10
+// (block_skip.cu).  (The slave joins K1, K4, K6 and K7 stage their probes
+// asynchronously: probe_async.cuh.)
 //
 // A block of THREADS threads owns one 1024-posting driver tile; each thread
 // keeps ITEMS driver postings in registers.  For one (query, term, driver
-// tile) the probe plan names a run of physical tiles of the term's list,
-// clipped to the term's window [lo, hi): positions [max(b_tile*TILE, lo),
+// tile) the probe plan names a run of physical tiles of a sorted row,
+// clipped to [lo, hi): positions [max(b_tile*TILE, lo),
 // min((b_tile+n_b)*TILE, hi)), empty when n_b <= 0.  That range is one
-// contiguous piece of one ascending list, so it stays sorted: the block
-// stages it through shared memory in chunks of CHUNK postings (a raw copy,
-// or the decode of the blocks that hold the chunk) and each thread
-// binary-searches its postings in a chunk whose [min, max] can hold them.
-// Every thread of the block must call a probe with the same range (it
-// synchronises).  The staging buffer holds CHUNK + PBLOCK ints: a packed
-// chunk that starts inside a block decodes one block more.
+// contiguous piece of one ascending row, so it stays sorted: the block
+// stages it through shared memory in chunks of CHUNK postings and each
+// thread binary-searches its postings in a chunk whose [min, max] can hold
+// them.  Every thread of the block must call a probe with the same range
+// (it synchronises).
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "decode.cuh"
+#include "decode.cuh"   // INVALID_DOC
 
 #define TILE 1024
 #define THREADS 256
 #define ITEMS (TILE / THREADS)
 #define CHUNK 2048
-#define STAGE (CHUNK + PBLOCK)
+#define STAGE CHUNK
 #define INVALID_ATTR (-1)
 
 // The planned range [rlo, rhi) of one (query, term, driver tile).
@@ -61,12 +59,6 @@ __device__ __forceinline__ void search_staged(
 struct RawList {
     const int* p;
 
-    // The driver tile's n postings at flat position p0: read in place.
-    __device__ __forceinline__ const int* stage(int64_t p0, int n, int* sb) const
-    {
-        return p + p0;
-    }
-
     // found[r] = need[r] and a[r] occurs in p[rlo, rhi).
     __device__ __forceinline__ void probe(
         int64_t rlo, int64_t rhi, int* sb, const int (&a)[ITEMS],
@@ -80,36 +72,6 @@ struct RawList {
             for (int k = threadIdx.x; k < len; k += THREADS) sb[k] = p[c0 + k];
             __syncthreads();
             search_staged(sb, len, a, need, found);
-        }
-    }
-};
-
-// Block-codec words of one flat array (K5).
-struct PackedList {
-    Packed pk;
-
-    // The driver tile's n postings at flat position p0, decoded into sb.
-    __device__ __forceinline__ const int* stage(int64_t p0, int n, int* sb) const
-    {
-        const int lead = decode_range(pk, p0, n, sb);
-        __syncthreads();
-        return sb + lead;
-    }
-
-    // found[r] = need[r] and a[r] occurs in the decoded positions
-    // [rlo, rhi): each chunk's blocks are decoded, then searched.
-    __device__ __forceinline__ void probe(
-        int64_t rlo, int64_t rhi, int* sb, const int (&a)[ITEMS],
-        const bool (&need)[ITEMS], bool (&found)[ITEMS]) const
-    {
-#pragma unroll
-        for (int r = 0; r < ITEMS; ++r) found[r] = false;
-        for (int64_t c0 = rlo; c0 < rhi; c0 += CHUNK) {
-            const int len = (int)((rhi - c0) < CHUNK ? (rhi - c0) : CHUNK);
-            __syncthreads();  // the previous chunk is no longer read
-            const int lead = decode_range(pk, c0, len, sb);
-            __syncthreads();
-            search_staged(sb + lead, len, a, need, found);
         }
     }
 };

@@ -28,8 +28,9 @@
 // per 1024-slot tile, main then delta range staged 2048 postings at a
 // time, each chunk a round trip behind two barriers) ran 16-18x its bound.
 //
-// Design: K1's (probe_async.cuh).  A block owns JOIN_SUB = 256 slots of
-// a driver tile; each term is two streams, its main range and its delta
+// Design: K1's (probe_async.cuh; the block body, slave_join.cuh, is K7's
+// too, with the plan arrays as its DensePlan).  A block owns JOIN_SUB =
+// 256 slots of a driver tile; each term is two streams, its main range and its delta
 // range (one, the main, in the static mode), staged by bulk copies that
 // the producer warp issues with the plan, two rounds in flight, while the
 // consumers read the driver.  A slot is searched in a stream only where
@@ -43,85 +44,7 @@
 // and decoded, one warp a block.  The driver is K3p's output and stays
 // raw.  Its entry point takes both twins' words and descriptors and no raw
 // posting pointer.
-#include "probe_async.cuh"
-
-#define DOC_DEAD 1
-#define DOC_SUPERSEDED 2
-
-template <bool PACKED>
-__device__ __forceinline__ void streamed_join_body(
-    const int* __restrict__ postings,     // [P] (raw)
-    const int* __restrict__ d_postings,   // [D] (raw)
-    const Packed& pk, const Packed& dpk,  // (packed)
-    const int* __restrict__ a_docs,       // [Q, window]
-    const int* __restrict__ a_attrs,      // [Q, window]
-    const int* __restrict__ a_live,       // [Q, window]
-    const int* __restrict__ a_flags,      // [Q, window]
-    const int* __restrict__ active,       // [Q, T]
-    const int* __restrict__ attr_filter,  // [Q]
-    const int* __restrict__ b_tile,       // [Q, T, A]
-    const int* __restrict__ n_b,          // [Q, T, A]
-    const int* __restrict__ bounds,       // [Q, T, 2]
-    const int* __restrict__ d_tile,       // [Q, T, A]
-    const int* __restrict__ n_d,          // [Q, T, A]
-    const int* __restrict__ d_bounds,     // [Q, T, 2]
-    int* __restrict__ out_mask,           // [Q, window]
-    int t_slots, int num_a, int window, int has_delta)
-{
-    constexpr int NSUB = TILE / JOIN_SUB;
-    extern __shared__ __align__(128) unsigned char smem[];
-    const int spt = has_delta ? 2 : 1;
-    const int i = blockIdx.x / NSUB;                          // driver tile
-    const int t0 = i * TILE + (blockIdx.x % NSUB) * JOIN_SUB; // first slot
-    const int q = blockIdx.y;
-    const Sources src{{postings, d_postings}, {pk, dpk}};
-    const int filt = attr_filter[q];
-    const int w = t0 + threadIdx.x;
-    const bool in_win = threadIdx.x < JOIN_SUB && w < window;
-    const long long o = (long long)q * window + w;
-    const int x = in_win ? a_docs[o] : INVALID_DOC;
-    const int at = in_win ? a_attrs[o] : INVALID_ATTR;
-    const int lv = in_win ? a_live[o] : 0;
-    const int fl = in_win && has_delta ? a_flags[o] : 0;
-    bool keep = x != INVALID_DOC && (filt < 0 || at == filt) && lv != 0;
-    // bit 0: the main stream counts, bit 1: the delta
-    const unsigned ok = ((fl & (DOC_DEAD | DOC_SUPERSEDED)) == 0 ? 1u : 0u) |
-                        ((fl & DOC_DEAD) == 0 ? 2u : 0u);
-
-    // the plans of every term: stream t * spt the main range, + 1 the delta
-    Cursor c;
-    probe_begin<PACKED>(smem, src, t_slots * spt, spt, [&](StreamRange* st, int lane) {
-        for (int t = lane; t < t_slots; t += 32) {
-            // every load at once: the plan rows do not wait for active
-            const long long qt = (long long)q * t_slots + t;
-            const long long qti = qt * num_a + i;
-            const int act = active[qt] != 0;
-            const int bt = b_tile[qti], nb = n_b[qti];
-            const int lo = bounds[2 * qt], hi = bounds[2 * qt + 1];
-            int dt = 0, nd = 0, dlo = 0, dhi = 0;
-            if (has_delta) {
-                dt = d_tile[qti];
-                nd = n_d[qti];
-                dlo = d_bounds[2 * qt];
-                dhi = d_bounds[2 * qt + 1];
-            }
-            // (not under `if (act)`: the loads would wait for active)
-            long long rlo, rhi;
-            plan_range(bt, nb, lo, hi, rlo, rhi);
-            if (!act) rlo = rhi = 0;
-            stream_set(st[t * spt], rlo, rhi, act);
-            if (has_delta) {
-                plan_range(dt, nd, dlo, dhi, rlo, rhi);
-                if (!act) rlo = rhi = 0;
-                stream_set(st[t * spt + 1], rlo, rhi, act);
-            }
-        }
-    }, c);
-
-    probe_streams<PACKED>(smem, src, t_slots * spt, spt, x, ok, keep, c);
-
-    if (in_win) out_mask[o] = keep ? 1 : 0;
-}
+#include "slave_join.cuh"
 
 __global__ void __launch_bounds__(JOIN_SUB + 32) streamed_join_kernel(
     const int* __restrict__ a_docs, const int* __restrict__ a_attrs,
@@ -136,10 +59,11 @@ __global__ void __launch_bounds__(JOIN_SUB + 32) streamed_join_kernel(
     int t_slots, int num_a, int window, int has_delta)
 {
     const Packed none{nullptr, nullptr, nullptr, nullptr, 0};
-    streamed_join_body<false>(
-        postings, d_postings, none, none, a_docs, a_attrs, a_live, a_flags,
-        active, attr_filter, b_tile, n_b, bounds, d_tile, n_d, d_bounds,
-        out_mask, t_slots, num_a, window, has_delta);
+    const DensePlan plan{active, b_tile, n_b, bounds, d_tile, n_d, d_bounds,
+                         t_slots, num_a, has_delta};
+    streamed_join_body<false>(plan, postings, d_postings, none, none, a_docs, a_attrs,
+                              a_live, a_flags, attr_filter, out_mask, t_slots, window,
+                              has_delta);
 }
 
 __global__ void __launch_bounds__(JOIN_SUB + 32) streamed_join_packed_kernel(
@@ -161,10 +85,11 @@ __global__ void __launch_bounds__(JOIN_SUB + 32) streamed_join_packed_kernel(
 {
     const Packed m{words, blk_base, blk_meta, blk_woff, n_blocks};
     const Packed d{d_words, d_base, d_meta, d_woff, d_n_blocks};
-    streamed_join_body<true>(
-        nullptr, nullptr, m, d, a_docs, a_attrs, a_live, a_flags, active,
-        attr_filter, b_tile, n_b, bounds, d_tile, n_d, d_bounds, out_mask,
-        t_slots, num_a, window, has_delta);
+    const DensePlan plan{active, b_tile, n_b, bounds, d_tile, n_d, d_bounds,
+                         t_slots, num_a, has_delta};
+    streamed_join_body<true>(plan, nullptr, nullptr, m, d, a_docs, a_attrs, a_live,
+                             a_flags, attr_filter, out_mask, t_slots, window,
+                             has_delta);
 }
 
 extern "C" int streamed_join_launch(
@@ -180,7 +105,7 @@ extern "C" int streamed_join_launch(
     const int smem = probe_layout(t_slots * (has_delta ? 2 : 1), false).total;
     const cudaError_t err = allow_smem(streamed_join_kernel, smem, allowed);
     if (err != cudaSuccess) return (int)err;
-    dim3 grid(num_a * (TILE / JOIN_SUB), q_n);
+    dim3 grid(num_a * NSUB, q_n);
     streamed_join_kernel<<<grid, JOIN_SUB + 32, smem, (cudaStream_t)stream>>>(
         (const int*)a_docs, (const int*)a_attrs, (const int*)a_live,
         (const int*)a_flags, (const int*)active, (const int*)attr_filter,
@@ -207,7 +132,7 @@ extern "C" int streamed_join_packed_launch(
     const int smem = probe_layout(t_slots * (has_delta ? 2 : 1), true).total;
     const cudaError_t err = allow_smem(streamed_join_packed_kernel, smem, allowed);
     if (err != cudaSuccess) return (int)err;
-    dim3 grid(num_a * (TILE / JOIN_SUB), q_n);
+    dim3 grid(num_a * NSUB, q_n);
     streamed_join_packed_kernel<<<grid, JOIN_SUB + 32, smem, (cudaStream_t)stream>>>(
         (const int*)a_docs, (const int*)a_attrs, (const int*)a_live,
         (const int*)a_flags, (const int*)active, (const int*)attr_filter,

@@ -41,10 +41,12 @@ K6 and K7 are their work-list twins (the reference's
 ``_streamed_compact_call``, at line 1500), K6p and K7p their packed
 modes: the plan is pulled to the host in one copy, compiled into a
 descriptor table of live work items (:mod:`repro_torch.kernels.worklist`)
-and uploaded in one copy, and one thread block walks each (query, driver
-tile) group of the table.  Inert queries (``live_q`` false) have no group
-and come back as ``(INVALID_DOC, 0)`` (K6) or 0 (K7); an all-inert batch
-launches nothing.  Their plain versions execute the same table.
+and uploaded in one copy, and each (query, driver tile) group of the table
+runs K1's (K4's) block body over its driver tile, its streams derived from
+the group's rows on the card (:func:`table_streams` states that
+derivation).  Inert queries (``live_q`` false) have no group and come back
+as ``(INVALID_DOC, 0)`` (K6) or 0 (K7); an all-inert batch launches
+nothing.  Their plain versions execute the same table.
 
 K4 and K7 also run without the delta arrays (their static mode, as the
 reference's ``has_delta = d_postings is not None``): a driver slot then
@@ -70,11 +72,12 @@ wrapper of its CUDA source (:func:`driver_streamed_join_cuda` and
 :func:`streamed_join_cuda` and :func:`streamed_join_packed_cuda` of
 ``csrc/streamed_join.cu``, and so on for K6, K7, K9 and K10).  The
 dispatchers pick by the device of the tensors they are given; there is no
-fallback.  K1 and K4 stage their probe ranges with bulk copies of whole
-16-byte chunks, each range's ends rounded out to them: the wrappers refuse
-an array that does not start on 16 bytes or hold whole chunks, and
-:func:`probe_staging_check` checks that a plan's ranges start on 16 bytes
-and end, rounded, inside their arrays.
+fallback.  K1, K4, K6 and K7 (and their packed and static modes) stage
+their probe ranges with bulk copies of whole 16-byte chunks, each range's
+ends rounded out to them: the wrappers refuse an array that does not start
+on 16 bytes or hold whole chunks, and :func:`probe_staging_check` checks
+that a plan's ranges (:func:`ranges_staging_check`: a work list's streams)
+start on 16 bytes and end, rounded, inside their arrays.
 """
 from __future__ import annotations
 
@@ -661,7 +664,19 @@ def probe_staging_check(b_tile, n_b, bounds, *, n_postings: int | None = None,
     bt = b_tile.long() * TILE
     rlo = torch.maximum(bt, lo)
     rhi = torch.minimum(bt + n_b.long() * TILE, hi)
-    live = (n_b > 0) & (rhi > rlo)
+    live = n_b > 0
+    return ranges_staging_check(rlo[live], rhi[live], n_postings=n_postings,
+                                packed=packed)
+
+
+def ranges_staging_check(rlo, rhi, *, n_postings: int | None = None,
+                         packed: PackedFlatArrays | None = None) -> int:
+    """:func:`probe_staging_check` of the ranges ``[rlo, rhi)`` themselves
+    (any shape; empty ones are skipped): those of a plan, or the streams of
+    a work list (:func:`table_streams`).  Returns the number of non-empty
+    ranges checked; raises ``ValueError`` on the first that fails."""
+    rlo, rhi = rlo.long().reshape(-1), rhi.long().reshape(-1)
+    live = rhi > rlo
     rlo, rhi = rlo[live], rhi[live]
     bad = rlo % 4 != 0
     if n_postings is not None:
@@ -763,6 +778,55 @@ def _group_driver_tiles(gq, gi, *rows):
                  for x, fill in rows)
 
 
+def table_streams(desc, heads, bounds, d_bounds=None):
+    """The stream table that the producer warp of K6 and K7 derives from a
+    work list (``TablePlan`` in ``csrc/slave_join.cuh``), per group ``g``
+    and stream ``j = t * spt + kind``: ``spt`` is 2 with ``d_bounds`` (kind
+    1: the delta tiles of column 5), else 1 (kind 0: the main tiles of
+    column 3).  ``act`` is 1 where a row of slot ``t`` carries
+    ``FLAG_TERM_START``; ``[lo, hi)`` is the planned range of the kind's
+    least tile and its number of tiles, clipped to the term's bounds, or
+    ``(0, 0)`` where the slot is not active or has no tile of the kind.
+    That range is the union of the tiles, clipped, only when they are
+    consecutive: a (group, slot, kind) whose tiles are not raises
+    ``ValueError``.  Returns ``(lo, hi, act)``, int64 ``[G, T * spt]``."""
+    items, group, gq, _ = table_items(desc, heads)
+    n_groups, t_n = gq.shape[0], bounds.shape[1]
+    n_cells = n_groups * t_n
+    dev = desc.device
+    cell = group * t_n + items[:, 2]
+    act = torch.zeros(n_cells, dtype=torch.int64, device=dev)
+    act[cell[(items[:, 4] & FLAG_TERM_START) != 0]] = 1
+    cell_q = gq.repeat_interleave(t_n)
+    cell_t = torch.arange(t_n, device=dev).repeat(n_groups)
+    kinds = [(3, bounds)] + ([] if d_bounds is None else [(5, d_bounds)])
+    lo = torch.zeros((n_cells, len(kinds)), dtype=torch.int64, device=dev)
+    hi = torch.zeros_like(lo)
+    for kind, (col, bnd) in enumerate(kinds):
+        has = items[:, col] >= 0
+        c, tile = cell[has], items[has, col]
+        n = torch.bincount(c, minlength=n_cells)
+        first = torch.full((n_cells,), 2**40, dtype=torch.int64, device=dev)
+        first = first.scatter_reduce(0, c, tile, "amin")
+        last = torch.full_like(first, -1).scatter_reduce(0, c, tile, "amax")
+        distinct = torch.bincount(torch.unique(c * 2**32 + tile) // 2**32,
+                                  minlength=n_cells)
+        bad = (n > 0) & ((last - first + 1 != n) | (distinct != n))
+        if bool(bad.any()):
+            k = int(torch.nonzero(bad)[0, 0])
+            raise ValueError(f"group {k // t_n} slot {k % t_n}: its "
+                             f"{('main', 'delta')[kind]} tiles are not consecutive")
+        b = bnd[cell_q, cell_t].long()
+        rlo = torch.maximum(first * TILE, b[:, 0])
+        rhi = torch.maximum(torch.minimum((first + n) * TILE, b[:, 1]), rlo)
+        on = (act > 0) & (n > 0)
+        lo[:, kind] = torch.where(on, rlo, 0)
+        hi[:, kind] = torch.where(on, rhi, 0)
+    shape = (n_groups, t_n * len(kinds))
+    return (lo.view(shape), hi.view(shape),
+            act.repeat_interleave(len(kinds)).view(shape))
+
+
 def driver_compact_join_torch(desc, heads, d_off, d_neff, attr_filter, postings,
                               attrs, bounds, *, window: int):
     """Plain PyTorch version of K6, executing the descriptor table: per
@@ -793,9 +857,9 @@ def driver_compact_join_torch(desc, heads, d_off, d_neff, attr_filter, postings,
 
 def driver_compact_join_cuda(desc, heads, d_off, d_neff, attr_filter, postings,
                              attrs, bounds, *, window: int):
-    """Launch ``csrc/driver_compact.cu`` (K6: one block per (query, driver
-    tile) group of the table) on the current stream.  Same signature and
-    result as :func:`driver_compact_join_torch`."""
+    """Launch ``csrc/driver_compact.cu`` (K6: one block per 256 driver
+    slots of each (query, driver tile) group of the table) on the current
+    stream.  Same signature and result as :func:`driver_compact_join_torch`."""
     from repro_torch.kernels import _build
 
     q_n, t_n = bounds.shape[:2]
@@ -805,6 +869,7 @@ def driver_compact_join_cuda(desc, heads, d_off, d_neff, attr_filter, postings,
         d_off=(d_off, (q_n,)), d_neff=(d_neff, (q_n,)),
         attr_filter=(attr_filter, (q_n,)), postings=(postings, None),
         attrs=(attrs, postings.shape), bounds=(bounds, (q_n, t_n, 2)))
+    _build.check_aligned(postings=postings)
     launch = _build.kernel("driver_compact")
     docs, mask = output_rows(q_n, window, n_groups == q_n * -(-window // TILE),
                                   (_INVALID, 0), postings.device)
@@ -852,6 +917,7 @@ def driver_compact_join_packed_cuda(desc, heads, d_off, d_neff, attr_filter,
         d_off=(d_off, (q_n,)), d_neff=(d_neff, (q_n,)),
         attr_filter=(attr_filter, (q_n,)), **_build.packed_args(packed),
         attrs=(attrs, (packed.n_blocks * BLOCK,)), bounds=(bounds, (q_n, t_n, 2)))
+    _build.check_aligned(words=packed.words)
     launch = _build.kernel("driver_compact_packed")
     docs, mask = output_rows(q_n, window, n_groups == q_n * -(-window // TILE),
                                   (_INVALID, 0), attrs.device)
@@ -975,9 +1041,10 @@ def streamed_compact_join_torch(desc, heads, a_docs, a_attrs, a_live, a_flags,
 def streamed_compact_join_cuda(desc, heads, a_docs, a_attrs, a_live, a_flags,
                                attr_filter, postings, bounds, d_postings,
                                d_bounds):
-    """Launch ``csrc/streamed_compact.cu`` (K7: one block per (query, driver
-    tile) group of the table) on the current stream.  Same signature and
-    result as :func:`streamed_compact_join_torch`."""
+    """Launch ``csrc/streamed_compact.cu`` (K7: one block per 256 driver
+    slots of each (query, driver tile) group of the table) on the current
+    stream.  Same signature and result as
+    :func:`streamed_compact_join_torch`."""
     from repro_torch.kernels import _build
 
     q_n, window = a_docs.shape
@@ -992,6 +1059,7 @@ def streamed_compact_join_cuda(desc, heads, a_docs, a_attrs, a_live, a_flags,
         a_docs=(a_docs, drv), a_attrs=(a_attrs, drv), a_live=(a_live, drv),
         attr_filter=(attr_filter, (q_n,)), postings=(postings, None),
         bounds=(bounds, span), **delta)
+    _build.check_aligned(postings=postings, d_postings=d_postings)
     launch = _build.kernel("streamed_compact")
     (mask,) = output_rows(q_n, window, n_groups == q_n * -(-window // TILE),
                                (0,), a_docs.device)
@@ -1049,6 +1117,8 @@ def streamed_compact_join_packed_cuda(desc, heads, a_docs, a_attrs, a_live,
         a_docs=(a_docs, drv), a_attrs=(a_attrs, drv), a_live=(a_live, drv),
         attr_filter=(attr_filter, (q_n,)), **_build.packed_args(packed),
         bounds=(bounds, span), **delta)
+    _build.check_aligned(words=packed.words,
+                         d_words=d_packed.words if has_delta else None)
     launch = _build.kernel("streamed_compact_packed")
     (mask,) = output_rows(q_n, window, n_groups == q_n * -(-window // TILE),
                                (0,), a_docs.device)
