@@ -12,7 +12,8 @@ Phases (any failure exits non-zero; nothing is caught):
              K4p, K6p, K7p, K8p) from
              ``src/repro_torch/kernels/csrc`` (one process per source, all
              at once) and prints ptxas' registers / shared memory / spills
-             (K2, K3 and K3p on a line of their own); a spill fails;
+             (K2, K3, K3p, K8, K8p and K9 on a line of their own); a spill
+             fails;
 3. data    — the deployment: a 4M-page corpus from a seed (100k terms,
              mean 64 terms a page, 10k sites), site terms on, striped over
              4 slaves stacked on the card;
@@ -111,7 +112,14 @@ Phases (any failure exits non-zero; nothing is caught):
              index and at fill 1.0, raw and packed (raw postings zeroed),
              equal to ``backend="kernel"`` and ``"torch"`` with K6 (K6p) = 4
              and K8 = K7 = 4 (K8p, K7p) launches per batch and no dense
-             join; the 3000-page corpus against brute force before and after
+             join; K8/K8p at phase 8's chunk edges (``merge_edge_inputs``,
+             windows 4096, 1000, 256, 65536, caps 256 and 384, and 65536 at
+             cap 16384) through a work list under live_q all / one /
+             alternate, bit-exact against their plain versions and K3/K3p,
+             and the form K8p launched, from the profiler's trace: its chunk
+             kernel wherever ``chunk_fits`` (and at the main path's shapes,
+             K8's too), its row kernel elsewhere; the 3000-page corpus
+             against brute force before and after
              ``compact(verify=True)``; K6–K8p times beside bounds and plain
              versions; for K6, K6p, K7, K7p the staging from the table's
              streams, the first design's (one block a group, one
@@ -126,7 +134,12 @@ Phases (any failure exits non-zero; nothing is caught):
              every slave (main-path shapes with the filter on and off,
              windows 1000 and 1536, empty drivers and inactive slots,
              other-term windows narrower and wider than the driver's, and at
-             fill 1.0 with ``a_live``); K10 on the reference kernel tests'
+             fill 1.0 with ``a_live``; other-term windows of 65536 whose skip
+             ranges pass one round of the probe's buffer, a first term that
+             kills every slot, ``a_live`` null against all ones); K9's skip
+             ranges at the main path's shapes against the staging
+             precondition (``skip_streams``) and its grid from the
+             profiler's trace (512 blocks); K10 on the reference kernel tests'
              shapes, ``bench_kernels.py``'s and the two hottest lists of
              slave 0 whole; K11 (int32, float32) from 2 to 2**20 keys (the
              tile's edges, 2**18 + 1), sorted, reversed, one-value and
@@ -195,6 +208,7 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -221,15 +235,16 @@ KERNEL_NAMES = {"K1": "driver_streamed_kernel",
                 "K4p": "streamed_join_packed_kernel",
                 "K6": "driver_compact_kernel", "K6p": "driver_compact_packed_kernel",
                 "K7": "streamed_compact_kernel", "K7p": "streamed_compact_packed_kernel",
-                "K8": "merge_compact_kernel", "K8p": "merge_compact_packed_kernel",
-                "K9": "batched_block_skip_kernel", "K10": "intersect_block_skip_kernel",
+                "K8": "merge_compact_kernel",
+                "K8p": ("merge_compact_packed_kernel", "merge_compact_packed_row_kernel"),
+                "K9": "staged_join_kernel", "K10": "intersect_block_skip_kernel",
                 "K11": ("flat_sort_tile", "flat_sort_merge"),
                 "K12": ("flash_attention_kernel", "flash_attention_wgmma_kernel")}
 
 
 def kernel_names(key: str) -> tuple:
-    """The ``__global__`` names of kernel ``key`` (K2, K3p, K11 and K12 have
-    two)."""
+    """The ``__global__`` names of kernel ``key`` (K2, K3p, K8p, K11 and K12
+    have two)."""
     names = KERNEL_NAMES[key]
     return (names,) if isinstance(names, str) else names
 
@@ -324,6 +339,55 @@ def device_ms(fn, *, reps: int = 20, kernel: str | None = None) -> float:
     log(f"[profiler] not measured: {kernel or 'all'} events in {len(counts)} windows "
         f"of {reps} calls: {counts}")
     return 0.0
+
+
+def kernel_launches(fn, *, calls: int = 3) -> dict:
+    """The device kernels that ``calls`` calls of ``fn()`` launch:
+    ``{name: (launches, grids)}``, the launches from the profiler's device
+    events and ``grids`` the ``(grid, block)`` pairs its trace gives each
+    (an empty set where the trace does not).  A window opens with 64 short
+    spin kernels (left out), as ``device_ms``'s do; a window that holds no
+    event of ``fn`` is taken again, up to four."""
+    fn()
+    torch.cuda.synchronize()
+    counts = {}
+    for _ in range(4):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(64):
+                torch.cuda._sleep(1000)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        counts = {e.key: e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "spin_kernel" not in e.key}
+        if counts:
+            break
+    grids = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        trace = json.loads(path.read_text())
+    events = trace.get("traceEvents", []) if isinstance(trace, dict) else trace
+    for e in events:
+        a = e.get("args", {})
+        if e.get("cat") == "kernel" and "grid" in a:
+            grids.setdefault(e.get("name"), set()).add(
+                (tuple(a["grid"]), tuple(a.get("block", ()))))
+    return {n: (c, grids.get(n, set())) for n, c in counts.items()}
+
+
+def launched_forms(fn, key: str) -> set:
+    """Which of kernel ``key``'s ``__global__`` names ``fn()`` launched (from
+    ``kernel_launches``); raises if it launched none of them."""
+    launched = kernel_launches(fn)
+    names = {n for k in launched for n in kernel_names(key) if n in k}
+    if not names:
+        raise AssertionError(f"{key}: no launch of {kernel_names(key)} among the "
+                             f"device events {sorted(launched)}")
+    return names
 
 
 def union_length(lo: np.ndarray, hi: np.ndarray) -> int:
@@ -727,9 +791,10 @@ def main() -> int:
             f"{fn}: {i}" for fn, i in info.items()))
         spills.update({fn: i for fn, i in info.items()
                        if re.search(r"[1-9]\d* bytes spill", i)})
-    redesigned = {fn: i for name in ("topk_merge_rows", "delta_merge")
+    redesigned = {fn: i for name in ("topk_merge_rows", "delta_merge", "merge_compact",
+                                     "staged_join")
                   for fn, i in ptxas_info(built[name].log).items()}
-    log("[build] K2, K3, K3p (this design): " + " | ".join(
+    log("[build] K2, K3, K3p, K8, K8p, K9 (this design): " + " | ".join(
         f"{fn}: {i}" for fn, i in redesigned.items()))
     if spills:
         raise AssertionError(f"kernels spill registers: {spills}")
@@ -2194,6 +2259,59 @@ def main() -> int:
             f"8's cases: main and edge drivers incl. inert -1 and main-empty lists "
             f"{sorted(p_extra.items())}, filter on/off, windows {MOR_WINDOWS}), every "
             f"live_q pattern; all-inert batches launched nothing")
+    def k8_edges():
+        """K8 and K8p at the chunk edges of ``dm.merge_edge_inputs`` through a
+        work list (windows 4096, 1000, 256 and BIG_WINDOW, caps 256 and 384,
+        and BIG_WINDOW at LARGE_CAP, where K8 merges out of global memory
+        and K8p takes its large-cap form), under every live_q pattern:
+        bit-exact against their plain versions and, on live rows, K3 / K3p.
+        The profiler's trace names the form K8p launched at each shape: its
+        chunk kernel wherever ``chunk_fits``, its row kernel elsewhere."""
+        shapes = [(w, c) for w in (*MOR_WINDOWS, BIG_WINDOW) for c in (TERM_CAPACITY, 384)]
+        shapes.append((BIG_WINDOW, LARGE_CAP))
+        names = ("docs", "attrs", "src")
+        forms, n = {}, 0
+        for window, cap_ in shapes:
+            raw, tw = dm.merge_edge_inputs(window, cap_, seed=args.seed, device=dev)
+            pk = (tw[0],) + raw[1:4] + (tw[1],) + raw[5:]
+            q_n = raw[8].shape[0]
+            dense = {"K8": dm.merge_delta_windows_cuda(*raw, window=window, cap=cap_),
+                     "K8p": dm.merge_delta_windows_packed_cuda(*pk, window=window,
+                                                               cap=cap_)}
+            for pname, live in (("all live", None),
+                                ("one live", np.eye(q_n, dtype=bool)[q_n // 2]),
+                                ("alternate", np.arange(q_n) % 2 == 0)):
+                wl = dm.plan_merge_compact(raw[3], window=window, live_q=live)
+                desc, heads = wlm.table_to_device(wl, dev)
+                for kname, a_, cuda_fn, plain_fn in (
+                    ("K8", raw, dm.merge_compact_cuda, dm.merge_compact_torch),
+                    ("K8p", pk, dm.merge_compact_packed_cuda,
+                     dm.merge_compact_packed_torch)):
+                    got = cuda_fn(desc, heads, *a_, window=window, cap=cap_)
+                    torch.cuda.synchronize()
+                    ctx = f"chunk edges w{window} cap {cap_} {pname}"
+                    same(kname, ctx, got, plain_fn(desc, heads, *a_, window=window,
+                                                   cap=cap_), names)
+                    held(kname, ctx, got, dense[kname], live, (INVALID_DOC, -1, 1),
+                         names)
+                    n += 1
+                if live is None:
+                    got_forms = launched_forms(lambda: dm.merge_compact_packed_cuda(
+                        desc, heads, *pk, window=window, cap=cap_), "K8p")
+                    want = ("merge_compact_packed_kernel"
+                            if dm.chunk_fits(window, cap_, optin, packed=True)
+                            else "merge_compact_packed_row_kernel")
+                    if got_forms != {want}:
+                        raise AssertionError(f"K8p at window {window}, cap {cap_}: "
+                                             f"launched {got_forms}, expected {want}")
+                    forms[(window, cap_)] = want
+        log(f"[compact] K8 and K8p at the chunk edges of merge_edge_inputs through a "
+            f"work list: {n} launches bit-exact vs their plain versions and, on live "
+            f"rows, vs K3 / K3p, at (window, cap) {shapes}, live_q all / one / "
+            f"alternate; K8p's form from the profiler's trace: "
+            + ", ".join(f"{w}/{c} {f}" for (w, c), f in forms.items()))
+
+    k8_edges()
     if min(lockstep.values()) == 0 or (full_size and max(k[0] for k in big7) <= 32):
         raise AssertionError(f"lockstep rows {lockstep}, K7 groups at window "
                              f"{BIG_WINDOW}: {big7}")
@@ -2395,6 +2513,17 @@ def main() -> int:
                  ops8 + 4 * BLOCK * (m8_blk + dd8_blk),
                  f"main {m8_blk} blocks {m8_b} bytes, delta {dd8_blk} blocks {dd8_b} "
                  f"bytes, {read8} attrs")
+
+    main_forms = {
+        key: launched_forms(run, key) for key, run in (
+            ("K8", lambda: dm.merge_compact_cuda(*args8, window=MAIN_WINDOW, cap=cap)),
+            ("K8p", lambda: dm.merge_compact_packed_cuda(*args8p, window=MAIN_WINDOW,
+                                                         cap=cap)))}
+    if main_forms != {"K8": {"merge_compact_kernel"},
+                      "K8p": {"merge_compact_packed_kernel"}}:
+        raise AssertionError(f"K8/K8p at the main path's shapes launched {main_forms}")
+    log(f"[compact] K8/K8p at the main path's shapes (window {MAIN_WINDOW}, cap {cap}) "
+        f"launched {main_forms} (profiler trace): the chunk kernels")
 
     # K7 / K7p at fill 1.0
     a7_docs, _, a7_live, _, a7_active, a7_filter = k4m[:6]
@@ -2633,6 +2762,74 @@ def main() -> int:
         f"(main-path shapes filter on/off, windows 1000 and 1536, empty drivers and "
         f"inactive slots, W_b 3000 < W_a and W_b 4096 > W_a 1000, fill 1.0 with a_live); "
         f"mask sums {sums9[:9]}")
+
+    # three more K9 cases: skip ranges longer than one round of the probe's
+    # buffer, every slot dying at the first term, a_live null against ones
+    raw_cap = probe_caps[1]
+    n_new9, longest9 = 0, 0
+    for s in range(NS):
+        idx = raw_shards[s]
+        a9 = k9_args(idx, big_batch(s), MAIN_WINDOW, b_window=BIG_WINDOW)
+        lo9, hi9, _ = pi.skip_streams(a9[6], a9[7], a9[4], a9[3].shape[-1])
+        longest9 = max(longest9, int((hi9 - lo9).max()))
+        k9_check(f"shard {s} W_b {BIG_WINDOW}, big_batch drivers", a9)
+        docs, attrs, live, others, active = _query_windows(
+            make_posting_source(idx, p_views[1.0][s]), main_batch, window=MAIN_WINDOW,
+            attr_strategy="embed")
+        # term slot 0 holds each driver's docIDs + 1 that are not its docIDs:
+        # its skip ranges are not empty, and no slot is found in them
+        d_h = docs.cpu().numpy()
+        first = np.full(others.shape[::2], INVALID_DOC, np.int32)
+        for q in range(d_h.shape[0]):
+            v = d_h[q][d_h[q] != INVALID_DOC].astype(np.int64)
+            miss = np.setdiff1d(v + 1, v)[:others.shape[-1]]
+            first[q, :miss.size] = miss
+        dead = others.clone()
+        dead[:, 0] = torch.from_numpy(first).to(dev)
+        act0 = active.clone()
+        act0[:, 0] = 1
+        a9d = pi.batched_block_skip_args(docs, attrs, dead, act0, main_batch.attr_filter,
+                                         live)
+        if int(a9d[7][:, 0].sum()) == 0:
+            raise AssertionError("the first-term case's skip ranges are all empty")
+        if k9_check(f"shard {s} every slot dies at the first term", a9d) != 0:
+            raise AssertionError(f"shard {s}: a slot survived a first term that "
+                                 "holds none of its docIDs")
+        a9n = pi.batched_block_skip_args(docs, attrs, others, active,
+                                         main_batch.attr_filter, None)
+        k9_check(f"shard {s} a_live null", a9n)
+        k9_check(f"shard {s} a_live all ones",
+                 a9n[:2] + (torch.ones_like(a9n[0]),) + a9n[3:])
+        got_null = pi.batched_block_skip_join_cuda(*a9n)
+        got_ones = pi.batched_block_skip_join_cuda(
+            *(a9n[:2] + (torch.ones_like(a9n[0]),) + a9n[3:]))
+        torch.cuda.synchronize()
+        same("K9", f"shard {s} a_live null vs all ones", (got_null,), (got_ones,),
+             ("mask",))
+        n_new9 += 4
+    if full_size and longest9 <= raw_cap:
+        raise AssertionError(f"K9 at W_b {BIG_WINDOW}: the longest skip range holds "
+                             f"{longest9} postings, not past one round ({raw_cap})")
+    log(f"[staged] K9 bit-exact vs its plain version in {n_new9} more cases: W_b "
+        f"{BIG_WINDOW} with big_batch drivers (longest skip range {longest9} postings, "
+        f"one round holds {raw_cap}), every slot dead at the first term (non-empty "
+        f"ranges, no docID found; mask 0), a_live null equal to all ones")
+    a9m = k9_args(raw_shards[0], main_batch, MAIN_WINDOW)
+    lo9, hi9, act9 = pi.skip_streams(a9m[6], a9m[7], a9m[4], a9m[3].shape[-1])
+    n_ranges9 = pi.ranges_staging_check(lo9, hi9, n_postings=a9m[3].numel())
+    k9_launched = {k: v for k, v in kernel_launches(
+        lambda: pi.batched_block_skip_join_cuda(*a9m)).items() if "staged_join_kernel" in k}
+    want_grid = (4 * (a9m[0].shape[1] // TILE), MAIN_Q, 1)
+    if not k9_launched:
+        raise AssertionError("K9: no staged_join_kernel among the device events")
+    grids9 = set().union(*(g for _, g in k9_launched.values()))
+    if any(g != want_grid for g, _ in grids9):
+        raise AssertionError(f"K9's grids {grids9}, expected {want_grid}")
+    log(f"[staged] K9 at the main path's shapes: {n_ranges9} non-empty skip ranges "
+        f"stage (16-byte starts, inside b_docs; skip_streams), the longest "
+        f"{int((hi9 - lo9).max())} postings; the profiler shows staged_join_kernel "
+        + (", ".join(f"grid {g} ({math.prod(g)} blocks), block {b}" for g, b in grids9)
+           if grids9 else "(grid not in the trace: blocks not measured)"))
 
     rng13 = np.random.default_rng(args.seed + 13)
 
@@ -2888,7 +3085,7 @@ def main() -> int:
         return results, counts, n_diff
 
     st_static, st_counts, _ = staged_path("static", None)
-    st_mor, _, st_ndiff = staged_path("fill 1.0", p_views[1.0])
+    st_mor, st_mor_counts, st_ndiff = staged_path("fill 1.0", p_views[1.0])
     for label, dl_raw, dl_blind, want in (("static", None, None, st_static[0]),
                                           ("fill 1.0", p_views[1.0], blind_deltas,
                                            st_mor[0])):
@@ -2936,7 +3133,7 @@ def main() -> int:
         time_row(f"K9 {label}", lambda a9=a9: pi.batched_block_skip_join_cuda(*a9),
                  lambda a9=a9: pi.batched_block_skip_join_torch(*a9), n_bytes, n_ops,
                  f"Q={MAIN_Q}, T={MAIN_T}, W={MAIN_WINDOW}, shard 0, {probed} "
-                 f"postings in skip ranges")
+                 f"postings in skip ranges", kernel="K9")
 
     def k10_cost(a10):
         a, aa, b, filt, b_start, n_b = a10
@@ -2954,7 +3151,7 @@ def main() -> int:
                  lambda a10=a10: pi.block_skip_join_torch(*a10), n_bytes, n_ops,
                  f"{a_.numel()} x {b_.numel()}, {probed} postings in skip ranges",
                  lib=lambda a_=a_, b_=b_: torch.isin(a_, b_),
-                 lib_name="torch.isin (membership alone)")
+                 lib_name="torch.isin (membership alone)", kernel="K10")
 
     for label, x in (("int32 n=4096 (bench)", x4k),
                      ("int32 n=2**20", torch.from_numpy(rng13.integers(
@@ -3712,8 +3909,10 @@ def main() -> int:
         # launches of one 2**20 sort, from the profiler's device events
         ("K11 int32 n=2**20", "K11 bitonic_sort (2**20 keys)", "flat_sort.cu",
          "topk_merge.py:79", sum(k11_events.values())),
-        ("K9 static", "K9 intersect_batched_block_skip", "block_skip.cu",
+        ("K9 static", "K9 intersect_batched_block_skip", "staged_join.cu",
          "posting_intersect.py:533", st_counts["K9"]),
+        ("K9 fill 1.0", "K9 intersect_batched_block_skip (fill 1.0, a_live)",
+         "staged_join.cu", "posting_intersect.py:533", st_mor_counts["K9"]),
         ("K10 bench 4096 x 8192", "K10 intersect_block_skip", "block_skip.cu",
          "posting_intersect.py:396", ops_counts["K10"]),
         ("K11 int32 n=4096 (bench)", "K11 bitonic_sort", "flat_sort.cu",

@@ -3,7 +3,7 @@
 Each ``csrc/<source>.cu`` compiles, on its own, into a shared library with
 plain C entry points (no PyTorch headers, so a build takes seconds) under
 ``build/kernels/`` at the repository root; a source may hold several
-kernels (a kernel and its packed mode, K9 and K10, the two dtypes of K11
+kernels (a kernel and its packed mode or its forms, the two dtypes of K11
 and of K12), each with its own entry point.  The file name carries a hash
 of the source, of every header it includes from ``csrc/`` (``#include
 "name"``) and of the flags, so an edited source or header is rebuilt and a
@@ -83,12 +83,15 @@ KERNELS = {
         (_P,) * 18 + (_I,) * 6 + (_P,)),
     "merge_compact": Kernel(
         "merge_compact", "merge_compact_launch",
-        (_P,) * 14 + (_I,) * 4 + (_P,)),
+        (_P,) * 14 + (_I,) * 5 + (_P,)),
     "merge_compact_packed": Kernel(
         "merge_compact", "merge_compact_packed_launch",
+        (_P,) * 20 + (_I,) * 6 + (_P,)),
+    "merge_compact_packed_row": Kernel(
+        "merge_compact", "merge_compact_packed_row_launch",
         (_P,) * 21 + (_I,) * 8 + (_P,)),
     "batched_block_skip": Kernel(
-        "block_skip", "batched_block_skip_launch",
+        "staged_join", "batched_block_skip_launch",
         (_P,) * 9 + (_I,) * 4 + (_P,)),
     "block_skip": Kernel(
         "block_skip", "block_skip_launch", (_P,) * 7 + (_I,) * 2 + (_P,)),

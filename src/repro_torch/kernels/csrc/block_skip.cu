@@ -1,38 +1,31 @@
-// K9 and K10: the joins over staged (materialized) windows, with block
-// skipping.
+// K10: the join of one list against another, with block skipping, over
+// the synchronous probe (probe.cuh); the last kernel on it.  (K9, its
+// batched twin, runs K4's body on the asynchronous probe: staged_join.cu.)
 //
-// Replace the TPU kernels repro/kernels/posting_intersect.py:
-// intersect_batched_block_skip (K9, pallas_call at line 533, body
-// _intersect_batched_kernel at line 409) and intersect_block_skip (K10,
-// pallas_call at line 396, body _intersect_kernel at line 92).  Python side
-// and semantics: repro_torch/kernels/posting_intersect.py
-// (batched_block_skip_join_cuda and block_skip_join_cuda, and the plain
-// versions they are held against).
+// Replaces the TPU kernel repro/kernels/posting_intersect.py:
+// intersect_block_skip (pallas_call at line 396, body _intersect_kernel at
+// line 92).  Python side and semantics:
+// repro_torch/kernels/posting_intersect.py (block_skip_join_cuda, and the
+// plain version it is held against).
 //
-// What they compute: for each slot of a TILE-padded driver window a_docs
-// (K9: [Q, W_a]; K10: one list) that is valid, live (K9's optional a_live)
-// and passes the attribute predicate (attr_filter >= 0), and each active
-// slot t of the other-term windows b_docs (K9: [Q, T, W_b], each row
-// ascending and INVALID-padded; K10: one list, one slot), the slot is a
-// member when its docID occurs in b's positions [b_start*TILE,
-// (b_start+n_b)*TILE) of its driver tile's skip map (compute_skip_map,
-// computed on the card before the launch; n_b is 0 for inactive slots).
-// The mask is 1 where every active slot holds.
+// What it computes: for each slot of a TILE-padded list a_docs that is
+// valid and passes the attribute predicate (attr_filter >= 0), the slot is
+// a member when its docID occurs in the ascending, INVALID-padded list
+// b_docs at positions [b_start*TILE, (b_start+n_b)*TILE) of its tile's
+// skip map (compute_skip_map, computed on the card before the launch).
 //
 // What bounds it on the H100: bytes and latency.  Each block reads one
-// 1024-slot driver tile (docIDs, attrs, live: 12 KB) and, per active slot,
-// the B tiles of its skip range (for sorted windows about one or two tiles
-// of 4 KB); the work per byte is one binary search of about ten steps.
+// 1024-slot tile of a (docIDs, attrs: 8 KB) and the B tiles of its skip
+// range (for sorted lists about one or two tiles of 4 KB); the work per
+// byte is one binary search of about ten steps.
 //
-// Design: K1's block structure and probe (probe.cuh): one block of 256
-// threads per (driver tile, query), four driver slots a thread in
-// registers; per active slot the skip range, a contiguous sorted piece of
-// one window row, is staged through shared memory in chunks and each
-// thread binary-searches its live slots in it; the slots are folded in
-// registers and the fused predicate applied once.  K10 is the same device
-// function for one query and one slot.  The TPU kernel's eight (8,128,128)
-// broadcast compares (_tile_member) and its sequential (Q, A, T, S) grid
-// are not carried over.
+// Design: one block of 256 threads per tile of a, four slots a thread in
+// registers; the skip range, a contiguous sorted piece of b, is staged
+// through shared memory in chunks and each thread binary-searches its live
+// slots in it (block_skip_tile, written for any number of queries and
+// slots, with a live stream, as K9's first design used it).  The TPU
+// kernel's eight (8,128,128) broadcast compares (_tile_member) are not
+// carried over.
 #include "probe.cuh"
 
 // Driver tile i of query q.  a_live and active may be null: all live, all
@@ -88,18 +81,6 @@ __device__ __forceinline__ void block_skip_tile(
         out_mask[row + i * TILE + r * THREADS + threadIdx.x] = keep[r] ? 1 : 0;
 }
 
-__global__ void __launch_bounds__(THREADS) batched_block_skip_kernel(
-    const int* __restrict__ a_docs, const int* __restrict__ a_attrs,
-    const int* __restrict__ a_live, const int* __restrict__ b_docs,
-    const int* __restrict__ active, const int* __restrict__ attr_filter,
-    const int* __restrict__ b_start, const int* __restrict__ n_b,
-    int* __restrict__ out_mask, int t_slots, int num_a, int w_b)
-{
-    const int q = blockIdx.y;
-    block_skip_tile(a_docs, a_attrs, a_live, b_docs, active, attr_filter[q],
-                    b_start, n_b, out_mask, q, blockIdx.x, t_slots, num_a, w_b);
-}
-
 __global__ void __launch_bounds__(THREADS) intersect_block_skip_kernel(
     const int* __restrict__ a_docs, const int* __restrict__ a_attrs,
     const int* __restrict__ b_docs, const int* __restrict__ attr_filter,
@@ -108,21 +89,6 @@ __global__ void __launch_bounds__(THREADS) intersect_block_skip_kernel(
 {
     block_skip_tile(a_docs, a_attrs, nullptr, b_docs, nullptr, attr_filter[0],
                     b_start, n_b, out_mask, 0, blockIdx.x, 1, num_a, w_b);
-}
-
-extern "C" int batched_block_skip_launch(
-    const void* a_docs, const void* a_attrs, const void* a_live,
-    const void* b_docs, const void* active, const void* attr_filter,
-    const void* b_start, const void* n_b, void* out_mask,
-    int q_n, int t_slots, int num_a, int w_b, void* stream)
-{
-    dim3 grid(num_a, q_n);
-    batched_block_skip_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        (const int*)a_docs, (const int*)a_attrs, (const int*)a_live,
-        (const int*)b_docs, (const int*)active, (const int*)attr_filter,
-        (const int*)b_start, (const int*)n_b, (int*)out_mask,
-        t_slots, num_a, w_b);
-    return (int)cudaGetLastError();
 }
 
 extern "C" int block_skip_launch(

@@ -42,6 +42,9 @@
 //   main and 3 delta blocks at cap 256, for any window), one warp a block
 //   (decode.cuh; main blocks on the low warps, delta blocks on the high
 //   ones), stages the ranges' raw attrs beside them, and merges as K3 does.
+// The block bodies are merge_path.cuh's (merge_chunk_body,
+// merge_chunk_packed_body) with DenseMerge, block row y query y; K8/K8p
+// (merge_compact.cu) run the same bodies over the work list.
 // Where a chunk's staged ranges pass the card's opt-in shared memory
 // (chunk_rooms: caps past about 14,000 at window 65536), K3 stages nothing
 // and each thread searches its co-rank in the global streams, the same
@@ -56,7 +59,6 @@
 #define K3_CHUNK 256     // K3's slots a block, one a thread
 #define K3P_CHUNK 256    // K3p's slots a block, one a thread
 #define ROW_THREADS 512  // K3p's large-cap form: threads a query
-#define STAGE_U 2        // staged ints a thread holds in registers a range (ptxas spills K3 at 3)
 
 __global__ void __launch_bounds__(K3_CHUNK) delta_merge_kernel(
     const int* __restrict__ postings,    // [P]
@@ -73,75 +75,9 @@ __global__ void __launch_bounds__(K3_CHUNK) delta_merge_kernel(
     int* __restrict__ out_src,           // [Q, window]
     int window, int n_terms, int cap, int m_room, int d_room)  // m_room 0: no staging
 {
-    extern __shared__ int4 dyn4[];
-    int* sa = reinterpret_cast<int*>(dyn4);   // [m_room] main docIDs
-    int* saa = sa + m_room;                   // [m_room] their attrs
-    int* sb = saa + m_room;                   // [d_room] delta docIDs
-    int* sba = sb + d_room;                   // [d_room] their attrs
-    const int q = blockIdx.y;
-    const int k0 = blockIdx.x * K3_CHUNK, k = k0 + threadIdx.x;
-    const int64_t o = (int64_t)q * window + k;
-    // round 1: the query's streams; round 2: the driver's slab, and the
-    // main range staged meanwhile (bounded by cap, not yet by nb)
-    const MainStream ms = main_stream(m_off, m_neff, terms, q, window, n_terms);
-    const int len = d_lengths[ms.tt];
-    const int64_t d0 = d_offsets[ms.tt];
-    int mlo, mhi;
-    staged_main(ms.na, k0, K3_CHUNK, cap, mlo, mhi);
-    const bool stage = m_room > 0;
-    const int la = stage && mhi > mlo ? mhi - mlo : 0;
-    const int* a = postings + ms.m0 + mlo;
-    const int* aa = attrs + ms.m0 + mlo;
-    Held<STAGE_U, K3_CHUNK> ha, haa, hb, hba;
-    ha.load(a, la);
-    haa.load(aa, la);
-    const int nb = delta_length(ms, len, cap);
-    const int n = ms.na + nb;
-    if (k0 >= n) {
-        if (k < window) invalid_slot(o, out_docs, out_attrs, out_src);
-        return;
-    }
-    if (nb == 0) {   // no slab: the window itself, no staging
-        if (k < n) {
-            out_docs[o] = postings[ms.m0 + k];
-            out_attrs[o] = attrs[ms.m0 + k];
-            out_src[o] = 0;
-        } else if (k < window) {
-            invalid_slot(o, out_docs, out_attrs, out_src);
-        }
-        return;
-    }
-    const ChunkRanges r = chunk_ranges(ms.na, nb, k0, K3_CHUNK);
-    const int lb = stage ? r.jhi - r.jlo : 0;
-    const int* b = d_postings + d0 + r.jlo;
-    const int* ba = d_attrs + d0 + r.jlo;
-    hb.load(b, lb);
-    hba.load(ba, lb);
-    ha.store(a, la, sa);
-    haa.store(aa, la, saa);
-    hb.store(b, lb, sb);
-    hba.store(ba, lb, sba);
-    __syncthreads();
-    if (k >= window) return;
-    if (k >= n) {
-        invalid_slot(o, out_docs, out_attrs, out_src);
-        return;
-    }
-    if (stage)
-        merge_staged_slot(sa, saa, mlo, sb, sba, r.jlo, r, k, o, out_docs, out_attrs,
-                          out_src);
-    else
-        merge_staged_slot(postings + ms.m0, attrs + ms.m0, 0, d_postings + d0,
-                          d_attrs + d0, 0, r, k, o, out_docs, out_attrs, out_src);
-}
-
-// The blocks of pk that hold flat positions [p0 + lo, p0 + hi): the first
-// block and how many (0 for an empty range).
-__device__ __forceinline__ int64_t range_blocks(int64_t p0, int lo, int hi, int& n_blk)
-{
-    const int64_t first = (p0 + lo) >> 7;
-    n_blk = hi > lo ? (int)(((p0 + hi - 1) >> 7) - first + 1) : 0;
-    return first;
+    merge_chunk_body<K3_CHUNK>(DenseMerge{}, postings, attrs, m_off, m_neff, d_postings,
+                               d_attrs, d_offsets, d_lengths, terms, out_docs, out_attrs,
+                               out_src, window, n_terms, cap, m_room, d_room);
 }
 
 __global__ void __launch_bounds__(K3P_CHUNK) delta_merge_packed_kernel(
@@ -161,59 +97,12 @@ __global__ void __launch_bounds__(K3P_CHUNK) delta_merge_packed_kernel(
     int window, int n_terms, int cap, int n_blocks, int d_n_blocks,
     int m_room, int d_room)
 {
-    extern __shared__ int4 dyn4[];
-    int* sa = reinterpret_cast<int*>(dyn4);   // [m_room] decoded main blocks
-    int* saa = sa + m_room;                   // [m_room] their attrs
-    int* sb = saa + m_room;                   // [d_room] decoded delta blocks
-    int* sba = sb + d_room;                   // [d_room] their attrs
-    const int q = blockIdx.y;
-    const int k0 = blockIdx.x * K3P_CHUNK, k = k0 + threadIdx.x;
-    const int warp = threadIdx.x >> 5, n_warps = K3P_CHUNK / 32;
-    const int64_t o = (int64_t)q * window + k;
     const Packed main_pk{words, blk_base, blk_meta, blk_woff, n_blocks};
     const Packed delta_pk{d_words, d_base, d_meta, d_woff, d_n_blocks};
-    // round 1: the query's streams; then the main blocks decode (bounded by
-    // cap, not yet by nb) while the driver's slab is looked up
-    const MainStream ms = main_stream(m_off, m_neff, terms, q, window, n_terms);
-    const int len = d_lengths[ms.tt];
-    const int64_t d0 = d_offsets[ms.tt];
-    int mlo, mhi, n_mb;
-    staged_main(ms.na, k0, K3P_CHUNK, cap, mlo, mhi);
-    const int64_t mb = range_blocks(ms.m0, mlo, mhi, n_mb);
-    const int a_org = (int)((mb << 7) - ms.m0);
-    const int la = mhi > mlo ? mhi - mlo : 0;
-    const int* aa = attrs + ms.m0 + mlo;
-    Held<STAGE_U, K3P_CHUNK> haa, hba;
-    haa.load(aa, la);
-    for (int w = warp; w < n_mb; w += n_warps)
-        decode_block_warp(main_pk, mb + w, sa + w * PBLOCK);
-    const int nb = delta_length(ms, len, cap);
-    const int n = ms.na + nb;
-    if (k0 >= n) {
-        if (k < window) invalid_slot(o, out_docs, out_attrs, out_src);
-        return;
-    }
-    const ChunkRanges r = chunk_ranges(ms.na, nb, k0, K3P_CHUNK);
-    int n_db;
-    const int64_t db = range_blocks(d0, r.jlo, r.jhi, n_db);
-    const int b_org = (int)((db << 7) - d0);
-    const int lb = r.jhi - r.jlo;
-    const int* ba = d_attrs + d0 + r.jlo;
-    hba.load(ba, lb);
-    // delta block i on warp n_warps - 1 - i first: the main blocks took
-    // the low warps
-    for (int i = n_warps - 1 - warp; i < n_db; i += n_warps)
-        decode_block_warp(delta_pk, db + i, sb + i * PBLOCK);
-    haa.store(aa, la, saa + (mlo - a_org));
-    hba.store(ba, lb, sba + (r.jlo - b_org));
-    __syncthreads();
-    if (k >= window) return;
-    if (k >= n) {
-        invalid_slot(o, out_docs, out_attrs, out_src);
-        return;
-    }
-    merge_staged_slot(sa, saa, a_org, sb, sba, b_org, r, k, o, out_docs, out_attrs,
-                      out_src);
+    merge_chunk_packed_body<K3P_CHUNK>(
+        DenseMerge{}, main_pk, delta_pk, attrs, m_off, m_neff, d_attrs, d_offsets,
+        d_lengths, terms, out_docs, out_attrs, out_src, window, n_terms, cap, m_room,
+        d_room);
 }
 
 __global__ void __launch_bounds__(ROW_THREADS) delta_merge_packed_row_kernel(
@@ -255,14 +144,11 @@ extern "C" int delta_merge_launch(
     void* out_docs, void* out_attrs, void* out_src,
     int q_n, int window, int n_terms, int cap, int stage, void* stream)
 {
-    const int m_room = !stage ? 0 : window < cap + K3_CHUNK ? window : cap + K3_CHUNK;
-    const int d_room = !stage ? 0 : cap < window + K3_CHUNK ? cap : window + K3_CHUNK;
+    int m_room, d_room;
+    merge_rooms(window, cap, K3_CHUNK, false, stage, m_room, d_room);
     const int smem = 2 * (m_room + d_room) * (int)sizeof(int);
-    if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            delta_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-        if (e != cudaSuccess) return (int)e;
-    }
+    const cudaError_t e = merge_allow_smem(delta_merge_kernel, smem);
+    if (e != cudaSuccess) return (int)e;
     dim3 grid((window + K3_CHUNK - 1) / K3_CHUNK, q_n);
     delta_merge_kernel<<<grid, K3_CHUNK, smem, (cudaStream_t)stream>>>(
         (const int*)postings, (const int*)attrs, (const int*)m_off,
@@ -271,13 +157,6 @@ extern "C" int delta_merge_launch(
         (int*)out_docs, (int*)out_attrs, (int*)out_src, window, n_terms, cap,
         m_room, d_room);
     return (int)cudaGetLastError();
-}
-
-// Ints of K3p's staged blocks a stream: the blocks that hold a range of at
-// most width postings starting anywhere (chunk_rooms).
-static int blocks_room(int width)
-{
-    return ((width + PBLOCK - 1) / PBLOCK + 1) * PBLOCK;
 }
 
 // K3p's chunk form: shared memory a block is 2 * (m_room + d_room) ints,
@@ -293,15 +172,11 @@ extern "C" int delta_merge_packed_launch(
     int q_n, int window, int n_terms, int cap, int n_blocks, int d_n_blocks,
     void* stream)
 {
-    const int m_room = blocks_room(window < cap + K3P_CHUNK ? window : cap + K3P_CHUNK);
-    const int d_room = blocks_room(cap < window + K3P_CHUNK ? cap : window + K3P_CHUNK);
+    int m_room, d_room;
+    merge_rooms(window, cap, K3P_CHUNK, true, 1, m_room, d_room);
     const int smem = 2 * (m_room + d_room) * (int)sizeof(int);
-    if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            delta_merge_packed_kernel,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-        if (e != cudaSuccess) return (int)e;
-    }
+    const cudaError_t e = merge_allow_smem(delta_merge_packed_kernel, smem);
+    if (e != cudaSuccess) return (int)e;
     dim3 grid((window + K3P_CHUNK - 1) / K3P_CHUNK, q_n);
     delta_merge_packed_kernel<<<grid, K3P_CHUNK, smem, (cudaStream_t)stream>>>(
         (const uint32_t*)words, (const int*)blk_base, (const int*)blk_meta,
@@ -329,12 +204,8 @@ extern "C" int delta_merge_packed_row_launch(
     int m_room, int row, void* stream)
 {
     const int smem = scratch != nullptr ? 0 : row * (int)sizeof(int);
-    if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            delta_merge_packed_row_kernel,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-        if (e != cudaSuccess) return (int)e;
-    }
+    const cudaError_t e = merge_allow_smem(delta_merge_packed_row_kernel, smem);
+    if (e != cudaSuccess) return (int)e;
     delta_merge_packed_row_kernel<<<q_n, ROW_THREADS, smem, (cudaStream_t)stream>>>(
         (const uint32_t*)words, (const int*)blk_base, (const int*)blk_meta,
         (const int*)blk_woff, (const int*)attrs, (const int*)m_off,

@@ -1,6 +1,7 @@
-// The merge of one query's main window with its driver term's delta slab,
-// shared by K3 / K3p (delta_merge.cu) and their work-list twins K8 / K8p
-// (merge_compact.cu).
+// The large-cap form of the packed merges K3p (delta_merge.cu) and K8p
+// (merge_compact.cu): one block a query decodes its whole main window and
+// slab into a row (packed_merge_row) and merges each slot out of it
+// (merge_slot).  Their chunk forms, and K3 / K8, are merge_path.cuh's.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -52,7 +53,7 @@ __device__ __forceinline__ void stream_lengths(
     nb = nb < 0 ? 0 : (nb > cap ? cap : nb);
 }
 
-// K3p's row (and K8p's): the whole block decodes query q's live main
+// K3p's large-cap row (and K8p's): the whole block decodes query q's live main
 // window (at most m_cap postings) and its live delta slab into buf (shared
 // memory or a global scratch row of row ints), then merges out of it,
 // each thread over every blockDim.x-th output slot of row q.

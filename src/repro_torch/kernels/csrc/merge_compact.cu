@@ -18,32 +18,32 @@
 //
 // What bounds it on the H100: bytes and latency, as K3: the live main
 // window and the live slab of each live query, three int32 output rows,
-// 32 bytes a descriptor row.
+// 32 bytes a descriptor row.  The first design (one thread a slot, its
+// co-rank searched in global memory behind five dependent lookups; K8p one
+// block of 512 threads a live query decoding its whole window before any
+// slot merged) ran 5.3x (K8) and 18x (K8p) its bound.
 //
-// Design: K8 is K3's co-rank merge (merge_slot, merge.cuh) over a grid of
-// (output chunk, live query), the live queries taken from the work list's
-// group heads (heads[g] .. heads[g + 1] - 1 are query desc[heads[g], 0]'s
-// tiles), the main stream bounded by the tiles the group names.  K8p is
-// K3p's one-block-per-query decode row (packed_merge_row, merge.cuh), in
-// dynamic shared memory or, past the opt-in limit, in a global scratch
-// row per live query, launched over the live queries only.
-#include "merge.cuh"
+// Design: K3's (merge_path.cuh), with the work list as where a block
+// finds its query (TableMerge): a grid of (output chunk of 256 slots, live
+// group); block row g reads heads[g] and heads[g + 1], then the head row's
+// query, whose main stream is clipped to the group's tiles; from there on
+// it is K3's block: the main range staged while the driver's slab is
+// looked up, the chunk's ranges staged in shared memory (K8p: their codec
+// blocks decoded, a warp a block), each slot merged out of them.
+// - K8 takes K3's stage switch: where the rooms pass the opt-in shared
+//   memory (chunk_fits) it stages nothing and merges out of global memory.
+// - K8p's chunk form runs wherever its rooms fit (chunk_fits); otherwise
+//   its large-cap form, K3p's: one block of 512 threads a live group, the
+//   query's window and slab decoded into a row of shared memory or of a
+//   global scratch row (packed_merge_row, merge.cuh).  The host chooses,
+//   as for K3p.
+#include "merge_path.cuh"
 
-#define TILE 1024
-#define THREADS 256
-#define P_THREADS 512
+#define K8_CHUNK 256     // K8's slots a block, one a thread
+#define K8P_CHUNK 256    // K8p's slots a block, one a thread
+#define ROW_THREADS 512  // K8p's large-cap form: threads a group
 
-// The live query of group g and the main postings its tiles cover.
-__device__ __forceinline__ void group_query(
-    const int* __restrict__ desc, const int* __restrict__ heads, int g,
-    int& q, int& m_cap)
-{
-    const int r0 = heads[g];
-    q = desc[8 * r0];
-    m_cap = (heads[g + 1] - r0) * TILE;
-}
-
-__global__ void __launch_bounds__(THREADS) merge_compact_kernel(
+__global__ void __launch_bounds__(K8_CHUNK) merge_compact_kernel(
     const int* __restrict__ desc,        // [n_pad, 8]
     const int* __restrict__ heads,       // [n_groups + 1]
     const int* __restrict__ postings,    // [P]
@@ -58,20 +58,41 @@ __global__ void __launch_bounds__(THREADS) merge_compact_kernel(
     int* __restrict__ out_docs,          // [Q, window]
     int* __restrict__ out_attrs,         // [Q, window]
     int* __restrict__ out_src,           // [Q, window]
-    int window, int n_terms, int cap)
+    int window, int n_terms, int cap, int m_room, int d_room)  // m_room 0: no staging
 {
-    const int k = blockIdx.x * THREADS + threadIdx.x;
-    if (k >= window) return;
-    int q, m_cap, tt, na, nb;
-    group_query(desc, heads, blockIdx.y, q, m_cap);
-    stream_lengths(m_neff, d_lengths, terms, q, window, n_terms, cap, tt, na, nb);
-    if (na > m_cap) na = m_cap;
-    const int64_t m0 = m_off[q], d0 = d_offsets[tt];
-    merge_slot(postings + m0, attrs + m0, d_postings + d0, d_attrs + d0, na, nb,
-               k, (int64_t)q * window + k, out_docs, out_attrs, out_src);
+    merge_chunk_body<K8_CHUNK>(TableMerge{desc, heads}, postings, attrs, m_off, m_neff,
+                               d_postings, d_attrs, d_offsets, d_lengths, terms,
+                               out_docs, out_attrs, out_src, window, n_terms, cap,
+                               m_room, d_room);
 }
 
-__global__ void __launch_bounds__(P_THREADS) merge_compact_packed_kernel(
+__global__ void __launch_bounds__(K8P_CHUNK) merge_compact_packed_kernel(
+    const int* __restrict__ desc, const int* __restrict__ heads,
+    const uint32_t* __restrict__ words,   // main twin [Wd]
+    const int* __restrict__ blk_base, const int* __restrict__ blk_meta,
+    const int* __restrict__ blk_woff,
+    const int* __restrict__ attrs,       // [P]
+    const int* __restrict__ m_off, const int* __restrict__ m_neff,
+    const uint32_t* __restrict__ d_words,  // delta twin
+    const int* __restrict__ d_base, const int* __restrict__ d_meta,
+    const int* __restrict__ d_woff,
+    const int* __restrict__ d_attrs,     // [D]
+    const int* __restrict__ d_offsets, const int* __restrict__ d_lengths,
+    const int* __restrict__ terms,
+    int* __restrict__ out_docs, int* __restrict__ out_attrs,
+    int* __restrict__ out_src,
+    int window, int n_terms, int cap, int n_blocks, int d_n_blocks,
+    int m_room, int d_room)
+{
+    const Packed main_pk{words, blk_base, blk_meta, blk_woff, n_blocks};
+    const Packed delta_pk{d_words, d_base, d_meta, d_woff, d_n_blocks};
+    merge_chunk_packed_body<K8P_CHUNK>(
+        TableMerge{desc, heads}, main_pk, delta_pk, attrs, m_off, m_neff, d_attrs,
+        d_offsets, d_lengths, terms, out_docs, out_attrs, out_src, window, n_terms,
+        cap, m_room, d_room);
+}
+
+__global__ void __launch_bounds__(ROW_THREADS) merge_compact_packed_row_kernel(
     const int* __restrict__ desc, const int* __restrict__ heads,
     const uint32_t* __restrict__ words,   // main twin [Wd]
     const int* __restrict__ blk_base, const int* __restrict__ blk_meta,
@@ -92,8 +113,8 @@ __global__ void __launch_bounds__(P_THREADS) merge_compact_packed_kernel(
 {
     extern __shared__ int dyn[];
     const int g = blockIdx.x;
-    int q, m_cap;
-    group_query(desc, heads, g, q, m_cap);
+    int m_cap;
+    const int q = TableMerge{desc, heads}.query(g, m_cap);
     int* buf = scratch != nullptr ? scratch + (int64_t)g * row : dyn;
     const Packed main_pk{words, blk_base, blk_meta, blk_woff, n_blocks};
     const Packed delta_pk{d_words, d_base, d_meta, d_woff, d_n_blocks};
@@ -102,27 +123,66 @@ __global__ void __launch_bounds__(P_THREADS) merge_compact_packed_kernel(
                      out_src, window, n_terms, cap, m_room);
 }
 
+// K8: shared memory a block as K3's (delta_merge_launch): 2 * (m_room +
+// d_room) ints, none with stage 0.
 extern "C" int merge_compact_launch(
     const void* desc, const void* heads, const void* postings,
     const void* attrs, const void* m_off, const void* m_neff,
     const void* d_postings, const void* d_attrs, const void* d_offsets,
     const void* d_lengths, const void* terms, void* out_docs,
     void* out_attrs, void* out_src,
-    int n_groups, int window, int n_terms, int cap, void* stream)
+    int n_groups, int window, int n_terms, int cap, int stage, void* stream)
 {
-    dim3 grid((window + THREADS - 1) / THREADS, n_groups);
-    merge_compact_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+    int m_room, d_room;
+    merge_rooms(window, cap, K8_CHUNK, false, stage, m_room, d_room);
+    const int smem = 2 * (m_room + d_room) * (int)sizeof(int);
+    const cudaError_t e = merge_allow_smem(merge_compact_kernel, smem);
+    if (e != cudaSuccess) return (int)e;
+    dim3 grid((window + K8_CHUNK - 1) / K8_CHUNK, n_groups);
+    merge_compact_kernel<<<grid, K8_CHUNK, smem, (cudaStream_t)stream>>>(
         (const int*)desc, (const int*)heads, (const int*)postings,
         (const int*)attrs, (const int*)m_off, (const int*)m_neff,
         (const int*)d_postings, (const int*)d_attrs, (const int*)d_offsets,
         (const int*)d_lengths, (const int*)terms, (int*)out_docs,
-        (int*)out_attrs, (int*)out_src, window, n_terms, cap);
+        (int*)out_attrs, (int*)out_src, window, n_terms, cap, m_room, d_room);
     return (int)cudaGetLastError();
 }
 
-// m_room, row and scratch as in delta_merge_packed_launch (delta_merge.cu);
-// scratch, when given, holds one row per group.
+// K8p's chunk form: shared memory a block as K3p's
+// (delta_merge_packed_launch).
 extern "C" int merge_compact_packed_launch(
+    const void* desc, const void* heads, const void* words,
+    const void* blk_base, const void* blk_meta, const void* blk_woff,
+    const void* attrs, const void* m_off, const void* m_neff,
+    const void* d_words, const void* d_base, const void* d_meta,
+    const void* d_woff, const void* d_attrs, const void* d_offsets,
+    const void* d_lengths, const void* terms, void* out_docs,
+    void* out_attrs, void* out_src,
+    int n_groups, int window, int n_terms, int cap, int n_blocks,
+    int d_n_blocks, void* stream)
+{
+    int m_room, d_room;
+    merge_rooms(window, cap, K8P_CHUNK, true, 1, m_room, d_room);
+    const int smem = 2 * (m_room + d_room) * (int)sizeof(int);
+    const cudaError_t e = merge_allow_smem(merge_compact_packed_kernel, smem);
+    if (e != cudaSuccess) return (int)e;
+    dim3 grid((window + K8P_CHUNK - 1) / K8P_CHUNK, n_groups);
+    merge_compact_packed_kernel<<<grid, K8P_CHUNK, smem, (cudaStream_t)stream>>>(
+        (const int*)desc, (const int*)heads, (const uint32_t*)words,
+        (const int*)blk_base, (const int*)blk_meta, (const int*)blk_woff,
+        (const int*)attrs, (const int*)m_off, (const int*)m_neff,
+        (const uint32_t*)d_words, (const int*)d_base, (const int*)d_meta,
+        (const int*)d_woff, (const int*)d_attrs, (const int*)d_offsets,
+        (const int*)d_lengths, (const int*)terms, (int*)out_docs,
+        (int*)out_attrs, (int*)out_src,
+        window, n_terms, cap, n_blocks, d_n_blocks, m_room, d_room);
+    return (int)cudaGetLastError();
+}
+
+// K8p's large-cap form: m_room, row and scratch as in
+// delta_merge_packed_row_launch (delta_merge.cu); scratch, when given,
+// holds one row per group.
+extern "C" int merge_compact_packed_row_launch(
     const void* desc, const void* heads, const void* words,
     const void* blk_base, const void* blk_meta, const void* blk_woff,
     const void* attrs, const void* m_off, const void* m_neff,
@@ -134,13 +194,9 @@ extern "C" int merge_compact_packed_launch(
     int d_n_blocks, int m_room, int row, void* stream)
 {
     const int smem = scratch != nullptr ? 0 : row * (int)sizeof(int);
-    if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            merge_compact_packed_kernel,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-        if (e != cudaSuccess) return (int)e;
-    }
-    merge_compact_packed_kernel<<<n_groups, P_THREADS, smem, (cudaStream_t)stream>>>(
+    const cudaError_t e = merge_allow_smem(merge_compact_packed_row_kernel, smem);
+    if (e != cudaSuccess) return (int)e;
+    merge_compact_packed_row_kernel<<<n_groups, ROW_THREADS, smem, (cudaStream_t)stream>>>(
         (const int*)desc, (const int*)heads, (const uint32_t*)words,
         (const int*)blk_base, (const int*)blk_meta, (const int*)blk_woff,
         (const int*)attrs, (const int*)m_off, (const int*)m_neff,

@@ -1,6 +1,6 @@
-// The synchronous membership probe of the staged joins K9 and K10
-// (block_skip.cu).  (The slave joins K1, K4, K6 and K7 stage their probes
-// asynchronously: probe_async.cuh.)
+// The synchronous membership probe of the staged join K10 (block_skip.cu),
+// its last kernel.  (The slave joins K1, K4, K6, K7 and the batched staged
+// join K9 stage their probes asynchronously: probe_async.cuh.)
 //
 // A block of THREADS threads owns one 1024-posting driver tile; each thread
 // keeps ITEMS driver postings in registers.  For one (query, term, driver

@@ -1,8 +1,9 @@
 // The membership probe of the slave joins K1 (driver_streamed.cu), K4
 // (streamed_join.cu) and their work-list twins K6 (driver_compact.cu) and
-// K7 (streamed_compact.cu), and of their packed modes K1p, K4p, K6p and
-// K7p, staged asynchronously for Hopper; their block bodies are in
-// slave_join.cuh.  (probe.cuh keeps the synchronous probe for K9 and K10.)
+// K7 (streamed_compact.cu), of their packed modes K1p, K4p, K6p and K7p,
+// and of the staged join K9 (staged_join.cu), staged asynchronously for
+// Hopper; their block bodies are in slave_join.cuh.  (probe.cuh keeps the
+// synchronous probe for K10.)
 //
 // What bounds a probe on the H100: latency, not bytes or operations.  The
 // work is a binary search of a few steps per byte read, and at the main

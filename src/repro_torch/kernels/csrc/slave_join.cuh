@@ -1,6 +1,7 @@
 // The block bodies of the slave joins, shared by the dense kernels K1
-// (driver_streamed.cu) and K4 (streamed_join.cu) and their work-list twins
-// K6 (driver_compact.cu) and K7 (streamed_compact.cu), raw and packed.
+// (driver_streamed.cu) and K4 (streamed_join.cu), their work-list twins
+// K6 (driver_compact.cu) and K7 (streamed_compact.cu), raw and packed, and
+// the staged join K9 (staged_join.cu).
 //
 // A body is K1's (driver read from the flat arrays by position) or K4's
 // (driver a materialized window with live stream and flags); both probe
@@ -28,8 +29,14 @@
 //   dead-term group (one TERM_START|TERM_END row, no tile) gives an active
 //   empty stream, so every slot dies; a no-op group (FIRST|LAST, no term
 //   flag) none, so validity and the filter decide.
+// - SkipPlan (K9, K4's body): the grid is DensePlan's, over a staged
+//   driver window; term t's one stream is the skip range of the staged
+//   other-term window [q, t] (b_docs [Q, T, W_b], flat): the planned range
+//   of the skip map's b_start, n_b at (q, t, i), clipped to [0, W_b) and
+//   offset by (q * T + t) * W_b.  An active slot with an empty range
+//   kills every slot, as K4's dead term does.
 //
-// In either plan block x % NSUB is the sub-tile: JOIN_SUB slots from
+// In every plan block x % NSUB is the sub-tile: JOIN_SUB slots from
 // i * TILE + (x % NSUB) * JOIN_SUB.
 #pragma once
 #include "probe_async.cuh"
@@ -181,6 +188,37 @@ struct TablePlan {
     }
 };
 
+struct SkipPlan {
+    const int* active;                        // [Q, T] or null (all active)
+    const int *b_start, *n_b;                 // [Q, T, A]
+    int t_slots, num_a, w_b;
+
+    __device__ __forceinline__ void locate(int& q, int& i) const
+    {
+        q = blockIdx.y;
+        i = blockIdx.x / NSUB;
+    }
+
+    __device__ __forceinline__ void relocate(int& q, int& i) const { locate(q, i); }
+
+    // The producer warp's fill (probe_begin): every term's skip range at
+    // (q, i), all loads at once.
+    __device__ __forceinline__ void operator()(StreamRange* st, int lane) const
+    {
+        const int q = blockIdx.y, i = blockIdx.x / NSUB;
+        for (int t = lane; t < t_slots; t += 32) {
+            const long long qt = (long long)q * t_slots + t;
+            const long long qti = qt * num_a + i;
+            const int act = active == nullptr || active[qt] != 0;
+            const int bs = b_start[qti], nb = n_b[qti];
+            long long rlo, rhi;
+            plan_range(bs, nb, 0, w_b, rlo, rhi);
+            const long long row = qt * w_b;
+            set_term(st, t, 1, act, row + rlo, row + rhi, 0, 0);
+        }
+    }
+};
+
 // K1 / K6: the driver read by position from the flat arrays (K1p / K6p:
 // its blocks decoded into shared memory), one stream a term.
 template <bool PACKED, class Plan>
@@ -233,10 +271,10 @@ __device__ __forceinline__ void driver_join_body(
     }
 }
 
-// K4 / K7: the driver a materialized window (docIDs, attrs, live, and
-// under merge-on-read flags), each term a main and (has_delta) a delta
-// stream; a slot is searched in a stream only where its flags let that
-// stream count.
+// K4 / K7 / K9: the driver a materialized window (docIDs, attrs, live
+// (a_live null: all live), and under merge-on-read flags), each term a
+// main and (has_delta) a delta stream; a slot is searched in a stream only
+// where its flags let that stream count.
 template <bool PACKED, class Plan>
 __device__ __forceinline__ void streamed_join_body(
     const Plan& plan,
@@ -245,7 +283,7 @@ __device__ __forceinline__ void streamed_join_body(
     const Packed& pk, const Packed& dpk,  // (packed)
     const int* __restrict__ a_docs,       // [Q, window]
     const int* __restrict__ a_attrs,      // [Q, window]
-    const int* __restrict__ a_live,       // [Q, window]
+    const int* __restrict__ a_live,       // [Q, window] or null
     const int* __restrict__ a_flags,      // [Q, window] (has_delta)
     const int* __restrict__ attr_filter,  // [Q]
     int* __restrict__ out_mask,           // [Q, window]
@@ -263,7 +301,7 @@ __device__ __forceinline__ void streamed_join_body(
     const long long o = (long long)q * window + w;
     const int x = in_win ? a_docs[o] : INVALID_DOC;
     const int at = in_win ? a_attrs[o] : INVALID_ATTR;
-    const int lv = in_win ? a_live[o] : 0;
+    const int lv = !in_win ? 0 : a_live == nullptr ? 1 : a_live[o];
     const int fl = in_win && has_delta ? a_flags[o] : 0;
     bool keep = x != INVALID_DOC && (filt < 0 || at == filt) && lv != 0;
     // bit 0: the main stream counts, bit 1: the delta

@@ -42,9 +42,13 @@ version.
 K8 and K8p are the work-list twins (the reference's
 ``_merge_compact_call``, ``pallas_call`` at line 650): one table row per
 main-window tile a live query reads (:mod:`repro_torch.kernels.worklist`),
-K3's merge for the live queries only (``csrc/merge_compact.cu``), and
-``(INVALID_DOC, INVALID_ATTR, 1)`` on the rows of inert queries, as the
-reference gives them; :func:`merge_delta_windows_compact` plans and picks.
+K3's merge for the live queries only (``csrc/merge_compact.cu``: K3's and
+K3p's block bodies with a block row a group of the table, the query's
+main stream clipped to the group's tiles; K8p's large-cap form is K3p's),
+and ``(INVALID_DOC, INVALID_ATTR, 1)`` on the rows of inert queries, as
+the reference gives them; :func:`merge_delta_windows_compact` plans and
+picks.  :func:`merge_chunks_replay` with ``desc`` and ``heads`` replays
+their chunk grid.
 """
 from __future__ import annotations
 
@@ -159,6 +163,8 @@ merge_delta_windows_cuda.launches = 0
 #: ``csrc/delta_merge.cu``'s output slots a block for K3 and K3p (one a
 #: thread).
 K3_CHUNK = K3P_CHUNK = 256
+#: ``csrc/merge_compact.cu``'s for K8 and K8p (the same bodies).
+K8_CHUNK = K8P_CHUNK = 256
 
 
 def chunk_ranges(na: int, nb: int, k0: int, chunk: int = K3_CHUNK):
@@ -250,7 +256,7 @@ def _merge_staged(a, aa, b, ba, ranges, ks):
 
 def merge_chunks_replay(postings, attrs, m_off, m_neff, d_postings, d_attrs,
                         d_offsets, d_lengths, terms, *, window: int, cap: int,
-                        packed: bool = False):
+                        packed: bool = False, desc=None, heads=None):
     """Host replay of K3 (``packed``: K3p) chunk by chunk: for each query
     and each chunk of slots that starts below ``na + nb``, the staged
     ranges (main :func:`staged_main`, delta :func:`chunk_ranges`), checked
@@ -261,11 +267,25 @@ def merge_chunks_replay(postings, attrs, m_off, m_neff, d_postings, d_attrs,
     INVALID_ATTR, 0)``.  The arguments are
     :func:`merge_delta_windows_torch`'s, on any device (for K3p, the twins'
     decodes: the decode itself is the codec's, tested on its own); each
-    query's live ranges are copied to the host.  Returns ``((docs,
-    attrs, src), stats)``, the outputs int32[Q, window] equal to the plain
-    version's, ``stats`` the chunks that read postings, the largest staged
-    ranges and (K3p) blocks of any chunk, and the blocks decoded in all."""
-    chunk = K3P_CHUNK if packed else K3_CHUNK
+    query's live ranges are copied to the host.
+
+    With a work list's ``desc`` and ``heads`` (both or neither) it replays
+    K8 (K8p) instead: the chunk grid over the table's groups, group ``g``
+    the query of its head row ``desc[heads[g], 0]``, whose ``na`` is
+    clipped to the group's tiles, ``(heads[g + 1] - heads[g]) * TILE``;
+    the rows of queries in no group are ``(INVALID_DOC, INVALID_ATTR, 1)``,
+    as :func:`merge_compact_torch` gives them.
+
+    Returns ``((docs, attrs, src), stats)``, the outputs int32[Q, window]
+    equal to the plain version's, ``stats`` the chunks that read postings,
+    the largest staged ranges and (K3p) blocks of any chunk, and the blocks
+    decoded in all."""
+    if (desc is None) != (heads is None):
+        raise ValueError("merge_chunks_replay: desc and heads go together")
+    if desc is None:
+        chunk = K3P_CHUNK if packed else K3_CHUNK
+    else:
+        chunk = K8P_CHUNK if packed else K8_CHUNK
     rooms = chunk_rooms(window, cap, packed=packed)
     q_n = terms.shape[0]
     m_off_h, m_neff_h, terms_h, d_off_h, d_len_h = (
@@ -281,11 +301,19 @@ def merge_chunks_replay(postings, attrs, m_off, m_neff, d_postings, d_attrs,
     # lint: allow(posting-alloc)
     out_attrs = np.full((q_n, window), int(INVALID_ATTR), np.int64)
     src = np.zeros((q_n, window), np.int64)
+    if desc is None:
+        blocks = [(q, window) for q in range(q_n)]     # (query, m_cap)
+    else:
+        heads_h = heads.cpu().numpy().astype(np.int64)
+        first_q = desc.cpu().numpy()[heads_h[:-1], 0].astype(np.int64)
+        blocks = list(zip(first_q.tolist(), (np.diff(heads_h) * TILE).tolist()))
+        src[:] = 1          # inert rows; a group's row is written whole below
     stats = dict(chunks=0, main=0, delta=0, main_blocks=0, delta_blocks=0, blocks=0)
-    for q in range(q_n):
+    for q, m_cap in blocks:
+        src[q] = 0
         t = int(terms_h[q])
         tt = min(max(t, 0), n_terms - 1)
-        na = min(max(int(m_neff_h[q]), 0), window)
+        na = min(max(int(m_neff_h[q]), 0), window, m_cap)
         nb = 0 if t < 0 else min(max(int(d_len_h[tt]), 0), cap)
         m0, d0 = int(m_off_h[q]), int(d_off_h[tt])
         # the live ranges alone: any read past them raises
@@ -524,9 +552,11 @@ def merge_compact_torch(desc, heads, postings, attrs, m_off, m_neff, d_postings,
 def merge_compact_cuda(desc, heads, postings, attrs, m_off, m_neff, d_postings,
                        d_attrs, d_offsets, d_lengths, terms, *, window: int,
                        cap: int):
-    """Launch ``csrc/merge_compact.cu`` (K8: one thread per output slot of
-    each live query) on the current stream.  Same signature and result as
-    :func:`merge_compact_torch`."""
+    """Launch ``merge_compact_kernel`` of ``csrc/merge_compact.cu`` (K8: a
+    block a chunk of :data:`K8_CHUNK` output slots of a live group, merging
+    out of its staged ranges where they fit the card's shared memory
+    (:func:`chunk_fits`), else out of the global streams) on the current
+    stream.  Same signature and result as :func:`merge_compact_torch`."""
     from repro_torch.kernels import _build
 
     q_n = terms.shape[0]
@@ -539,12 +569,15 @@ def merge_compact_cuda(desc, heads, postings, attrs, m_off, m_neff, d_postings,
         d_offsets=(d_offsets, None), d_lengths=(d_lengths, d_offsets.shape),
         terms=(terms, (q_n,)))
     launch = _build.kernel("merge_compact")
-    out = output_rows(q_n, window, n_groups == q_n, _INERT, postings.device)
+    dev = postings.device
+    out = output_rows(q_n, window, n_groups == q_n, _INERT, dev)
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    stage = int(chunk_fits(window, cap, optin, packed=False))
     ptr = [x.data_ptr() for x in (desc, heads, postings, attrs, m_off, m_neff,
                                   d_postings, d_attrs, d_offsets, d_lengths,
                                   terms, *out)]
-    stream = torch.cuda.current_stream(postings.device).cuda_stream
-    err = launch(*ptr, n_groups, window, d_offsets.shape[0], cap, stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = launch(*ptr, n_groups, window, d_offsets.shape[0], cap, stage, stream)
     merge_compact_cuda.launches += 1
     _build.check(err, "merge_compact_launch")
     return tuple(out)
@@ -567,11 +600,14 @@ def merge_compact_packed_torch(desc, heads, packed, attrs, m_off, m_neff,
 def merge_compact_packed_cuda(desc, heads, packed, attrs, m_off, m_neff,
                               d_packed, d_attrs, d_offsets, d_lengths, terms,
                               *, window: int, cap: int):
-    """Launch ``merge_compact_packed_kernel`` of ``csrc/merge_compact.cu``
-    (K8p: K3p's decode row, one block per live query) on the current
-    stream: the row in dynamic shared memory when it fits, else in a global
-    scratch row per live query.  Same signature and result as
-    :func:`merge_compact_packed_torch`."""
+    """Launch K8p (``csrc/merge_compact.cu``) on the current stream: the
+    chunk form (``merge_compact_packed_kernel``, a block a chunk of
+    :data:`K8P_CHUNK` slots of a live group) where its staged blocks fit
+    the card's shared memory (:func:`chunk_fits`), else the large-cap form
+    (``merge_compact_packed_row_kernel``, one block a live group, its
+    decode row in shared memory or in a global scratch allocated here), as
+    :func:`merge_delta_windows_packed_cuda` chooses.  Same signature and
+    result as :func:`merge_compact_packed_torch`."""
     from repro_torch.kernels import _build
 
     q_n = terms.shape[0]
@@ -584,22 +620,28 @@ def merge_compact_packed_cuda(desc, heads, packed, attrs, m_off, m_neff,
         d_attrs=(d_attrs, (d_packed.n_blocks * BLOCK,)),
         d_offsets=(d_offsets, None), d_lengths=(d_lengths, d_offsets.shape),
         terms=(terms, (q_n,)))
-    launch = _build.kernel("merge_compact_packed")
     dev = attrs.device
-    out = output_rows(q_n, window, n_groups == q_n, _INERT, dev)
-    m_room, row = k3p_row(window, cap)
     optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
-    scratch = (None if row * 4 <= optin
-               else torch.empty((n_groups, row), dtype=torch.int32, device=dev))
+    chunked = chunk_fits(window, cap, optin, packed=True)
+    name = "merge_compact_packed" if chunked else "merge_compact_packed_row"
+    launch = _build.kernel(name)
+    out = output_rows(q_n, window, n_groups == q_n, _INERT, dev)
     ptr = [x.data_ptr() for x in (desc, heads, *packed.arrays(), attrs, m_off,
                                   m_neff, *d_packed.arrays(), d_attrs, d_offsets,
                                   d_lengths, terms, *out)]
+    sizes = (n_groups, window, d_offsets.shape[0], cap, packed.n_blocks,
+             d_packed.n_blocks)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = launch(*ptr, None if scratch is None else scratch.data_ptr(), n_groups,
-                 window, d_offsets.shape[0], cap, packed.n_blocks,
-                 d_packed.n_blocks, m_room, row, stream)
+    if chunked:
+        err = launch(*ptr, *sizes, stream)
+    else:
+        m_room, row = k3p_row(window, cap)
+        scratch = (None if row * 4 <= optin
+                   else torch.empty((n_groups, row), dtype=torch.int32, device=dev))
+        err = launch(*ptr, None if scratch is None else scratch.data_ptr(), *sizes,
+                     m_room, row, stream)
     merge_compact_packed_cuda.launches += 1
-    _build.check(err, "merge_compact_packed_launch")
+    _build.check(err, name + "_launch")
     return tuple(out)
 
 

@@ -60,7 +60,10 @@ and ``intersect_block_skip`` (``pallas_call`` at line 396, body
 ``_intersect_kernel`` at 92).  Their B operand is a materialized window
 (K9: ``[Q, T, W_b]``, staged by the engine's ``kernel_staged`` backend;
 K10: one list), and :func:`compute_skip_map` gives each driver tile the
-run of B tiles whose docID span can overlap it, on the device.  Both run
+run of B tiles whose docID span can overlap it, on the device.  K9 runs
+``csrc/staged_join.cu``: K4's static block body and asynchronous probe,
+each term's one stream its skip range in the flat windows
+(:func:`skip_streams` states them on the host); K10 runs
 ``csrc/block_skip.cu``.
 
 For each kernel the module holds the plan helpers, the plain PyTorch join
@@ -72,12 +75,12 @@ wrapper of its CUDA source (:func:`driver_streamed_join_cuda` and
 :func:`streamed_join_cuda` and :func:`streamed_join_packed_cuda` of
 ``csrc/streamed_join.cu``, and so on for K6, K7, K9 and K10).  The
 dispatchers pick by the device of the tensors they are given; there is no
-fallback.  K1, K4, K6 and K7 (and their packed and static modes) stage
-their probe ranges with bulk copies of whole 16-byte chunks, each range's
-ends rounded out to them: the wrappers refuse an array that does not start
-on 16 bytes or hold whole chunks, and :func:`probe_staging_check` checks
-that a plan's ranges (:func:`ranges_staging_check`: a work list's streams)
-start on 16 bytes and end, rounded, inside their arrays.
+fallback.  K1, K4, K6, K7 and K9 (and their packed and static modes)
+stage their probe ranges with bulk copies of whole 16-byte chunks, each
+range's ends rounded out to them: the wrappers refuse an array that does
+not start on 16 bytes or hold whole chunks, and :func:`probe_staging_check` checks
+that a plan's ranges (:func:`ranges_staging_check`: a work list's or
+K9's streams) start on 16 bytes and end, rounded, inside their arrays.
 """
 from __future__ import annotations
 
@@ -1301,11 +1304,38 @@ def batched_block_skip_join_torch(a_docs, a_attrs, a_live, b_docs, active,
     return (keep & member.all(dim=1)).to(torch.int32)
 
 
+def skip_streams(b_start, n_b, active, w_b: int):
+    """The streams that K9's producer warp derives from the skip map
+    (``SkipPlan`` in ``csrc/slave_join.cuh``): per (query ``q``, term slot
+    ``t``, driver tile ``i``), positions ``[lo, hi)`` of the flat other-term
+    windows ``b_docs`` [Q, T, ``w_b``], the planned range of tiles
+    ``b_start .. b_start + n_b - 1`` clipped to ``[0, w_b)`` (empty, ``hi ==
+    lo``, where ``n_b <= 0``), offset by ``(q * T + t) * w_b``; ``(0, 0)``
+    where the slot is not active (``act`` 0; ``active`` None: all active).
+    Returns ``(lo, hi, act)``, int64 ``[Q, T, A]`` like ``b_start``."""
+    q_n, t_n = b_start.shape[:2]
+    dev = b_start.device
+    bs, nb = b_start.long(), n_b.long()
+    rlo = (bs * TILE).clamp(min=0)
+    rhi = ((bs + nb) * TILE).clamp(max=w_b)
+    rhi = torch.where((nb <= 0) | (rhi < rlo), rlo, rhi)
+    act = (torch.ones((q_n, t_n), dtype=torch.int64, device=dev) if active is None
+           else (active != 0).long())[:, :, None].expand_as(bs)
+    row = (torch.arange(q_n * t_n, dtype=torch.int64, device=dev) * w_b).view(
+        q_n, t_n, 1)
+    lo = torch.where(act > 0, row + rlo, 0)
+    hi = torch.where(act > 0, row + rhi, 0)
+    return lo, hi, act.contiguous()
+
+
 def batched_block_skip_join_cuda(a_docs, a_attrs, a_live, b_docs, active,
                                  attr_filter, b_start, n_b):
-    """Launch ``batched_block_skip_kernel`` of ``csrc/block_skip.cu`` (K9:
-    one block per driver tile and query) on the current stream.  Same
-    signature and result as :func:`batched_block_skip_join_torch`."""
+    """Launch ``staged_join_kernel`` of ``csrc/staged_join.cu`` (K9: K4's
+    static body, a block a 256-slot sub-tile of a driver tile and query
+    plus a producer warp that stages each term's skip range by bulk
+    copies, :func:`skip_streams`) on the current stream.  ``b_docs`` must
+    start on 16 bytes (:func:`_build.check_aligned`).  Same signature and
+    result as :func:`batched_block_skip_join_torch`."""
     from repro_torch.kernels import _build
 
     q_n, w_a = a_docs.shape
@@ -1319,6 +1349,7 @@ def batched_block_skip_join_cuda(a_docs, a_attrs, a_live, b_docs, active,
         b_docs=(b_docs, (q_n, t_n, w_b)), active=(active, (q_n, t_n)),
         attr_filter=(attr_filter, (q_n,)), b_start=(b_start, plan),
         n_b=(n_b, plan))
+    _build.check_aligned(b_docs=b_docs)
     launch = _build.kernel("batched_block_skip")
     mask = torch.empty(drv, dtype=torch.int32, device=a_docs.device)
     if q_n == 0 or w_a == 0:
@@ -1389,7 +1420,7 @@ def block_skip_join_torch(a_docs, a_attrs, b_docs, attr_filter, b_start, n_b):
 
 def block_skip_join_cuda(a_docs, a_attrs, b_docs, attr_filter, b_start, n_b):
     """Launch ``intersect_block_skip_kernel`` of ``csrc/block_skip.cu`` (K10: one block
-    per driver tile, K9's device function for one query) on the current
+    per driver tile over the synchronous probe, ``probe.cuh``) on the current
     stream.  Same signature and result as :func:`block_skip_join_torch`."""
     from repro_torch.kernels import _build
 

@@ -19,6 +19,14 @@ numpy:
   at a chunk, empty and full streams, an inert driver) and seeded random
   ones, windows 256, 1000, 4096 and 65536, caps 256 and 384.  Ranges that
   are too wide or too narrow are caught.
+- K8 and K8p (``csrc/merge_compact.cu`` + ``merge_path.cuh``): the same
+  chunk bodies over a work list, block row ``g`` the query of group
+  ``g``'s head row, its main stream clipped to the group's tiles.
+  ``merge_chunks_replay`` with ``desc`` and ``heads`` replays that grid
+  and must equal ``merge_compact_torch`` / ``merge_compact_packed_torch``
+  slot for slot, inert rows included: windows 256, 1000, 4096, caps 256
+  and 384, edge and random inputs, live patterns all, 20 of 32 and one;
+  a group whose last tile row is dropped merges only its tiles.
 - K2 (``csrc/topk_merge_rows.cu``): ``warp_sort_run`` replays the
   in-register network, ``merge_rounds`` and ``merge_topk_rows_replay`` the
   truncated merge-path rounds; the replay equals ``merge_topk_rows_torch``
@@ -34,10 +42,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.index import BLOCK, INVALID_DOC
+from repro_torch.core.index import (BLOCK, DESC_PAD, INVALID_DOC, TILE, flat_tile_pad,
+                                    pack_flat_postings)
 from repro_torch.kernels import _build
 from repro_torch.kernels import delta_merge as dm
 from repro_torch.kernels import topk_merge as tm
+from repro_torch.kernels import worklist as wlm
 
 INV = int(INVALID_DOC)
 INT_MIN = -(2**31)
@@ -59,6 +69,9 @@ def _define(source: str, name: str) -> int:
     ("topk_merge_rows.cu", "MAX_CHUNKS", tm.MAX_CHUNKS),
     ("topk_merge_rows.cu", "MAX_THREADS", tm.MAX_THREADS),
     ("decode.cuh", "PBLOCK", BLOCK),
+    ("merge_compact.cu", "K8_CHUNK", dm.K8_CHUNK),
+    ("merge_compact.cu", "K8P_CHUNK", dm.K8P_CHUNK),
+    ("merge_path.cuh", "WL_TILE", TILE),
 ])
 def test_replay_constants_are_the_sources(source, name, value):
     assert _define(source, name) == value
@@ -67,13 +80,15 @@ def test_replay_constants_are_the_sources(source, name, value):
 # ------------------------------------------------------------ K3 / K3p
 
 
-def _random_inputs(window, cap, seed, q_n=6):
+def _random_inputs(window, cap, seed, q_n=6, stride=None):
     """Seeded streams of every fill: main lists of 0, 5, a random number
     and window postings (m_neff up to 2 past them), delta slabs empty,
     partial and full, drivers including -1; docIDs drawn so that the two
-    streams share some."""
+    streams share some.  Each query's list at ``stride`` (default ``window
+    + 2 * BLOCK``) postings from the last, plus 0 or BLOCK."""
     rng = np.random.default_rng(seed)
-    n_terms, stride = 5, window + 2 * BLOCK
+    n_terms = 5
+    stride = window + 2 * BLOCK if stride is None else stride
     post = np.full(q_n * stride, INV, np.int32)
     att = np.full(q_n * stride, -1, np.int32)
     m_off = (np.arange(q_n) * stride + rng.integers(0, 2, q_n) * BLOCK).astype(np.int32)
@@ -273,6 +288,115 @@ def test_staging_check_refuses_ranges_past_the_live_ones(bad):
     with pytest.raises(ValueError, match="leave the live ranges"):
         dm.staging_check(bad, 10, 5)
     dm.staging_check((0, 10, 0, 5), 10, 5)
+
+
+# ------------------------------------------------------------ K8 / K8p
+
+LIVE = ["all", "20 of 32", "one"]
+
+
+def _padded(x, fill):
+    """``x`` padded with ``fill`` to a TILE-padded length (the codec's)."""
+    out = torch.full((flat_tile_pad(x.shape[0]),), fill, dtype=x.dtype)
+    out[:x.shape[0]] = x
+    return out
+
+
+def _table_inputs(kind, window, cap):
+    """Raw merge inputs and their block-codec twins: the chunk-edge cases,
+    or 32 seeded random queries (their flat arrays padded to TILE)."""
+    if kind == "edges":
+        return dm.merge_edge_inputs(window, cap, seed=3)
+    stride = (-(-window // BLOCK) + 2) * BLOCK          # lists start on a block
+    raw = list(_random_inputs(window, cap, seed=window + cap + 1, q_n=32, stride=stride))
+    for i, fill in ((0, INV), (1, -1), (4, INV), (5, -1)):
+        raw[i] = _padded(raw[i], fill)
+    raw = tuple(raw)
+    return raw, (pack_flat_postings(raw[0]),
+                 pack_flat_postings(raw[4], span_blocks=max(DESC_PAD, cap // BLOCK)))
+
+
+def _live(pattern, q_n):
+    if pattern == "all":
+        return None
+    if pattern == "one":
+        return np.eye(q_n, dtype=bool)[q_n // 2]
+    live = np.zeros(q_n, bool)
+    live[np.random.default_rng(q_n).permutation(q_n)[:max(1, q_n * 20 // 32)]] = True
+    return live
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["K8", "K8p"])
+@pytest.mark.parametrize("live", LIVE)
+@pytest.mark.parametrize("kind", ["edges", "random"])
+@pytest.mark.parametrize("cap", CAPS)
+@pytest.mark.parametrize("window", [4096, 1000, 256])
+def test_table_replay_equals_plain(window, cap, kind, live, packed):
+    raw, twins = _table_inputs(kind, window, cap)
+    q_n = raw[8].shape[0]
+    wl = dm.plan_merge_compact(raw[3], window=window, live_q=_live(live, q_n))
+    desc, heads = wlm.table_to_device(wl, "cpu")
+    if packed:
+        pk = (twins[0],) + raw[1:4] + (twins[1],) + raw[5:]
+        want = dm.merge_compact_packed_torch(desc, heads, *pk, window=window, cap=cap)
+        # K8p stages the twins' decoded blocks
+        raw = ((dm.unpack_flat_postings_torch(twins[0]),) + raw[1:4]
+               + (dm.unpack_flat_postings_torch(twins[1]),) + raw[5:])
+    else:
+        want = dm.merge_compact_torch(desc, heads, *raw, window=window, cap=cap)
+    got, stats = dm.merge_chunks_replay(*raw, window=window, cap=cap, packed=packed,
+                                        desc=desc, heads=heads)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    rows = torch.ones(q_n, dtype=torch.bool) if live == "all" else torch.from_numpy(
+        _live(live, q_n))
+    dense = dm.merge_delta_windows_torch(*raw, window=window, cap=cap)
+    for g, d, inert in zip(got, dense, (INV, -1, 1)):
+        assert torch.equal(g[rows], d[rows])
+        assert bool((g[~rows] == inert).all())
+    chunk = dm.K8P_CHUNK if packed else dm.K8_CHUNK
+    assert stats["chunks"] > 0
+    assert stats["main"] <= min(window, cap + chunk)
+    assert stats["delta"] <= min(cap, window + chunk)
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["K8", "K8p"])
+def test_table_replay_clips_to_the_group_tiles(packed):
+    """A group whose last tile row is dropped from the table merges only
+    the main postings of its remaining tiles, as the plain version (which
+    assembles the window from the rows' tiles) does."""
+    window, cap = 4096, 256
+    raw, twins = _table_inputs("random", window, cap)
+    wl = dm.plan_merge_compact(raw[3], window=window)
+    heads = wl.group_heads().astype(np.int64)
+    sizes = np.diff(heads)
+    g = int(np.nonzero(sizes >= 2)[0][0])
+    drop = heads[g + 1] - 1
+    desc_h = np.delete(wl.desc, drop, axis=0)
+    desc_h = np.concatenate([desc_h, desc_h[-1:]])     # keep the padded size
+    heads_h = heads.copy()
+    heads_h[g + 1:] -= 1
+    desc = torch.from_numpy(desc_h.astype(np.int32))
+    heads = torch.from_numpy(heads_h.astype(np.int32))
+    if packed:
+        pk = (twins[0],) + raw[1:4] + (twins[1],) + raw[5:]
+        want = dm.merge_compact_packed_torch(desc, heads, *pk, window=window, cap=cap)
+    else:
+        want = dm.merge_compact_torch(desc, heads, *raw, window=window, cap=cap)
+    got, _ = dm.merge_chunks_replay(*raw, window=window, cap=cap, packed=packed,
+                                    desc=desc, heads=heads)
+    for gt, w in zip(got, want):
+        assert torch.equal(gt, w)
+    q = int(desc_h[heads_h[g], 0])
+    full = dm.merge_delta_windows_torch(*raw, window=window, cap=cap)
+    assert not torch.equal(got[0][q], full[0][q])
+
+
+def test_table_replay_needs_both_table_arrays():
+    raw, _ = dm.merge_edge_inputs(256, 256, seed=3)
+    with pytest.raises(ValueError, match="go together"):
+        dm.merge_chunks_replay(*raw, window=256, cap=256,
+                               desc=torch.zeros((1, 8), dtype=torch.int32))
 
 
 # ------------------------------------------------------------ K2
