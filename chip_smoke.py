@@ -12,8 +12,8 @@ Phases (any failure exits non-zero; nothing is caught):
              K4p, K6p, K7p, K8p) from
              ``src/repro_torch/kernels/csrc`` (one process per source, all
              at once) and prints ptxas' registers / shared memory / spills
-             (K2, K3, K3p, K8, K8p and K9 on a line of their own); a spill
-             fails;
+             (K2, K3, K3p, K8, K8p, K9, K10 and K12 float32 on a line of
+             their own); a spill fails;
 3. data    — the deployment: a 4M-page corpus from a seed (100k terms,
              mean 64 terms a page, 10k sites), site terms on, striped over
              4 slaves stacked on the card;
@@ -140,9 +140,12 @@ Phases (any failure exits non-zero; nothing is caught):
              ranges at the main path's shapes against the staging
              precondition (``skip_streams``) and its grid from the
              profiler's trace (512 blocks); K10 on the reference kernel tests'
-             shapes, ``bench_kernels.py``'s and the two hottest lists of
-             slave 0 whole; K11 (int32, float32) from 2 to 2**20 keys (the
-             tile's edges, 2**18 + 1), sorted, reversed, one-value and
+             shapes, ``bench_kernels.py``'s, the two hottest lists of
+             slave 0 whole, skip ranges past one round of the probe's
+             buffer and an empty other list (mask 0), with its streams
+             (``skip_streams``) and grid from the profiler's trace; K11
+             (int32, float32) from 2 to 2**20 keys (the tile's edges,
+             2**18 + 1), sorted, reversed, one-value and
              all-``INVALID_DOC`` vectors, the pad quirk with ``inf`` and 3e9,
              and ``merge_topk``; the launches of one 2**20 sort (1 +
              log2(m / tile), from the profiler); the static
@@ -167,15 +170,18 @@ Phases (any failure exits non-zero; nothing is caught):
              attention width of phi4-mini-3.8b (H 24, KV 8, hd 128; S = T =
              4096) and gemma-2b (H 8, KV 1, hd 256; S = T = 2048), float32
              and bfloat16, a rectangular-chunk and a non-causal T > S case,
-             and bfloat16 tiles that overhang S and T (S = T = 192, S = 64
-             with T = 96), one launch a call; every bfloat16 case also
-             within a row-relative error of ``BF16_ROW_REL_TOL`` (0.05),
-             and an emulated ring fault (one k/v tile of a long row left
-             out, or V from the slot's previous tile) at the phi4-mini and
-             gemma-2b shapes read past it; the HGMMA count of the bf16
-             kernel's SASS (``cuobjdump -sass``; none fails); at the
-             phi4-mini and gemma-2b shapes, each dtype, CUDA-event and
-             profiler times beside the bound, the plain version and
+             and tiles that overhang S and T (S = T = 192, S = 64 with T =
+             96, GQA 3 at hd 64), in both dtypes, one launch a call; every
+             bfloat16 case also within a row-relative error of
+             ``BF16_ROW_REL_TOL`` (0.05), and an emulated ring fault (one
+             k/v tile of a long row left out, or V from the slot's
+             previous tile) at the phi4-mini and gemma-2b shapes read past
+             it, and past 2e-5 with the float32 kernel's tiles; the HGMMA
+             count of each K12 kernel's SASS (``cuobjdump -sass``; none in
+             the bf16 or the float32 kernel fails); at the phi4-mini and
+             gemma-2b shapes, each dtype, CUDA-event and profiler times
+             beside the bound (float32: the split-TF32 bound, 3 x flops at
+             495 TFLOP/s, and the CUDA-core one), the plain version and
              ``scaled_dot_product_attention(enable_gqa=True)``;
 15. ingest — multi-master ingest on phase 3's index: a
              ``ShardedDeltaWriter`` (term capacity 256, doc headroom 4096)
@@ -219,6 +225,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 INT32_OPS_PER_S = 67e12        # 32-bit CUDA-core peak (the fp32 figure)
 FP32_FLOPS_PER_S = 67e12       # float32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12      # TF32 tensor cores, dense (split TF32: 3 products)
 BF16_FLOPS_PER_S = 989e12      # bf16 tensor cores, dense
 MAIN_WINDOW, MAIN_Q, MAIN_T, NS = 4096, 32, 4, 4
 TERM_CAPACITY, DOC_HEADROOM = 256, 4096
@@ -237,9 +244,9 @@ KERNEL_NAMES = {"K1": "driver_streamed_kernel",
                 "K7": "streamed_compact_kernel", "K7p": "streamed_compact_packed_kernel",
                 "K8": "merge_compact_kernel",
                 "K8p": ("merge_compact_packed_kernel", "merge_compact_packed_row_kernel"),
-                "K9": "staged_join_kernel", "K10": "intersect_block_skip_kernel",
+                "K9": "staged_join_kernel", "K10": "skip_join_kernel",
                 "K11": ("flat_sort_tile", "flat_sort_merge"),
-                "K12": ("flash_attention_kernel", "flash_attention_wgmma_kernel")}
+                "K12": ("flash_attention_tf32_kernel", "flash_attention_wgmma_kernel")}
 
 
 def kernel_names(key: str) -> tuple:
@@ -499,8 +506,9 @@ def table_probe_cost(desc_h, n_items, bounds_h, col, tile, meta_host=None):
     return postings if meta_host is None else (n_bytes, n_blocks)
 
 
-# the first design's staging (probe.cuh: one block a 1024-slot tile,
-# 2048-posting chunks, a static buffer of CHUNK + BLOCK ints)
+# the first design's staging (a synchronous probe, no longer in the tree:
+# one block a 1024-slot tile, 2048-posting chunks, a static buffer of
+# CHUNK + BLOCK ints)
 OLD_CHUNK, OLD_SMEM = 2048, (2048 + 128) * 4
 
 
@@ -792,10 +800,11 @@ def main() -> int:
         spills.update({fn: i for fn, i in info.items()
                        if re.search(r"[1-9]\d* bytes spill", i)})
     redesigned = {fn: i for name in ("topk_merge_rows", "delta_merge", "merge_compact",
-                                     "staged_join")
-                  for fn, i in ptxas_info(built[name].log).items()}
-    log("[build] K2, K3, K3p, K8, K8p, K9 (this design): " + " | ".join(
-        f"{fn}: {i}" for fn, i in redesigned.items()))
+                                     "staged_join", "flash_attention")
+                  for fn, i in ptxas_info(built[name].log).items()
+                  if "wgmma" not in fn}
+    log("[build] K2, K3, K3p, K8, K8p, K9, K10, K12 float32 (this design): "
+        + " | ".join(f"{fn}: {i}" for fn, i in redesigned.items()))
     if spills:
         raise AssertionError(f"kernels spill registers: {spills}")
     phase_end("2 build")
@@ -2856,6 +2865,21 @@ def main() -> int:
             k10_check(f"{na}/{va} x {nb}/{vb} filter {f}", pi.block_skip_args(
                 a10, at10, b10, f))
     bench10 = pi.block_skip_args(a10, at10, b10, -1)
+    # skip ranges past one round of the probe's buffer (4096 postings), and
+    # an empty other list: every slot dies
+    a_long, b_long = sorted_list(2048, 2000, 10**5), sorted_list(65536, 60000, 10**5)
+    at_long = torch.from_numpy(rng13.integers(0, 8, 2048).astype(np.int32)).to(dev)
+    long10 = pi.block_skip_args(a_long, at_long, b_long, -1)
+    longest10 = int(long10[5].max()) * TILE
+    if longest10 <= 4096:
+        raise AssertionError(f"K10: longest skip range {longest10} postings, not past "
+                             f"one round of 4096")
+    long_sums = [k10_check(f"skip ranges up to {longest10} postings filter {f}",
+                           pi.block_skip_args(a_long, at_long, b_long, f)) for f in (-1, 2)]
+    dead_sum = k10_check("empty other list", pi.block_skip_args(
+        a_long, at_long, sorted_list(1024, 0, 10**5), -1))
+    if dead_sum != 0:
+        raise AssertionError(f"K10: {dead_sum} members of an empty list")
     idx0 = raw_shards[0]
     hot1, hot2 = (int(t) for t in torch.topk(idx0.lengths, 2).indices)
 
@@ -2870,7 +2894,29 @@ def main() -> int:
     log(f"[staged] K10 bit-exact vs its plain version on {len(k10_shapes)} shapes x "
         f"filter on/off (tests/test_kernels.py's and bench_kernels.py's 4096 x 8192) "
         f"and the two hottest lists of slave 0 whole (term {hot2}, "
-        f"{a_hot.numel()} postings, in term {hot1}, {b_hot.numel()}): {hot_sums} hits")
+        f"{a_hot.numel()} postings, in term {hot1}, {b_hot.numel()}): {hot_sums} hits; "
+        f"2048 x 65536 with skip ranges up to {longest10} postings: {long_sums} hits; "
+        f"against an empty list: mask 0")
+    for label, a10_ in (("4096 x 8192", bench10), ("hottest lists", hot10)):
+        a_, _, b_, _, bs_, nb_ = a10_
+        lo10, hi10, _ = pi.skip_streams(bs_[None, None], nb_[None, None], None,
+                                        b_.shape[0])
+        n_ranges10 = pi.ranges_staging_check(lo10, hi10, n_postings=b_.numel())
+        launched10 = {k: v for k, v in kernel_launches(
+            lambda a10_=a10_: pi.block_skip_join_cuda(*a10_)).items()
+            if "skip_join_kernel" in k}
+        if not launched10:
+            raise AssertionError("K10: no skip_join_kernel among the device events")
+        grids10 = set().union(*(g for _, g in launched10.values()))
+        want10 = (4 * (a_.shape[0] // TILE), 1, 1)
+        if any(g != want10 for g, _ in grids10):
+            raise AssertionError(f"K10's grids {grids10}, expected {want10}")
+        log(f"[staged] K10 {label}: {n_ranges10} non-empty skip ranges stage "
+            f"(skip_streams at Q = T = 1), the longest {int((hi10 - lo10).max())} "
+            f"postings; the profiler shows skip_join_kernel "
+            + (", ".join(f"grid {g} ({math.prod(g)} blocks), block {b}"
+                         for g, b in grids10)
+               if grids10 else "(grid not in the trace: blocks not measured)"))
 
     def k11_check(label, x):
         got = tm.bitonic_sort_cuda(x)
@@ -3319,6 +3365,16 @@ def main() -> int:
          64, 32, False, bf16),
         ("ragged hd 64, GQA 3: S = T = 192, chunks 64, bf16", (1, 192, 192, 6, 2, 64),
          64, 64, True, bf16),
+        *((f"ragged float32: {label}", shape, cq, ck, causal, f32)
+          for label, shape, cq, ck, causal in (
+              ("S = T = 192, chunks 64 (a 128-row q tile past S)",
+               (1, 192, 192, 4, 2, 128), 64, 64, True),
+              ("hd 256, S = 64, T = 96, chunks (64, 32)", (1, 64, 96, 2, 1, 256), 64, 32,
+               False),
+              ("hd 64, GQA 3, S = T = 192, chunks 64", (1, 192, 192, 6, 2, 64), 64, 64,
+               True),
+              ("hd 256, GQA 8, T > S, non-causal", (1, 256, 384, 8, 1, 256), 128, 128,
+               False))),
         ("phi4-mini f32", phi4, 128, 128, True, f32),
         ("phi4-mini bf16", phi4, 128, 128, True, bf16),
         ("gemma-2b f32", gemma, 128, 128, True, f32),
@@ -3377,9 +3433,11 @@ def main() -> int:
     if flash_bad:
         raise AssertionError("K12: " + "; ".join(flash_bad))
 
-    # the row-relative bound would catch a ring fault in a long causal row:
-    # the last q tile with one k/v tile of mid-row left out, or with V read
-    # from the slot's previous tile, held against the sound rows
+    # the bounds would catch a ring fault in a long causal row: the last q
+    # tile with one k/v tile of mid-row left out, or with V read from the
+    # slot's previous tile, held against the sound rows (bf16: the
+    # row-relative bound; float32: rtol = atol = 2e-5, the float32 kernel's
+    # tiles and two slots)
     def last_rows(q, k, v, dropped=None):
         S, hd, G = q.shape[1], q.shape[3], q.shape[2] // k.shape[2]
         qf = q[:, S - 128:].float().transpose(1, 2)
@@ -3392,24 +3450,38 @@ def main() -> int:
         return (torch.softmax(sc, -1) @ vf).transpose(1, 2).to(q.dtype)
 
     for (label, shape, _, _, causal, dtype), (q, k, v) in zip(flash_cases, flash_in):
-        if dtype != bf16 or label not in ("phi4-mini bf16", "gemma-2b bf16"):
+        if label not in ("phi4-mini bf16", "gemma-2b bf16", "phi4-mini f32",
+                         "gemma-2b f32"):
             continue
-        bk, stages = (128, 3) if shape[5] <= 128 else (64, 2)
+        if dtype == bf16:
+            bk, stages = (128, 3) if shape[5] <= 128 else (64, 2)
+        else:
+            bk, stages = fa.TF32_TILES[shape[5]][1], 2
         j = shape[2] // bk // 2
         sound = last_rows(q, k, v)
         v2 = v.clone()
         v2[:, j * bk:(j + 1) * bk] = v[:, (j - stages) * bk:(j - stages + 1) * bk]
-        faults = {"dropped": fa.max_row_rel_err(
-                      last_rows(q, k, v, slice(j * bk, (j + 1) * bk)), sound),
-                  "wrong slot": fa.max_row_rel_err(last_rows(q, k, v2), sound)}
-        if min(faults.values()) <= fa.BF16_ROW_REL_TOL:
+        bad_rows = {"dropped": last_rows(q, k, v, slice(j * bk, (j + 1) * bk)),
+                    "wrong slot": last_rows(q, k, v2)}
+        if dtype == bf16:
+            faults = {k_: fa.max_row_rel_err(x, sound) for k_, x in bad_rows.items()}
+            caught = min(faults.values()) > fa.BF16_ROW_REL_TOL
+            bound = (f"row-relative bound {fa.BF16_ROW_REL_TOL:g}, largest sound "
+                     f"reading {row_rel:.4f}")
+        else:
+            faults = {k_: float((x - sound).abs().max()) for k_, x in bad_rows.items()}
+            caught = not any(torch.allclose(x, sound, rtol=2e-5, atol=2e-5)
+                             for x in bad_rows.values())
+            bound = (f"rtol = atol = 2e-5, largest sound error "
+                     f"{flash_err[f32]:.3g}")
+        if not caught:
             raise AssertionError(f"K12 {label}: an emulated ring fault reads "
-                                 f"{faults}, within {fa.BF16_ROW_REL_TOL}")
+                                 f"{faults}, within the bound")
         log(f"[flash] K12 {label}: an emulated fault in k/v tile {j} of {bk} keys "
-            f"for the last 128 rows reads row-relative " + ", ".join(
-                f"{k_} {x:.4f}" for k_, x in faults.items())
-            + f" (bound {fa.BF16_ROW_REL_TOL:g}, largest sound reading {row_rel:.4f})")
-        del sound, v2
+            f"({stages} slots) for the last 128 rows reads "
+            + ("row-relative " if dtype == bf16 else "max abs ") + ", ".join(
+                f"{k_} {x:.4g}" for k_, x in faults.items()) + f" ({bound})")
+        del sound, v2, bad_rows
     del flash_out, flash_in
     log(f"[flash] launches {flash_launches['K12']} K12 for {len(flash_cases)} "
         f"flash_attention_fwd calls; max abs err float32 {flash_err[f32]:.3g}, "
@@ -3427,16 +3499,20 @@ def main() -> int:
             hgmma[fn] = 0
         elif fn is not None and "HGMMA" in line:
             hgmma[fn] += 1
-    wgmma_fns = {f: c for f, c in hgmma.items() if "flash_attention_wgmma_kernel" in f}
-    if not wgmma_fns or min(wgmma_fns.values()) == 0:
-        raise AssertionError(f"K12: no HGMMA in the bf16 kernel's SASS: {hgmma}")
+    for kname in kernel_names("K12"):
+        fns = {f: c for f, c in hgmma.items() if kname in f}
+        if len(fns) != 3 or min(fns.values()) == 0:
+            raise AssertionError(f"K12: no HGMMA in {kname}'s SASS at some head width: "
+                                 f"{hgmma}")
     log("[flash] HGMMA instructions in the built K12 library's SASS (cuobjdump -sass): "
         + "; ".join(f"{f} {c}" for f, c in hgmma.items()))
 
     flash_rows = {}
     for config, shape in (("phi4-mini", phi4), ("gemma-2b", gemma)):
         b_, s_, t_, h_, kv_, hd_ = shape
-        for dtype, peak in ((f32, FP32_FLOPS_PER_S), (bf16, BF16_FLOPS_PER_S)):
+        # float32: held to the split-TF32 bound (three TF32 products a
+        # product), the CUDA-core float32 bound beside it
+        for dtype, peak in ((f32, TF32_FLOPS_PER_S / 3), (bf16, BF16_FLOPS_PER_S)):
             q, k, v = qkv(*shape, dtype)
             run = lambda: fa.flash_attention_fwd_cuda(q, k, v)  # noqa: E731
             plain = lambda: fa.flash_attention_fwd_torch(q, k, v)  # noqa: E731
@@ -3445,6 +3521,7 @@ def main() -> int:
                 qt, kt, vt, is_causal=True, enable_gqa=True)
             sdpa_err = float((sdpa().transpose(1, 2).float() - run().float()).abs().max())
             ms, dev_ms = cuda_ms(run, reps=20, warmup=3), device_ms(run, reps=10)
+            dev_own = device_ms(run, reps=10, kernel="K12")
             plain_ms = cuda_ms(plain, reps=3, warmup=1)
             plain_dev = device_ms(plain, reps=2)
             lib_ms, lib_dev = cuda_ms(sdpa, reps=20, warmup=3), device_ms(sdpa, reps=10)
@@ -3461,14 +3538,20 @@ def main() -> int:
                         f"unusable (the profiler's {x:.4f} ms is below the bound)"
                         if x < bound else f"{x:.4f} ms")
 
+            core = (f"; CUDA-core float32 bound "
+                    f"{max(t_bytes, flops / FP32_FLOPS_PER_S) * 1e3:.4f} ms "
+                    f"(K12 / it {ms / (max(t_bytes, flops / FP32_FLOPS_PER_S) * 1e3):.2f}x)"
+                    if dtype == f32 else "")
             log(f"[times] K12 {config} {shape} causal {str(dtype)[6:]}: {ms:.4f} "
-                f"ms/launch (CUDA events), device {dev_reading(dev_ms)} (profiler); "
+                f"ms/launch (CUDA events), device {dev_reading(dev_ms)} (profiler; "
+                f"the kernel's own events: {dev_reading(dev_own)}); "
                 f"plain {plain_ms:.4f} ms (device {dev_reading(plain_dev)}); SDPA "
                 f"(enable_gqa, same dtype) {lib_ms:.4f} ms (device "
                 f"{dev_reading(lib_dev)}; max abs diff from K12 {sdpa_err:.3g}); bound "
-                f"{bound:.4f} ms ({by}: {flops} flops at {peak / 1e12:.0f} TFLOP/s, "
-                f"{n_bytes} bytes at 3.35 TB/s); K12 / SDPA {ms / lib_ms:.2f}x, "
-                f"K12 / bound {ms / bound:.2f}x on {smi}")
+                f"{bound:.4f} ms ({by}: {flops} flops at {peak / 1e12:.0f} TFLOP/s"
+                + (" (495 split three ways)" if dtype == f32 else "")
+                + f", {n_bytes} bytes at 3.35 TB/s){core}; K12 / SDPA "
+                f"{ms / lib_ms:.2f}x, K12 / bound {ms / bound:.2f}x on {smi}")
             del q, k, v, qt, kt, vt
     phase_end("14 flash")
 
@@ -3913,7 +3996,7 @@ def main() -> int:
          "posting_intersect.py:533", st_counts["K9"]),
         ("K9 fill 1.0", "K9 intersect_batched_block_skip (fill 1.0, a_live)",
          "staged_join.cu", "posting_intersect.py:533", st_mor_counts["K9"]),
-        ("K10 bench 4096 x 8192", "K10 intersect_block_skip", "block_skip.cu",
+        ("K10 bench 4096 x 8192", "K10 intersect_block_skip", "staged_join.cu",
          "posting_intersect.py:396", ops_counts["K10"]),
         ("K11 int32 n=4096 (bench)", "K11 bitonic_sort", "flat_sort.cu",
          "topk_merge.py:79", ops_counts["K11"]),

@@ -94,7 +94,7 @@ KERNELS = {
         "staged_join", "batched_block_skip_launch",
         (_P,) * 9 + (_I,) * 4 + (_P,)),
     "block_skip": Kernel(
-        "block_skip", "block_skip_launch", (_P,) * 7 + (_I,) * 2 + (_P,)),
+        "staged_join", "block_skip_launch", (_P,) * 7 + (_I,) * 2 + (_P,)),
     "flat_sort_i32": Kernel(
         "flat_sort", "flat_sort_i32_launch", (_P, _I, _P, _P, _I, _P)),
     "flat_sort_f32": Kernel(

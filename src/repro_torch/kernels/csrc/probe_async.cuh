@@ -1,9 +1,8 @@
 // The membership probe of the slave joins K1 (driver_streamed.cu), K4
 // (streamed_join.cu) and their work-list twins K6 (driver_compact.cu) and
 // K7 (streamed_compact.cu), of their packed modes K1p, K4p, K6p and K7p,
-// and of the staged join K9 (staged_join.cu), staged asynchronously for
-// Hopper; their block bodies are in slave_join.cuh.  (probe.cuh keeps the
-// synchronous probe for K10.)
+// and of the staged joins K9 and K10 (staged_join.cu), staged
+// asynchronously for Hopper; their block bodies are in slave_join.cuh.
 //
 // What bounds a probe on the H100: latency, not bytes or operations.  The
 // work is a binary search of a few steps per byte read, and at the main
@@ -178,13 +177,6 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
         " [%0], [%1], %2, [%3];"
         :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
         : "memory");
-}
-
-// Order the block's earlier generic-proxy accesses to shared memory (made
-// visible to this thread by a barrier) before its later bulk-copy writes.
-__device__ __forceinline__ void fence_proxy_async()
-{
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 // Decode one block from words already in shared memory into out[0, 128):

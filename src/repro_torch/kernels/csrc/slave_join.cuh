@@ -1,7 +1,7 @@
 // The block bodies of the slave joins, shared by the dense kernels K1
 // (driver_streamed.cu) and K4 (streamed_join.cu), their work-list twins
 // K6 (driver_compact.cu) and K7 (streamed_compact.cu), raw and packed, and
-// the staged join K9 (staged_join.cu).
+// the staged joins K9 and K10 (staged_join.cu).
 //
 // A body is K1's (driver read from the flat arrays by position) or K4's
 // (driver a materialized window with live stream and flags); both probe
@@ -29,12 +29,13 @@
 //   dead-term group (one TERM_START|TERM_END row, no tile) gives an active
 //   empty stream, so every slot dies; a no-op group (FIRST|LAST, no term
 //   flag) none, so validity and the filter decide.
-// - SkipPlan (K9, K4's body): the grid is DensePlan's, over a staged
-//   driver window; term t's one stream is the skip range of the staged
-//   other-term window [q, t] (b_docs [Q, T, W_b], flat): the planned range
-//   of the skip map's b_start, n_b at (q, t, i), clipped to [0, W_b) and
-//   offset by (q * T + t) * W_b.  An active slot with an empty range
-//   kills every slot, as K4's dead term does.
+// - SkipPlan (K9 and K10, K4's body): the grid is DensePlan's, over a
+//   staged driver window; term t's one stream is the skip range of the
+//   staged other-term window [q, t] (b_docs [Q, T, W_b], flat): the planned
+//   range of the skip map's b_start, n_b at (q, t, i), clipped to [0, W_b)
+//   and offset by (q * T + t) * W_b.  An active slot with an empty range
+//   kills every slot, as K4's dead term does.  K10 is the plan at Q = T =
+//   1 with active null.
 //
 // In every plan block x % NSUB is the sub-tile: JOIN_SUB slots from
 // i * TILE + (x % NSUB) * JOIN_SUB.

@@ -8,10 +8,12 @@ with ``G = H // KV``, so q head ``h`` reads k/v head ``h // G`` (no repeat
 of the grouped heads).  Logits are ``q . k / sqrt(hd)``; under ``causal``
 a key at position ``kpos > qpos`` (both from 0) is masked to ``-1e30``.
 The softmax runs in float32 and the result is ``acc / max(l, 1e-30)``;
-the products run in float32, except in the bfloat16 kernel, which
-multiplies bfloat16 operands on the tensor cores and rounds P to bfloat16
-before P.V (within the bfloat16 contract, rtol = atol = 2e-2 and a
-row-relative error of :data:`BF16_ROW_REL_TOL`).  Chunks
+the products run in float32 (the float32 kernel: split TF32 on the tensor
+cores, :func:`split_tf32`, within the float32 contract, rtol = atol =
+2e-5), except in the bfloat16 kernel, which multiplies bfloat16 operands
+on the tensor cores and rounds P to bfloat16 before P.V (within the
+bfloat16 contract, rtol = atol = 2e-2 and a row-relative error of
+:data:`BF16_ROW_REL_TOL`).  Chunks
 are ``cq, ck = min(q_chunk, S), min(k_chunk, T)``; S and T must be
 multiples of them, as the reference asserts.
 
@@ -38,8 +40,31 @@ CUDA_HEAD_DIMS = (64, 128, 256)
 #: elementwise bound alone would pass a lost or misplaced k/v tile in a
 #: long row; that tile moves the row by a share of its own norm.
 BF16_ROW_REL_TOL = 0.05
+#: The float32 kernel's tiles by head width: (q rows a block, keys a k/v
+#: tile); a k or v tile is 4096 floats, and the ring has two slots.
+TF32_TILES = {64: (128, 64), 128: (128, 32), 256: (64, 16)}
 _CUDA_ENTRY = {torch.float32: "flash_attention_f32",
                torch.bfloat16: "flash_attention_bf16"}
+
+
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Split TF32 as the float32 kernel splits its operands: ``hi`` is
+    float32 ``x`` rounded to TF32 (10 mantissa bits; to nearest, ties away
+    from zero: ``cvt.rna.tf32.f32``), ``lo`` is ``x - hi`` (exact) rounded
+    the same way.  ``hi * y_hi + hi * y_lo + lo * y_hi`` then stands for
+    ``x * y``: ``|x - hi - lo|`` is at most ``2**-21 * |x|``, or half the
+    TF32 subnormal step (``2**-137``) where ``lo`` falls below the normal
+    range.  For finite ``x`` below about ``2**128 * (1 - 2**-12)`` (larger
+    ones round to inf).  The card does this in the kernel; this copy is
+    for the tests and the CPU emulation of the kernel's arithmetic, not for
+    the main path."""
+    def rna(y):
+        bits = y.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    x = x.to(torch.float32)
+    hi = rna(x)
+    return hi, rna(x - hi)
 
 
 def _chunks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -126,14 +151,17 @@ def flash_attention_fwd_cuda(q, k, v, *, causal: bool = True,
                              q_chunk: int = 128, k_chunk: int = 128):
     """Launch ``csrc/flash_attention.cu`` on the current stream: one block
     per (row of the (B, KV, G) flattening, q tile), walking its k tiles
-    with the running max, denominator and accumulator on chip.  float32:
-    64-row q tiles and 64-key k tiles on the CUDA cores.  bfloat16: 128-row
-    q tiles split between two warpgroups that take turns on the tensor
-    cores (``wgmma`` for both products), k and v tiles of 128 keys (64 at
-    hd 256) streamed by TMA through a ring of 3 slots (2 at hd 256), P
-    rounded to bfloat16 before P.V.  The chunk arguments are checked as
-    the reference checks them; the kernel's own tiles are its choice and
-    change only the order of the sums."""
+    with the running max, denominator and accumulator on chip, both
+    products on the tensor cores (``wgmma``), k and v tiles streamed by
+    TMA through a ring, a q tile split between consumer warpgroups of 64
+    rows that take turns.  float32: split TF32 (three TF32 products for
+    each, :func:`split_tf32`), tiles :data:`TF32_TILES` (128 q rows and 64
+    or 32 keys, 64 and 16 at hd 256), two ring slots, K split and V
+    transposed and split in shared memory by the producer warpgroup.
+    bfloat16: 128-row q tiles, k and v tiles of 128 keys (64 at hd 256), a
+    ring of 3 slots (2 at hd 256), P rounded to bfloat16 before P.V.  The
+    chunk arguments are checked as the reference checks them; the kernel's
+    own tiles are its choice and change only the order of the sums."""
     from repro_torch.kernels import _build
 
     _chunks(q, k, v, q_chunk, k_chunk)
@@ -149,7 +177,7 @@ def flash_attention_fwd_cuda(q, k, v, *, causal: bool = True,
         raise ValueError(f"head width {hd} not in {CUDA_HEAD_DIMS}")
     if math.ceil(S / 64) >= 65536:
         raise ValueError(f"{S} query positions exceed the grid's y extent")
-    # TMA (the bfloat16 kernel) reads from 16-byte aligned addresses only
+    # TMA reads from 16-byte aligned addresses only
     q, k, v = (x.contiguous() if x.data_ptr() % 16 == 0 else x.clone(
         memory_format=torch.contiguous_format) for x in (q, k, v))
     out = torch.empty_like(q)

@@ -63,8 +63,8 @@ K10: one list), and :func:`compute_skip_map` gives each driver tile the
 run of B tiles whose docID span can overlap it, on the device.  K9 runs
 ``csrc/staged_join.cu``: K4's static block body and asynchronous probe,
 each term's one stream its skip range in the flat windows
-(:func:`skip_streams` states them on the host); K10 runs
-``csrc/block_skip.cu``.
+(:func:`skip_streams` states them on the host); K10 runs the same body at
+Q = T = 1 from the same source.
 
 For each kernel the module holds the plan helpers, the plain PyTorch join
 (:func:`driver_streamed_join_torch`, :func:`streamed_join_torch`, and for
@@ -1419,9 +1419,12 @@ def block_skip_join_torch(a_docs, a_attrs, b_docs, attr_filter, b_start, n_b):
 
 
 def block_skip_join_cuda(a_docs, a_attrs, b_docs, attr_filter, b_start, n_b):
-    """Launch ``intersect_block_skip_kernel`` of ``csrc/block_skip.cu`` (K10: one block
-    per driver tile over the synchronous probe, ``probe.cuh``) on the current
-    stream.  Same signature and result as :func:`block_skip_join_torch`."""
+    """Launch ``skip_join_kernel`` of ``csrc/staged_join.cu`` (K10: K9's body
+    at one query and one term slot, a block a 256-slot sub-tile of a driver
+    tile plus a producer warp that stages the tile's skip range by bulk
+    copies, :func:`skip_streams` at Q = T = 1) on the current stream.
+    ``b_docs`` must start on 16 bytes (:func:`_build.check_aligned`).  Same
+    signature and result as :func:`block_skip_join_torch`."""
     from repro_torch.kernels import _build
 
     (w_a,), (w_b,) = a_docs.shape, b_docs.shape
@@ -1431,6 +1434,7 @@ def block_skip_join_cuda(a_docs, a_attrs, b_docs, attr_filter, b_start, n_b):
         1, a_docs=(a_docs, (w_a,)), a_attrs=(a_attrs, (w_a,)),
         b_docs=(b_docs, (w_b,)), attr_filter=(attr_filter, (1,)),
         b_start=(b_start, (w_a // TILE,)), n_b=(n_b, (w_a // TILE,)))
+    _build.check_aligned(b_docs=b_docs)
     launch = _build.kernel("block_skip")
     mask = torch.empty(w_a, dtype=torch.int32, device=a_docs.device)
     if w_a == 0:
@@ -1465,10 +1469,14 @@ def intersect_block_skip(a_docs: torch.Tensor, a_attrs: torch.Tensor,
 
 def block_skip_args(a_docs, a_attrs, b_docs, attr_filter=-1):
     """K10's operands as its join takes them: each list padded to TILE
-    (INVALID_DOC, attrs -1), the filter as int32[1] on the lists' device,
-    and the skip map computed on the device."""
+    (INVALID_DOC, attrs -1), ``b`` copied where it does not start on 16
+    bytes (a view into a flat postings array, say: the kernel's bulk copies
+    need it), the filter as int32[1] on the lists' device, and the skip map
+    computed on the device."""
     a = _pad_to_tile(a_docs.to(torch.int32), _INVALID).contiguous()
     b = _pad_to_tile(b_docs.to(torch.int32), _INVALID).contiguous()
+    if b.data_ptr() % 16:
+        b = b.clone()
     b_start, n_b = compute_skip_map(a, b)
     filt = torch.as_tensor(attr_filter, dtype=torch.int32,
                            device=a.device).reshape(1)

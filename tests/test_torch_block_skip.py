@@ -21,7 +21,11 @@ Held exactly, on the same numpy inputs:
 - the static modes of K4 and K7 (raw and packed; no delta arrays) against
   the reference's K9 on the windows ``repro.core.engine._query_windows``
   stages, on a corpus whose lists exceed one TILE;
-- every new CUDA wrapper refuses a CPU tensor.
+- every new CUDA wrapper refuses a CPU tensor;
+- on the host alone, the kernel sources: every ``_build.KERNELS`` source
+  exists, every ``#include "..."`` under ``csrc/`` names a file there, and
+  no source includes the synchronous probe ``probe.cuh`` (K10 runs K9's
+  body on the asynchronous one).
 """
 import numpy as np
 import pytest
@@ -309,3 +313,39 @@ def test_new_cuda_wrappers_refuse_cpu_tensors():
     assert pi.block_skip_join_cuda.launches == 0
     assert tm.bitonic_sort_cuda.launches == 0
     assert ops.ref is pt_ref
+
+
+# ------------------------------------------------------ kernel sources --
+def _csrc_files():
+    from repro_torch.kernels import _build
+
+    return _build, sorted(_build.CSRC.glob("*.cu")) + sorted(_build.CSRC.glob("*.cuh"))
+
+
+def test_every_kernel_source_exists():
+    _build, _ = _csrc_files()
+    for name, k in _build.KERNELS.items():
+        assert (_build.CSRC / f"{k.source}.cu").is_file(), name
+    assert _build.KERNELS["block_skip"].source == "staged_join"
+    assert _build.KERNELS["batched_block_skip"].source == "staged_join"
+    # every source is a kernel's: no orphan .cu
+    assert {p.stem for p in _build.CSRC.glob("*.cu")} == set(_build.SOURCES)
+
+
+@pytest.mark.parametrize("kind", ["include", "probe"])
+def test_csrc_includes_resolve_and_skip_the_synchronous_probe(kind):
+    import re
+
+    _build, files = _csrc_files()
+    assert files
+    local = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+    for path in files:
+        names = local.findall(path.read_text())
+        if kind == "include":
+            for inc in names:
+                assert (_build.CSRC / inc).is_file(), f"{path.name} includes {inc}"
+        else:
+            assert "probe.cuh" not in names, path.name
+    if kind == "probe":
+        assert not (_build.CSRC / "probe.cuh").exists()
+        assert not (_build.CSRC / "block_skip.cu").exists()

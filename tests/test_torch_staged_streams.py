@@ -1,6 +1,7 @@
-"""K9's streams on the CPU: the skip ranges that the producer warp of
-``csrc/staged_join.cu`` derives (``SkipPlan`` in ``csrc/slave_join.cuh``),
-stated on the host by ``posting_intersect.skip_streams``.
+"""K9's and K10's streams on the CPU: the skip ranges that the producer warp
+of ``csrc/staged_join.cu`` derives (``SkipPlan`` in
+``csrc/slave_join.cuh``), stated on the host by
+``posting_intersect.skip_streams``.
 
 The kernel cannot run here, so these tests hold its arithmetic:
 
@@ -19,7 +20,13 @@ The kernel cannot run here, so these tests hold its arithmetic:
   starts on 16 bytes and ends, rounded up, inside ``b_docs``), and the
   wrapper's refusal of a ``b_docs`` that does not start on 16 bytes, before
   any launch (the launch replaced, as ``test_torch_probe_staging.py`` does
-  for K1 and K4).
+  for K1 and K4);
+- K10, the same kernel body at Q = T = 1: ``skip_streams`` of its skip map
+  equal to the ranges of ``compute_skip_map(a, b)`` on 1-D lists (a skip
+  range past one round of 4096 postings, an empty ``b``), its membership
+  replayed over them against ``block_skip_join_torch`` and the reference's
+  Pallas K10, the ranges' staging precondition, and its wrapper's refusal
+  of a misaligned ``b_docs`` view (launch replaced).
 """
 import numpy as np
 import pytest
@@ -232,3 +239,103 @@ def test_wrapper_refuses_misaligned_b_docs(monkeypatch, flaw):
     else:
         with pytest.raises(_Launched, match="batched_block_skip"):
             pi.batched_block_skip_join_cuda(*a9)
+
+
+# ----------------------------------------------------------------- K10 --
+# (n_a, valid_a, n_b, valid_b, docID range): the reference kernel tests'
+# sweep, bench_kernels.py's shape, skip ranges past one round (RAW_CAP), an
+# empty b
+K10_CASES = [(1024, 1024, 1024, 1024, 50_000), (1024, 500, 2048, 1700, 50_000),
+             (2048, 2048, 1024, 64, 50_000), (1024, 0, 1024, 512, 50_000),
+             (4096, 4000, 8192, 8000, 10**6), (2048, 2000, 65536, 60000, 10**5),
+             (2048, 2000, 1024, 0, 10**5)]
+
+
+def _k10_case(case):
+    na, va, nb, vb, hi = case
+    rng = np.random.default_rng(na + va + nb + vb)
+    a = _sorted_list(rng, na, va, hi)
+    b = _sorted_list(rng, nb, vb, hi)
+    attrs = rng.integers(0, 5, size=na).astype(np.int32)
+    return a, attrs, b
+
+
+def _k10_ids(case):
+    return f"{case[0]}-{case[1]}x{case[2]}-{case[3]}"
+
+
+@pytest.mark.parametrize("case", K10_CASES, ids=_k10_ids)
+def test_k10_streams_are_the_skip_map(case):
+    """K10's plan is K9's at Q = T = 1 with every slot active: one stream a
+    driver tile, exactly the skip map's range of the 1-D list."""
+    a, attrs, b = _k10_case(case)
+    a10 = pi.block_skip_args(torch.from_numpy(a), torch.from_numpy(attrs),
+                             torch.from_numpy(b), -1)
+    a_p, _, b_p, _, b_start, n_b = a10
+    w_b = b_p.shape[0]
+    bs_map, nb_map = pi.compute_skip_map(a_p, b_p)
+    assert torch.equal(bs_map, b_start) and torch.equal(nb_map, n_b)
+    lo, hi, act = pi.skip_streams(b_start[None, None], n_b[None, None], None, w_b)
+    assert lo.shape == (1, 1, a_p.shape[0] // TILE) and bool((act == 1).all())
+    want_lo, want_hi = _map_ranges(bs_map[None, None].numpy(), nb_map[None, None].numpy(),
+                                   np.ones((1, 1), np.int32), w_b)
+    np.testing.assert_array_equal(lo.numpy(), want_lo)
+    np.testing.assert_array_equal(hi.numpy(), want_hi)
+    assert bool(((lo >= 0) & (lo <= hi) & (hi <= w_b)).all())
+    if case[3] == 0:
+        assert bool((hi == lo).all())                 # an empty b: no range
+    if case[2] == 65536:
+        assert int((hi - lo).max()) > RAW_CAP         # past one round
+
+
+@pytest.mark.parametrize("attr_filter", [-1, 2])
+@pytest.mark.parametrize("case", K10_CASES, ids=_k10_ids)
+def test_k10_stream_replay_is_k10(case, attr_filter):
+    a, attrs, b = _k10_case(case)
+    a10 = pi.block_skip_args(torch.from_numpy(a), torch.from_numpy(attrs),
+                             torch.from_numpy(b), attr_filter)
+    a_p, at_p, b_p, filt, b_start, n_b = a10
+    one = torch.ones((1, 1), dtype=torch.int32)
+    got = _replay((a_p[None], at_p[None], None, b_p[None, None], one, filt,
+                   b_start[None, None], n_b[None, None]))[0]
+    np.testing.assert_array_equal(got, pi.block_skip_join_torch(*a10).numpy())
+    want = ref_ops.intersect(jnp.asarray(a), jnp.asarray(attrs), jnp.asarray(b),
+                             attr_filter)
+    np.testing.assert_array_equal(got[:a.shape[0]], np.asarray(want))
+    lo, hi, _ = pi.skip_streams(b_start[None, None], n_b[None, None], None, b_p.shape[0])
+    if int((hi > lo).sum()):
+        assert pi.ranges_staging_check(lo, hi, n_postings=b_p.numel()) > 0
+    if case[3] == 0:
+        assert int(got.sum()) == 0                    # every slot dies
+
+
+@pytest.mark.parametrize("flaw", [None, "start", "aligned offset"])
+def test_k10_wrapper_refuses_misaligned_b_docs(monkeypatch, flaw):
+    """The K10 wrapper refuses, before its launch, a ``b_docs`` view that
+    does not start on 16 bytes, and launches with one that does;
+    ``block_skip_args`` copies a misaligned list, so its operands pass."""
+    a, attrs, b = _k10_case(K10_CASES[1])
+    a10 = list(pi.block_skip_args(torch.from_numpy(a), torch.from_numpy(attrs),
+                                  torch.from_numpy(b), -1))
+    b_p = a10[2]
+    buf = torch.full((b_p.numel() + 8,), INV, dtype=torch.int32)
+    at = {None: 0, "start": 1, "aligned offset": 4}[flaw]
+    assert buf.data_ptr() % 16 == 0
+    view = buf[at:at + b_p.numel()]
+    view.copy_(b_p)
+    a10[2] = view
+    monkeypatch.setattr(_build, "check_args", lambda *a, **k: None)
+
+    def launch(name):
+        raise _Launched(name)
+
+    monkeypatch.setattr(_build, "kernel", launch)
+    if flaw == "start":
+        with pytest.raises(ValueError, match="16-byte alignment"):
+            pi.block_skip_join_cuda(*a10)
+        fixed = pi.block_skip_args(a10[0], a10[1], view, -1)
+        assert fixed[2].data_ptr() % 16 == 0 and torch.equal(fixed[2], view)
+    else:
+        with pytest.raises(_Launched, match="block_skip"):
+            pi.block_skip_join_cuda(*a10)
+    assert pi.block_skip_join_cuda.launches == 0
