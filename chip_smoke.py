@@ -197,7 +197,33 @@ Phases (any failure exits non-zero; nothing is caught):
              (base writer, one shard moved, four), ingest ops/s at 1 and 4
              threads, peak memory; three ``compact(verify=True)`` racing
              two insert threads on the 3000-page corpus, then hits equal
-             brute force.
+             brute force;
+16. model  — the paper's hybrid performance model on phase 3's index:
+             ``calibrate_from_engine`` (ns 4, window 4096, t_max 4, q 32,
+             reps 4, k in {10, 50, 1000}, tournament merge,
+             ``backend="kernel"``), every timed call ending in a device
+             synchronise; the launch counters over it equal exactly what
+             the reps and merge widths imply (K1 = 4 per timed slave-phase
+             or master-path call, K2 on every merge, nothing else); the
+             merge fit's t_comparison, t_base and raw per-(k, w) times,
+             st_slave / st_master / slave_max per k, the fitted
+             MasterParams, all finite and positive; the master/network
+             max stable load (single top-10) in queries/s and per day,
+             the whole-model one (slave tier included), projections at
+             0.25 / 0.5 / 0.75 of each; a 512-query Poisson replay at half
+             the two-set model's stable load through a health-aware
+             two-set ``SearchService`` (cache off, batch 32, max_wait the
+             time 32 arrivals take) with ``ModelResidualMonitor`` as span
+             sink, set 1 failed after a third of the trace and recovered
+             after two thirds: every ticket done, no batch routed to a dead
+             set, hits equal ``backend="torch"``, transitions 1 dead and 1
+             alive, ``odys_model_residual`` finite (printed beside the
+             measured mean and the projection, not gated), K1 = 4 and K2 =
+             2 a batch; every set dead: dispatch raises and keeps the
+             tickets; a cached pass on the same registry; Prometheus text
+             and JSON rendered with every required family and phase; and
+             ``python -m repro_torch.obs demo / check / inert`` on the
+             card.
 
 Every phase prints its seconds.
 
@@ -209,6 +235,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import inspect
 import json
 import math
 import re
@@ -733,9 +760,12 @@ def main() -> int:
         build_sharded_index, flat_tile_pad, local_to_global_docids,
         pack_flat_postings, pack_index, unpack_flat_postings,
         unpack_flat_postings_torch)
+    from repro_torch.core import calibrate as calibrate_mod
+    from repro_torch.core.faults import SetHealth
     from repro_torch.core.parallel import (
         distributed_query_topk, sequential_reference, slave_topk_unmerged)
-    from repro_torch.core.perfmodel import QUERY_MIX_DEFAULT
+    from repro_torch.core.perfmodel import (
+        QUERY_MIX_DEFAULT, SINGLE_10_ONLY, OdysPerfModel, engine_cluster, per_day)
     from repro_torch.core.queries import WorkloadConfig, generate_workload
     from repro_torch.data.corpus import (
         CorpusConfig, Mutation, MutationConfig, corpus_from_docs, generate_corpus,
@@ -749,7 +779,12 @@ def main() -> int:
     from repro_torch.kernels import ops
     from repro_torch.kernels import topk_merge as tm
     from repro_torch.kernels import worklist as wlm
+    from repro_torch.obs.__main__ import REQUIRED_FAMILIES
+    from repro_torch.obs.__main__ import main as obs_main
+    from repro_torch.obs.exposition import dump_json, to_prometheus
     from repro_torch.obs.registry import MetricsRegistry, set_registry
+    from repro_torch.obs.residual import ModelResidualMonitor
+    from repro_torch.obs.trace import PHASES
     from repro_torch.serving.search import SearchService
 
     wrappers = {"K1": pi.driver_streamed_join_cuda, "K2": tm.merge_topk_rows_cuda,
@@ -3920,6 +3955,208 @@ def main() -> int:
         f"epoch they landed in: {per_epoch}), none lost or doubled; {len(c_q)} queries "
         f"equal brute force over the mutated corpus")
     phase_end("15 ingest")
+
+    # ------------------------------------------------------------ 16. model
+    # The paper's hybrid performance model calibrated on this card from the
+    # static path (K1 in every slave, K2 in every merge), its projections,
+    # and a Poisson replay through a health-aware two-set service (set 1
+    # failed after a third of the trace, recovered after two thirds) with
+    # the residual monitor as span sink.
+    cal_widths = inspect.signature(
+        calibrate_mod.fit_merge_constants).parameters["widths"].default
+    cal_kw = dict(ns=NS, k_values=(10, 50, 1000), window=MAIN_WINDOW, t_max=MAIN_T,
+                  q=MAIN_Q, reps=4, backend="kernel", merge="tournament",
+                  seed=args.seed)
+    merge_fit = []
+    fit = calibrate_mod.fit_merge_constants
+    # keep the fit's raw per-(k, w) times, which the calibration drops
+    calibrate_mod.fit_merge_constants = lambda **kw: merge_fit.append(fit(**kw)) or merge_fit[-1]
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        cal = calibrate_mod.calibrate_from_engine(sharded, meta, **cal_kw)
+        t_cal = time.perf_counter() - t0
+        cal_launches = launches_now()
+    finally:
+        calibrate_mod.fit_merge_constants = fit
+    n_k, timed_calls = len(cal_kw["k_values"]), max(cal_kw["reps"], NS) + 1
+    want_cal = {**no_launch,
+                # each k: (reps + 1 warm-up) slave-phase calls and as many
+                # master-path calls, NS K1 launches each
+                "K1": n_k * 2 * timed_calls * NS,
+                # the merge fit: (reps + 1) merges a (k, w); each master-path
+                # call: log2(NS) tournament rounds
+                "K2": n_k * len(cal_widths) * (cal_kw["reps"] + 1)
+                      + n_k * timed_calls * int(math.log2(NS))}
+    log(f"[model] calibrate_from_engine on phase 3's index ({NS} slaves of "
+        f"{args.n_docs // NS} pages; {cal_kw}) in {t_cal:.2f} s; launches {cal_launches}, implied by the reps "
+        f"and widths {want_cal} on {smi}")
+    if cal_launches != want_cal or min(cal_launches["K1"], cal_launches["K2"]) == 0:
+        raise AssertionError(f"model: calibration launches {cal_launches} != {want_cal}")
+    t_cmp, t_base, raw = merge_fit[0]
+    log(f"[model] merge fit (Formula (7), K2 on q={MAIN_Q} rows of w*k keys): "
+        f"t_comparison {cal.t_comparison:.6e} s, t_base {cal.t_base:.6e} s; raw s "
+        "per query: " + ", ".join(f"(k={k}, w={w}) {v:.6e}" for (k, w), v in raw.items())
+        + f" on {smi}")
+    log("[model] per k (s per query; st_slave sums the ns shards, which run in "
+        "turn on one card): " + "; ".join(
+            f"k={k}: st_slave {cal.st_slave[k]:.6e}, st_master {cal.st_master[k]:.6e}, "
+            f"slave_max {cal.slave_max[k]:.6e}" for k in cal.st_slave) + f" on {smi}")
+    log(f"[model] fitted MasterParams: {cal.master}")
+    fitted = [cal.t_comparison, cal.t_base, cal.master.T_parent_proc,
+              *cal.master.T_master_rpc.values(), *cal.st_slave.values(),
+              *cal.st_master.values(), *cal.slave_max.values()]
+    if not all(math.isfinite(v) and v > 0 for v in fitted) or (t_cmp, t_base) != (
+            cal.t_comparison, cal.t_base):
+        raise AssertionError(f"model: a fitted constant is not finite and positive: "
+                             f"{fitted}")
+    model = OdysPerfModel(master=cal.master, network=cal.network)
+    lam_master = model.max_stable_load(engine_cluster(NS), SINGLE_10_ONLY)
+    proj = {f: cal.projected_response(f * lam_master) for f in (0.25, 0.5, 0.75)}
+    log(f"[model] projection from this card's fit on {smi}: master/network max "
+        f"stable load (single top-10) "
+        f"{lam_master:.1f} queries/s = {per_day(lam_master):.6e} queries/day; "
+        f"projected response at 0.25 / 0.5 / 0.75 of it: " + " / ".join(
+            f"{v * 1e3:.4f} ms" for v in proj.values())
+        + f" (inf: past the slave tier's {cal.max_stable_load():.1f} queries/s); "
+        f"whole-model stable load, slave tier included: single top-10 "
+        f"{cal.max_stable_load():.1f} queries/s = "
+        f"{per_day(cal.max_stable_load()):.6e} queries/day, default mix "
+        f"{cal.max_stable_load(QUERY_MIX_DEFAULT):.1f} queries/s; projected "
+        "response at 0.25 / 0.5 / 0.75 of the single top-10 one: " + " / ".join(
+            f"{cal.projected_response(f * cal.max_stable_load()) * 1e3:.4f} ms"
+            for f in (0.25, 0.5, 0.75)))
+
+    # the replay: the 512 queries' terms and sites at the service's k (10;
+    # a replayed trace carries no k), Poisson arrivals at half the two-set
+    # model's stable load, batches formed within the time 32 arrivals take
+    cal2 = cal.with_sets(2)
+    lam = 0.5 * cal2.max_stable_load()
+    k10 = [10] * len(queries)
+    wait = MAIN_Q / lam
+    reg16 = MetricsRegistry()
+    prev_reg = set_registry(reg16)   # the engine's batch counters
+    try:
+        health = SetHealth.all_alive(2)
+        svc16 = SearchService(sharded, meta, n_sets=2, set_health=health, cache_size=0,
+                              max_wait=wait, registry=reg16, **main_kw)
+        serve(svc16, queries[:MAIN_Q], k10[:MAIN_Q])    # warm, outside the window
+        monitor = ModelResidualMonitor(cal2, batch_size=MAIN_Q, max_wait=wait,
+                                       registry=reg16)
+        router16 = svc16.scheduler.router
+        route_inner, routed = router16.route, []
+
+        def route_checked(n_real):
+            s = route_inner(n_real)
+            routed.append((s.sid, bool(health.alive[s.sid])))
+            return s
+
+        router16.route = route_checked
+        n_q, folded = len(queries), [0]
+
+        def sink(span):
+            monitor.sink(span)
+            folded[0] += 1
+            if folded[0] == n_q // 3:
+                health.fail(1)
+            elif folded[0] == 2 * n_q // 3:
+                health.recover(1)
+
+        svc16.scheduler.span_sink = sink
+        arrivals = np.cumsum(np.random.default_rng(args.seed).exponential(
+            1.0 / lam, size=n_q))
+        before = executed_batches(svc16)
+        reset_launches()
+        t0 = time.perf_counter()
+        tickets = svc16.scheduler.replay(
+            [(float(t), terms, site) for (terms, site), t in zip(queries, arrivals)])
+        t_replay = time.perf_counter() - t0
+        replay_launches = launches_now()
+        executed = executed_batches(svc16) - before
+        torch.cuda.synchronize()
+        online = monitor.update()
+        measured = float(np.mean([t.response_time for t in tickets]))
+        dead = reg16.counter("odys_set_health_transitions_total", to="dead").value
+        alive = reg16.counter("odys_set_health_transitions_total", to="alive").value
+        residual = reg16.gauge("odys_model_residual").value
+        by_set = {s: sum(1 for sid, _ in routed if sid == s) for s in (0, 1)}
+        log(f"[model] replay: {n_q} queries at {lam:.1f} queries/s (0.5 x the two-set "
+            f"model's stable load, single top-10), max_wait {wait * 1e3:.4f} ms, "
+            f"{len(routed)} batches routed (set 0: {by_set[0]}, set 1: {by_set[1]}), "
+            f"{t_replay:.2f} s of host time; launches {replay_launches}; set "
+            f"transitions dead {dead:g} alive {alive:g}")
+        log(f"[model] measured mean response {measured * 1e3:.4f} ms (virtual "
+            f"arrivals, batch service on the wall clock); projected (Formula (17) + "
+            f"formation) {online['projected'] * 1e3:.4f} ms at the monitor's "
+            f"{online['lam']:.1f} queries/s; Formula (18) error {online['error']:.4f} "
+            f"(odys_model_residual {residual:.4f}; not gated) on {smi}")
+        if not all(t.done for t in tickets):
+            raise AssertionError("model: a replayed ticket did not complete")
+        if not all(ok for _, ok in routed) or 0 in by_set.values():
+            raise AssertionError(f"model: a batch routed to a dead set, or a set got "
+                                 f"none: {by_set}")
+        if (dead, alive) != (1, 1):
+            raise AssertionError(f"model: set transitions dead {dead} alive {alive}")
+        if not math.isfinite(residual) or residual != online["error"]:
+            raise AssertionError(f"model: odys_model_residual {residual}")
+        if replay_launches != {**no_launch, "K1": NS * executed,
+                               "K2": int(math.log2(NS)) * executed}:
+            raise AssertionError(f"model: replay launches {replay_launches} for "
+                                 f"{executed} batches")
+        svc_t = SearchService(sharded, meta, backend="torch", cache_size=0, **main_kw)
+        want16 = serve(svc_t, queries, k10)
+        got16 = [(t.result.docids, t.result.n_hits) for t in tickets]
+        if got16 != want16:
+            bad = sum(g != w for g, w in zip(got16, want16))
+            raise AssertionError(f"model: {bad} replayed hits differ from backend='torch'")
+        log(f"[model] all {n_q} replayed hits equal backend='torch' on the card")
+        # every set dead: dispatch refuses and the queue keeps its tickets
+        health.fail(0)
+        health.fail(1)
+        held = [svc16.submit(terms, site) for terms, site in queries[:3]]
+        try:
+            svc16.drain()
+        except RuntimeError as e:
+            refused = str(e)
+        else:
+            raise AssertionError("model: dispatch with every set dead did not raise")
+        if svc16.scheduler.pending() != 3 or any(t.done for t in held):
+            raise AssertionError("model: the queue lost tickets with every set dead")
+        health.recover(0)
+        svc16.drain()
+        if [(t.result.docids, t.result.n_hits) for t in held] != want16[:3]:
+            raise AssertionError("model: held tickets differ after recovery")
+        log(f"[model] every set dead: dispatch raised RuntimeError ({refused!r}), "
+            f"3 tickets kept, served equal to backend='torch' after set 0 recovered")
+        # a cached pass on the same registry (the cache's families)
+        svc_c16 = SearchService(sharded, meta, cache_size=256, registry=reg16,
+                                **main_kw)
+        for _ in range(2):
+            if serve(svc_c16, queries[:64], k10[:64]) != want16[:64]:
+                raise AssertionError("model: cached pass differs from backend='torch'")
+        prom = to_prometheus(reg16)
+        doc = json.loads(dump_json(reg16))
+        missing = [f for f, kind in REQUIRED_FAMILIES.items()
+                   if doc["metrics"].get(f, {}).get("kind") != kind]
+        phases = {s["labels"]["phase"] for s in doc["metrics"]["odys_phase_seconds"]["series"]}
+        if missing or set(PHASES) - phases or "odys_phase_seconds_bucket" not in prom:
+            raise AssertionError(f"model: exposition lacks {missing} "
+                                 f"{set(PHASES) - phases}")
+        log(f"[model] exposition: {len(prom.splitlines())} Prometheus lines, "
+            f"{len(doc['metrics'])} JSON families ({doc['format']}), every required "
+            f"family and phase present; cache hit rate "
+            f"{reg16.gauge('odys_cache_hit_rate').value:.4f}")
+    finally:
+        set_registry(prev_reg)
+    # python -m repro_torch.obs on the card (its default device)
+    with tempfile.TemporaryDirectory() as tmp:
+        for argv in (["demo", "--out", tmp], ["check", "--out", tmp], ["inert"]):
+            rc = obs_main(argv)
+            if rc != 0:
+                raise AssertionError(f"python -m repro_torch.obs {' '.join(argv)}: rc {rc}")
+    set_registry(prev_reg)
+    log("[model] python -m repro_torch.obs demo / check / inert on the card: rc 0")
+    phase_end("16 model")
 
     k2_main = k2_rows[("tournament", 1000)]
     fill1 = mor[1.0]

@@ -20,8 +20,8 @@ constraints, in order:
 - **single-threaded by design**, like the scheduler it instruments: plain
   int/float adds, no locks on the hot path.
 
-Exposition (Prometheus text + JSON) comes to the port with its serving
-slice; the JAX package's ``repro.obs.exposition`` is the model.
+Exposition (Prometheus text + JSON) lives in
+:mod:`repro_torch.obs.exposition`; ``python -m repro_torch.obs`` serves both.
 """
 from __future__ import annotations
 

@@ -4,7 +4,9 @@ ODYS's §4–§5 analysis decomposes response time into queueing, slave, and
 master-merge phases.  A :class:`QuerySpan` records that decomposition for
 every admitted query as it moves through the serving pipeline
 (:mod:`repro_torch.serving.scheduler`); finished spans feed the per-phase
-latency histograms.  A copy of the JAX package's ``repro.obs.trace``.
+latency histograms and the model-residual monitor
+(:mod:`repro_torch.obs.residual`).  A copy of the JAX package's
+``repro.obs.trace``.
 
 Span phases (:data:`PHASES`), in pipeline order:
 

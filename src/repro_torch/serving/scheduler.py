@@ -284,7 +284,7 @@ class MultiSetRouter:
 
     def _candidates(self) -> list[SetState]:
         """Sets eligible for new batches (health-aware routers narrow
-        this, as the JAX package's health-aware router does)."""
+        this; see :class:`repro_torch.serving.router.HealthAwareRouter`)."""
         return self.sets
 
     def route(self, n_queries: int) -> SetState:

@@ -30,8 +30,14 @@ batch reads one published snapshot, and its ``VectorVersion`` is the
 stamp.  :meth:`SearchService.compact`
 (or ``auto_compact``) folds the delta into a fresh main index.
 
-Health-aware routing (``set_health``) and per-set devices
-(``set_meshes``) come with later slices; the constructor refuses them.
+**Health-aware routing**: ``set_health`` (a
+:class:`~repro_torch.core.faults.SetHealth` over ``n_sets``) wires a
+:class:`~repro_torch.serving.router.HealthAwareRouter` into the scheduler:
+a dead set receives no batches and takes them again once it recovers;
+with every set dead, dispatch raises ``RuntimeError`` and the queued
+tickets stay queued.  The ``n_sets`` sets time-share the service's one
+device (``set_id`` picks no device).  Per-set devices (``set_meshes``)
+need several GPUs; the constructor refuses them.
 """
 from __future__ import annotations
 
@@ -45,6 +51,7 @@ from repro_torch.data.corpus import Corpus
 from repro_torch.indexing.compaction import compact as _compact
 from repro_torch.indexing.delta import DeltaWriter
 from repro_torch.obs.registry import MetricsRegistry, get_registry
+from repro_torch.serving.router import HealthAwareRouter
 from repro_torch.serving.scheduler import MasterScheduler, QueryTicket
 
 
@@ -63,6 +70,7 @@ class SearchService:
     parameters (``batch_size``, ``t_max_buckets``, ``cache_size``,
     ``n_sets``, ``max_wait``, ``adaptive_wait``, ``capacity_qps``) are
     those of :class:`~repro_torch.serving.scheduler.MasterScheduler`.
+    ``set_health`` makes the router health-aware (see the module doc).
 
     Online updates: pass ``updatable=True`` with the ``corpus`` the index
     was built from (a :class:`DeltaWriter` of ``term_capacity`` and
@@ -103,10 +111,11 @@ class SearchService:
         set_health=None,
         set_meshes=None,
     ):
-        if set_health is not None or set_meshes is not None:
+        if set_meshes is not None:
             raise NotImplementedError(
-                "health-aware routing and per-set devices come with the "
-                "port's multi-GPU slice")
+                "per-set devices (set_meshes) need several GPUs and are not "
+                "in the one-card port (no multi-GPU serving); the n_sets "
+                "sets time-share the service's device")
         self.device = resolve_device(device)
         if index.postings.device != self.device:
             raise ValueError(f"index lives on {index.postings.device}, "
@@ -143,6 +152,8 @@ class SearchService:
         buckets = t_max_buckets if t_max_buckets is not None else (t_max,)
         if max(buckets) > t_max:
             raise ValueError(f"t_max_buckets {buckets} exceed t_max={t_max}")
+        router = (None if set_health is None
+                  else HealthAwareRouter(n_sets, set_health))
         self.registry = registry if registry is not None else get_registry()
         self._exec_phases: dict[str, float] | None = None
         self.scheduler = MasterScheduler(
@@ -155,6 +166,7 @@ class SearchService:
             max_wait=max_wait,
             adaptive_wait=adaptive_wait,
             capacity_qps=capacity_qps,
+            router=router,
             version_fn=self._snapshot_version,
             width_fn=self._query_width,
             registry=self.registry,

@@ -12,10 +12,12 @@ from repro.core import index as ref_index
 from repro.data import corpus as ref_corpus
 from repro.serving.search import SearchService as RefService
 from repro_torch.core import index as pt_index
+from repro_torch.core.faults import SetHealth
 from repro_torch.core.perfmodel import QUERY_MIX_DEFAULT
 from repro_torch.core.perfmodel import sojourn as pt_sojourn
 from repro_torch.core.queries import WorkloadConfig, generate_workload
 from repro_torch.data import corpus as pt_corpus
+from repro_torch.serving.router import HealthAwareRouter
 from repro_torch.serving.scheduler import MasterScheduler, MultiSetRouter, form_batch
 from repro_torch.serving.search import SearchService
 
@@ -99,8 +101,11 @@ def test_service_refuses_later_slices(setup):
     _, _, psh, pmeta = setup
     with pytest.raises(ValueError, match="needs the base corpus"):
         SearchService(psh, pmeta, ns=1, device="cpu", updatable=True)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        SearchService(psh, pmeta, ns=1, device="cpu", set_health=object())
+    # health-aware routing has come (tests/test_torch_faults_router.py);
+    # per-set devices have not
+    svc = SearchService(psh, pmeta, ns=1, device="cpu",
+                        set_health=SetHealth.all_alive(1))
+    assert isinstance(svc.scheduler.router, HealthAwareRouter)
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         SearchService(psh, pmeta, ns=1, device="cpu", set_meshes=[object()])
     with pytest.raises(RuntimeError, match="read-only"):
