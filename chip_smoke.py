@@ -223,7 +223,28 @@ Phases (any failure exits non-zero; nothing is caught):
              tickets; a cached pass on the same registry; Prometheus text
              and JSON rendered with every required family and phase; and
              ``python -m repro_torch.obs demo / check / inert`` on the
-             card.
+             card;
+17. lm     — the LM serving path at phi4-mini-3.8b's full width and depth
+             (32 layers, d 3072, H 24, KV 8, hd 128, d_ff 8192, vocab
+             200064; bfloat16, random weights from the seed; no cut):
+             parameter count and init seconds; on a float32 twin of the
+             same weights (TF32 off), ``forward_logits`` of B = 2, S = 1000
+             tokens with ``attn_impl="flash"`` (K12 float32, 32 launches)
+             within a row-relative error of 1e-3 of ``"naive"`` at every
+             position; bfloat16 last-position logits of flash (K12
+             bfloat16) no further from the float32 ones than 1.5 times the
+             naive bfloat16 path's; ``prefill`` of 992 tokens and 8
+             teacher-forced ``decode_step``s within 1e-3 of the full
+             forward; ``ServingEngine(batch_size=4, max_len=1040)`` serving
+             8 requests (prompts of 128 to 1024 tokens from the seed, 16
+             new tokens): 16 tokens each in ``[0, vocab)``, the first batch
+             served again gives the same outputs, K12 = 32 a prefill (64)
+             and none in decode, nothing else launched; prefill ms a batch,
+             decode ms a token, tokens/s, peak memory; ``python -m
+             repro_torch.launch.serve --arch gemma-2b`` (full width, hd
+             256, MQA, tied head) on the card, rc 0 and K12 = 36; K12 at
+             the first served prefill's shape beside its bound, plain
+             version and SDPA.
 
 Every phase prints its seconds.
 
@@ -234,10 +255,13 @@ Without a CUDA device the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import copy
 import ctypes
+import dataclasses
 import inspect
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -786,6 +810,9 @@ def main() -> int:
     from repro_torch.obs.residual import ModelResidualMonitor
     from repro_torch.obs.trace import PHASES
     from repro_torch.serving.search import SearchService
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as lm
+    from repro_torch.serving import engine as lm_engine
 
     wrappers = {"K1": pi.driver_streamed_join_cuda, "K2": tm.merge_topk_rows_cuda,
                 "K3": dm.merge_delta_windows_cuda, "K4": pi.streamed_join_cuda,
@@ -4158,6 +4185,189 @@ def main() -> int:
     log("[model] python -m repro_torch.obs demo / check / inert on the card: rc 0")
     phase_end("16 model")
 
+    # ------------------------------------------------------------ 17. lm
+    # The LM serving path at phi4-mini-3.8b's full width and depth, bf16,
+    # random weights from the seed; K12 in every prefill's attention.
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    lm_cfg = get_config("phi4-mini-3.8b")
+    t0 = time.perf_counter()
+    lm_params = lm.init_model(lm_cfg, seed=args.seed, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_lm = lm.count_params(lm_params)
+    if n_lm != lm_cfg.n_params_dense_equivalent() + (2 * lm_cfg.n_layers + 1) * lm_cfg.d_model:
+        raise AssertionError(f"lm: {n_lm} parameters, not phi4-mini-3.8b's full width")
+    log(f"[lm] {lm_cfg.name}: {lm_cfg.n_layers} layers (no depth cut), d {lm_cfg.d_model}, "
+        f"H {lm_cfg.n_heads}, KV {lm_cfg.n_kv_heads}, hd {lm_cfg.hd}, d_ff {lm_cfg.d_ff}, "
+        f"vocab {lm_cfg.vocab}, {lm_cfg.mlp}, {lm_cfg.norm}; {n_lm} parameters in "
+        f"{lm_cfg.param_dtype} ({2 * n_lm} bytes), init {t_init:.2f} s from seed "
+        f"{args.seed}; {held} bytes held by earlier phases")
+
+    # K12 against the naive path on a float32 twin (only the compute
+    # precision differs from the bf16 model); S = 1000 is no multiple of
+    # K12's 128-row tiles
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = dataclasses.replace(lm_cfg, param_dtype="float32", compute_dtype="float32")
+    params32 = copy.deepcopy(lm_params).float()
+    rng_lm = np.random.default_rng(args.seed)
+    lm_tokens = torch.from_numpy(
+        rng_lm.integers(0, lm_cfg.vocab, size=(2, 1000)).astype(np.int32)).to(dev)
+    reset_launches()
+    full32 = lm.forward_logits(params32, cfg32, {"tokens": lm_tokens})
+    k12_f32 = launches_now()
+    naive32 = lm.forward_logits(params32, dataclasses.replace(cfg32, attn_impl="naive"),
+                                {"tokens": lm_tokens})
+    if launches_now() != k12_f32 or k12_f32 != {**no_launch, "K12": lm_cfg.n_layers}:
+        raise AssertionError(f"lm float32: launches {k12_f32} then {launches_now()}; "
+                             f"expected K12 = {lm_cfg.n_layers} in the flash forward only")
+    if full32.shape != (2, 1000, lm_cfg.vocab) or not bool(torch.isfinite(full32).all()):
+        raise AssertionError(f"lm float32 logits {tuple(full32.shape)} or not finite")
+    rr32, abs32 = fa.max_row_rel_err(full32, naive32), float((full32 - naive32).abs().max())
+    log(f"[lm] float32 forward_logits (2, 1000): flash (K12 split TF32) vs naive: max abs "
+        f"err {abs32:.4g}, row-relative {rr32:.4g} (bound 1e-3, every position)")
+    if rr32 > 1e-3:
+        raise AssertionError(f"lm: float32 flash vs naive row-relative {rr32} > 1e-3")
+    del naive32
+
+    # bfloat16: K12's last-position logits no further from float32 than the
+    # naive bf16 path's, times 1.5
+    last32 = full32[:, -1]
+    bf_last = {impl: lm.forward_logits(lm_params, dataclasses.replace(lm_cfg, attn_impl=impl),
+                                       {"tokens": lm_tokens})[:, -1].clone()
+               for impl in ("flash", "naive")}
+    rr_bf = {impl: fa.max_row_rel_err(x, last32) for impl, x in bf_last.items()}
+    log(f"[lm] bfloat16 last-position logits vs float32 flash: K12 row-relative "
+        f"{rr_bf['flash']:.4g}, naive bf16 {rr_bf['naive']:.4g} (bound 1.5x naive)")
+    if not rr_bf["flash"] <= 1.5 * rr_bf["naive"]:
+        raise AssertionError(f"lm: bf16 K12 error {rr_bf} beyond 1.5x the naive path's")
+
+    # prefill + teacher-forced decode against the full forward (float32)
+    last, lm_cache = lm.prefill(params32, cfg32, {"tokens": lm_tokens[:, :992]}, max_len=1000)
+    tf_err = [fa.max_row_rel_err(last, full32[:, 991])]
+    for t in range(992, 1000):
+        step, lm_cache = lm.decode_step(params32, cfg32, lm_tokens[:, t:t + 1], lm_cache, t)
+        tf_err.append(fa.max_row_rel_err(step, full32[:, t]))
+    log(f"[lm] float32 prefill (992) + 8 decode steps vs forward_logits: row-relative "
+        + ", ".join(f"{e:.3g}" for e in tf_err) + " (bound 1e-3)")
+    if max(tf_err) > 1e-3:
+        raise AssertionError(f"lm: prefill/decode vs forward row-relative {tf_err} > 1e-3")
+    del params32, full32, last32, bf_last, lm_cache, last, step
+    torch.cuda.empty_cache()
+
+    # serve: 8 requests, batch 4, prompts of 128 to 1024 tokens
+    prompts = [rng_lm.integers(0, lm_cfg.vocab, size=int(rng_lm.integers(128, 1025)))
+               .astype(np.int32) for _ in range(8)]
+    eng = lm_engine.ServingEngine(lm_cfg, batch_size=4, max_len=1040, device=dev,
+                                  params=lm_params)
+    serve_log = {"prefill": [], "decode": []}
+    real_steps = {"prefill": lm_engine.prefill, "decode": lm_engine.decode_step}
+
+    def timed(key):
+        def run(*a, **kw):
+            k0 = fa.flash_attention_fwd_cuda.launches
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real_steps[key](*a, **kw)
+            torch.cuda.synchronize()
+            serve_log[key].append((time.perf_counter() - t,
+                                   fa.flash_attention_fwd_cuda.launches - k0))
+            return out
+        return run
+
+    lm_engine.prefill, lm_engine.decode_step = timed("prefill"), timed("decode")
+    try:
+        for rid, prompt in enumerate(prompts):
+            eng.submit(lm_engine.Request(rid=rid, prompt=prompt, max_new_tokens=16))
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        served = []
+        while eng.queue:
+            served += eng.step_batch()
+        t_serve = time.perf_counter() - t0
+        serve_launches = launches_now()
+        serve_peak = torch.cuda.max_memory_allocated()
+        for rid, prompt in enumerate(prompts[:4]):
+            eng.submit(lm_engine.Request(rid=100 + rid, prompt=prompt, max_new_tokens=16))
+        again = eng.step_batch()
+    finally:
+        lm_engine.prefill, lm_engine.decode_step = real_steps["prefill"], real_steps["decode"]
+    outs = {r.rid: r.output for r in served}
+    if sorted(outs) != list(range(8)) or any(
+            len(o) != 16 or not all(0 <= t < lm_cfg.vocab for t in o) for o in outs.values()):
+        raise AssertionError(f"lm serve: outputs {outs}")
+    if any(r.output != outs[r.rid - 100] for r in again):
+        raise AssertionError("lm serve: the first batch served again gave other outputs")
+    pre_log, dec_log = serve_log["prefill"][:2], serve_log["decode"][:30]
+    if serve_launches != {**no_launch, "K12": 2 * lm_cfg.n_layers} or any(
+            n != lm_cfg.n_layers for _, n in pre_log) or any(n for _, n in serve_log["decode"]):
+        raise AssertionError(f"lm serve: launches {serve_launches}, per prefill "
+                             f"{[n for _, n in pre_log]}, in decode "
+                             f"{sum(n for _, n in serve_log['decode'])}")
+    plens = [max(len(p) for p in prompts[i:i + 4]) for i in (0, 4)]
+    dec_ms = [t * 1e3 for t, _ in dec_log]
+    n_tok = sum(len(o) for o in outs.values())
+    log(f"[lm] served 8 requests (prompts {[len(p) for p in prompts]}, batches padded to "
+        f"{plens}) x 16 tokens: {n_tok} tokens in {t_serve:.3f} s, {n_tok / t_serve:.1f} "
+        f"tok/s; prefill " + ", ".join(f"{t * 1e3:.2f}" for t, _ in pre_log)
+        + f" ms a batch (K12 {[n for _, n in pre_log]}); decode {np.mean(dec_ms):.3f} ms "
+        f"a token (batch of 4; min {min(dec_ms):.3f}, max {max(dec_ms):.3f}, 30 steps, "
+        f"no K12); peak {serve_peak} bytes; launches {serve_launches['K12']} K12, nothing "
+        f"else; the first batch again: equal outputs; on {smi}")
+    del eng, again, served
+
+    # the gemma-2b CLI on the card: full width, hd 256, MQA, tied head, GeGLU
+    src_dir = str(Path(__file__).resolve().parent / "src")
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "gemma-2b",
+         "--requests", "8", "--batch", "4", "--new-tokens", "8", "--max-len", "512",
+         "--seed", str(args.seed)], capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [src_dir, *filter(None, [os.environ.get("PYTHONPATH")])])))
+    m = re.search(r"\[serve\] K12 launches (\d+)", cli.stdout)
+    log("[lm] python -m repro_torch.launch.serve --arch gemma-2b --requests 8 --batch 4 "
+        f"--new-tokens 8 --max-len 512: rc {cli.returncode}, "
+        f"{time.perf_counter() - t0:.1f} s: " + " | ".join(cli.stdout.strip().splitlines()))
+    if cli.returncode != 0 or not m or int(m.group(1)) != 2 * 18:
+        raise AssertionError(f"lm: the gemma-2b CLI: rc {cli.returncode}, K12 "
+                             f"{m and m.group(1)} (expected 36)\n{cli.stderr[-4000:]}")
+
+    # K12 at the first served prefill's shape (B 4, S = T = its padded
+    # length, H 24, KV 8, hd 128), as phase 14 times it
+    s_ = plens[0]
+    q, k, v = qkv(4, s_, s_, lm_cfg.n_heads, lm_cfg.n_kv_heads, lm_cfg.hd, bf16)
+    run = lambda: fa.flash_attention_fwd_cuda(q, k, v, q_chunk=s_, k_chunk=s_)  # noqa: E731
+    plain = lambda: fa.flash_attention_fwd_torch(q, k, v, q_chunk=s_, k_chunk=s_)  # noqa: E731
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    got, want = run().float(), plain().float()
+    lm_err, lm_rr = float((got - want).abs().max()), fa.max_row_rel_err(got, want)
+    if not torch.allclose(got, want, rtol=flash_tol[bf16], atol=flash_tol[bf16]) \
+            or lm_rr >= fa.BF16_ROW_REL_TOL:
+        raise AssertionError(f"lm: K12 at the served shape: max abs {lm_err}, "
+                             f"row-relative {lm_rr}")
+    del got, want
+    lm_ms = cuda_ms(run, reps=20, warmup=3)
+    lm_plain = cuda_ms(plain, reps=3, warmup=1)
+    lm_lib = cuda_ms(sdpa, reps=20, warmup=3)
+    n_bytes = 2 * (q.numel() + k.numel() + v.numel()) * q.element_size()
+    flops = 4 * 4 * lm_cfg.n_heads * s_ * s_ * lm_cfg.hd // 2
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    lm_bound, lm_by = max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    log(f"[times] K12 at the first served prefill's shape (4, {s_}, {s_}, 24, 8, 128) causal "
+        f"bfloat16: {lm_ms:.4f} ms/launch (CUDA events; x {lm_cfg.n_layers} layers "
+        f"{lm_cfg.n_layers * lm_ms:.3f} ms of "
+        f"the {pre_log[0][0] * 1e3:.2f} ms prefill); plain {lm_plain:.4f} ms; SDPA "
+        f"(enable_gqa) {lm_lib:.4f} ms; bound {lm_bound:.4f} ms ({lm_by}); max abs err vs "
+        f"plain {lm_err:.3g}, row-relative {lm_rr:.4f}; on {smi}")
+    del q, k, v, qt, kt, vt, lm_params
+    torch.cuda.empty_cache()
+    phase_end("17 lm")
+
     k2_main = k2_rows[("tournament", 1000)]
     fill1 = mor[1.0]
     record = {"kernels": [
@@ -4261,6 +4471,12 @@ def main() -> int:
             "replaces": "src/repro/kernels/flash_attention.py:136",
             "launches": flash_launches["K12"], "max_abs_err": flash_err[dtype], "ms": ms,
             "plain_ms": plain, "bound_ms": bound, "bound_by": by, "library_ms": lib})
+    record["kernels"].append({
+        "name": "K12 flash_attention_fwd (phi4-mini serving prefill, causal, bfloat16)",
+        "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:136",
+        "launches": serve_launches["K12"], "max_abs_err": lm_err, "ms": lm_ms,
+        "plain_ms": lm_plain, "bound_ms": lm_bound, "bound_by": lm_by, "library_ms": lm_lib})
     print(json.dumps(record), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,8 +10,13 @@ card.  :mod:`repro_torch.core.calibrate` fits the paper's hybrid
 performance model from this pipeline, and
 :class:`~repro_torch.obs.residual.ModelResidualMonitor` exports the live
 Formula (18) error against it.
+
+:class:`~repro_torch.serving.engine.ServingEngine` is the LM substrate's
+batched serving engine (prefill, then greedy decode) on the same batch
+formation.
 """
-from repro_torch.serving.router import HealthAwareRouter  # noqa: F401
+from repro_torch.serving.engine import Request, ServingEngine  # noqa: F401
+from repro_torch.serving.router import HealthAwareRouter, greedy_token  # noqa: F401
 from repro_torch.serving.scheduler import (  # noqa: F401
     MasterScheduler,
     MultiSetRouter,

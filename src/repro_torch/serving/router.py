@@ -11,10 +11,14 @@ and resumes receiving them the moment it recovers.  Wire it into
 knob does so).  On one card the sets time-share the device; the router
 only decides which set's accounting a batch joins.
 
-The JAX package's router module also holds the LM head's distributed
-top-k; that belongs to the LM substrate, which the port does not have.
+**Greedy decoding**: :func:`greedy_token` is the LM serving engine's
+argmax over the vocabulary.  The JAX package distributes it over a
+vocab-sharded mesh (``distributed_vocab_topk``); on one card there is no
+mesh, and that path is out of this round.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.core.faults import SetHealth
 from repro_torch.serving.scheduler import MultiSetRouter, SetState
@@ -86,3 +90,13 @@ class HealthAwareRouter(MultiSetRouter):
 
     def recover(self, set_id: int) -> None:
         self.health.recover(set_id)
+
+
+def greedy_token(logits: torch.Tensor, *, mesh=None) -> torch.Tensor:
+    """argmax next token (B,) int32 over the last axis; the first maximum
+    on a tie, as ``jnp.argmax``.  A ``mesh`` is refused: the port serves on
+    one card."""
+    if mesh is not None:
+        raise NotImplementedError("greedy_token: no mesh on one card (the "
+                                  "distributed vocab top-k is out of this round)")
+    return torch.argmax(logits, dim=-1).to(torch.int32)

@@ -78,8 +78,8 @@ def form_batch(queue: list, batch_size: int, *, pad: Callable | None = None):
     Returns ``[]`` on an empty queue (no crash, no dispatch).  With ``pad``,
     a partial batch is filled to exactly ``batch_size`` with ``pad(first)``
     clones of its first element, so downstream device shapes stay fixed.
-    Shared by the search scheduler and the LM
-    LM serving engine of the JAX package.
+    Shared by the search scheduler and the LM serving engine
+    (:mod:`repro_torch.serving.engine`).
     """
     if not queue:
         return []
