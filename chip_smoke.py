@@ -244,7 +244,36 @@ Phases (any failure exits non-zero; nothing is caught):
              repro_torch.launch.serve --arch gemma-2b`` (full width, hd
              256, MQA, tied head) on the card, rc 0 and K12 = 36; K12 at
              the first served prefill's shape beside its bound, plain
-             version and SDPA.
+             version and SDPA;
+18. lm-moe-hybrid — the MoE and hybrid families at full width and depth
+             (bfloat16, random weights from the seed), after phase 17's
+             model is freed; prints the bytes earlier phases hold.  (i) K12
+             with a window at recurrentgemma-2b's local attention (B 2, S
+             = T = 4096, H 10, KV 1, hd 256, W 2048) in bfloat16 and
+             float32 against its plain version and the full-logits
+             oracle (2e-5; 2e-2 and a row-relative 0.05), and at edges:
+             S = 3000, W = 37, W >= S (bit-equal to no window), hd 128 and
+             hd 64; its time beside its bound (operations over sum min(i
+             + 1, W) keys) and SDPA with the boolean window mask.  (ii)
+             recurrentgemma-2b (26 layers: 8 x (rglru, rglru, local) +
+             (rglru, rglru), d 2560, lru 2560, vocab 256000, tied head):
+             the parameter count against the shapes; on a float32 twin
+             at B 2, S 3000, the flash forward (8 windowed K12 launches)
+             within a row-relative 1e-3 of ``"naive"``, prefill of 2992
+             + 8 decode steps within 1e-3 of the forward;
+             ``ServingEngine(batch_size=2)`` serving 4 prompts of
+             2500–4096 tokens x 16: K12 = 8 a prefill, every one at
+             window 2048, none in decode, the first batch again equal.
+             (iii) Moonlight-16B-A3B (48 layers, d 2048, 64 experts of
+             d_ff 1408, top-6, vocab 163840): on a float32 twin cut to 4
+             layers, flash vs naive at B 2, S 1000 and, on a no-drop
+             capacity copy (cf 11), prefill + decode vs the forward;
+             the full model's count and init seconds;
+             ``ServingEngine(batch_size=4, max_len=1040)`` at cf 1.25
+             serving 8 prompts of 128–1024 tokens x 16: K12 = 48 a
+             prefill, none in decode, equal outputs again, the share of
+             (token, slot) pairs dropped at capacity.  Prefill ms a
+             batch, decode ms a token, tokens/s and peak memory of both.
 
 Every phase prints its seconds.
 
@@ -762,6 +791,403 @@ def chain_after(rlo, rhi, docs, keep, *, caps, fences=None, widths=None,
             passes_max = max(passes_max, passes)
             rounds_max = max(rounds_max, rounds)
     return blocks, total, busiest, rounds_max, passes_max
+
+
+def lm_param_count(cfg) -> int:
+    """A model's parameter count from its config's shapes alone: norms,
+    attention or RG-LRU mixers by block kind, an MLP or an MoE FFN with its
+    float32 router, the embedding, the head unless tied, the final norm."""
+    d, R = cfg.d_model, cfg.lru_dim or cfg.d_model
+    mlp = (3 if cfg.mlp in ("swiglu", "geglu") else 2) * d * cfg.d_ff
+    ffn = cfg.n_experts * mlp + d * cfg.n_experts if cfg.is_moe else mlp
+    attn = 2 * d * cfg.n_heads * cfg.hd + 2 * d * cfg.n_kv_heads * cfg.hd
+    mixer = {"attn": attn, "local": attn, "rglru": 3 * d * R + (cfg.conv_width + 6) * R}
+    pat = cfg.block_pattern
+    layers = sum(mixer[pat[i % len(pat)]] + 2 * d + ffn for i in range(cfg.n_layers))
+    return layers + cfg.vocab * d * (1 if cfg.tie_embeddings else 2) + d
+
+
+def window_keys(S: int, W: int) -> int:
+    """Keys a causal row sees under window W, summed over S rows:
+    sum of min(i + 1, W)."""
+    full = min(S, W)
+    return full * (full + 1) // 2 + (S - full) * W
+
+
+def lm_moe_hybrid(args, dev, smi: str, wrappers: dict) -> list:
+    """Phase 18: K12's window against its plain version, then
+    recurrentgemma-2b and Moonlight-16B-A3B at full width and depth on the
+    serving path.  Returns the phase's kernel records."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.models import model as lm
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serving import engine as lm_engine
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    tol = {f32: 2e-5, bf16: 2e-2}
+    no_launch = {k: 0 for k in wrappers}
+
+    def reset_launches():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def launches_now():
+        return {k: fn.launches for k, fn in wrappers.items()}
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    log(f"[lm18] {held} bytes held by earlier phases (device memory "
+        f"{torch.cuda.get_device_properties(dev).total_memory} bytes)")
+    gen = torch.Generator().manual_seed(args.seed + 18)
+    rng = np.random.default_rng(args.seed + 18)
+
+    def qkv(b, s, h, kv, hd, dtype):
+        return tuple(torch.randn(shape, generator=gen).to(dev, dtype)
+                     for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
+
+    # -------------------------------------------------------------- (i)
+    # K12 windowed at recurrentgemma-2b's local attention (H 10, KV 1, hd
+    # 256, window 2048) and at edges, both dtypes, against the plain version
+    # and the full-logits oracle
+    rg_shape, rg_w = (2, 4096, 10, 1, 256), 2048
+    cases = [  # (label, (B, S, H, KV, hd), window)
+        ("recurrentgemma-2b local attention", rg_shape, rg_w),
+        ("S = 3000, no tile multiple", (2, 3000, 10, 1, 256), rg_w),
+        ("W = 37, narrower than a tile", (1, 1024, 10, 1, 256), 37),
+        ("W >= S", (1, 2048, 10, 1, 256), 2048),
+        ("hd 128, GQA 4, W = 300, S = 1000", (1, 1000, 8, 2, 128), 300),
+        ("hd 64, W = 37, S = 640", (1, 640, 4, 2, 64), 37),
+    ]
+    win_err = {f32: 0.0, bf16: 0.0}
+    win_bad, win_in = [], {}
+    for dtype in (bf16, f32):
+        for label, shape, w in cases:
+            q, k, v = qkv(*shape, dtype)
+            S = shape[1]
+            reset_launches()
+            got = fa.flash_attention_fwd_cuda(q, k, v, q_chunk=S, k_chunk=S, window=w)
+            n = launches_now()
+            if n != {**no_launch, "K12": 1}:
+                raise AssertionError(f"K12 window {label}: launches {n}")
+            ch = 512 if S % 512 == 0 else S
+            errs = []
+            for name, want in (
+                    ("plain", fa.flash_attention_fwd_torch(q, k, v, q_chunk=ch, k_chunk=ch,
+                                                           window=w)),
+                    ("ref", fa.flash_attention_ref(q, k, v, window=w))):
+                if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+                    raise AssertionError(f"K12 window {label}: {tuple(got.shape)} or "
+                                         f"not finite")
+                g, wt = got.float(), want.float()
+                err = float((g - wt).abs().max())
+                win_err[dtype] = max(win_err[dtype], err)
+                errs.append(f"{name} {err:.3g}")
+                if not torch.allclose(g, wt, rtol=tol[dtype], atol=tol[dtype]):
+                    win_bad.append(f"{label} {dtype}: vs {name} {err}")
+                if dtype == bf16:
+                    rr = fa.max_row_rel_err(g, wt)
+                    errs.append(f"row-relative {rr:.4f}")
+                    if rr >= fa.BF16_ROW_REL_TOL:
+                        win_bad.append(f"{label} {dtype}: row-relative vs {name} {rr}")
+                del want, g, wt
+            if w >= S:
+                same = torch.equal(got, fa.flash_attention_fwd_cuda(q, k, v, q_chunk=S,
+                                                                    k_chunk=S))
+                errs.append(f"equal to the unwindowed call: {same}")
+                if not same:
+                    win_bad.append(f"{label} {dtype}: differs from the unwindowed call")
+            log(f"[lm18] K12 window {w} {label} {shape} {str(dtype)[6:]}: max abs err "
+                + ", ".join(errs) + f" (bounds rtol = atol = {tol[dtype]:g}"
+                + (f", row-relative {fa.BF16_ROW_REL_TOL:g}" if dtype == bf16 else "")
+                + ")")
+            if label == cases[0][0]:
+                win_in[dtype] = (q, k, v)
+            del got
+    if win_bad:
+        raise AssertionError("K12 window: " + "; ".join(win_bad))
+
+    win_rows = {}
+    B_, S_, H_, KV_, hd_ = rg_shape
+    pos = torch.arange(S_, device=dev)
+    wmask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - rg_w)
+    keys = window_keys(S_, rg_w)
+    for dtype, peak in ((bf16, BF16_FLOPS_PER_S), (f32, TF32_FLOPS_PER_S / 3)):
+        q, k, v = win_in[dtype]
+        run = lambda: fa.flash_attention_fwd_cuda(  # noqa: E731
+            q, k, v, q_chunk=S_, k_chunk=S_, window=rg_w)
+        plain = lambda: fa.flash_attention_fwd_torch(  # noqa: E731
+            q, k, v, q_chunk=512, k_chunk=512, window=rg_w)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=wmask, enable_gqa=True)
+        sdpa_err = float((sdpa().transpose(1, 2).float() - run().float()).abs().max())
+        ms = cuda_ms(run, reps=20, warmup=3)
+        plain_ms = cuda_ms(plain, reps=3, warmup=1)
+        lib_ms = cuda_ms(sdpa, reps=10, warmup=2)
+        n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        flops = 4 * B_ * H_ * hd_ * keys
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
+        bound, by = max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+        win_rows[dtype] = (ms, plain_ms, bound, by, lib_ms)
+        log(f"[times] K12 window {rg_w} {rg_shape} causal {str(dtype)[6:]}: {ms:.4f} "
+            f"ms/launch (CUDA events); plain {plain_ms:.4f} ms; SDPA (boolean window "
+            f"mask, enable_gqa) {lib_ms:.4f} ms (max abs diff from K12 {sdpa_err:.3g}); "
+            f"bound {bound:.4f} ms ({by}: {flops} flops over {keys} keys a (b, h) "
+            f"at {peak / 1e12:.0f} TFLOP/s"
+            + (" (495 split three ways)" if dtype == f32 else "")
+            + f", {n_bytes} bytes at 3.35 TB/s); K12 / SDPA {ms / lib_ms:.2f}x, K12 / "
+            f"bound {ms / bound:.2f}x; the causal work without the window "
+            f"{S_ * (S_ + 1) // 2} keys ({keys / (S_ * (S_ + 1) // 2):.3f} of it) on {smi}")
+        del qt, kt, vt
+    del win_in, wmask
+
+    # the windows the models' attention hands K12 (layers._flash_gqa)
+    real_k12, real_gqa = fa.flash_attention_fwd_cuda, lm_layers._flash_gqa
+    k12_calls = []
+
+    def spy_gqa(qg, *a, **kw):
+        k12_calls.append((qg.shape[1], kw["window"]))
+        return real_gqa(qg, *a, **kw)
+
+    def serve(cfg, params, prompts, *, batch, max_len, new_tokens, tag):
+        """Serve ``prompts`` through a ServingEngine, then the first batch
+        again; per-step times and K12 launches of every prefill and decode
+        step."""
+        eng = lm_engine.ServingEngine(cfg, batch_size=batch, max_len=max_len, device=dev,
+                                      params=params)
+        steps = {"prefill": [], "decode": []}
+        real = {"prefill": lm_engine.prefill, "decode": lm_engine.decode_step}
+
+        def timed(key):
+            def run(*a, **kw):
+                k0 = real_k12.launches
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = real[key](*a, **kw)
+                torch.cuda.synchronize()
+                steps[key].append((time.perf_counter() - t, real_k12.launches - k0))
+                return out
+            return run
+
+        lm_engine.prefill, lm_engine.decode_step = timed("prefill"), timed("decode")
+        lm_layers._flash_gqa = spy_gqa
+        try:
+            for rid, prompt in enumerate(prompts):
+                eng.submit(lm_engine.Request(rid=rid, prompt=prompt,
+                                             max_new_tokens=new_tokens))
+            torch.cuda.reset_peak_memory_stats()
+            k12_calls.clear()
+            reset_launches()
+            t0 = time.perf_counter()
+            served = []
+            while eng.queue:
+                served += eng.step_batch()
+            t_serve = time.perf_counter() - t0
+            counts, calls = launches_now(), list(k12_calls)
+            peak = torch.cuda.max_memory_allocated()
+            n_steps = {key: len(v) for key, v in steps.items()}
+            for rid, prompt in enumerate(prompts[:batch]):
+                eng.submit(lm_engine.Request(rid=100 + rid, prompt=prompt,
+                                             max_new_tokens=new_tokens))
+            again = eng.step_batch()
+        finally:
+            lm_engine.prefill, lm_engine.decode_step = real["prefill"], real["decode"]
+            lm_layers._flash_gqa = real_gqa
+        outs = {r.rid: r.output for r in served}
+        if sorted(outs) != list(range(len(prompts))) or any(
+                len(o) != new_tokens or not all(0 <= t < cfg.vocab for t in o)
+                for o in outs.values()):
+            raise AssertionError(f"{tag} serve: outputs {outs}")
+        if any(r.output != outs[r.rid - 100] for r in again):
+            raise AssertionError(f"{tag} serve: the first batch served again gave other "
+                                 f"outputs")
+        pre = steps["prefill"][:n_steps["prefill"]]
+        dec = steps["decode"][:n_steps["decode"]]
+        n_attn = sum(1 for i in range(cfg.n_layers)
+                     if cfg.block_pattern[i % len(cfg.block_pattern)] != "rglru")
+        if counts != {**no_launch, "K12": len(pre) * n_attn} or any(
+                n != n_attn for _, n in pre) or any(n for _, n in dec):
+            raise AssertionError(f"{tag} serve: launches {counts}, per prefill "
+                                 f"{[n for _, n in pre]} (expected {n_attn}), in decode "
+                                 f"{sum(n for _, n in dec)}")
+        plens = [max(len(p) for p in prompts[i:i + batch])
+                 for i in range(0, len(prompts), batch)]
+        dec_ms = [t * 1e3 for t, _ in dec]
+        n_tok = sum(len(o) for o in outs.values())
+        log(f"[lm18] {tag}: served {len(prompts)} requests (prompts "
+            f"{[len(p) for p in prompts]}, batches of {batch} padded to {plens}) x "
+            f"{new_tokens} tokens: {n_tok} tokens in {t_serve:.3f} s, "
+            f"{n_tok / t_serve:.1f} tok/s; prefill "
+            + ", ".join(f"{t * 1e3:.2f}" for t, _ in pre)
+            + f" ms a batch (K12 {[n for _, n in pre]}); decode {np.mean(dec_ms):.3f} ms a "
+            f"token (batch of {batch}; min {min(dec_ms):.3f}, max {max(dec_ms):.3f}, "
+            f"{len(dec_ms)} steps, no K12); peak {peak} bytes; launches {counts['K12']} "
+            f"K12, nothing else; the first batch again: equal outputs; on {smi}")
+        return counts, calls, plens
+
+    def twin_checks(cfg32, params32, tokens, tag, nodrop=None):
+        """On a float32 twin: flash (K12 float32) vs naive within a
+        row-relative 1e-3 at every position, and prefill of all but 8
+        tokens plus 8 teacher-forced decode steps vs the forward within
+        1e-3 (on ``nodrop``, a no-drop capacity copy, where given)."""
+        S = tokens.shape[1]
+        n_attn = sum(1 for i in range(cfg32.n_layers)
+                     if cfg32.block_pattern[i % len(cfg32.block_pattern)] != "rglru")
+        k12_calls.clear()
+        reset_launches()
+        lm_layers._flash_gqa = spy_gqa
+        try:
+            full = lm.forward_logits(params32, cfg32, {"tokens": tokens})
+        finally:
+            lm_layers._flash_gqa = real_gqa
+        n = launches_now()
+        naive = lm.forward_logits(params32, dataclasses.replace(cfg32, attn_impl="naive"),
+                                  {"tokens": tokens})
+        if launches_now() != n or n != {**no_launch, "K12": n_attn}:
+            raise AssertionError(f"{tag} float32: launches {n} then {launches_now()}; "
+                                 f"expected K12 = {n_attn} in the flash forward only")
+        if full.shape != (tokens.shape[0], S, cfg32.vocab) or not bool(
+                torch.isfinite(full).all()):
+            raise AssertionError(f"{tag} float32 logits {tuple(full.shape)} or not finite")
+        rr, ab = fa.max_row_rel_err(full, naive), float((full - naive).abs().max())
+        del naive
+        log(f"[lm18] {tag} float32 forward_logits {tuple(tokens.shape)}: flash (K12 split "
+            f"TF32, {n['K12']} launches, windows {sorted(set(w for _, w in k12_calls), key=str)}) "
+            f"vs naive: max abs err {ab:.4g}, row-relative {rr:.4g} (bound 1e-3, every "
+            f"position)")
+        if rr > 1e-3:
+            raise AssertionError(f"{tag}: float32 flash vs naive row-relative {rr} > 1e-3")
+        calls = list(k12_calls)
+        if nodrop is not None:
+            del full
+            cfg32 = nodrop
+            full = lm.forward_logits(params32, cfg32, {"tokens": tokens})
+        last, cache = lm.prefill(params32, cfg32, {"tokens": tokens[:, :S - 8]},
+                                 max_len=S)
+        errs = [fa.max_row_rel_err(last, full[:, S - 9])]
+        for t in range(S - 8, S):
+            step, cache = lm.decode_step(params32, cfg32, tokens[:, t:t + 1], cache, t)
+            errs.append(fa.max_row_rel_err(step, full[:, t]))
+        log(f"[lm18] {tag} float32 prefill ({S - 8}) + 8 decode steps vs forward_logits"
+            + (f" (capacity_factor {cfg32.capacity_factor}: no drops)" if nodrop else "")
+            + ": row-relative " + ", ".join(f"{e:.3g}" for e in errs) + " (bound 1e-3)")
+        if max(errs) > 1e-3:
+            raise AssertionError(f"{tag}: prefill/decode vs forward row-relative {errs}")
+        del full, cache, last, step
+        return n["K12"], calls
+
+    # -------------------------------------------------------------- (ii)
+    rg_cfg = get_config("recurrentgemma-2b")
+    t0 = time.perf_counter()
+    rg_params = lm.init_model(rg_cfg, seed=args.seed, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_rg = lm.count_params(rg_params)
+    if n_rg != lm_param_count(rg_cfg):
+        raise AssertionError(f"recurrentgemma-2b: {n_rg} parameters, not "
+                             f"{lm_param_count(rg_cfg)} (full width and depth)")
+    n_f32 = sum(p.numel() for p in rg_params.parameters() if p.dtype == f32)
+    log(f"[lm18] {rg_cfg.name}: {rg_cfg.n_layers} layers (no depth cut; pattern "
+        f"{rg_cfg.block_pattern} x 8 + (rglru, rglru)), d {rg_cfg.d_model}, H "
+        f"{rg_cfg.n_heads}, KV {rg_cfg.n_kv_heads}, hd {rg_cfg.hd}, lru {rg_cfg.lru_dim}, "
+        f"d_ff {rg_cfg.d_ff}, vocab {rg_cfg.vocab}, local window {rg_cfg.local_window}, "
+        f"tied head; {n_rg} parameters ({n_f32} float32 gates and lam, the rest "
+        f"bfloat16), init {t_init:.2f} s from seed {args.seed}")
+    rg32 = dataclasses.replace(rg_cfg, param_dtype="float32", compute_dtype="float32")
+    p32 = copy.deepcopy(rg_params).float()
+    toks = torch.from_numpy(rng.integers(0, rg_cfg.vocab, size=(2, 3000))
+                            .astype(np.int32)).to(dev)
+    rg_twin, calls = twin_checks(rg32, p32, toks, "recurrentgemma-2b")
+    if calls != [(3000, rg_cfg.local_window)] * 8:
+        raise AssertionError(f"recurrentgemma-2b: K12 calls (S, window) {calls}")
+    del p32, toks
+    torch.cuda.empty_cache()
+    prompts = [rng.integers(0, rg_cfg.vocab, size=int(rng.integers(2500, 4097)))
+               .astype(np.int32) for _ in range(4)]
+    rg_counts, calls, plens = serve(rg_cfg, rg_params, prompts, batch=2,
+                                    max_len=4096 + 16, new_tokens=16,
+                                    tag="recurrentgemma-2b")
+    if calls != [(s, rg_cfg.local_window) for s in plens for _ in range(8)]:
+        raise AssertionError(f"recurrentgemma-2b serve: K12 calls (S, window) {calls}")
+    log(f"[lm18] recurrentgemma-2b serve: every K12 launch windowed ({len(calls)} at "
+        f"window {rg_cfg.local_window}, S {plens})")
+    del rg_params
+    torch.cuda.empty_cache()
+
+    # -------------------------------------------------------------- (iii)
+    mo_cfg = get_config("moonshot-v1-16b-a3b")
+    cut = dataclasses.replace(mo_cfg, n_layers=4)
+    p32 = lm.init_model(cut, seed=args.seed, device=dev).float()
+    mo32 = dataclasses.replace(cut, param_dtype="float32", compute_dtype="float32")
+    toks = torch.from_numpy(rng.integers(0, mo_cfg.vocab, size=(2, 1000))
+                            .astype(np.int32)).to(dev)
+    log(f"[lm18] {mo_cfg.name} float32 twin: cut to {cut.n_layers} of {mo_cfg.n_layers} "
+        f"layers ({lm.count_params(p32)} parameters; 28 B in float32 would not fit)")
+    mo_twin, _ = twin_checks(mo32, p32, toks, f"{mo_cfg.name} (4 layers)",
+                             nodrop=dataclasses.replace(mo32, capacity_factor=11.0))
+    del p32, toks
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    mo_params = lm.init_model(mo_cfg, seed=args.seed, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_mo = lm.count_params(mo_params)
+    if n_mo != lm_param_count(mo_cfg):
+        raise AssertionError(f"{mo_cfg.name}: {n_mo} parameters, not "
+                             f"{lm_param_count(mo_cfg)} (full width and depth)")
+    log(f"[lm18] {mo_cfg.name}: {mo_cfg.n_layers} layers (no depth cut), d "
+        f"{mo_cfg.d_model}, H {mo_cfg.n_heads}, KV {mo_cfg.n_kv_heads}, hd {mo_cfg.hd}, "
+        f"{mo_cfg.n_experts} experts of d_ff {mo_cfg.d_ff}, top-{mo_cfg.topk_experts}, "
+        f"capacity factor {mo_cfg.capacity_factor}, vocab {mo_cfg.vocab}; {n_mo} "
+        f"parameters (float32 router, the rest bfloat16; "
+        f"{sum(p.numel() * p.element_size() for p in mo_params.parameters())} bytes), "
+        f"init {t_init:.2f} s from seed {args.seed}; {torch.cuda.memory_allocated()} "
+        f"bytes allocated now")
+    routes = []
+    real_route = moe_mod.route
+
+    def spy_route(x, router, n_experts, topk, cap):
+        plan = real_route(x, router, n_experts, topk, cap)
+        if x.shape[1] > 1:
+            routes.append((int((plan.slot_key == n_experts * cap).sum()),
+                           plan.slot_key.numel(), cap))
+        return plan
+
+    prompts = [rng.integers(0, mo_cfg.vocab, size=int(rng.integers(128, 1025)))
+               .astype(np.int32) for _ in range(8)]
+    moe_mod.route = spy_route
+    try:
+        mo_counts, _, plens = serve(mo_cfg, mo_params, prompts, batch=4, max_len=1040,
+                                    new_tokens=16, tag=mo_cfg.name)
+    finally:
+        moe_mod.route = real_route
+    first = routes[:mo_cfg.n_layers]
+    log(f"[lm18] {mo_cfg.name} serve: (token, slot) pairs dropped at capacity in the first "
+        f"prefill (S {plens[0]}, cap {first[0][2]}): {sum(d for d, _, _ in first)} of "
+        f"{sum(n for _, n, _ in first)} "
+        f"({sum(d for d, _, _ in first) / sum(n for _, n, _ in first):.4f}) over "
+        f"{len(first)} layers (layer 0 {first[0][0] / first[0][1]:.4f}, layer "
+        f"{len(first) - 1} {first[-1][0] / first[-1][1]:.4f}: random weights route "
+        f"deeper layers alike); in every prefill "
+        f"{sum(d for d, _, _ in routes) / sum(n for _, n, _ in routes):.4f}")
+    del mo_params
+    torch.cuda.empty_cache()
+
+    src = "src/repro_torch/kernels/csrc/flash_attention.cu"
+    return [
+        {"name": f"K12 flash_attention_fwd (recurrentgemma-2b local attention, causal, "
+                 f"window {rg_w}, {str(dtype)[6:]})",
+         "route": "cuda", "source": src,
+         "replaces": "src/repro/kernels/flash_attention.py:136",
+         "launches": launches, "max_abs_err": win_err[dtype], "ms": win_rows[dtype][0],
+         "plain_ms": win_rows[dtype][1], "bound_ms": win_rows[dtype][2],
+         "bound_by": win_rows[dtype][3], "library_ms": win_rows[dtype][4]}
+        for dtype, launches in ((bf16, rg_counts["K12"]), (f32, rg_twin))]
 
 
 def main() -> int:
@@ -4368,6 +4794,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_end("17 lm")
 
+    # ------------------------------------------------------------ 18. lm-moe-hybrid
+    lm18_records = lm_moe_hybrid(args, dev, smi, wrappers)
+    phase_end("18 lm-moe-hybrid")
+
     k2_main = k2_rows[("tournament", 1000)]
     fill1 = mor[1.0]
     record = {"kernels": [
@@ -4477,6 +4907,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:136",
         "launches": serve_launches["K12"], "max_abs_err": lm_err, "ms": lm_ms,
         "plain_ms": lm_plain, "bound_ms": lm_bound, "bound_by": lm_by, "library_ms": lm_lib})
+    record["kernels"].extend(lm18_records)
     print(json.dumps(record), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

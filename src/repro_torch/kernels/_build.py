@@ -101,10 +101,10 @@ KERNELS = {
         "flat_sort", "flat_sort_f32_launch", (_P, _I, _P, _P, _I, _P)),
     "flash_attention_f32": Kernel(
         "flash_attention", "flash_attention_f32_launch",
-        (_P,) * 4 + (_I,) * 7 + (_P,)),
+        (_P,) * 4 + (_I,) * 8 + (_P,)),
     "flash_attention_bf16": Kernel(
         "flash_attention", "flash_attention_bf16_launch",
-        (_P,) * 4 + (_I,) * 7 + (_P,)),
+        (_P,) * 4 + (_I,) * 8 + (_P,)),
 }
 #: Every kernel source.
 SOURCES = tuple(dict.fromkeys(k.source for k in KERNELS.values()))

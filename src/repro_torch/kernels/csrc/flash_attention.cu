@@ -9,7 +9,10 @@
 // bfloat16, contiguous), o [B, S, H, hd] in q's type.  Rows are flattened
 // (B, KV, G) with G = H / KV, so q head h reads k/v head h / G.  Logits are
 // (q . k) * scale with scale = 1/sqrt(hd) rounded to float; under causal a
-// key at kpos > qpos (positions from 0) is masked to -1e30; the running max
+// key at kpos > qpos (positions from 0) is masked to -1e30, and with a
+// window W > 0 (causal only; 0 is none) so is a key at kpos <= qpos - W:
+// query i sees keys i - W + 1 .. i, the reference's _flash_gqa mask
+// (repro/models/layers.py:148-149).  The running max
 // m, denominator l and accumulator acc are float32; o = acc / max(l, 1e-30).
 // Keys past T (the ragged last tile) are left out (-inf logit, weight 0);
 // query rows past S are neither read nor stored.
@@ -35,8 +38,18 @@
 // products (ptxas serialises wgmma under divergent branches), so under
 // causal the block skips the k tiles wholly past its last row and a
 // warpgroup runs the all-masked tiles it shares with the other; only tiles
-// that cross the diagonal or the end of T pay for the mask.  The scale is
-// folded with log2(e) into ex2.approx.ftz.
+// that cross the diagonal or the end of T pay for the mask.  With a window
+// the block also skips every k tile before the one that holds key q0 - W +
+// 1 (its first row's first key): its tiles are kt0 .. n_kt - 1, and the
+// ring's slots and phases count from kt0 (turn r loads tile kt0 + r), in
+// the producer and the consumers alike.  A tile that holds a key before
+// the window of any row of a warpgroup is an edge tile too; such a key
+// gets -inf, not -1e30, so a row whose first tiles lie wholly before its
+// window keeps m = -1e30, l = 0 and acc = 0 until its first live key (the
+// reference's -1e30 there gives weights of 1 that the first live key's
+// rescale by exp(-1e30 - m) = 0 then wipes: the same result).  At S = T =
+// 4096 and W = 2048 a row sees at most 2048 keys, 75% of the causal work.
+// The scale is folded with log2(e) into ex2.approx.ftz.
 //
 // float32 (flash_attention_tf32_kernel): split TF32, 495 TFLOP/s dense on
 // the tensor cores against 67 on the CUDA cores.  One TF32 product keeps
@@ -174,13 +187,15 @@ __device__ __forceinline__ void turn_pass(int wg)
 // (m64nBK): sc[4j + e] is row qp0 (e < 2) or qp1 = qp0 + 8, key k0 + 8 j +
 // col + (e & 1).  Scales by scale_log2, masks, updates the running max and
 // the per-thread sums, turns sc into P and returns the two rows' rescale
-// factors.
+// factors.  A key past T_len or before its row's window gets -inf (weight
+// 0 even while the row has seen no live key), one past its row under
+// causal -1e30.
 template <int BKT>
 __device__ __forceinline__ void online_softmax(float (&sc)[BKT / 2], float& m0, float& m1,
                                                float& l0, float& l1, float& a0, float& a1,
                                                int k0, int col, int qp0, int qp1,
                                                bool edge, int T_len, int causal,
-                                               float scale_log2)
+                                               int window, float scale_log2)
 {
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
@@ -190,9 +205,10 @@ __device__ __forceinline__ void online_softmax(float (&sc)[BKT / 2], float& m0, 
             float x = sc[4 * j + e] * scale_log2;
             if (edge) {
                 const int kp = k0 + 8 * j + col + (e & 1);
-                if (kp >= T_len)
+                const int qp = e < 2 ? qp0 : qp1;
+                if (kp >= T_len || (window > 0 && kp + window <= qp))
                     x = -INFINITY;
-                else if (causal && kp > (e < 2 ? qp0 : qp1))
+                else if (causal && kp > qp)
                     x = MASKED;
             }
             sc[4 * j + e] = x;
@@ -284,7 +300,7 @@ flash_attention_tf32_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tk,
                             const __grid_constant__ CUtensorMap tv,
                             float* __restrict__ o, int S, int T_len, int H, int KV,
-                            int causal, float scale_log2)
+                            int causal, int window, float scale_log2)
 {
     constexpr int NC = f_nc<HD>(), BQ = f_bq<HD>(), BKT = f_bk<HD>();
     constexpr int NBX = HD / 32;           // 32-float boxes a row
@@ -316,6 +332,10 @@ flash_attention_tf32_kernel(const __grid_constant__ CUtensorMap tq,
         const int live = (q0 + BQ - 1) / BKT + 1;
         n_kt = live < n_kt ? live : n_kt;
     }
+    // k tiles wholly before the first row's window add nothing either:
+    // turn r runs tile kt0 + r, n_t turns
+    const int kt0 = window > 0 && q0 >= window ? (q0 - window + 1) / BKT : 0;
+    const int n_t = n_kt - kt0;
 
     if (threadIdx.x == 0) {
         mbar_init(q_full, 1);
@@ -340,17 +360,18 @@ flash_attention_tf32_kernel(const __grid_constant__ CUtensorMap tq,
                 mbar_arrive_expect_tx(q_full, BQ * HD * 4);
                 for (int c = 0; c < NBX; ++c)
                     tma_load_4d(qs + c * BQ * 32, &tq, q_full, c * 32, h, q0, b);
-                for (int kt = 0; kt < n_kt; ++kt) {
+                for (int kt = 0; kt < n_t; ++kt) {
                     const int s = kt % F_STAGES;
                     const uint32_t ph = ((kt / F_STAGES) & 1) ^ 1;
-                    mbar_wait(&kfree[s], ph);    // Q.K^T of tile kt - 2 done
-                    mbar_wait(&vready[s], ph);   // V of tile kt - 2 read
+                    mbar_wait(&kfree[s], ph);    // Q.K^T of turn kt - 2 done
+                    mbar_wait(&vready[s], ph);   // V of turn kt - 2 read
                     mbar_arrive_expect_tx(&kfull[s], 2 * TILE * 4);
+                    const int key0 = (kt0 + kt) * BKT;
                     for (int c = 0; c < NBX; ++c) {
                         tma_load_4d(kh + s * TILE + c * BKT * 32, &tk, &kfull[s], c * 32,
-                                    kvh, kt * BKT, b);
+                                    kvh, key0, b);
                         tma_load_4d(vr + s * TILE + c * BKT * 32, &tv, &kfull[s], c * 32,
-                                    kvh, kt * BKT, b);
+                                    kvh, key0, b);
                     }
                 }
             }
@@ -359,7 +380,7 @@ flash_attention_tf32_kernel(const __grid_constant__ CUtensorMap tq,
             // it lands; then V into V^T hi and lo, keys of a k-step in the
             // order 0 2 4 6 1 3 5 7, once P.V of tile kt - 2 has freed them
             const int ct = threadIdx.x - NC * 128 - 32, cw = ct / 32;
-            for (int kt = 0; kt < n_kt; ++kt) {
+            for (int kt = 0; kt < n_t; ++kt) {
                 const int s = kt % F_STAGES;
                 const uint32_t ph = (kt / F_STAGES) & 1;
                 mbar_wait(&kfull[s], ph);
@@ -484,11 +505,12 @@ flash_attention_tf32_kernel(const __grid_constant__ CUtensorMap tq,
         auto take_turn = [&]() { if constexpr (NC == 2) turn_wait(wg); };
         auto pass_turn = [&]() { if constexpr (NC == 2) turn_pass(wg); };
         auto softmax = [&](int r) {
-            const int k0 = r * BKT;
-            const bool edge = k0 + BKT > T_len || (causal && k0 + BKT - 1 > wg_first);
+            const int k0 = (kt0 + r) * BKT;
+            const bool edge = k0 + BKT > T_len || (causal && k0 + BKT - 1 > wg_first) ||
+                              (window > 0 && k0 + window <= wg_first + 63);
             float a0, a1;
             online_softmax<BKT>(sc, m0, m1, l0, l1, a0, a1, k0, col, qp0, qp1, edge,
-                                T_len, causal, scale_log2);
+                                T_len, causal, window, scale_log2);
             // A fragment of k-step t: keys (t, t + 4) of the permuted order
             // are keys (2 t, 2 t + 1): sc[4 t + 0, 2, 1, 3]
 #pragma unroll
@@ -517,7 +539,7 @@ flash_attention_tf32_kernel(const __grid_constant__ CUtensorMap tq,
         reg_fence(sc);
         release(kfree, 0);
         softmax(0);
-        for (int r = 1; r < n_kt; ++r) {
+        for (int r = 1; r < n_t; ++r) {
             wait_ready(kready, r);
             wait_ready(vready, r - 1);
             load_q(0);
@@ -538,20 +560,20 @@ flash_attention_tf32_kernel(const __grid_constant__ CUtensorMap tq,
             softmax(r);
         }
         // the last turn: P_{n-1} . V_{n-1} alone; every wait has its pass
-        wait_ready(vready, n_kt - 1);
+        wait_ready(vready, n_t - 1);
         reg_fence(pah);
         reg_fence(pal);
         reg_fence(acc);
         take_turn();
         wgmma_fence();
-        issue_pv(n_kt - 1);
+        issue_pv(n_t - 1);
         wgmma_commit();
         if constexpr (NC == 2) {
             if (wg == 0) turn_pass(wg);
         }
         wgmma_wait<0>();
         reg_fence(acc);
-        release(vfree, n_kt - 1);
+        release(vfree, n_t - 1);
 
         const float d0 = fmaxf(quad_sum(l0), 1e-30f);
         const float d1 = fmaxf(quad_sum(l1), 1e-30f);
@@ -607,7 +629,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv,
                              __nv_bfloat16* __restrict__ o, int S, int T_len,
-                             int H, int KV, int causal, float scale_log2)
+                             int H, int KV, int causal, int window, float scale_log2)
 {
     constexpr int BKT = tc_bk<HD>();
     constexpr int STAGES = tc_stages<HD>();
@@ -632,6 +654,10 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         const int live = (q0 + TC_BQ - 1) / BKT + 1;
         n_kt = live < n_kt ? live : n_kt;
     }
+    // k tiles wholly before the first row's window add nothing either:
+    // turn r runs tile kt0 + r, n_t turns
+    const int kt0 = window > 0 && q0 >= window ? (q0 - window + 1) / BKT : 0;
+    const int n_t = n_kt - kt0;
 
     if (threadIdx.x == 0) {
         mbar_init(q_full, 1);
@@ -651,15 +677,16 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
             mbar_arrive_expect_tx(q_full, TC_BQ * HD * 2);
             for (int c = 0; c < NB; ++c)
                 tma_load_4d(qs + c * BOX_Q, &tq, q_full, c * 64, h, q0, b);
-            for (int kt = 0; kt < n_kt; ++kt) {
+            for (int kt = 0; kt < n_t; ++kt) {
                 const int s = kt % STAGES;
                 mbar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);
                 mbar_arrive_expect_tx(&full[s], 2 * BKT * HD * 2);
+                const int key0 = (kt0 + kt) * BKT;
                 for (int c = 0; c < NB; ++c) {
                     tma_load_4d(ks + (s * NB + c) * BOX_K, &tk, &full[s], c * 64,
-                                kvh, kt * BKT, b);
+                                kvh, key0, b);
                     tma_load_4d(vs + (s * NB + c) * BOX_K, &tv, &full[s], c * 64,
-                                kvh, kt * BKT, b);
+                                kvh, key0, b);
                 }
             }
         }
@@ -705,11 +732,12 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
             if (lane == 0) mbar_arrive(&empty[r % STAGES]);
         };
         auto softmax = [&](int r) {
-            const int k0 = r * BKT;
-            const bool edge = k0 + BKT > T_len || (causal && k0 + BKT - 1 > wg_first);
+            const int k0 = (kt0 + r) * BKT;
+            const bool edge = k0 + BKT > T_len || (causal && k0 + BKT - 1 > wg_first) ||
+                              (window > 0 && k0 + window <= wg_first + 63);
             float a0, a1;
             online_softmax<BKT>(sc, m0, m1, l0, l1, a0, a1, k0, col, qp0, qp1, edge,
-                                T_len, causal, scale_log2);
+                                T_len, causal, window, scale_log2);
             // register 4 t + i of k-step t holds sc[8 t + 2 i], sc[8 t + 2 i + 1]
 #pragma unroll
             for (int i = 0; i < BKT / 4; ++i) pa[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
@@ -728,7 +756,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         wgmma_wait<0>();
         reg_fence(sc);
         softmax(0);
-        for (int r = 1; r < n_kt; ++r) {
+        for (int r = 1; r < n_t; ++r) {
             wait_full(r);
             reg_fence(pa);
             reg_fence(acc);
@@ -749,12 +777,12 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         reg_fence(acc);
         turn_wait(wg);
         wgmma_fence();
-        issue_pv(n_kt - 1);
+        issue_pv(n_t - 1);
         wgmma_commit();
         if (wg == 0) turn_pass(wg);
         wgmma_wait<0>();
         reg_fence(acc);
-        release(n_kt - 1);
+        release(n_t - 1);
 
         const float d0 = fmaxf(quad_sum(l0), 1e-30f);
         const float d1 = fmaxf(quad_sum(l1), 1e-30f);
@@ -818,7 +846,7 @@ static bool tensor_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
 template <int HD>
 static int launch_tf32(const void* q, const void* k, const void* v, void* o,
                        int B, int S, int T_len, int H, int KV, int causal,
-                       cudaStream_t st)
+                       int window, cudaStream_t st)
 {
     static std::atomic<unsigned long long> opted{0};
     const EncodeTiled encode = tensor_map_encoder();
@@ -836,14 +864,14 @@ static int launch_tf32(const void* q, const void* k, const void* v, void* o,
     const float scale_log2 = scale * 1.4426950408889634f;
     const dim3 grid((unsigned)(B * H), (unsigned)((S + f_bq<HD>() - 1) / f_bq<HD>()));
     flash_attention_tf32_kernel<HD><<<grid, 128 * (f_nc<HD>() + 1), smem, st>>>(
-        mq, mk, mv, (float*)o, S, T_len, H, KV, causal, scale_log2);
+        mq, mk, mv, (float*)o, S, T_len, H, KV, causal, causal ? window : 0, scale_log2);
     return (int)cudaGetLastError();
 }
 
 template <int HD>
 static int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                         int B, int S, int T_len, int H, int KV, int causal,
-                        cudaStream_t st)
+                        int window, cudaStream_t st)
 {
     static std::atomic<unsigned long long> opted{0};
     const EncodeTiled encode = tensor_map_encoder();
@@ -861,20 +889,21 @@ static int launch_wgmma(const void* q, const void* k, const void* v, void* o,
     const float scale_log2 = scale * 1.4426950408889634f;
     const dim3 grid((unsigned)(B * H), (unsigned)((S + TC_BQ - 1) / TC_BQ));
     flash_attention_wgmma_kernel<HD><<<grid, TC_THREADS, smem, st>>>(
-        mq, mk, mv, (__nv_bfloat16*)o, S, T_len, H, KV, causal, scale_log2);
+        mq, mk, mv, (__nv_bfloat16*)o, S, T_len, H, KV, causal, causal ? window : 0,
+        scale_log2);
     return (int)cudaGetLastError();
 }
 
 extern "C" int flash_attention_f32_launch(const void* q, const void* k,
                                           const void* v, void* o, int B, int S,
                                           int T_len, int H, int KV, int hd,
-                                          int causal, void* stream)
+                                          int causal, int window, void* stream)
 {
     const cudaStream_t st = (cudaStream_t)stream;
     switch (hd) {
-    case 64: return launch_tf32<64>(q, k, v, o, B, S, T_len, H, KV, causal, st);
-    case 128: return launch_tf32<128>(q, k, v, o, B, S, T_len, H, KV, causal, st);
-    case 256: return launch_tf32<256>(q, k, v, o, B, S, T_len, H, KV, causal, st);
+    case 64: return launch_tf32<64>(q, k, v, o, B, S, T_len, H, KV, causal, window, st);
+    case 128: return launch_tf32<128>(q, k, v, o, B, S, T_len, H, KV, causal, window, st);
+    case 256: return launch_tf32<256>(q, k, v, o, B, S, T_len, H, KV, causal, window, st);
     default: return (int)cudaErrorInvalidValue;
     }
 }
@@ -882,13 +911,14 @@ extern "C" int flash_attention_f32_launch(const void* q, const void* k,
 extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
                                            const void* v, void* o, int B,
                                            int S, int T_len, int H, int KV,
-                                           int hd, int causal, void* stream)
+                                           int hd, int causal, int window,
+                                           void* stream)
 {
     const cudaStream_t st = (cudaStream_t)stream;
     switch (hd) {
-    case 64: return launch_wgmma<64>(q, k, v, o, B, S, T_len, H, KV, causal, st);
-    case 128: return launch_wgmma<128>(q, k, v, o, B, S, T_len, H, KV, causal, st);
-    case 256: return launch_wgmma<256>(q, k, v, o, B, S, T_len, H, KV, causal, st);
+    case 64: return launch_wgmma<64>(q, k, v, o, B, S, T_len, H, KV, causal, window, st);
+    case 128: return launch_wgmma<128>(q, k, v, o, B, S, T_len, H, KV, causal, window, st);
+    case 256: return launch_wgmma<256>(q, k, v, o, B, S, T_len, H, KV, causal, window, st);
     default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -6,7 +6,10 @@ same layout and contract: ``q`` (B, S, H, hd), ``k`` and ``v`` (B, T, KV,
 hd), result (B, S, H, hd) in ``q.dtype``.  Rows are flattened (B, KV, G)
 with ``G = H // KV``, so q head ``h`` reads k/v head ``h // G`` (no repeat
 of the grouped heads).  Logits are ``q . k / sqrt(hd)``; under ``causal``
-a key at position ``kpos > qpos`` (both from 0) is masked to ``-1e30``.
+a key at position ``kpos > qpos`` (both from 0) is masked to ``-1e30``,
+and with a ``window`` W (under ``causal`` only, as the models'
+``_flash_gqa``; ``None`` is none) so is a key at ``kpos <= qpos - W``:
+query i sees keys ``i - W + 1 .. i``.
 The softmax runs in float32 and the result is ``acc / max(l, 1e-30)``;
 the products run in float32 (the float32 kernel: split TF32 on the tensor
 cores, :func:`split_tf32`, within the float32 contract, rtol = atol =
@@ -19,7 +22,8 @@ multiples of them, as the reference asserts.
 
 :func:`flash_attention_fwd_torch` is the plain version: the reference's
 online-softmax recurrence over (cq, ck) chunks, k chunks wholly past a q
-chunk's last row skipped under ``causal``.  :func:`flash_attention_ref` is
+chunk's last row skipped under ``causal``, and with a window those wholly
+before its first row's window.  :func:`flash_attention_ref` is
 the reference's full-logits oracle.  :func:`flash_attention_fwd_cuda`
 wraps ``csrc/flash_attention.cu`` (float32 and bfloat16), and
 :func:`flash_attention_fwd` picks by device.  Forward only, as the
@@ -67,6 +71,15 @@ def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, rna(x - hi)
 
 
+def _window(window, causal: bool) -> int:
+    """The window as the kernels take it: 0 for none or when not causal."""
+    if window is None or not causal:
+        return 0
+    if int(window) < 1:
+        raise ValueError(f"window {window}: need at least one key")
+    return int(window)
+
+
 def _chunks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q_chunk: int, k_chunk: int) -> tuple[int, int]:
     """Check the shapes and return ``(cq, ck)``."""
@@ -85,9 +98,13 @@ def _chunks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_fwd_torch(q, k, v, *, causal: bool = True,
-                              q_chunk: int = 128, k_chunk: int = 128):
-    """Plain PyTorch version of K12: the online-softmax recurrence."""
+                              q_chunk: int = 128, k_chunk: int = 128, window=None):
+    """Plain PyTorch version of K12: the online-softmax recurrence.  A key
+    before its row's window gets ``-inf``, as in the kernel (weight 0 while
+    the row has seen no live key; the reference's ``-1e30`` gives the same
+    result once the row's first live key rescales by 0)."""
     cq, ck = _chunks(q, k, v, q_chunk, k_chunk)
+    w = _window(window, causal)
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -107,12 +124,16 @@ def flash_attention_fwd_torch(q, k, v, *, causal: bool = True,
         for ki in range(T // ck):
             if causal and ki * ck > qi * cq + (cq - 1):
                 continue
+            if w and (ki + 1) * ck - 1 + w <= qi * cq:
+                continue
             kc = kf[:, :, None, ki * ck:(ki + 1) * ck, :]
             vc = vf[:, :, None, ki * ck:(ki + 1) * ck, :]
             s = torch.matmul(qc, kc.transpose(-1, -2)) * scale
             if causal:
-                live = (ki * ck + pos[:ck])[None, :] <= (qi * cq + pos[:cq])[:, None]
-                s = torch.where(live, s, NEG_INF)
+                kp, qp = (ki * ck + pos[:ck])[None, :], (qi * cq + pos[:cq])[:, None]
+                s = torch.where(kp <= qp, s, NEG_INF)
+                if w:
+                    s = torch.where(kp + w > qp, s, -math.inf)
             m_new = torch.maximum(m, s.amax(-1))
             alpha = torch.exp(m - m_new)
             p = torch.exp(s - m_new[..., None])
@@ -123,17 +144,22 @@ def flash_attention_fwd_torch(q, k, v, *, causal: bool = True,
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(q.dtype)
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True):
-    """Full-logits oracle (the reference's ``flash_attention_ref``): the
-    softmax over every key in float32, GQA by the (B, KV, G) grouping."""
+def flash_attention_ref(q, k, v, *, causal: bool = True, window=None):
+    """Full-logits oracle (the reference's ``flash_attention_ref``, with
+    the models' window mask): the softmax over every key in float32, GQA by
+    the (B, KV, G) grouping."""
+    w = _window(window, causal)
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     f32 = torch.float32
     qg = q.to(f32).reshape(B, S, KV, H // KV, hd)
     s = torch.einsum("bskgh,btkh->bkgst", qg, k.to(f32)) / math.sqrt(hd)
     if causal:
-        mask = (torch.arange(T, device=q.device)[None, :]
-                <= torch.arange(S, device=q.device)[:, None])
+        kp, qp = torch.arange(T, device=q.device)[None, :], torch.arange(
+            S, device=q.device)[:, None]
+        mask = kp <= qp
+        if w:
+            mask &= kp > qp - w
         s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgst,btkh->bskgh", p, v.to(f32))
@@ -148,7 +174,7 @@ def max_row_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def flash_attention_fwd_cuda(q, k, v, *, causal: bool = True,
-                             q_chunk: int = 128, k_chunk: int = 128):
+                             q_chunk: int = 128, k_chunk: int = 128, window=None):
     """Launch ``csrc/flash_attention.cu`` on the current stream: one block
     per (row of the (B, KV, G) flattening, q tile), walking its k tiles
     with the running max, denominator and accumulator on chip, both
@@ -161,10 +187,16 @@ def flash_attention_fwd_cuda(q, k, v, *, causal: bool = True,
     bfloat16: 128-row q tiles, k and v tiles of 128 keys (64 at hd 256), a
     ring of 3 slots (2 at hd 256), P rounded to bfloat16 before P.V.  The
     chunk arguments are checked as the reference checks them; the kernel's
-    own tiles are its choice and change only the order of the sums."""
+    own tiles are its choice and change only the order of the sums.  With
+    a window a block starts at the k tile that holds its first row's first
+    key (T must be at least S there, so every row sees a key)."""
     from repro_torch.kernels import _build
 
     _chunks(q, k, v, q_chunk, k_chunk)
+    w = _window(window, causal)
+    if w and k.shape[1] < q.shape[1]:
+        raise ValueError(f"window {w} with T = {k.shape[1]} < S = {q.shape[1]}: rows "
+                         f"past T + W - 1 would see no key")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.dtype not in _CUDA_ENTRY or x.dtype != q.dtype or not x.is_cuda:
             raise ValueError(f"{name}: need float32 or bfloat16 CUDA tensors of "
@@ -186,7 +218,7 @@ def flash_attention_fwd_cuda(q, k, v, *, causal: bool = True,
     launch = _build.kernel(_CUDA_ENTRY[q.dtype])
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 B, S, T, H, KV, hd, int(causal), stream)
+                 B, S, T, H, KV, hd, int(causal), w, stream)
     flash_attention_fwd_cuda.launches += 1
     _build.check(err, _CUDA_ENTRY[q.dtype] + "_launch")
     return out
@@ -196,8 +228,8 @@ flash_attention_fwd_cuda.launches = 0
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True,
-                        q_chunk: int = 128, k_chunk: int = 128):
+                        q_chunk: int = 128, k_chunk: int = 128, window=None):
     """GQA flash-attention forward, (B, S, H, hd) in ``q.dtype``: the
     kernel on CUDA tensors, the plain version on CPU tensors."""
     fn = flash_attention_fwd_cuda if q.is_cuda else flash_attention_fwd_torch
-    return fn(q, k, v, causal=causal, q_chunk=q_chunk, k_chunk=k_chunk)
+    return fn(q, k, v, causal=causal, q_chunk=q_chunk, k_chunk=k_chunk, window=window)

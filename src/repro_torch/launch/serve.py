@@ -4,9 +4,11 @@
         --requests 8 --new-tokens 16 --device cpu
 
 The twin of ``repro.launch.serve``, on the card unless ``--device`` names
-another.  Prints the ``[serve] ... tok/s`` line, the first outputs, and
-one line with the flash-attention kernel's (K12's) launches and the card's
-name and power limit (``nvidia-smi``).
+another.  ``--arch`` takes any config of the dense, MoE and RG-LRU/local
+hybrid families (RWKV6 and Whisper raise ``NotImplementedError``).
+Prints the ``[serve] ... tok/s`` line, the first outputs, and one line
+with the flash-attention kernel's (K12's) launches and the card's name and
+power limit (``nvidia-smi``).
 """
 from __future__ import annotations
 

@@ -33,18 +33,22 @@ config's chunks are the plain version's loop tiles; K12 tiles on its own,
 so it is called with one chunk spanning S and T and nothing is padded.
 
 K12's contract, as the model uses it: causal attention whose query and
-key positions start at the same base (the mask ``kpos <= qpos`` is then
-relative, so the positions themselves only enter RoPE), or non-causal
-attention with no masked key; no window narrower than S.
-:func:`k12_refusal` decides from host integers that :func:`attention`
-knows (``cache_pos``, whether there is a ``memory``, ``window``, S),
+key positions start at the same base (the masks ``kpos <= qpos`` and
+``kpos > qpos - window`` are then relative, so the positions themselves
+only enter RoPE), with or without a window (the ``"local"`` blocks'
+``local_window``, Mixtral's ``sliding_window``), or non-causal attention
+with no masked key.  :func:`k12_refusal` decides from host integers that
+:func:`attention` knows (``cache_pos``, whether there is a ``memory``, S),
 never by reading ``positions`` back from the device.  No-cache
 self-attention (the reference's ``q_base = k_base = positions[:, 0]``)
 fits, and so does a cached prefill at ``cache_pos = 0``, where every
 caller's positions start at 0.  A CUDA call outside the contract (a
-cached prefill at ``cache_pos > 0``, a window narrower than S, a
-non-causal call with masked keys) raises ``NotImplementedError``; it never
-runs the plain version.
+cached prefill at ``cache_pos > 0``, a causal or non-causal call with
+masked keys) raises ``NotImplementedError``; it never runs the plain
+version.  The reference has no caller of either yet: it prefills at
+``cache_pos = 0`` only (``repro/models/model.py:80``), every later call is
+a decode step (S = 1, the einsum path), and masked keys without a cache
+come only from Whisper's cross attention.
 
 **Cache handling: sliced.**  The cache is written in place at
 ``cache_pos`` and returned.  A flash call with a cache attends to the
@@ -142,14 +146,18 @@ def k12_refusal(S: int, T: int, *, q_base: int, k_base: int, k_len: int,
     the T passed."""
     if q_base != k_base:
         return (f"query positions start {q_base - k_base} past the keys' (a "
-                f"cached prefill at cache_pos > 0); K12 has no query offset")
+                f"cached prefill at cache_pos > 0); K12 has no query offset, and no "
+                f"caller in the reference needs one yet")
     if causal:
-        if window is not None and window < S:
-            return f"window {window} narrower than S = {S}; K12 has no window"
+        if window is not None and T < S:
+            return (f"window {window} with {T} keys for {S} queries: rows past "
+                    f"T + window - 1 would see no key")
         if k_len < min(S, T):
-            return f"{k_len} valid keys for {S} causal queries; K12 has no key length"
+            return (f"{k_len} valid keys for {S} causal queries; K12 has no key "
+                    f"length, and no caller in the reference needs one yet")
     elif k_len < T:
-        return f"non-causal with {T - k_len} masked keys; K12 has no key length"
+        return (f"non-causal with {T - k_len} masked keys; K12 has no key length, and "
+                f"no caller in the reference needs one yet")
     return None
 
 
@@ -184,7 +192,8 @@ def _flash_gqa(
         if why is not None:
             raise NotImplementedError(f"outside K12's contract: {why}")
         out = flash_attention_fwd_cuda(qg.reshape(B, S, KV * G, hd), k, v,
-                                       causal=causal, q_chunk=S, k_chunk=T)
+                                       causal=causal, q_chunk=S, k_chunk=T,
+                                       window=window)
         return out.reshape(B, S, KV, G, hd)
 
     dev, i32, f32 = qg.device, torch.int32, torch.float32

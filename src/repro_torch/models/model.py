@@ -1,5 +1,5 @@
 """Public model API: inputs, init, forward, prefill and decode for the
-dense decoders.
+dense, MoE and RG-LRU/local hybrid decoders.
 
 Port of ``repro.models.model`` without ``train_loss`` (the training
 slice's) and ``abstract_params`` (the dry run's).  Entry points run on the

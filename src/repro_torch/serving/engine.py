@@ -7,7 +7,9 @@ padded with inert ``rid = -1`` clones), runs prefill once (K12 in every
 layer on the card) and then the greedy decode loop
 (:func:`repro_torch.serving.router.greedy_token`).  Prompts are
 left-padded with token 0 and positions run from 0 on every row, as in the
-reference: the padding is attended.
+reference: the padding is attended.  The batch's cache (KV rows, and for
+RecurrentGemma the RG-LRU blocks' ``h`` and conv state) is made by
+``prefill`` and written in place by every decode step.
 """
 from __future__ import annotations
 

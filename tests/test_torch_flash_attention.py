@@ -11,7 +11,11 @@ bf16 tolerance of the reference's oracle and within its row-relative
 bound, which a lost or misplaced k/v tile in a long row would break, the
 reference's refusal of S or
 T that are not chunk multiples, and that a CPU tensor never reaches the
-kernel wrapper.  The CUDA kernel itself
+kernel wrapper.  Windows: the plain version and ``flash_attention_ref``
+with a ``window`` against the reference's ``_flash_gqa(window=)`` within
+2e-5, with S past W, W under a chunk and a chunk multiple, and W >= S
+(then equal to no window); a window changes nothing off ``causal``; the
+CUDA wrapper refuses a window under 1 or with T < S before it builds.  The CUDA kernel itself
 is held against the plain version on the card by ``chip_smoke.py``."""
 import os
 import subprocess
@@ -206,6 +210,57 @@ def test_matches_the_models_flash_path():
     ).reshape(b, s, h, hd)
     got = pt_fa.flash_attention_fwd(*map(torch.from_numpy, (q, k, v)))
     _close(got.numpy(), want, TOL[np.float32])
+
+
+WINDOW_CASES = {
+    # id: (B, S, H, KV, hd, window, chunk)
+    "S-past-W": (2, 256, 4, 2, 64, 100, 64),
+    "W-under-a-chunk": (1, 256, 6, 2, 32, 5, 64),
+    "W-a-chunk-multiple": (1, 256, 2, 1, 32, 128, 64),
+    "W-at-least-S": (1, 192, 4, 1, 64, 300, 64),
+}
+
+
+@pytest.mark.parametrize("case", list(WINDOW_CASES), ids=list(WINDOW_CASES))
+def test_window_matches_the_models_flash_gqa(case):
+    from repro.models.layers import _flash_gqa
+
+    b, s, h, kv, hd, w, ch = WINDOW_CASES[case]
+    q, k, v = _inputs(len(case), b, s, s, h, kv, hd)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    zero = jnp.zeros((b,), jnp.int32)
+    want = _flash_gqa(jq.reshape(b, s, kv, h // kv, hd), jk, jv, zero, zero,
+                      jnp.full((b,), s, jnp.int32), causal=True, window=w,
+                      scale=1.0 / np.sqrt(hd), q_chunk=ch, k_chunk=ch).reshape(b, s, h, hd)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    got = pt_fa.flash_attention_fwd(tq, tk, tv, q_chunk=ch, k_chunk=ch, window=w)
+    _close(got.numpy(), want, TOL[np.float32])
+    _close(pt_fa.flash_attention_ref(tq, tk, tv, window=w).numpy(), want, TOL[np.float32])
+    if w >= s:
+        assert torch.equal(got, pt_fa.flash_attention_fwd(tq, tk, tv, q_chunk=ch,
+                                                          k_chunk=ch))
+    else:
+        # the window masks: no window is another result
+        assert not np.allclose(pt_fa.flash_attention_ref(tq, tk, tv).numpy(), want,
+                               atol=1e-3)
+    # off causal the window is ignored, as in the reference
+    assert torch.equal(pt_fa.flash_attention_fwd(tq, tk, tv, causal=False, q_chunk=ch,
+                                                 k_chunk=ch, window=w),
+                       pt_fa.flash_attention_fwd(tq, tk, tv, causal=False, q_chunk=ch,
+                                                 k_chunk=ch))
+
+
+def test_cuda_wrapper_refuses_windows_it_cannot_take(monkeypatch):
+    def no_build(*a, **kw):
+        raise AssertionError("a refused call reached the kernel build")
+
+    monkeypatch.setattr(_build, "kernel", no_build)
+    q, k, v = map(torch.from_numpy, _inputs(5, 1, 128, 64, 2, 1, 64))
+    with pytest.raises(ValueError, match="T = 64 < S = 128"):
+        pt_fa.flash_attention_fwd_cuda(q, k, v, window=32)
+    with pytest.raises(ValueError, match="at least one key"):
+        pt_fa.flash_attention_fwd_cuda(q, k[:, :64].repeat(1, 2, 1, 1),
+                                       v[:, :64].repeat(1, 2, 1, 1), window=0)
 
 
 @pytest.mark.parametrize("s,t,cq,ck,raises", [

@@ -1,4 +1,4 @@
-"""The port's dense decoders against the JAX package's, on the CPU.
+"""The port's decoders against the JAX package's, on the CPU.
 
 The same numpy inputs (from a seed) go through the reference's functions
 and the port's, in float32 at ``reduce_for_smoke`` sizes, the weights
@@ -7,10 +7,14 @@ attention core ``_flash_gqa`` and ``attention`` (a window, offset
 positions, cross attention through ``memory=`` and ``kv_override=``)
 within 1e-5, ``forward_logits``, ``prefill``
 and ``decode_step`` within rtol = atol = 1e-4, and the port's flash path
-against its naive one within 1e-3 (the reference test's figure).  The
-families outside this slice raise ``NotImplementedError``, and K12's
-contract is decided from host integers by ``k12_refusal``, tested here as
-a pure function (no CUDA tensor can be made on the CPU)."""
+against its naive one within 1e-3 (the reference test's figure).  The MoE
+and hybrid configs (Mixtral, Moonlight, recurrentgemma) match the
+reference's forward within 1e-4 too (their own files,
+``test_torch_lm_moe.py`` and ``test_torch_lm_hybrid.py``, go further);
+RWKV6 and Whisper raise ``NotImplementedError``.  K12's contract is
+decided from host integers by ``k12_refusal``, tested here as a pure
+function (no CUDA tensor can be made on the CPU): a window fits, a query
+offset and masked keys do not."""
 import dataclasses
 
 import numpy as np
@@ -32,8 +36,8 @@ from repro_torch.models.convert import params_from_numpy
 
 DENSE = ["phi4-mini-3.8b", "gemma-2b", "deepseek-coder-33b", "starcoder2-7b",
          "internvl2-76b"]
-UNPORTED = ["mixtral-8x7b", "moonshot-v1-16b-a3b", "recurrentgemma-2b",
-            "rwkv6-1.6b", "whisper-base"]
+MOE_HYBRID = ["mixtral-8x7b", "moonshot-v1-16b-a3b", "recurrentgemma-2b"]
+UNPORTED = ["rwkv6-1.6b", "whisper-base"]
 CPU = "cpu"
 
 
@@ -209,14 +213,19 @@ def test_attention_matches_the_reference(mode, impl):
     (dict(S=64, T=96, q_base=0, k_base=0, k_len=96, causal=False, window=None), True),
     (dict(S=8, T=40, q_base=0, k_base=0, k_len=8, causal=True, window=None), True),
     (dict(S=8, T=40, q_base=32, k_base=0, k_len=40, causal=True, window=None), False),
-    (dict(S=100, T=100, q_base=0, k_base=0, k_len=100, causal=True, window=32), False),
+    (dict(S=100, T=100, q_base=0, k_base=0, k_len=100, causal=True, window=32), True),
     (dict(S=16, T=24, q_base=0, k_base=0, k_len=20, causal=False, window=None), False),
     (dict(S=16, T=16, q_base=0, k_base=0, k_len=12, causal=True, window=None), False),
+    (dict(S=8, T=40, q_base=32, k_base=0, k_len=40, causal=True, window=16), False),
+    (dict(S=100, T=60, q_base=0, k_base=0, k_len=60, causal=True, window=32), False),
 ], ids=["forward", "wide-window", "cross", "prefill-pos0", "prefill-pos32",
-        "narrow-window", "noncausal-masked", "short-klen"])
+        "narrow-window", "noncausal-masked", "short-klen", "window-prefill-pos32",
+        "window-T-below-S"])
 def test_k12_contract_from_host_integers(call, fits):
     why = L.k12_refusal(**call)
     assert (why is None) == fits, why
+    if why is not None and "no key" not in why:
+        assert "no caller in the reference needs one yet" in why
 
 
 def test_attention_decides_the_contract_from_host_integers():
@@ -325,6 +334,23 @@ def test_init_model_counts_and_seeds():
     inputs = pt_model.make_inputs(get_config("internvl2-76b"), 2, 300, seed=1, device=CPU)
     assert inputs["tokens"].shape == (2, 44) and inputs["tokens"].dtype == torch.int32
     assert inputs["prefix_embeds"].shape == (2, 256, 8192)
+
+
+@pytest.mark.parametrize("name", MOE_HYBRID)
+def test_moe_and_hybrid_families_match_the_reference(name):
+    """Ported in a later slice than the dense decoders: the reduced config's
+    forward logits and aux loss as the reference's."""
+    ref_cfg = ref_reduce(ref_get_config(name))
+    ref_params = ref_model.init_model(jax.random.PRNGKey(3), ref_cfg)
+    cfg = reduce_for_smoke(get_config(name))
+    params = params_from_numpy(jax.tree.map(np.asarray, ref_params), cfg, CPU)
+    jin, tin = _both(_inputs(cfg, 2, 40, 13))
+    want, _, waux = ref_model.apply_model(ref_params, ref_cfg, jin["tokens"])
+    got, _, aux = pt_model.apply_model(params, cfg, tin["tokens"])
+    _close(got, want, 1e-4)
+    _close(aux, waux, 1e-5)
+    assert pt_model.count_params(pt_model.init_model(cfg, device=CPU)) == \
+        ref_model.count_params(ref_params)
 
 
 @pytest.mark.parametrize("name", UNPORTED)

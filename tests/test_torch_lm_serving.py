@@ -2,7 +2,10 @@
 
 Both engines serve the same requests (numpy prompts from a seed) on the
 same weights (the reference's, carried by ``params_from_numpy``): greedy
-outputs equal token for token, full and padded partial batches.  Also:
+outputs equal token for token, full and padded partial batches, and for
+the MoE and hybrid families (Moonlight, recurrentgemma: the RG-LRU state
+carried in place from prefill through decode, prompts past the reduced
+local window).  Also:
 identical prompts give identical outputs, ``greedy_token`` ties as
 ``jnp.argmax``, the CLI runs on the CPU, and with no card and no device
 the engine raises."""
@@ -60,6 +63,24 @@ def test_outputs_equal_the_reference(name, n_req, batch):
     assert sorted(got) == list(range(n_req))
     assert got == want
     assert all(len(o) == 10 and all(0 <= t < cfg.vocab for t in o) for o in got.values())
+
+
+@pytest.mark.parametrize("name", ["moonshot-v1-16b-a3b", "recurrentgemma-2b"])
+def test_moe_and_hybrid_outputs_equal_the_reference(name):
+    ref_cfg = ref_reduce(ref_get_config(name))
+    ref_params = ref_init_model(jax.random.PRNGKey(2), ref_cfg)
+    cfg = reduce_for_smoke(get_config(name))
+    params = params_from_numpy(jax.tree.map(np.asarray, ref_params), cfg, "cpu")
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(30, 45))).astype(np.int32)
+               for _ in range(4)]
+    want = _serve(ref_engine.ServingEngine(ref_cfg, batch_size=2, max_len=64,
+                                           params=ref_params),
+                  ref_engine.Request, prompts, 8)
+    got = _serve(ServingEngine(cfg, batch_size=2, max_len=64, device="cpu",
+                               params=params), Request, prompts, 8)
+    assert sorted(got) == list(range(4))
+    assert got == want
 
 
 def test_identical_prompts_give_identical_outputs():
