@@ -274,6 +274,41 @@ Phases (any failure exits non-zero; nothing is caught):
              prefill, none in decode, equal outputs again, the share of
              (token, slot) pairs dropped at capacity.  Prefill ms a
              batch, decode ms a token, tokens/s and peak memory of both.
+19. lm-rwkv-whisper — RWKV6 and Whisper's encoder-decoder at full width
+             and depth (bfloat16, random weights from the seed), after
+             phase 18's models are freed; prints the bytes earlier phases
+             hold.  (i) K12 at Whisper's three callers (H = KV = 8, hd 64,
+             T = 1500, no tile multiple) in bfloat16 and float32 against
+             its plain version and the full-logits oracle (2e-5; 2e-2 and
+             a row-relative 0.05): the encoder (B 2, S = T = 1500), the
+             cross attention (S 7, 64, 448 against 1500 keys, non-causal)
+             and the decoder's causal self-attention (S 448), each timed
+             beside its bound and SDPA.  (ii) rwkv6-1.6b (24 layers, d
+             2048, 32 heads of 64, d_ff 7168, vocab 65536): the parameter
+             count against the shapes, init seconds; on a float32 twin
+             (TF32 off) layer 0's chunked time mix against the
+             step-by-step ``wkv_scan_torch`` at B 2, S 1000 within a
+             row-relative 1e-4 (and the final state), with the log-decays
+             it met; the forward at B 2, S 1000 (flash and naive alike:
+             no K12) and prefill of 992 + 8 decode steps within 1e-3 of
+             it; ``ServingEngine(batch_size=4, max_len=1040)`` serving 8
+             prompts of 128–1024 tokens x 16 with no kernel launched; the
+             prefill of one 8192-token prompt, ms and peak (a reading).
+             (iii) whisper-base (6 encoder layers over 1500 frames, 6
+             decoder layers, d 512, vocab 51865): count and init seconds;
+             on a float32 twin at B 2, decoder S 448, flash (18 K12
+             float32 launches) within 1e-3 of naive, prefill of 440 + 8
+             decode steps (no frames: the cross K/V from the cache) within
+             1e-3 of the forward; bfloat16 K12 last-position logits within
+             1.5x the naive bf16 path's error; ``ServingEngine(batch_size=8,
+             max_len=464)`` serving 16 prompts of 16–448 tokens x 16: K12
+             = 18 a prefill (6 encoder, 6 self, 6 cross), none in decode,
+             nothing else, equal outputs again; K12 at the first served
+             prefill's shape for each caller.  (iv) ``python -m
+             repro_torch.launch.serve`` with ``--arch rwkv6-1.6b`` and
+             ``--arch whisper-base`` on the card side by side: rc 0, K12 =
+             0 and 18 a batch.  Prefill ms a batch, decode ms a token,
+             tokens/s and peak memory of both.
 
 Every phase prints its seconds.
 
@@ -794,17 +829,28 @@ def chain_after(rlo, rhi, docs, keep, *, caps, fences=None, widths=None,
 
 
 def lm_param_count(cfg) -> int:
-    """A model's parameter count from its config's shapes alone: norms,
-    attention or RG-LRU mixers by block kind, an MLP or an MoE FFN with its
-    float32 router, the embedding, the head unless tied, the final norm."""
+    """A model's parameter count from its config's shapes alone: norms (a
+    scale, and a bias for a layernorm), attention or RG-LRU mixers with an
+    MLP or an MoE FFN (its float32 router) by block kind, RWKV6's time and
+    channel mix, an encoder-decoder's cross attention and its norm in every
+    decoder layer and its encoder layers and final norm, the embedding, the
+    head unless tied, the final norm."""
     d, R = cfg.d_model, cfg.lru_dim or cfg.d_model
+    norm = (2 if cfg.norm == "layernorm" else 1) * d
     mlp = (3 if cfg.mlp in ("swiglu", "geglu") else 2) * d * cfg.d_ff
     ffn = cfg.n_experts * mlp + d * cfg.n_experts if cfg.is_moe else mlp
     attn = 2 * d * cfg.n_heads * cfg.hd + 2 * d * cfg.n_kv_heads * cfg.hd
-    mixer = {"attn": attn, "local": attn, "rglru": 3 * d * R + (cfg.conv_width + 6) * R}
-    pat = cfg.block_pattern
-    layers = sum(mixer[pat[i % len(pat)]] + 2 * d + ffn for i in range(cfg.n_layers))
-    return layers + cfg.vocab * d * (1 if cfg.tie_embeddings else 2) + d
+    # RWKV6: mu (5 rows), w0, u, ln_scale, r k v g o, the rank-64 LoRA; the
+    # channel mix's mu (2 rows), wk, wv, wr
+    rwkv = 8 * d + 5 * d * d + 2 * 64 * d + 2 * d + 2 * d * cfg.d_ff + d * d
+    mixer = {"attn": attn + ffn, "local": attn + ffn,
+             "rglru": 3 * d * R + (cfg.conv_width + 6) * R + ffn, "rwkv": rwkv}
+    pat = ("rwkv",) if cfg.kind == "rwkv" else cfg.block_pattern
+    cross = attn + norm if cfg.kind == "encdec" else 0
+    layers = sum(mixer[pat[i % len(pat)]] + 2 * norm + cross for i in range(cfg.n_layers))
+    encoder = cfg.encoder_layers * (attn + ffn + 2 * norm) + (norm if cfg.encoder_layers
+                                                              else 0)
+    return layers + encoder + cfg.vocab * d * (1 if cfg.tie_embeddings else 2) + norm
 
 
 def window_keys(S: int, W: int) -> int:
@@ -814,27 +860,200 @@ def window_keys(S: int, W: int) -> int:
     return full * (full + 1) // 2 + (S - full) * W
 
 
+def k12_per_prefill(cfg) -> int:
+    """K12 launches of one prefill or no-cache forward: one for each layer
+    with attention (none in an RWKV6 model or an RG-LRU block), and in an
+    encoder-decoder one for each encoder layer and each cross attention."""
+    if cfg.kind == "rwkv":
+        return 0
+    pat = cfg.block_pattern
+    n_attn = sum(1 for i in range(cfg.n_layers) if pat[i % len(pat)] != "rglru")
+    return n_attn + (cfg.encoder_layers + n_attn if cfg.kind == "encdec" else 0)
+
+
+class LMRun:
+    """The LM phases' shared checks (18, 19): the kernel wrappers' launch
+    counters, K12's calls as ``layers._flash_gqa`` receives them (S, T,
+    causal, window; never a spy on the K12 wrapper, whose counter is its
+    own), a served run through ``ServingEngine`` and a float32 twin's
+    checks.  Lines are printed under ``tag``."""
+
+    def __init__(self, wrappers: dict, dev, smi: str, tag: str):
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.models import layers as lm_layers
+        from repro_torch.models import model as lm
+        from repro_torch.serving import engine as lm_engine
+        self.wrappers, self.dev, self.smi, self.tag = wrappers, dev, smi, tag
+        self.fa, self.layers, self.lm, self.engine = fa, lm_layers, lm, lm_engine
+        self.no_launch = {k: 0 for k in wrappers}
+        self.k12_calls = []
+
+    def reset_launches(self):
+        for fn in self.wrappers.values():
+            fn.launches = 0
+
+    def launches_now(self) -> dict:
+        return {k: fn.launches for k, fn in self.wrappers.items()}
+
+    def spy_gqa(self):
+        """Record each ``_flash_gqa`` call from now on; returns the undo."""
+        real = self.layers._flash_gqa
+
+        def spy(qg, k, *a, **kw):
+            self.k12_calls.append((qg.shape[1], k.shape[1], kw["causal"], kw["window"]))
+            return real(qg, k, *a, **kw)
+
+        self.layers._flash_gqa = spy
+        return lambda: setattr(self.layers, "_flash_gqa", real)
+
+    def serve(self, cfg, params, prompts, *, batch, max_len, new_tokens, tag):
+        """Serve ``prompts`` through a ServingEngine, then the first batch
+        again; per-step times and K12 launches of every prefill and decode
+        step.  Returns (launch counts, K12 calls, padded prompt lengths)."""
+        lm_engine, real_k12 = self.engine, self.fa.flash_attention_fwd_cuda
+        eng = lm_engine.ServingEngine(cfg, batch_size=batch, max_len=max_len,
+                                      device=self.dev, params=params)
+        steps = {"prefill": [], "decode": []}
+        real = {"prefill": lm_engine.prefill, "decode": lm_engine.decode_step}
+
+        def timed(key):
+            def run(*a, **kw):
+                k0 = real_k12.launches
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = real[key](*a, **kw)
+                torch.cuda.synchronize()
+                steps[key].append((time.perf_counter() - t, real_k12.launches - k0))
+                return out
+            return run
+
+        lm_engine.prefill, lm_engine.decode_step = timed("prefill"), timed("decode")
+        undo = self.spy_gqa()
+        try:
+            for rid, prompt in enumerate(prompts):
+                eng.submit(lm_engine.Request(rid=rid, prompt=prompt,
+                                             max_new_tokens=new_tokens))
+            torch.cuda.reset_peak_memory_stats()
+            self.k12_calls.clear()
+            self.reset_launches()
+            t0 = time.perf_counter()
+            served = []
+            while eng.queue:
+                served += eng.step_batch()
+            t_serve = time.perf_counter() - t0
+            counts, calls = self.launches_now(), list(self.k12_calls)
+            peak = torch.cuda.max_memory_allocated()
+            n_steps = {key: len(v) for key, v in steps.items()}
+            for rid, prompt in enumerate(prompts[:batch]):
+                eng.submit(lm_engine.Request(rid=100 + rid, prompt=prompt,
+                                             max_new_tokens=new_tokens))
+            again = eng.step_batch()
+        finally:
+            lm_engine.prefill, lm_engine.decode_step = real["prefill"], real["decode"]
+            undo()
+        outs = {r.rid: r.output for r in served}
+        if sorted(outs) != list(range(len(prompts))) or any(
+                len(o) != new_tokens or not all(0 <= t < cfg.vocab for t in o)
+                for o in outs.values()):
+            raise AssertionError(f"{tag} serve: outputs {outs}")
+        if any(r.output != outs[r.rid - 100] for r in again):
+            raise AssertionError(f"{tag} serve: the first batch served again gave other "
+                                 f"outputs")
+        pre = steps["prefill"][:n_steps["prefill"]]
+        dec = steps["decode"][:n_steps["decode"]]
+        n_k12 = k12_per_prefill(cfg)
+        if counts != {**self.no_launch, "K12": len(pre) * n_k12} or any(
+                n != n_k12 for _, n in pre) or any(n for _, n in dec):
+            raise AssertionError(f"{tag} serve: launches {counts}, per prefill "
+                                 f"{[n for _, n in pre]} (expected {n_k12}), in decode "
+                                 f"{sum(n for _, n in dec)}")
+        plens = [max(len(p) for p in prompts[i:i + batch])
+                 for i in range(0, len(prompts), batch)]
+        dec_ms = [t * 1e3 for t, _ in dec]
+        n_tok = sum(len(o) for o in outs.values())
+        log(f"{self.tag} {tag}: served {len(prompts)} requests (prompts "
+            f"{[len(p) for p in prompts]}, batches of {batch} padded to {plens}) x "
+            f"{new_tokens} tokens: {n_tok} tokens in {t_serve:.3f} s, "
+            f"{n_tok / t_serve:.1f} tok/s; prefill "
+            + ", ".join(f"{t * 1e3:.2f}" for t, _ in pre)
+            + f" ms a batch (K12 {[n for _, n in pre]}); decode {np.mean(dec_ms):.3f} ms a "
+            f"token (batch of {batch}; min {min(dec_ms):.3f}, max {max(dec_ms):.3f}, "
+            f"{len(dec_ms)} steps, no K12); peak {peak} bytes; launches {counts['K12']} "
+            f"K12, nothing else; the first batch again: equal outputs; on {self.smi}")
+        return counts, calls, plens
+
+    def twin_checks(self, cfg32, params32, inputs, tag, nodrop=None):
+        """On a float32 twin: flash (K12 float32) vs naive within a
+        row-relative 1e-3 at every position, and prefill of all but 8
+        tokens plus 8 teacher-forced decode steps (tokens alone: an
+        encoder-decoder's cross K/V come from the cache) vs the forward
+        within 1e-3 (on ``nodrop``, a no-drop capacity copy, where given).
+        Returns (K12 launches of the forward, its K12 calls, the forward's
+        last-position logits)."""
+        lm, fa = self.lm, self.fa
+        tokens = inputs["tokens"]
+        S = tokens.shape[1]
+        n_k12 = k12_per_prefill(cfg32)
+        self.k12_calls.clear()
+        self.reset_launches()
+        undo = self.spy_gqa()
+        try:
+            full = lm.forward_logits(params32, cfg32, inputs)
+        finally:
+            undo()
+        n = self.launches_now()
+        naive = lm.forward_logits(params32, dataclasses.replace(cfg32, attn_impl="naive"),
+                                  inputs)
+        if self.launches_now() != n or n != {**self.no_launch, "K12": n_k12}:
+            raise AssertionError(f"{tag} float32: launches {n} then "
+                                 f"{self.launches_now()}; expected K12 = {n_k12} in the "
+                                 f"flash forward only")
+        if full.shape != (tokens.shape[0], S, cfg32.vocab) or not bool(
+                torch.isfinite(full).all()):
+            raise AssertionError(f"{tag} float32 logits {tuple(full.shape)} or not finite")
+        rr, ab = fa.max_row_rel_err(full, naive), float((full - naive).abs().max())
+        del naive
+        calls = list(self.k12_calls)
+        log(f"{self.tag} {tag} float32 forward_logits {tuple(tokens.shape)}: flash (K12 "
+            f"split TF32, {n['K12']} launches, (S, T, causal, window) "
+            f"{sorted(set(calls), key=str)}) vs naive: max abs err {ab:.4g}, row-relative "
+            f"{rr:.4g} (bound 1e-3, every position)")
+        if rr > 1e-3:
+            raise AssertionError(f"{tag}: float32 flash vs naive row-relative {rr} > 1e-3")
+        if nodrop is not None:
+            del full
+            cfg32 = nodrop
+            full = lm.forward_logits(params32, cfg32, inputs)
+        last32 = full[:, -1].clone()
+        last, cache = lm.prefill(params32, cfg32, {**inputs, "tokens": tokens[:, :S - 8]},
+                                 max_len=S)
+        errs = [fa.max_row_rel_err(last, full[:, S - 9])]
+        for t in range(S - 8, S):
+            step, cache = lm.decode_step(params32, cfg32, tokens[:, t:t + 1], cache, t)
+            errs.append(fa.max_row_rel_err(step, full[:, t]))
+        log(f"{self.tag} {tag} float32 prefill ({S - 8}) + 8 decode steps vs forward_logits"
+            + (f" (capacity_factor {cfg32.capacity_factor}: no drops)" if nodrop else "")
+            + ": row-relative " + ", ".join(f"{e:.3g}" for e in errs) + " (bound 1e-3)")
+        if max(errs) > 1e-3:
+            raise AssertionError(f"{tag}: prefill/decode vs forward row-relative {errs}")
+        del full, cache, last, step
+        return n["K12"], calls, last32
+
+
 def lm_moe_hybrid(args, dev, smi: str, wrappers: dict) -> list:
     """Phase 18: K12's window against its plain version, then
     recurrentgemma-2b and Moonlight-16B-A3B at full width and depth on the
     serving path.  Returns the phase's kernel records."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models import layers as lm_layers
     from repro_torch.models import model as lm
     from repro_torch.models import moe as moe_mod
-    from repro_torch.serving import engine as lm_engine
 
     f32, bf16 = torch.float32, torch.bfloat16
     tol = {f32: 2e-5, bf16: 2e-2}
-    no_launch = {k: 0 for k in wrappers}
-
-    def reset_launches():
-        for fn in wrappers.values():
-            fn.launches = 0
-
-    def launches_now():
-        return {k: fn.launches for k, fn in wrappers.items()}
+    lmr = LMRun(wrappers, dev, smi, "[lm18]")
+    no_launch, reset_launches, launches_now = lmr.no_launch, lmr.reset_launches, \
+        lmr.launches_now
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -945,141 +1164,6 @@ def lm_moe_hybrid(args, dev, smi: str, wrappers: dict) -> list:
         del qt, kt, vt
     del win_in, wmask
 
-    # the windows the models' attention hands K12 (layers._flash_gqa)
-    real_k12, real_gqa = fa.flash_attention_fwd_cuda, lm_layers._flash_gqa
-    k12_calls = []
-
-    def spy_gqa(qg, *a, **kw):
-        k12_calls.append((qg.shape[1], kw["window"]))
-        return real_gqa(qg, *a, **kw)
-
-    def serve(cfg, params, prompts, *, batch, max_len, new_tokens, tag):
-        """Serve ``prompts`` through a ServingEngine, then the first batch
-        again; per-step times and K12 launches of every prefill and decode
-        step."""
-        eng = lm_engine.ServingEngine(cfg, batch_size=batch, max_len=max_len, device=dev,
-                                      params=params)
-        steps = {"prefill": [], "decode": []}
-        real = {"prefill": lm_engine.prefill, "decode": lm_engine.decode_step}
-
-        def timed(key):
-            def run(*a, **kw):
-                k0 = real_k12.launches
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                out = real[key](*a, **kw)
-                torch.cuda.synchronize()
-                steps[key].append((time.perf_counter() - t, real_k12.launches - k0))
-                return out
-            return run
-
-        lm_engine.prefill, lm_engine.decode_step = timed("prefill"), timed("decode")
-        lm_layers._flash_gqa = spy_gqa
-        try:
-            for rid, prompt in enumerate(prompts):
-                eng.submit(lm_engine.Request(rid=rid, prompt=prompt,
-                                             max_new_tokens=new_tokens))
-            torch.cuda.reset_peak_memory_stats()
-            k12_calls.clear()
-            reset_launches()
-            t0 = time.perf_counter()
-            served = []
-            while eng.queue:
-                served += eng.step_batch()
-            t_serve = time.perf_counter() - t0
-            counts, calls = launches_now(), list(k12_calls)
-            peak = torch.cuda.max_memory_allocated()
-            n_steps = {key: len(v) for key, v in steps.items()}
-            for rid, prompt in enumerate(prompts[:batch]):
-                eng.submit(lm_engine.Request(rid=100 + rid, prompt=prompt,
-                                             max_new_tokens=new_tokens))
-            again = eng.step_batch()
-        finally:
-            lm_engine.prefill, lm_engine.decode_step = real["prefill"], real["decode"]
-            lm_layers._flash_gqa = real_gqa
-        outs = {r.rid: r.output for r in served}
-        if sorted(outs) != list(range(len(prompts))) or any(
-                len(o) != new_tokens or not all(0 <= t < cfg.vocab for t in o)
-                for o in outs.values()):
-            raise AssertionError(f"{tag} serve: outputs {outs}")
-        if any(r.output != outs[r.rid - 100] for r in again):
-            raise AssertionError(f"{tag} serve: the first batch served again gave other "
-                                 f"outputs")
-        pre = steps["prefill"][:n_steps["prefill"]]
-        dec = steps["decode"][:n_steps["decode"]]
-        n_attn = sum(1 for i in range(cfg.n_layers)
-                     if cfg.block_pattern[i % len(cfg.block_pattern)] != "rglru")
-        if counts != {**no_launch, "K12": len(pre) * n_attn} or any(
-                n != n_attn for _, n in pre) or any(n for _, n in dec):
-            raise AssertionError(f"{tag} serve: launches {counts}, per prefill "
-                                 f"{[n for _, n in pre]} (expected {n_attn}), in decode "
-                                 f"{sum(n for _, n in dec)}")
-        plens = [max(len(p) for p in prompts[i:i + batch])
-                 for i in range(0, len(prompts), batch)]
-        dec_ms = [t * 1e3 for t, _ in dec]
-        n_tok = sum(len(o) for o in outs.values())
-        log(f"[lm18] {tag}: served {len(prompts)} requests (prompts "
-            f"{[len(p) for p in prompts]}, batches of {batch} padded to {plens}) x "
-            f"{new_tokens} tokens: {n_tok} tokens in {t_serve:.3f} s, "
-            f"{n_tok / t_serve:.1f} tok/s; prefill "
-            + ", ".join(f"{t * 1e3:.2f}" for t, _ in pre)
-            + f" ms a batch (K12 {[n for _, n in pre]}); decode {np.mean(dec_ms):.3f} ms a "
-            f"token (batch of {batch}; min {min(dec_ms):.3f}, max {max(dec_ms):.3f}, "
-            f"{len(dec_ms)} steps, no K12); peak {peak} bytes; launches {counts['K12']} "
-            f"K12, nothing else; the first batch again: equal outputs; on {smi}")
-        return counts, calls, plens
-
-    def twin_checks(cfg32, params32, tokens, tag, nodrop=None):
-        """On a float32 twin: flash (K12 float32) vs naive within a
-        row-relative 1e-3 at every position, and prefill of all but 8
-        tokens plus 8 teacher-forced decode steps vs the forward within
-        1e-3 (on ``nodrop``, a no-drop capacity copy, where given)."""
-        S = tokens.shape[1]
-        n_attn = sum(1 for i in range(cfg32.n_layers)
-                     if cfg32.block_pattern[i % len(cfg32.block_pattern)] != "rglru")
-        k12_calls.clear()
-        reset_launches()
-        lm_layers._flash_gqa = spy_gqa
-        try:
-            full = lm.forward_logits(params32, cfg32, {"tokens": tokens})
-        finally:
-            lm_layers._flash_gqa = real_gqa
-        n = launches_now()
-        naive = lm.forward_logits(params32, dataclasses.replace(cfg32, attn_impl="naive"),
-                                  {"tokens": tokens})
-        if launches_now() != n or n != {**no_launch, "K12": n_attn}:
-            raise AssertionError(f"{tag} float32: launches {n} then {launches_now()}; "
-                                 f"expected K12 = {n_attn} in the flash forward only")
-        if full.shape != (tokens.shape[0], S, cfg32.vocab) or not bool(
-                torch.isfinite(full).all()):
-            raise AssertionError(f"{tag} float32 logits {tuple(full.shape)} or not finite")
-        rr, ab = fa.max_row_rel_err(full, naive), float((full - naive).abs().max())
-        del naive
-        log(f"[lm18] {tag} float32 forward_logits {tuple(tokens.shape)}: flash (K12 split "
-            f"TF32, {n['K12']} launches, windows {sorted(set(w for _, w in k12_calls), key=str)}) "
-            f"vs naive: max abs err {ab:.4g}, row-relative {rr:.4g} (bound 1e-3, every "
-            f"position)")
-        if rr > 1e-3:
-            raise AssertionError(f"{tag}: float32 flash vs naive row-relative {rr} > 1e-3")
-        calls = list(k12_calls)
-        if nodrop is not None:
-            del full
-            cfg32 = nodrop
-            full = lm.forward_logits(params32, cfg32, {"tokens": tokens})
-        last, cache = lm.prefill(params32, cfg32, {"tokens": tokens[:, :S - 8]},
-                                 max_len=S)
-        errs = [fa.max_row_rel_err(last, full[:, S - 9])]
-        for t in range(S - 8, S):
-            step, cache = lm.decode_step(params32, cfg32, tokens[:, t:t + 1], cache, t)
-            errs.append(fa.max_row_rel_err(step, full[:, t]))
-        log(f"[lm18] {tag} float32 prefill ({S - 8}) + 8 decode steps vs forward_logits"
-            + (f" (capacity_factor {cfg32.capacity_factor}: no drops)" if nodrop else "")
-            + ": row-relative " + ", ".join(f"{e:.3g}" for e in errs) + " (bound 1e-3)")
-        if max(errs) > 1e-3:
-            raise AssertionError(f"{tag}: prefill/decode vs forward row-relative {errs}")
-        del full, cache, last, step
-        return n["K12"], calls
-
     # -------------------------------------------------------------- (ii)
     rg_cfg = get_config("recurrentgemma-2b")
     t0 = time.perf_counter()
@@ -1101,17 +1185,19 @@ def lm_moe_hybrid(args, dev, smi: str, wrappers: dict) -> list:
     p32 = copy.deepcopy(rg_params).float()
     toks = torch.from_numpy(rng.integers(0, rg_cfg.vocab, size=(2, 3000))
                             .astype(np.int32)).to(dev)
-    rg_twin, calls = twin_checks(rg32, p32, toks, "recurrentgemma-2b")
-    if calls != [(3000, rg_cfg.local_window)] * 8:
+    rg_twin, calls, _ = lmr.twin_checks(rg32, p32, {"tokens": toks}, "recurrentgemma-2b")
+    n_local = k12_per_prefill(rg_cfg)
+    if [(S, w) for S, _, _, w in calls] != [(3000, rg_cfg.local_window)] * n_local:
         raise AssertionError(f"recurrentgemma-2b: K12 calls (S, window) {calls}")
     del p32, toks
     torch.cuda.empty_cache()
     prompts = [rng.integers(0, rg_cfg.vocab, size=int(rng.integers(2500, 4097)))
                .astype(np.int32) for _ in range(4)]
-    rg_counts, calls, plens = serve(rg_cfg, rg_params, prompts, batch=2,
-                                    max_len=4096 + 16, new_tokens=16,
-                                    tag="recurrentgemma-2b")
-    if calls != [(s, rg_cfg.local_window) for s in plens for _ in range(8)]:
+    rg_counts, calls, plens = lmr.serve(rg_cfg, rg_params, prompts, batch=2,
+                                        max_len=4096 + 16, new_tokens=16,
+                                        tag="recurrentgemma-2b")
+    if [(S, w) for S, _, _, w in calls] != [(s, rg_cfg.local_window) for s in plens
+                                            for _ in range(n_local)]:
         raise AssertionError(f"recurrentgemma-2b serve: K12 calls (S, window) {calls}")
     log(f"[lm18] recurrentgemma-2b serve: every K12 launch windowed ({len(calls)} at "
         f"window {rg_cfg.local_window}, S {plens})")
@@ -1127,8 +1213,8 @@ def lm_moe_hybrid(args, dev, smi: str, wrappers: dict) -> list:
                             .astype(np.int32)).to(dev)
     log(f"[lm18] {mo_cfg.name} float32 twin: cut to {cut.n_layers} of {mo_cfg.n_layers} "
         f"layers ({lm.count_params(p32)} parameters; 28 B in float32 would not fit)")
-    mo_twin, _ = twin_checks(mo32, p32, toks, f"{mo_cfg.name} (4 layers)",
-                             nodrop=dataclasses.replace(mo32, capacity_factor=11.0))
+    mo_twin, _, _ = lmr.twin_checks(mo32, p32, {"tokens": toks}, f"{mo_cfg.name} (4 layers)",
+                                    nodrop=dataclasses.replace(mo32, capacity_factor=11.0))
     del p32, toks
     torch.cuda.empty_cache()
 
@@ -1162,8 +1248,8 @@ def lm_moe_hybrid(args, dev, smi: str, wrappers: dict) -> list:
                .astype(np.int32) for _ in range(8)]
     moe_mod.route = spy_route
     try:
-        mo_counts, _, plens = serve(mo_cfg, mo_params, prompts, batch=4, max_len=1040,
-                                    new_tokens=16, tag=mo_cfg.name)
+        mo_counts, _, plens = lmr.serve(mo_cfg, mo_params, prompts, batch=4, max_len=1040,
+                                        new_tokens=16, tag=mo_cfg.name)
     finally:
         moe_mod.route = real_route
     first = routes[:mo_cfg.n_layers]
@@ -1188,6 +1274,312 @@ def lm_moe_hybrid(args, dev, smi: str, wrappers: dict) -> list:
          "plain_ms": win_rows[dtype][1], "bound_ms": win_rows[dtype][2],
          "bound_by": win_rows[dtype][3], "library_ms": win_rows[dtype][4]}
         for dtype, launches in ((bf16, rg_counts["K12"]), (f32, rg_twin))]
+
+
+def lm_rwkv_whisper(args, dev, smi: str, wrappers: dict) -> list:
+    """Phase 19: K12 at Whisper's three callers against its plain version,
+    then rwkv6-1.6b and whisper-base at full width and depth on the serving
+    path, and the serve CLI of both.  Returns the phase's kernel records."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.models import model as lm
+    from repro_torch.models import rwkv6 as rw
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    tol = {f32: 2e-5, bf16: 2e-2}
+    lmr = LMRun(wrappers, dev, smi, "[lm19]")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    log(f"[lm19] {torch.cuda.memory_allocated()} bytes held by earlier phases")
+    gen = torch.Generator().manual_seed(args.seed + 19)
+    rng = np.random.default_rng(args.seed + 19)
+    wh_cfg, rw_cfg = get_config("whisper-base"), get_config("rwkv6-1.6b")
+    H, KV, hd, T = wh_cfg.n_heads, wh_cfg.n_kv_heads, wh_cfg.hd, wh_cfg.encoder_seq
+
+    def attn_inputs(B, S, Tk, dtype):
+        return (torch.randn((B, S, H, hd), generator=gen).to(dev, dtype),
+                *(torch.randn((B, Tk, KV, hd), generator=gen).to(dev, dtype)
+                  for _ in range(2)))
+
+    def k12_times(q, k, v, causal, label):
+        """K12's ms beside its plain version's, SDPA's and its bound."""
+        B, S, _, _ = q.shape
+        Tk = k.shape[1]
+        ck = 500 if Tk % 500 == 0 else Tk
+        run_k12 = lambda: fa.flash_attention_fwd_cuda(  # noqa: E731
+            q, k, v, causal=causal, q_chunk=S, k_chunk=Tk)
+        plain = lambda: fa.flash_attention_fwd_torch(  # noqa: E731
+            q, k, v, causal=causal, q_chunk=S, k_chunk=ck)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
+        ms = cuda_ms(run_k12, reps=20, warmup=3)
+        plain_ms = cuda_ms(plain, reps=3, warmup=1)
+        lib_ms = cuda_ms(sdpa, reps=20, warmup=3)
+        keys = S * (S + 1) // 2 if causal else S * Tk
+        flops = 4 * B * H * hd * keys
+        peak = BF16_FLOPS_PER_S if q.dtype == bf16 else TF32_FLOPS_PER_S / 3
+        n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
+        bound, by = max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+        log(f"[times] K12 {label} {(B, S, Tk, H, KV, hd)} "
+            f"{'causal' if causal else 'non-causal'} {str(q.dtype)[6:]}: {ms:.4f} ms/launch "
+            f"(CUDA events); plain {plain_ms:.4f} ms; SDPA (enable_gqa) {lib_ms:.4f} ms; "
+            f"bound {bound:.4f} ms ({by}: {flops} flops at {peak / 1e12:.0f} TFLOP/s, "
+            f"{n_bytes} bytes at 3.35 TB/s); K12 / SDPA {ms / lib_ms:.2f}x, K12 / bound "
+            f"{ms / bound:.2f}x; on {smi}")
+        return ms, plain_ms, bound, by, lib_ms
+
+    # -------------------------------------------------------------- (i)
+    # K12 at Whisper's callers: the encoder (S = T = 1500), the cross
+    # attention (a few to 448 queries against 1500 keys) and the decoder's
+    # causal self-attention; T = 1500 is no multiple of a key tile
+    cases = [("encoder", 2, T, T, False), ("cross", 2, 7, T, False),
+             ("cross", 2, 64, T, False), ("cross", 2, 448, T, False),
+             ("decoder self", 2, 448, 448, True)]
+    k12_err, bad = {}, []
+    for dtype in (bf16, f32):
+        for caller, B, S, Tk, causal in cases:
+            q, k, v = attn_inputs(B, S, Tk, dtype)
+            lmr.reset_launches()
+            got = fa.flash_attention_fwd_cuda(q, k, v, causal=causal, q_chunk=S, k_chunk=Tk)
+            n = lmr.launches_now()
+            if n != {**lmr.no_launch, "K12": 1}:
+                raise AssertionError(f"K12 {caller} S {S}: launches {n}")
+            errs = []
+            for name, want in (
+                    ("plain", fa.flash_attention_fwd_torch(
+                        q, k, v, causal=causal, q_chunk=S,
+                        k_chunk=500 if Tk % 500 == 0 else Tk)),
+                    ("ref", fa.flash_attention_ref(q, k, v, causal=causal))):
+                if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+                    raise AssertionError(f"K12 {caller} S {S}: {tuple(got.shape)} or not "
+                                         f"finite")
+                g, wt = got.float(), want.float()
+                err = float((g - wt).abs().max())
+                k12_err[(caller, dtype)] = max(k12_err.get((caller, dtype), 0.0), err)
+                errs.append(f"{name} {err:.3g}")
+                if not torch.allclose(g, wt, rtol=tol[dtype], atol=tol[dtype]):
+                    bad.append(f"{caller} S {S} {dtype}: vs {name} {err}")
+                if dtype == bf16:
+                    rr = fa.max_row_rel_err(g, wt)
+                    errs.append(f"row-relative {rr:.4f}")
+                    if rr >= fa.BF16_ROW_REL_TOL:
+                        bad.append(f"{caller} S {S} {dtype}: row-relative vs {name} {rr}")
+            log(f"[lm19] K12 whisper-base {caller} {(B, S, Tk, H, KV, hd)} "
+                f"{'causal' if causal else 'non-causal'} {str(dtype)[6:]}: max abs err "
+                + ", ".join(errs) + f" (bounds rtol = atol = {tol[dtype]:g}"
+                + (f", row-relative {fa.BF16_ROW_REL_TOL:g}" if dtype == bf16 else "") + ")")
+            k12_times(q, k, v, causal, f"whisper-base {caller}")
+            del q, k, v, got, want, g, wt
+    if bad:
+        raise AssertionError("K12 at Whisper's shapes: " + "; ".join(bad))
+
+    # -------------------------------------------------------------- (ii)
+    t0 = time.perf_counter()
+    rw_params = lm.init_model(rw_cfg, seed=args.seed, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_rw = lm.count_params(rw_params)
+    if n_rw != lm_param_count(rw_cfg):
+        raise AssertionError(f"{rw_cfg.name}: {n_rw} parameters, not "
+                             f"{lm_param_count(rw_cfg)} (full width and depth)")
+    log(f"[lm19] {rw_cfg.name}: {rw_cfg.n_layers} layers (no depth cut), d "
+        f"{rw_cfg.d_model}, {rw_cfg.d_model // rw_cfg.rwkv_head_dim} heads of "
+        f"{rw_cfg.rwkv_head_dim}, d_ff {rw_cfg.d_ff}, vocab {rw_cfg.vocab}; {n_rw} "
+        f"parameters ({sum(p.numel() for p in rw_params.parameters() if p.dtype == f32)} "
+        f"float32 mu, w0, LoRA, u, ln_scale; the rest bfloat16; "
+        f"{sum(p.numel() * p.element_size() for p in rw_params.parameters())} bytes), init "
+        f"{t_init:.2f} s from seed {args.seed}; chunk {rw.CHUNK}")
+    rw32 = dataclasses.replace(rw_cfg, param_dtype="float32", compute_dtype="float32")
+    p32 = copy.deepcopy(rw_params).float()
+    # one layer's chunked time mix against the step-by-step recurrence, from a
+    # zero state as in a prefill
+    blk, D, RH = p32["groups"][0]["b0"], rw_cfg.d_model, rw_cfg.rwkv_head_dim
+    x = lm_layers.apply_norm(rw_cfg.norm, blk["norm1"],
+                             torch.randn((2, 1000, D), generator=gen).to(dev))
+    zw = rw._shift(x, blk["time"]["mu"][4], torch.zeros_like(x[:, 0]))
+    log_w = -torch.exp(blk["time"]["w0"] + torch.tanh(zw @ blk["time"]["w_lora_a"])
+                       @ blk["time"]["w_lora_b"])
+    states = [rw.init_rwkv_states(2, D, RH, f32, device=dev)["time"] for _ in range(2)]
+    real_chunked, wkv_in = rw.wkv_chunked, []
+
+    def capture(*a):
+        """The first call's inputs, for timing the recurrence alone."""
+        if not wkv_in:
+            wkv_in.append([t.clone() if torch.is_tensor(t) else t for t in a])
+        return real_chunked(*a)
+
+    lmr.reset_launches()
+    rw.wkv_chunked = capture
+    try:
+        y_c, _ = rw.apply_rwkv_time_mix(blk["time"], x, RH, states[0])
+        rw.wkv_chunked = lambda r, k, v, lw, u, s0=None: rw.wkv_scan_torch(  # noqa: E731
+            r, k, v, torch.exp(lw), u, s0)
+        y_s, _ = rw.apply_rwkv_time_mix(blk["time"], x, RH, states[1])
+    finally:
+        rw.wkv_chunked = real_chunked
+    rr = fa.max_row_rel_err(y_c, y_s)
+    s_rel = float((states[0]["s"] - states[1]["s"]).abs().max()
+                  / states[1]["s"].abs().max())
+    r_, k_, v_, lw_, u_, _ = wkv_in.pop()
+    t_c = cuda_ms(lambda: real_chunked(r_, k_, v_, lw_, u_), reps=5, warmup=1)
+    w_ = torch.exp(lw_)
+    t_s = cuda_ms(lambda: rw.wkv_scan_torch(r_, k_, v_, w_, u_), reps=1, warmup=1)
+    log(f"[lm19] {rw_cfg.name} layer 0 time mix (2, 1000, {D}), float32: chunked vs "
+        f"wkv_scan_torch row-relative {rr:.4g}, final state {s_rel:.4g} of its largest "
+        f"(bounds 1e-4); log w min {float(log_w.min()):.4g}, median "
+        f"{float(log_w.median()):.4g}, {int((log_w < -30).sum())} of {log_w.numel()} "
+        f"below -30; the recurrence alone {t_c:.3f} ms chunked against {t_s:.3f} ms step "
+        f"by step (CUDA events, warm); launches {lmr.launches_now()['K12']} K12, nothing "
+        f"else")
+    if rr > 1e-4 or s_rel > 1e-4 or lmr.launches_now() != lmr.no_launch or not bool(
+            torch.isfinite(y_c).all()):
+        raise AssertionError(f"{rw_cfg.name}: time mix chunked vs step row-relative {rr}, "
+                             f"state {s_rel}, launches {lmr.launches_now()}")
+    del r_, k_, v_, lw_, u_, w_
+    del x, zw, log_w, states, y_c, y_s
+    toks = torch.from_numpy(rng.integers(0, rw_cfg.vocab, size=(2, 1000))
+                            .astype(np.int32)).to(dev)
+    rw_twin, _, _ = lmr.twin_checks(rw32, p32, {"tokens": toks}, rw_cfg.name)
+    del p32, toks
+    torch.cuda.empty_cache()
+    prompts = [rng.integers(0, rw_cfg.vocab, size=int(rng.integers(128, 1025)))
+               .astype(np.int32) for _ in range(8)]
+    lmr.serve(rw_cfg, rw_params, prompts, batch=4, max_len=1040, new_tokens=16,
+              tag=rw_cfg.name)
+    # the long-context reading (supports_long_context): one prompt of 8192
+    long_toks = torch.from_numpy(rng.integers(0, rw_cfg.vocab, size=(1, 8192))
+                                 .astype(np.int32)).to(dev)
+    reads = []
+    for i in range(2):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        rw.wkv_chunked = capture if i else real_chunked
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            last, _ = lm.prefill(rw_params, rw_cfg, {"tokens": long_toks}, max_len=8192)
+            torch.cuda.synchronize()
+        finally:
+            rw.wkv_chunked = real_chunked
+        reads.append((time.perf_counter() - t0, torch.cuda.max_memory_allocated() - held))
+        if not bool(torch.isfinite(last).all()):
+            raise AssertionError(f"{rw_cfg.name}: the 8192-token prefill is not finite")
+    r_, k_, v_, lw_, u_, s0_ = wkv_in.pop()
+    t_c = cuda_ms(lambda: real_chunked(r_, k_, v_, lw_, u_, s0_), reps=3, warmup=1)
+    log(f"[lm19] {rw_cfg.name} prefill of one 8192-token prompt (a reading, no gate): "
+        + ", ".join(f"{t * 1e3:.2f} ms" for t, _ in reads) + " (host clock, synchronised; "
+        f"the second with layer 0's recurrence inputs copied out); peak above the weights "
+        + ", ".join(str(m) for _, m in reads) + f" bytes; the chunked recurrence alone "
+        f"{t_c:.3f} ms a layer (CUDA events), {rw_cfg.n_layers} layers "
+        f"{rw_cfg.n_layers * t_c:.2f} ms; on {smi}")
+    del r_, k_, v_, lw_, u_, s0_
+    del rw_params, long_toks, last
+    torch.cuda.empty_cache()
+
+    # -------------------------------------------------------------- (iii)
+    t0 = time.perf_counter()
+    wh_params = lm.init_model(wh_cfg, seed=args.seed, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_wh = lm.count_params(wh_params)
+    if n_wh != lm_param_count(wh_cfg):
+        raise AssertionError(f"{wh_cfg.name}: {n_wh} parameters, not "
+                             f"{lm_param_count(wh_cfg)} (full width and depth)")
+    log(f"[lm19] {wh_cfg.name}: {wh_cfg.encoder_layers} encoder layers over {T} frames "
+        f"and {wh_cfg.n_layers} decoder layers (no depth cut), d {wh_cfg.d_model}, H {H}, "
+        f"KV {KV}, hd {hd}, d_ff {wh_cfg.d_ff}, vocab {wh_cfg.vocab}; {n_wh} parameters "
+        f"in bfloat16, init {t_init:.2f} s from seed {args.seed}")
+    wh32 = dataclasses.replace(wh_cfg, param_dtype="float32", compute_dtype="float32")
+    p32 = copy.deepcopy(wh_params).float()
+    toks = torch.from_numpy(rng.integers(0, wh_cfg.vocab, size=(2, 448))
+                            .astype(np.int32)).to(dev)
+    frames = torch.randn((2, T, wh_cfg.d_model), generator=gen).to(dev)
+    wh_twin, calls, last32 = lmr.twin_checks(
+        wh32, p32, {"tokens": toks, "encoder_frames": frames}, wh_cfg.name)
+    want_calls = [(T, T, False, None)] * wh_cfg.encoder_layers + [
+        (448, 448, True, None), (448, T, False, None)] * wh_cfg.n_layers
+    if wh_twin != k12_per_prefill(wh_cfg) or calls != want_calls:
+        raise AssertionError(f"{wh_cfg.name} float32: K12 {wh_twin}, calls {calls}")
+    del p32
+    bf_in = {"tokens": toks, "encoder_frames": frames.to(bf16)}
+    bf_last = {impl: lm.forward_logits(wh_params, dataclasses.replace(wh_cfg, attn_impl=impl),
+                                       bf_in)[:, -1].clone() for impl in ("flash", "naive")}
+    rr_bf = {impl: fa.max_row_rel_err(x, last32) for impl, x in bf_last.items()}
+    log(f"[lm19] {wh_cfg.name} bfloat16 last-position logits vs float32 flash: K12 "
+        f"row-relative {rr_bf['flash']:.4g}, naive bf16 {rr_bf['naive']:.4g} (bound 1.5x "
+        f"naive)")
+    if not rr_bf["flash"] <= 1.5 * rr_bf["naive"]:
+        raise AssertionError(f"{wh_cfg.name}: bf16 K12 error {rr_bf} beyond 1.5x the naive "
+                             f"path's")
+    del toks, frames, bf_in, bf_last, last32
+    torch.cuda.empty_cache()
+    prompts = [rng.integers(0, wh_cfg.vocab, size=int(rng.integers(16, 449)))
+               .astype(np.int32) for _ in range(16)]
+    wh_counts, calls, plens = lmr.serve(wh_cfg, wh_params, prompts, batch=8, max_len=464,
+                                        new_tokens=16, tag=wh_cfg.name)
+    callers = {"encoder": (T, T, False), "decoder self": (plens[0], plens[0], True),
+               "cross": (plens[0], T, False)}
+    served = {c: 0 for c in callers}
+    for S, Tk, causal, _ in calls:
+        served["decoder self" if causal else "encoder" if S == Tk == T else "cross"] += 1
+    log(f"[lm19] {wh_cfg.name} serve: K12 calls by caller {served} over {len(plens)} "
+        f"prefills (S {plens})")
+    if served != {c: wh_cfg.n_layers * len(plens) for c in callers}:
+        raise AssertionError(f"{wh_cfg.name} serve: K12 calls by caller {served}")
+    rows = {}
+    for caller, (S, Tk, causal) in callers.items():
+        q, k, v = attn_inputs(8, S, Tk, bf16)
+        rows[caller] = k12_times(q, k, v, causal, f"whisper-base {caller} at the first "
+                                                  f"served prefill's shape")
+        del q, k, v
+    del wh_params
+    torch.cuda.empty_cache()
+
+    # -------------------------------------------------------------- (iv)
+    # both serve CLIs on the card, side by side
+    src_dir = str(Path(__file__).resolve().parent / "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [src_dir, *filter(None, [os.environ.get("PYTHONPATH")])]))
+    t0 = time.perf_counter()
+    procs = {arch: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch, "--requests",
+         "8", "--batch", "4", "--new-tokens", "8", "--max-len", "64", "--seed",
+         str(args.seed)], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=env) for arch in (rw_cfg.name, wh_cfg.name)}
+    try:
+        outs = {arch: p.communicate(timeout=600) for arch, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for arch, want in ((rw_cfg.name, 0), (wh_cfg.name, 2 * k12_per_prefill(wh_cfg))):
+        out, err = outs[arch]
+        m = re.search(r"\[serve\] K12 launches (\d+)", out)
+        log(f"[lm19] python -m repro_torch.launch.serve --arch {arch} --requests 8 --batch 4 "
+            f"--new-tokens 8 --max-len 64: rc {procs[arch].returncode}, "
+            f"{time.perf_counter() - t0:.1f} s (both side by side): "
+            + " | ".join(out.strip().splitlines()))
+        if procs[arch].returncode != 0 or not m or int(m.group(1)) != want:
+            raise AssertionError(f"the {arch} CLI: rc {procs[arch].returncode}, K12 "
+                                 f"{m and m.group(1)} (expected {want})\n{err[-4000:]}")
+
+    src = "src/repro_torch/kernels/csrc/flash_attention.cu"
+    return [
+        {"name": f"K12 flash_attention_fwd (whisper-base {caller}, "
+                 f"{'causal' if key[2] else 'non-causal'}, bfloat16, "
+                 f"{(8, key[0], key[1], H, KV, hd)})",
+         "route": "cuda", "source": src,
+         "replaces": "src/repro/kernels/flash_attention.py:136",
+         "launches": served[caller], "max_abs_err": k12_err[(caller, bf16)],
+         "ms": rows[caller][0], "plain_ms": rows[caller][1], "bound_ms": rows[caller][2],
+         "bound_by": rows[caller][3], "library_ms": rows[caller][4]}
+        for caller, key in callers.items()]
 
 
 def main() -> int:
@@ -4798,6 +5190,10 @@ def main() -> int:
     lm18_records = lm_moe_hybrid(args, dev, smi, wrappers)
     phase_end("18 lm-moe-hybrid")
 
+    # ------------------------------------------------------------ 19. lm-rwkv-whisper
+    lm19_records = lm_rwkv_whisper(args, dev, smi, wrappers)
+    phase_end("19 lm-rwkv-whisper")
+
     k2_main = k2_rows[("tournament", 1000)]
     fill1 = mor[1.0]
     record = {"kernels": [
@@ -4908,6 +5304,7 @@ def main() -> int:
         "launches": serve_launches["K12"], "max_abs_err": lm_err, "ms": lm_ms,
         "plain_ms": lm_plain, "bound_ms": lm_bound, "bound_by": lm_by, "library_ms": lm_lib})
     record["kernels"].extend(lm18_records)
+    record["kernels"].extend(lm19_records)
     print(json.dumps(record), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

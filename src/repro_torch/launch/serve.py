@@ -4,9 +4,8 @@
         --requests 8 --new-tokens 16 --device cpu
 
 The twin of ``repro.launch.serve``, on the card unless ``--device`` names
-another.  ``--arch`` takes any config of the dense, MoE and RG-LRU/local
-hybrid families (RWKV6 and Whisper raise ``NotImplementedError``).
-Prints the ``[serve] ... tok/s`` line, the first outputs, and one line
+another.  ``--arch`` takes any config (dense, MoE, RG-LRU/local hybrid,
+RWKV6, the Whisper encoder-decoder).  Prints the ``[serve] ... tok/s`` line, the first outputs, and one line
 with the flash-attention kernel's (K12's) launches and the card's name and
 power limit (``nvidia-smi``).
 """

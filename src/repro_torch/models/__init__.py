@@ -1,3 +1,4 @@
-"""The LM substrate's decoders (dense, MoE, the RG-LRU/local hybrid):
-layers, the MoE FFN, the RG-LRU block, model assembly, the public model
-API and the weight carry from the JAX package's parameters."""
+"""The LM substrate's models (dense, MoE, the RG-LRU/local hybrid, RWKV6,
+the Whisper encoder-decoder): layers, the MoE FFN, the RG-LRU block, the
+RWKV6 time and channel mix, model assembly, the public model API and the
+weight carry from the JAX package's parameters."""

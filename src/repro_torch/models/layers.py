@@ -45,10 +45,12 @@ fits, and so does a cached prefill at ``cache_pos = 0``, where every
 caller's positions start at 0.  A CUDA call outside the contract (a
 cached prefill at ``cache_pos > 0``, a causal or non-causal call with
 masked keys) raises ``NotImplementedError``; it never runs the plain
-version.  The reference has no caller of either yet: it prefills at
-``cache_pos = 0`` only (``repro/models/model.py:80``), every later call is
-a decode step (S = 1, the einsum path), and masked keys without a cache
-come only from Whisper's cross attention.
+version.  No caller of the port or the reference makes either (ROADMAP
+R8): prefill runs at ``cache_pos = 0`` only (``repro/models/model.py:80``),
+every later call is a decode step (S = 1, the einsum path), and Whisper's
+encoder and cross attention are non-causal with every key valid (the
+cross attention's ``kv_override`` comes with no cache, so ``k_len = T``):
+K12's non-causal path at q_base = k_base = 0, T = 1500 keys.
 
 **Cache handling: sliced.**  The cache is written in place at
 ``cache_pos`` and returned.  A flash call with a cache attends to the

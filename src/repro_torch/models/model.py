@@ -1,5 +1,6 @@
-"""Public model API: inputs, init, forward, prefill and decode for the
-dense, MoE and RG-LRU/local hybrid decoders.
+"""Public model API: inputs, init, forward, prefill and decode for every
+family of the configs (dense, MoE, RG-LRU/local hybrid, RWKV6, the
+Whisper encoder-decoder).
 
 Port of ``repro.models.model`` without ``train_loss`` (the training
 slice's) and ``abstract_params`` (the dry run's).  Entry points run on the
@@ -20,7 +21,9 @@ from repro_torch.models.transformer import apply_model, init_cache, init_params
 def make_inputs(cfg: ArchConfig, batch: int, seq: int, *, seed: int = 0,
                 device=None) -> dict:
     """Concrete inputs for one step: ``tokens`` and ``labels`` (B, seq -
-    n_prefix_embeds) int32 and, for a vision frontend, ``prefix_embeds``."""
+    n_prefix_embeds) int32; for a vision frontend ``prefix_embeds`` and for
+    an encoder-decoder ``encoder_frames`` (B, encoder_seq, D), drawn in
+    that order from the same generator."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     n_tok = seq - cfg.n_prefix_embeds
@@ -31,22 +34,29 @@ def make_inputs(cfg: ArchConfig, batch: int, seq: int, *, seed: int = 0,
         emb = rng.standard_normal((batch, cfg.n_prefix_embeds, cfg.d_model))
         out["prefix_embeds"] = torch.from_numpy(emb.astype(np.float32)).to(
             dev, cfg.cdtype)
+    if cfg.kind == "encdec":
+        frames = rng.standard_normal((batch, cfg.encoder_seq, cfg.d_model))
+        out["encoder_frames"] = torch.from_numpy(frames.astype(np.float32)).to(
+            dev, cfg.cdtype)
     return out
 
 
 def forward_logits(params, cfg: ArchConfig, inputs: dict) -> torch.Tensor:
     logits, _, _ = apply_model(params, cfg, inputs["tokens"],
-                               prefix_embeds=inputs.get("prefix_embeds"))
+                               prefix_embeds=inputs.get("prefix_embeds"),
+                               encoder_frames=inputs.get("encoder_frames"))
     return logits
 
 
 def prefill(params, cfg: ArchConfig, inputs: dict,
             max_len: int) -> tuple[torch.Tensor, dict]:
-    """Run the prompt through the model, filling a max_len KV cache."""
+    """Run the prompt through the model, filling a max_len KV cache (and
+    an encoder-decoder's cross K/V from ``encoder_frames``)."""
     tokens = inputs["tokens"]
     cache = init_cache(cfg, tokens.shape[0], max_len, device=tokens.device)
     logits, cache, _ = apply_model(params, cfg, tokens,
                                    prefix_embeds=inputs.get("prefix_embeds"),
+                                   encoder_frames=inputs.get("encoder_frames"),
                                    cache=cache, cache_pos=0)
     return logits[:, -1, :], cache
 

@@ -1,27 +1,31 @@
-"""Model assembly for the dense decoders (phi4-mini, deepseek-coder,
-starcoder2, gemma, and the InternVL2 backbone with its vision prefix),
-the MoE decoders (Moonlight-16B-A3B, Mixtral) and the RecurrentGemma
-hybrid (RG-LRU and local attention, 2:1).
+"""Model assembly for every family of the configs: the dense decoders
+(phi4-mini, deepseek-coder, starcoder2, gemma, and the InternVL2 backbone
+with its vision prefix), the MoE decoders (Moonlight-16B-A3B, Mixtral),
+the RecurrentGemma hybrid (RG-LRU and local attention, 2:1), RWKV6 and the
+Whisper encoder-decoder.
 
-Port of ``repro.models.transformer`` for blocks of kind ``"attn"``,
-``"local"`` and ``"rglru"``, with an MLP or an MoE FFN.  The reference
-stacks each group's parameters and scans over the stack; here
-``params["groups"]`` is an ``nn.ModuleList`` with one ``ModuleDict`` a
-group (``{"b0": block, ...}``) and the forward is a Python loop over it.
-A remainder group (``rem``, RecurrentGemma's 26 = 8 x 3 + 2 layers) keeps
-the reference's form and runs its own kinds.  Remat is a training concern
-and is not ported.
-
-RWKV6 blocks and the encoder-decoder (Whisper) raise
-``NotImplementedError``: they are later items of ROADMAP.md's Queue 1.
+Port of ``repro.models.transformer``.  The reference stacks each group's
+parameters and scans over the stack; here ``params["groups"]`` is an
+``nn.ModuleList`` with one ``ModuleDict`` a group (``{"b0": block,
+...}``) and the forward is a Python loop over it.  A remainder group
+(``rem``, RecurrentGemma's 26 = 8 x 3 + 2 layers) keeps the reference's
+form and runs its own kinds.  Whisper's encoder (``params["encoder"]``:
+``layers``, a ``ModuleList`` of non-causal ``"attn"`` blocks, and
+``final_norm``) runs over the frame embeddings with sinusoidal positions;
+every decoder block then has a cross attention (``norm_x``, ``cross``)
+whose K/V prefill computes from the encoder's output and writes to the
+cache (``ck``, ``cv``), where decode reads them.  Every attention of an
+encoder-decoder runs without RoPE.  Remat is a training concern and is
+not ported.
 
 The same :func:`apply_model` serves the no-cache forward, prefill (cache
 and ``cache_pos = 0``) and decode (S = 1, ``cache_pos = t``).
-``cache_pos`` is a host integer; the cache (KV rows, RG-LRU state) is
-written in place.
+``cache_pos`` is a host integer; the cache (KV rows, cross K/V, RG-LRU and
+RWKV6 state) is written in place.
 """
 from __future__ import annotations
 
+import math
 import operator
 from typing import Optional
 
@@ -32,8 +36,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
+from repro_torch.models import rwkv6 as RW
 
-BLOCK_KINDS = ("attn", "local", "rglru")
+BLOCK_KINDS = ("attn", "local", "rglru", "rwkv")
 
 
 def effective_pattern(cfg: ArchConfig) -> tuple[str, ...]:
@@ -50,28 +55,21 @@ def _split_groups(cfg: ArchConfig) -> tuple[int, tuple[str, ...]]:
 
 
 def check_ported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a config outside the serving
-    path's families (dense, MoE, the RG-LRU/local hybrid)."""
-    what = None
-    if cfg.kind == "encdec":
-        what = "the encoder-decoder (Whisper)"
-    elif cfg.kind == "rwkv":
-        what = "RWKV6 blocks"
-    else:
-        other = sorted(set(effective_pattern(cfg)) - set(BLOCK_KINDS))
-        if other:
-            what = f"blocks of kind {other}"
-    if what is not None:
+    """Raise ``NotImplementedError`` for a block kind the port does not
+    have (every config of the registry is ported)."""
+    other = sorted(set(effective_pattern(cfg)) - set(BLOCK_KINDS))
+    if other:
         raise NotImplementedError(
-            f"{cfg.name}: {what}: not ported yet (ROADMAP.md, Queue 1, item 5, "
-            f"the LM substrate)")
+            f"{cfg.name}: blocks of kind {other}: not ported (ported kinds "
+            f"{BLOCK_KINDS}; see ROADMAP.md, Queue 1)")
 
 
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
 
-def _init_block(gen: torch.Generator, cfg: ArchConfig, kind: str) -> nn.ModuleDict:
+def _init_block(gen: torch.Generator, cfg: ArchConfig, kind: str,
+                cross: bool) -> nn.ModuleDict:
     dt, dev = cfg.pdtype, gen.device
     p = nn.ModuleDict({"norm1": L.init_norm(cfg.norm, cfg.d_model, dt, device=dev)})
     if kind in ("attn", "local"):
@@ -80,27 +78,45 @@ def _init_block(gen: torch.Generator, cfg: ArchConfig, kind: str) -> nn.ModuleDi
     elif kind == "rglru":
         p["rglru"] = RG.init_rglru_block(gen, cfg.d_model, cfg.lru_dim or cfg.d_model,
                                          cfg.conv_width, dt)
+    elif kind == "rwkv":
+        p["time"] = RW.init_rwkv_time_mix(gen, cfg.d_model, cfg.rwkv_head_dim, dt)
     else:
         raise ValueError(kind)
+    if cross:
+        p["norm_x"] = L.init_norm(cfg.norm, cfg.d_model, dt, device=dev)
+        p["cross"] = L.init_attention(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                      cfg.hd, dt)
     p["norm2"] = L.init_norm(cfg.norm, cfg.d_model, dt, device=dev)
-    if cfg.is_moe:
+    if kind == "rwkv":
+        p["chan"] = RW.init_rwkv_channel_mix(gen, cfg.d_model, cfg.d_ff, dt)
+    elif cfg.is_moe:
         p["moe"] = MOE.init_moe(gen, cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.mlp, dt)
     else:
         p["mlp"] = L.init_mlp(gen, cfg.mlp, cfg.d_model, cfg.d_ff, dt)
     return p
 
 
-def _init_block_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
-                      device) -> dict:
+def _init_block_cache(cfg: ArchConfig, kind: str, cross: bool, batch: int,
+                      max_len: int, device) -> dict:
+    dt = cfg.cdtype
     if kind in ("attn", "local"):
         # a window layer keeps a full-length cache and relies on the window
         # mask, as the reference does
-        return {"kv": L.init_kv_cache(batch, max_len, cfg.n_kv_heads, cfg.hd,
-                                      cfg.cdtype, device=device)}
-    if kind == "rglru":
-        return {"rg": RG.init_rglru_state(batch, cfg.lru_dim or cfg.d_model,
-                                          cfg.conv_width, torch.float32, device=device)}
-    raise ValueError(kind)
+        c = {"kv": L.init_kv_cache(batch, max_len, cfg.n_kv_heads, cfg.hd, dt,
+                                   device=device)}
+    elif kind == "rglru":
+        c = {"rg": RG.init_rglru_state(batch, cfg.lru_dim or cfg.d_model,
+                                       cfg.conv_width, torch.float32, device=device)}
+    elif kind == "rwkv":
+        c = {"rw": RW.init_rwkv_states(batch, cfg.d_model, cfg.rwkv_head_dim, dt,
+                                       device=device)}
+    else:
+        raise ValueError(kind)
+    if cross:
+        shape = (batch, cfg.encoder_seq, cfg.n_kv_heads, cfg.hd)
+        c["ck"] = torch.zeros(shape, dtype=dt, device=device)
+        c["cv"] = torch.zeros(shape, dtype=dt, device=device)
+    return c
 
 
 def _apply_block(
@@ -111,17 +127,22 @@ def _apply_block(
     positions: torch.Tensor,
     cache: Optional[dict],
     cache_pos: Optional[int],
+    memory: Optional[torch.Tensor],
     causal: bool,
 ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """One block; its cache (KV rows or RG-LRU state) is written in place.
-    Returns (x, the block's MoE aux loss; None without MoE)."""
+    """One block; its cache (KV rows, cross K/V, RG-LRU or RWKV6 state) is
+    written in place.  ``memory`` is the encoder's output (prefill and the
+    no-cache forward of an encoder-decoder; decode reads the cross K/V
+    from the cache).  Returns (x, the block's MoE aux loss; None without
+    MoE)."""
     h = L.apply_norm(cfg.norm, p["norm1"], x)
     if kind in ("attn", "local"):
         window = cfg.local_window if kind == "local" else (cfg.sliding_window or None)
         out, _ = L.attention(
             p["attn"], h,
             n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, hd=cfg.hd,
-            positions=positions, rope_theta=cfg.rope_theta,
+            positions=positions,
+            rope_theta=cfg.rope_theta if cfg.kind != "encdec" else None,
             causal=causal, window=window,
             cache=None if cache is None else cache["kv"],
             cache_pos=cache_pos,
@@ -129,16 +150,44 @@ def _apply_block(
         )
     elif kind == "rglru":
         out, _ = RG.apply_rglru_block(p["rglru"], h, None if cache is None else cache["rg"])
+    elif kind == "rwkv":
+        out, _ = RW.apply_rwkv_time_mix(p["time"], h, cfg.rwkv_head_dim,
+                                        None if cache is None else cache["rw"]["time"])
     else:
         raise ValueError(kind)
     x = x + out
+
+    if "cross" in p:
+        hx = L.apply_norm(cfg.norm, p["norm_x"], x)
+        if memory is not None:  # prefill / no cache: the cross K/V from memory
+            B, T = memory.shape[:2]
+            ck = (memory @ p["cross"]["wk"]).reshape(B, T, cfg.n_kv_heads, cfg.hd)
+            cv = (memory @ p["cross"]["wv"]).reshape(B, T, cfg.n_kv_heads, cfg.hd)
+            if cache is not None:
+                cache["ck"].copy_(ck)
+                cache["cv"].copy_(cv)
+        else:
+            ck, cv = cache["ck"], cache["cv"]
+        out, _ = L.attention(
+            p["cross"], hx,
+            n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, hd=cfg.hd,
+            positions=positions, rope_theta=None, causal=False,
+            kv_override=(ck, cv),
+            impl=cfg.attn_impl, q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk,
+        )
+        x = x + out
+
     h = L.apply_norm(cfg.norm, p["norm2"], x)
-    if cfg.is_moe:
+    aux = None
+    if kind == "rwkv":
+        out, _ = RW.apply_rwkv_channel_mix(p["chan"], h,
+                                           None if cache is None else cache["rw"]["chan"])
+    elif cfg.is_moe:
         out, aux = MOE.apply_moe(p["moe"], h, n_experts=cfg.n_experts,
                                  topk=cfg.topk_experts,
                                  capacity_factor=cfg.capacity_factor, mlp=cfg.mlp)
     else:
-        out, aux = L.apply_mlp(cfg.mlp, p["mlp"], h), None
+        out = L.apply_mlp(cfg.mlp, p["mlp"], h)
     return x + out, aux
 
 
@@ -151,9 +200,10 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> nn.ModuleDict:
     n_groups, rem_pat = _split_groups(cfg)
     pat = effective_pattern(cfg)
     dev = gen.device
+    cross = cfg.kind == "encdec"
 
     def init_group(kinds):
-        return nn.ModuleDict({f"b{i}": _init_block(gen, cfg, kind)
+        return nn.ModuleDict({f"b{i}": _init_block(gen, cfg, kind, cross)
                               for i, kind in enumerate(kinds)})
 
     p = nn.ModuleDict({
@@ -165,16 +215,25 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> nn.ModuleDict:
         p["rem"] = init_group(rem_pat)
     if not cfg.tie_embeddings:
         p["head"] = L.init_head(gen, cfg.d_model, cfg.vocab, cfg.pdtype)
+    if cross:
+        p["encoder"] = nn.ModuleDict({
+            "layers": nn.ModuleList(_init_block(gen, cfg, "attn", cross=False)
+                                    for _ in range(cfg.encoder_layers)),
+            "final_norm": L.init_norm(cfg.norm, cfg.d_model, cfg.pdtype, device=dev),
+        })
     return p
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device=None) -> dict:
+    """The decode cache; an RWKV6 model's holds no row per position, so its
+    size does not depend on ``max_len``."""
     check_ported(cfg)
     n_groups, rem_pat = _split_groups(cfg)
     pat = effective_pattern(cfg)
+    cross = cfg.kind == "encdec"
 
     def group_cache(kinds):
-        return {f"b{i}": _init_block_cache(cfg, kind, batch, max_len, device)
+        return {f"b{i}": _init_block_cache(cfg, kind, cross, batch, max_len, device)
                 for i, kind in enumerate(kinds)}
 
     c = {"groups": [group_cache(pat) for _ in range(n_groups)]}
@@ -187,12 +246,34 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device=None) -> dic
 # Forward
 # ---------------------------------------------------------------------------
 
+def _sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """(..., d) float32: sin then cos of ``positions`` over d / 2
+    frequencies 10000 ** (-i / (d / 2))."""
+    half = d // 2
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32, device=positions.device)
+                      * (math.log(10000.0) / half))
+    ang = positions[..., None].to(torch.float32) * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _run_encoder(p, cfg: ArchConfig, frames: torch.Tensor) -> torch.Tensor:
+    """Whisper-style encoder over precomputed (stub) frame embeddings
+    (B, T, D): non-causal ``"attn"`` blocks, no cache."""
+    B, T, _ = frames.shape
+    pos = torch.arange(T, dtype=torch.int32, device=frames.device)[None].expand(B, T)
+    x = frames.to(cfg.cdtype) + _sinusoidal(pos, cfg.d_model).to(cfg.cdtype)
+    for lp in p["encoder"]["layers"]:
+        x, _ = _apply_block(lp, cfg, "attn", x, pos, None, None, None, causal=False)
+    return L.apply_norm(cfg.norm, p["encoder"]["final_norm"], x)
+
+
 def apply_model(
     params,
     cfg: ArchConfig,
     tokens: torch.Tensor,                          # (B, S) int
     *,
     prefix_embeds: Optional[torch.Tensor] = None,  # (B, P, D) vision stub
+    encoder_frames: Optional[torch.Tensor] = None, # (B, T, D) audio stub
     cache: Optional[dict] = None,
     cache_pos: Optional[int] = None,
     positions: Optional[torch.Tensor] = None,
@@ -210,6 +291,11 @@ def apply_model(
         base = cache_pos if cache_pos is not None else 0
         positions = (base + torch.arange(S, dtype=torch.int32, device=x.device))
         positions = positions[None].expand(B, S)
+    memory = None
+    if cfg.kind == "encdec":
+        x = x + _sinusoidal(positions, cfg.d_model).to(cfg.cdtype)
+        if encoder_frames is not None:  # else a decode step: cross K/V cached
+            memory = _run_encoder(params, cfg, encoder_frames)
 
     _, rem_pat = _split_groups(cfg)
     groups = [(gp, effective_pattern(cfg)) for gp in params["groups"]]
@@ -222,7 +308,8 @@ def apply_model(
         for i, kind in enumerate(kinds):
             name = f"b{i}"
             x, a = _apply_block(gp[name], cfg, kind, x, positions,
-                                None if gc is None else gc[name], cache_pos, causal=True)
+                                None if gc is None else gc[name], cache_pos, memory,
+                                causal=True)
             if a is not None:
                 aux = aux + a
 

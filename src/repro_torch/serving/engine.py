@@ -7,9 +7,13 @@ padded with inert ``rid = -1`` clones), runs prefill once (K12 in every
 layer on the card) and then the greedy decode loop
 (:func:`repro_torch.serving.router.greedy_token`).  Prompts are
 left-padded with token 0 and positions run from 0 on every row, as in the
-reference: the padding is attended.  The batch's cache (KV rows, and for
-RecurrentGemma the RG-LRU blocks' ``h`` and conv state) is made by
-``prefill`` and written in place by every decode step.
+reference: the padding is attended.  The batch's cache (KV rows; for
+RecurrentGemma the RG-LRU blocks' ``h`` and conv state; for RWKV6 each
+layer's float32 state ``s`` and the ``x_prev`` of its time and channel
+mix; for Whisper also the cross K/V, which decode only reads) is made by
+``prefill`` and written in place by every decode step.  An encoder-decoder's prefill runs the
+encoder over zero frames (B, encoder_seq, D) in the compute dtype, as the
+reference's engine does.
 """
 from __future__ import annotations
 
@@ -67,6 +71,10 @@ class ServingEngine:
         for i, r in enumerate(batch):
             toks[i, plen - len(r.prompt):] = r.prompt  # left-pad
         inputs = {"tokens": torch.from_numpy(toks).to(self.device)}
+        if self.cfg.kind == "encdec":
+            inputs["encoder_frames"] = torch.zeros(
+                (self.batch_size, self.cfg.encoder_seq, self.cfg.d_model),
+                dtype=self.cfg.cdtype, device=self.device)
         logits, cache = prefill(self.params, self.cfg, inputs, self.max_len)
         pos = plen
         n_new = max(r.max_new_tokens for r in batch)

@@ -34,6 +34,7 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     assert "repro_torch.indexing.delta" in mods
     assert "repro_torch.models.moe" in mods
     assert "repro_torch.models.rglru" in mods
+    assert "repro_torch.models.rwkv6" in mods
     code = "\n".join([
         "import sys",
         *(f"sys.modules[{b!r}] = None" for b in BLOCKED),

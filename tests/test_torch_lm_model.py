@@ -10,8 +10,10 @@ and ``decode_step`` within rtol = atol = 1e-4, and the port's flash path
 against its naive one within 1e-3 (the reference test's figure).  The MoE
 and hybrid configs (Mixtral, Moonlight, recurrentgemma) match the
 reference's forward within 1e-4 too (their own files,
-``test_torch_lm_moe.py`` and ``test_torch_lm_hybrid.py``, go further);
-RWKV6 and Whisper raise ``NotImplementedError``.  K12's contract is
+``test_torch_lm_moe.py`` and ``test_torch_lm_hybrid.py``, go further, as
+``test_torch_lm_rwkv.py`` and ``test_torch_lm_whisper.py`` do for RWKV6
+and Whisper); a block kind the port lacks raises
+``NotImplementedError``.  K12's contract is
 decided from host integers by ``k12_refusal``, tested here as a pure
 function (no CUDA tensor can be made on the CPU): a window fits, a query
 offset and masked keys do not."""
@@ -37,7 +39,6 @@ from repro_torch.models.convert import params_from_numpy
 DENSE = ["phi4-mini-3.8b", "gemma-2b", "deepseek-coder-33b", "starcoder2-7b",
          "internvl2-76b"]
 MOE_HYBRID = ["mixtral-8x7b", "moonshot-v1-16b-a3b", "recurrentgemma-2b"]
-UNPORTED = ["rwkv6-1.6b", "whisper-base"]
 CPU = "cpu"
 
 
@@ -353,11 +354,14 @@ def test_moe_and_hybrid_families_match_the_reference(name):
         ref_model.count_params(ref_params)
 
 
-@pytest.mark.parametrize("name", UNPORTED)
-def test_unported_families_raise(name):
-    cfg = reduce_for_smoke(get_config(name))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt_model.init_model(cfg, device=CPU)
+@pytest.mark.parametrize("entry", ["init_model", "forward_logits"])
+def test_unknown_block_kind_raises(entry):
+    cfg = dataclasses.replace(reduce_for_smoke(get_config("recurrentgemma-2b")),
+                              block_pattern=("rglru", "mamba"))
     dense = pt_model.init_model(reduce_for_smoke(get_config("phi4-mini-3.8b")), device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt_model.forward_logits(dense, cfg, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+    call = {"init_model": lambda: pt_model.init_model(cfg, device=CPU),
+            "forward_logits": lambda: pt_model.forward_logits(
+                dense, cfg, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})}[entry]
+    with pytest.raises(NotImplementedError, match="ROADMAP") as err:
+        call()
+    assert "mamba" in str(err.value)
