@@ -3,7 +3,8 @@
     python3 chip_smoke.py                                  # the full check
     python3 chip_smoke.py --n-docs 200000 --n-queries 128  # a short rehearsal
 
-Phases (any failure exits non-zero; nothing is caught):
+Phases, run in the order 1, 2, 20, 3–19 (any failure exits non-zero;
+nothing is caught):
 
 1. device  — the card's name, power limit and count;
 2. build   — nvcc builds every kernel (K1–K4, the work-list kernels
@@ -309,6 +310,37 @@ Phases (any failure exits non-zero; nothing is caught):
              ``--arch whisper-base`` on the card side by side: rc 0, K12 =
              0 and 18 a batch.  Prefill ms a batch, decode ms a token,
              tokens/s and peak memory of both.
+20. lm-train — LM training; it runs right after phase 2, before phase 3's
+             index takes the card (the search phases hold 14.5 GB by phase
+             18; training phi4-mini needs about 62 GB), and prints the
+             bytes held first.  (i) K12 under a gradient (``K12Attention``:
+             K12's forward, ``flash_attention_bwd`` in torch ops) at
+             phi4-mini's attention (1, 2048, 2048, 24, 8, 128) causal,
+             recurrentgemma-2b's local (1, 4096, 4096, 10, 1, 256) at W 2048
+             and Whisper's encoder (2, 1500, 1500, 8, 8, 64) non-causal, in
+             float32 and bfloat16: dq, dk, dv against torch autograd through
+             the float32 full-logits attention within a relative L2 of 1e-4
+             (float32) and 2e-2 (bfloat16), one K12 launch a forward +
+             backward; its forward + backward ms beside the bound
+             (12·B·H·hd·keys flops), the plain route (K12's plain forward,
+             the same backward) and SDPA's forward + backward.  (ii) A
+             float32 twin of phi4-mini at full width cut to 2 layers, TF32
+             off: ``train_loss``'s gradients through K12 against the naive
+             attention's at B 1, S 512, per leaf within a relative L2 of
+             1e-4 (K12 = 4: forward and remat recompute), and
+             ``make_train_step(microbatches=2)`` against ``microbatches=1``
+             at B 2 (the update within 1e-3).  (iii) phi4-mini-3.8b at full
+             width and depth, bf16 from the seed, remat on: 8 steps of
+             ``make_train_step`` on one ``TokenStream`` batch (B 1, S 2048):
+             a finite loss every step, falling from step 0 to 7, K12 = 64 a
+             step and nothing else; step ms, tokens/s, 6·N·tokens over the
+             step time as a share of 989 TFLOP/s, peak memory.  (iv)
+             ``examples/train_lm_torch.py`` (the train CLI's cold start and
+             resume, ``--smoke`` at head width 64) and (v)
+             ``examples/serve_lm_torch.py`` on the card side by side: rc 0,
+             ``[train] resumed from step 120``, the restored state's sha256
+             equal to the saved state's, K12 = 480 then 0; "served 8
+             requests OK".
 
 Every phase prints its seconds.
 
@@ -1582,6 +1614,317 @@ def lm_rwkv_whisper(args, dev, smi: str, wrappers: dict) -> list:
         for caller, key in callers.items()]
 
 
+def lm_train(args, dev, smi: str, wrappers: dict) -> list:
+    """Phase 20: LM training.  K12 under a gradient against autograd, a
+    float32 twin's gradients and microbatches, phi4-mini-3.8b trained at
+    full width and depth, the train CLI's cold start and resume and the
+    serve example, on the card.  Returns the phase's kernel record."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model as lm
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_step import TrainState, make_train_step
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    lmr = LMRun(wrappers, dev, smi, "[train]")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    log(f"[train] {torch.cuda.memory_allocated()} bytes held by earlier phases")
+    gen = torch.Generator().manual_seed(args.seed + 20)
+    cfg = get_config("phi4-mini-3.8b")
+
+    def rel_l2(got, want) -> float:
+        got, want = got.double(), want.double()
+        return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+    # -------------------------------------------------------------- (i)
+    # K12 under a gradient (K12Attention: K12's forward, the attention
+    # gradient in torch ops) against torch autograd through the float32
+    # full-logits attention on the same inputs; its forward + backward
+    # time beside its bound, the plain route's and SDPA's
+    grad_tol = {f32: 1e-4, bf16: 2e-2}     # relative L2 of each of dq, dk, dv
+    cases = [("phi4-mini", 1, 2048, 2048, cfg.n_heads, cfg.n_kv_heads, cfg.hd, True, None),
+             ("recurrentgemma-2b local", 1, 4096, 4096, 10, 1, 256, True, 2048),
+             ("whisper-base encoder", 2, 1500, 1500, 8, 8, 64, False, None)]
+    rows = {}
+    for label, B, S, T, H, KV, hd, causal, window in cases:
+        for dtype in (f32, bf16):
+            q, dout = (torch.randn((B, S, H, hd), generator=gen).to(dev, dtype)
+                       for _ in range(2))
+            k, v = (torch.randn((B, T, KV, hd), generator=gen).to(dev, dtype)
+                    for _ in range(2))
+            leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            n0 = wrappers["K12"].launches
+            out = fa.K12Attention.apply(*leaves, causal, window)
+            got = torch.autograd.grad(out, leaves, dout)
+            if wrappers["K12"].launches - n0 != 1:
+                raise AssertionError(f"K12 under a gradient: "
+                                     f"{wrappers['K12'].launches - n0} launches for one "
+                                     f"forward + backward (expected 1)")
+            ref = [x.float().requires_grad_(True) for x in (q, k, v)]
+            want = torch.autograd.grad(
+                fa.flash_attention_ref(*ref, causal=causal, window=window), ref,
+                dout.float())
+            del ref
+            errs = [rel_l2(g.float(), w) for g, w in zip(got, want)]
+            abs_err = max(float((g.float() - w).abs().max()) for g, w in zip(got, want))
+            del want
+            # the plain route: K12's plain forward, the same backward
+            plain_out = fa.flash_attention_fwd_torch(q, k, v, causal=causal, q_chunk=S,
+                                                     k_chunk=T, window=window)
+            plain = fa.flash_attention_bwd(q, k, v, plain_out, dout, causal=causal,
+                                           window=window)
+            plain_err = max(float((g.float() - p.float()).abs().max())
+                            for g, p in zip((out.detach(), *got), (plain_out, *plain)))
+            del plain_out, plain, out, got
+
+            def k12_fb():
+                o = fa.K12Attention.apply(*leaves, causal, window)
+                torch.autograd.grad(o, leaves, dout)
+
+            def plain_fb():
+                o = fa.flash_attention_fwd_torch(q, k, v, causal=causal, q_chunk=S,
+                                                 k_chunk=T, window=window)
+                fa.flash_attention_bwd(q, k, v, o, dout, causal=causal, window=window)
+
+            sd = [x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v)]
+            mask = None
+            if window is not None:
+                pos = torch.arange(S, device=dev)
+                mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+
+            def sdpa_fb():
+                o = torch.nn.functional.scaled_dot_product_attention(
+                    *sd, attn_mask=mask, is_causal=causal and mask is None, enable_gqa=True)
+                torch.autograd.grad(o, sd, dout.transpose(1, 2))
+
+            ms = cuda_ms(k12_fb, reps=5, warmup=2)
+            plain_ms = cuda_ms(plain_fb, reps=2, warmup=1)
+            lib_ms = cuda_ms(sdpa_fb, reps=5, warmup=2)
+            keys = (window_keys(S, window) if window else S * (S + 1) // 2) if causal \
+                else S * T
+            # forward 2 products, backward 4 (dP, dV, dQ, dK): 2 flops each
+            flops = 12 * B * H * hd * keys
+            peak = BF16_FLOPS_PER_S if dtype == bf16 else TF32_FLOPS_PER_S / 3
+            n_bytes = (4 * q.numel() + 2 * (k.numel() + v.numel())) * q.element_size()
+            t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
+            bound = max(t_bytes, t_ops) * 1e3
+            by = "bytes" if t_bytes >= t_ops else "operations"
+            rows[(label, dtype)] = (ms, plain_ms, bound, by, lib_ms, plain_err)
+            log(f"[train] K12 under a gradient, {label} {(B, S, T, H, KV, hd)} "
+                f"{'causal' if causal else 'non-causal'}"
+                f"{f', W {window}' if window else ''} {str(dtype)[6:]}: dq, dk, dv vs "
+                f"autograd through float32 attention: relative L2 "
+                + ", ".join(f"{e:.3g}" for e in errs)
+                + f" (bound {grad_tol[dtype]}), max abs {abs_err:.4g}; out, dq, dk, dv vs "
+                f"the plain route (K12's plain forward, the same backward): max abs "
+                f"{plain_err:.4g}; forward + backward {ms:.4f} ms (CUDA events), plain "
+                f"{plain_ms:.4f} ms, SDPA (enable_gqa"
+                f"{', boolean window mask' if window else ''}) {lib_ms:.4f} ms; bound "
+                f"{bound:.4f} ms ({by}: {flops} flops at {peak / 1e12:.0f} TFLOP/s, "
+                f"{n_bytes} bytes at 3.35 TB/s); on {smi}")
+            if max(errs) > grad_tol[dtype] or not all(math.isfinite(e) for e in errs):
+                raise AssertionError(f"K12 under a gradient, {label} {dtype}: relative L2 "
+                                     f"{errs} > {grad_tol[dtype]}")
+            del q, k, v, dout, leaves, sd, mask
+            torch.cuda.empty_cache()
+
+    # -------------------------------------------------------------- (ii)
+    # the float32 twin at full width, depth cut to 2 layers: train_loss's
+    # gradients through K12 against the naive attention's, leaf by leaf,
+    # and one step with 2 microbatches against one without
+    cfg2 = dataclasses.replace(cfg, n_layers=2, param_dtype="float32",
+                               compute_dtype="float32")
+    ds = TokenStream(DataConfig(vocab=cfg.vocab, seq_len=512, global_batch=2,
+                                seed=args.seed))
+    batch2 = {k: torch.from_numpy(x).to(dev) for k, x in ds.batch(0).items()}
+    batch1 = {k: x[:1] for k, x in batch2.items()}
+    params = lm.init_model(cfg2, seed=args.seed, device=dev).requires_grad_(True)
+    names = [n for n, _ in params.named_parameters()]
+    grads = {}
+    for impl in ("flash", "naive"):
+        lmr.reset_launches()
+        loss = lm.train_loss(params, dataclasses.replace(cfg2, attn_impl=impl), batch1)
+        grads[impl] = (float(loss.detach()),
+                       torch.autograd.grad(loss, list(params.parameters())),
+                       lmr.launches_now())
+        del loss
+    want_k12 = 2 * cfg2.n_layers          # forward and remat recompute
+    if grads["flash"][2] != {**lmr.no_launch, "K12": want_k12} or \
+            grads["naive"][2] != lmr.no_launch:
+        raise AssertionError(f"twin: launches {grads['flash'][2]} (flash), "
+                             f"{grads['naive'][2]} (naive); expected K12 = {want_k12} "
+                             f"and none")
+    leaf_err = {n: rel_l2(a, b) for n, a, b in zip(names, grads["flash"][1],
+                                                    grads["naive"][1])}
+    worst = max(leaf_err, key=leaf_err.get)
+    log(f"[train] float32 twin ({cfg2.n_layers} layers of phi4-mini-3.8b at full width, B 1, "
+        f"S 512, TF32 off): train_loss flash {grads['flash'][0]:.6f}, naive "
+        f"{grads['naive'][0]:.6f}; K12 {grads['flash'][2]['K12']} launches (forward and "
+        f"recompute); gradients through K12 vs naive, relative L2 per leaf: worst "
+        f"{leaf_err[worst]:.3g} ({worst}), median "
+        f"{float(np.median(list(leaf_err.values()))):.3g} over {len(names)} leaves "
+        f"(bound 1e-4)")
+    if leaf_err[worst] > 1e-4 or abs(grads["flash"][0] - grads["naive"][0]) > \
+            1e-5 * abs(grads["naive"][0]):
+        raise AssertionError(f"twin: gradient relative L2 {leaf_err[worst]} ({worst}) or "
+                             f"losses {grads['flash'][0]}, {grads['naive'][0]}")
+    del grads, params
+    torch.cuda.empty_cache()
+    opt2 = AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=8, grad_clip=1e9)
+    p0 = [p.detach().clone() for p in lm.init_model(cfg2, seed=args.seed,
+                                                     device=dev).parameters()]
+    after = {}
+    for mb in (1, 2):
+        params = lm.init_model(cfg2, seed=args.seed, device=dev).requires_grad_(True)
+        state, m = make_train_step(cfg2, opt2, microbatches=mb)(
+            TrainState(params, init_opt_state(params)), batch2)
+        after[mb] = ([p.detach() for p in state.params.parameters()],
+                     float(m["loss"]), float(m["grad_norm"]))
+        del state, params, m
+        torch.cuda.empty_cache()
+    upd_err = max(rel_l2(b - p, a - p) for a, b, p in zip(after[1][0], after[2][0], p0))
+    log(f"[train] float32 twin, make_train_step microbatches 2 vs 1 (B 2, S 512): loss "
+        f"{after[2][1]:.6f} vs {after[1][1]:.6f}, grad_norm {after[2][2]:.6f} vs "
+        f"{after[1][2]:.6f}; the update (p - p0), relative L2, worst leaf {upd_err:.3g} "
+        f"(bound 1e-3)")
+    if upd_err > 1e-3 or abs(after[2][1] - after[1][1]) > 1e-5 * abs(after[1][1]) or \
+            abs(after[2][2] - after[1][2]) > 1e-4 * abs(after[1][2]):
+        raise AssertionError(f"twin: microbatches 2 vs 1: update {upd_err}, loss and norm "
+                             f"{after}")
+    del after, p0
+    torch.cuda.empty_cache()
+
+    # -------------------------------------------------------------- (iii)
+    # phi4-mini-3.8b at full width and depth, bf16 from the seed, remat on:
+    # 8 steps on one TokenStream batch (B 1, S 2048), repeated
+    t0 = time.perf_counter()
+    params = lm.init_model(cfg, seed=args.seed, device=dev).requires_grad_(True)
+    state = TrainState(params, init_opt_state(params))
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = lm.count_params(params)
+    S_train = 2048
+    batch = {k: torch.from_numpy(x).to(dev) for k, x in TokenStream(DataConfig(
+        vocab=cfg.vocab, seq_len=S_train, global_batch=1, seed=args.seed)).batch(0).items()}
+    step = make_train_step(cfg, AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=8))
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, per_step = [], [], []
+    lmr.reset_launches()
+    for _ in range(8):
+        k0 = wrappers["K12"].launches
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        per_step.append(wrappers["K12"].launches - k0)
+    train_launches = lmr.launches_now()
+    peak = torch.cuda.max_memory_allocated()
+    gnorm, lr = float(m["grad_norm"]), float(m["lr"])
+    steady = float(np.mean(times[1:]))
+    flops = 6 * n_params * S_train
+    log(f"[train] {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, vocab {cfg.vocab}; "
+        f"{n_params} parameters, bf16 from seed {args.seed}, init {t_init:.2f} s; AdamW "
+        f"float32 moments; remat {cfg.remat_policy!r}): 8 steps on one TokenStream batch "
+        f"(B 1, S {S_train}): loss " + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; last grad_norm {gnorm:.4f}, lr {lr:.3g}; step ms "
+        + ", ".join(f"{t * 1e3:.1f}" for t in times)
+        + f" (host clock, synchronised; steps 1-7 mean {steady * 1e3:.2f}); "
+        f"{S_train / steady:.1f} tokens/s; 6·N·tokens {flops:.4g} flops = "
+        f"{flops / steady / BF16_FLOPS_PER_S:.4f} of 989 TFLOP/s; K12 {per_step} a step, "
+        f"nothing else launched; peak {peak} bytes; on {smi}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"phi4-mini training: losses {losses}")
+    if per_step != [2 * cfg.n_layers] * 8 or train_launches != {
+            **lmr.no_launch, "K12": 16 * cfg.n_layers}:
+        raise AssertionError(f"phi4-mini training: K12 {per_step} a step (expected "
+                             f"{2 * cfg.n_layers}), launches {train_launches}")
+    # a ninth step under the profiler: device time by kernel kind, and the
+    # device's busy share of the step's wall time
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    kinds = {"K12": ("flash_attention",), "GEMM": ("gemm", "xmma", "cutlass", "Kernel2"),
+             "softmax / log-softmax": ("softmax",), "reduction": ("reduce",)}
+    by_kind, n_events, top = {}, 0, []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        kind = next((k for k, keys in kinds.items() if any(x in e.key for x in keys)),
+                    "other (elementwise, copies)")
+        by_kind[kind] = by_kind.get(kind, 0.0) + e.self_device_time_total / 1e3
+        n_events += e.count
+        top.append((e.self_device_time_total / 1e3, e.count, e.key[:60]))
+    busy = sum(by_kind.values())
+    log(f"[train] a ninth step under the profiler: wall {wall * 1e3:.1f} ms, device busy "
+        f"{busy:.1f} ms ({busy / (wall * 1e3):.3f}), {n_events} device events; by kind: "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in sorted(by_kind.items(),
+                                                         key=lambda kv: -kv[1]))
+        + "; top kernels: " + "; ".join(f"{name} x{n} {ms:.1f} ms"
+                                        for ms, n, name in sorted(top, reverse=True)[:6]))
+    del state, params, m, batch, prof
+    torch.cuda.empty_cache()
+
+    # -------------------------------------------------------------- (iv), (v)
+    # the train example (cold start, then resume) and the serve example on
+    # the card, at their default device, side by side
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root / "src"), *filter(None, [os.environ.get("PYTHONPATH")])]))
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, str(root / "examples" / name)],
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True, env=env)
+             for name in ("train_lm_torch.py", "serve_lm_torch.py")}
+    try:
+        outs = {name: p.communicate(timeout=600) for name, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    t_examples = time.perf_counter() - t0
+    for name, (out, err) in outs.items():
+        log(f"[train] python examples/{name}: rc {procs[name].returncode}, "
+            f"{t_examples:.1f} s (both side by side): " + " | ".join(out.strip().splitlines()))
+        if procs[name].returncode != 0:
+            raise AssertionError(f"examples/{name}: rc {procs[name].returncode}\n"
+                                 f"{err[-4000:]}")
+    train_out = outs["train_lm_torch.py"][0]
+    cold, _, resume = train_out.partition("--- resume ---")
+    saved = re.findall(r"\[train\] checkpoint step 120: \S+ sha256 (\w+)", cold)
+    restored = re.findall(r"\[train\] restored state sha256 (\w+)", resume)
+    k12 = [re.findall(r"\[train\] K12 launches (\d+)", part) for part in (cold, resume)]
+    want_cold = 120 * 2 * 2                  # steps x 2 layers x (forward, recompute)
+    if ("[train] resumed from step 120" not in resume or "[train] done" not in cold
+            or "[train] done" not in resume or not saved or restored != saved[-1:]
+            or k12 != [[str(want_cold)], ["0"]]):
+        raise AssertionError(f"the train example: saved {saved}, restored {restored}, "
+                             f"K12 {k12} (expected {want_cold} then 0)\n{train_out}")
+    if "served 8 requests OK" not in outs["serve_lm_torch.py"][0]:
+        raise AssertionError("the serve example did not serve 8 requests OK")
+    log(f"[train] the train example: resumed from step 120, the restored state's sha256 "
+        f"equals the saved state's ({saved[-1][:16]}...), K12 {want_cold} in the cold start "
+        f"and 0 in the resume; the serve example: served 8 requests OK")
+
+    src = "src/repro_torch/kernels/csrc/flash_attention.cu"
+    ms, plain_ms, bound, by, lib_ms, plain_err = rows[("phi4-mini", bf16)]
+    return [{"name": "K12 flash_attention_fwd under a gradient (phi4-mini-3.8b training, "
+                     "(1, 2048, 2048, 24, 8, 128), causal, bfloat16; ms: forward + backward)",
+             "route": "cuda", "source": src,
+             "replaces": "src/repro/kernels/flash_attention.py:136",
+             "launches": train_launches["K12"], "max_abs_err": plain_err, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+             "library_ms": lib_ms}]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-docs", type=int, default=4_000_000)
@@ -1688,6 +2031,11 @@ def main() -> int:
     if spills:
         raise AssertionError(f"kernels spill registers: {spills}")
     phase_end("2 build")
+
+    # ------------------------------------------------------------ 20. lm-train
+    # before phase 3 takes the card: training phi4-mini needs about 62 GB
+    lm20_records = lm_train(args, dev, smi, wrappers)
+    phase_end("20 lm-train")
 
     # ------------------------------------------------------------ 3. data
     cfg = CorpusConfig(n_docs=args.n_docs, vocab_size=100_000, mean_doc_len=64,
@@ -5305,6 +5653,7 @@ def main() -> int:
         "plain_ms": lm_plain, "bound_ms": lm_bound, "bound_by": lm_by, "library_ms": lm_lib})
     record["kernels"].extend(lm18_records)
     record["kernels"].extend(lm19_records)
+    record["kernels"].extend(lm20_records)
     print(json.dumps(record), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

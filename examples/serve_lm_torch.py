@@ -1,5 +1,7 @@
 """Serve a small model with batched requests (prefill + decode loop),
 greedy sampling: the PyTorch port's twin of ``examples/serve_lm.py``.
+On a CUDA device the reduced config takes head width 64, the narrowest
+the flash-attention kernel takes.
 
     PYTHONPATH=src python examples/serve_lm_torch.py [--device cpu]
 """
@@ -7,7 +9,7 @@ import argparse
 
 import numpy as np
 
-from repro_torch.configs import get_config, reduce_for_smoke
+from repro_torch.configs import get_config, smoke_config
 from repro_torch.serving.engine import Request, ServingEngine
 
 
@@ -15,7 +17,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
-    cfg = reduce_for_smoke(get_config("gemma-2b"))
+    cfg, note = smoke_config(get_config("gemma-2b"), args.device)
+    if note:
+        print(note)
     eng = ServingEngine(cfg, batch_size=4, max_len=48, device=args.device)
     rng = np.random.default_rng(0)
     for rid in range(8):

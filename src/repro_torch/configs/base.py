@@ -186,3 +186,22 @@ def reduce_for_smoke(cfg: ArchConfig) -> ArchConfig:
         param_dtype="float32",
         compute_dtype="float32",
     )
+
+
+#: ``--smoke``'s head width on a CUDA device: the narrowest K12 takes
+#: (``kernels/flash_attention.py:CUDA_HEAD_DIMS``); ``reduce_for_smoke``
+#: gives 16, as the reference's does.
+SMOKE_CUDA_HEAD_DIM = 64
+
+
+def smoke_config(cfg: ArchConfig, device) -> tuple[ArchConfig, Optional[str]]:
+    """``reduce_for_smoke(cfg)`` for the CLIs' and examples' ``--smoke``:
+    on a CUDA device with ``head_dim`` :data:`SMOKE_CUDA_HEAD_DIM`, so K12
+    runs at a width it takes, and a line saying so (``None`` elsewhere,
+    where nothing changes)."""
+    small = reduce_for_smoke(cfg)
+    if torch.device(device).type != "cuda":
+        return small, None
+    return (dataclasses.replace(small, head_dim=SMOKE_CUDA_HEAD_DIM),
+            f"--smoke on {device}: head_dim {small.hd} -> {SMOKE_CUDA_HEAD_DIM}, the "
+            f"narrowest width K12 takes")

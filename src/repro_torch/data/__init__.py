@@ -1,1 +1,1 @@
-"""Synthetic corpus generation (host-side numpy)."""
+"""Synthetic corpus generation and the LM token stream (host-side numpy)."""

@@ -26,8 +26,17 @@ chunk's last row skipped under ``causal``, and with a window those wholly
 before its first row's window.  :func:`flash_attention_ref` is
 the reference's full-logits oracle.  :func:`flash_attention_fwd_cuda`
 wraps ``csrc/flash_attention.cu`` (float32 and bfloat16), and
-:func:`flash_attention_fwd` picks by device.  Forward only, as the
-reference: it has no backward and no ``ops`` entry point.
+:func:`flash_attention_fwd` picks by device.
+
+**Under a gradient.**  The reference has no backward kernel: K12's
+docstring (``repro/kernels/flash_attention.py:15-17``) names the XLA-level
+flash attention, differentiated by ``jax.value_and_grad`` and recomputed,
+as the backward.  :class:`K12Attention` is the port's
+``torch.autograd.Function``: its forward is K12 (the kernel on CUDA
+tensors, the plain version on CPU tensors), and its backward is
+:func:`flash_attention_bwd` on both devices, the attention gradient in
+PyTorch ops over row tiles of :data:`BWD_ROW_TILE` queries, with the
+softmax statistics recomputed from q and k, so K12 itself is unchanged.
 """
 from __future__ import annotations
 
@@ -47,6 +56,9 @@ BF16_ROW_REL_TOL = 0.05
 #: The float32 kernel's tiles by head width: (q rows a block, keys a k/v
 #: tile); a k or v tile is 4096 floats, and the ring has two slots.
 TF32_TILES = {64: (128, 64), 128: (128, 32), 256: (64, 16)}
+#: Query rows a tile of :func:`flash_attention_bwd` (its logits are one
+#: tile's (B, H, rows, keys) float32, never (B, H, S, T)).
+BWD_ROW_TILE = 128
 _CUDA_ENTRY = {torch.float32: "flash_attention_f32",
                torch.bfloat16: "flash_attention_bf16"}
 
@@ -233,3 +245,84 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     kernel on CUDA tensors, the plain version on CPU tensors."""
     fn = flash_attention_fwd_cuda if q.is_cuda else flash_attention_fwd_torch
     return fn(q, k, v, causal=causal, q_chunk=q_chunk, k_chunk=k_chunk, window=window)
+
+
+def flash_attention_bwd(q, k, v, out, dout, *, causal: bool = True, window=None):
+    """The gradient of K12's attention: ``(dq, dk, dv)`` in the dtypes of
+    ``q``, ``k`` and ``v`` from the forward's ``out`` and the incoming
+    ``dout`` (both (B, S, H, hd)), in float32 over row tiles of
+    :data:`BWD_ROW_TILE` queries.  A tile recomputes its logits ``q_t k^T /
+    sqrt(hd)`` and masks them as K12 does (causal: ``kpos <= qpos``; a
+    window W: also ``kpos > qpos - W``; non-causal: none), takes ``P`` as
+    their softmax, ``D = rowsum(dout_t * out_t)`` and ``dS = P * (dout_t
+    v^T - D)``; then ``dq_t = dS k / sqrt(hd)``, and ``dk += dS^T q_t /
+    sqrt(hd)``, ``dv += P^T dout_t`` summed over the G query heads of a KV
+    head (the ``h // G`` rule).  Keys past a causal tile's last row and
+    before a windowed tile's first row's window are not read."""
+    _chunks(q, k, v, q.shape[1], k.shape[1])
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} and dout {tuple(dout.shape)} must be "
+                         f"q's {tuple(q.shape)}")
+    w = _window(window, causal)
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    f32 = torch.float32
+
+    def rows(x):  # (B, S, H, hd) -> (B, KV, G, S, hd)
+        return x.to(f32).reshape(B, S, KV, G, hd).permute(0, 2, 3, 1, 4)
+
+    qf, of, dof = rows(q), rows(out), rows(dout)
+    kf, vf = (x.to(f32).permute(0, 2, 1, 3) for x in (k, v))   # (B, KV, T, hd)
+    delta = (dof * of).sum(-1)                                  # (B, KV, G, S)
+    dq = torch.empty_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    for r0 in range(0, S, BWD_ROW_TILE):
+        r1 = min(S, r0 + BWD_ROW_TILE)
+        lo = max(0, r0 - w + 1) if w else 0
+        hi = min(T, r1) if causal else T
+        qt, dot = qf[..., r0:r1, :], dof[..., r0:r1, :]
+        kt, vt = kf[:, :, lo:hi], vf[:, :, lo:hi]
+        s = torch.einsum("bkgrh,bknh->bkgrn", qt, kt) * scale
+        if causal:
+            qp = torch.arange(r0, r1, device=q.device)[:, None]
+            kp = torch.arange(lo, hi, device=q.device)[None, :]
+            mask = kp <= qp
+            if w:
+                mask &= kp > qp - w
+            s = torch.where(mask, s, -math.inf)
+        p = torch.softmax(s, dim=-1)
+        del s
+        ds = p * (torch.einsum("bkgrh,bknh->bkgrn", dot, vt) - delta[..., r0:r1, None])
+        dq[..., r0:r1, :] = torch.einsum("bkgrn,bknh->bkgrh", ds, kt) * scale
+        dk[:, :, lo:hi] += torch.einsum("bkgrn,bkgrh->bknh", ds, qt) * scale
+        dv[:, :, lo:hi] += torch.einsum("bkgrn,bkgrh->bknh", p, dot)
+    return (dq.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(q.dtype),
+            dk.permute(0, 2, 1, 3).to(k.dtype), dv.permute(0, 2, 1, 3).to(v.dtype))
+
+
+class K12Attention(torch.autograd.Function):
+    """K12 under a gradient: ``K12Attention.apply(q, k, v, causal,
+    window)``.  The forward launches K12 on CUDA tensors
+    (:func:`flash_attention_fwd_cuda`, counted by its launch counter) and
+    runs its plain version on CPU tensors, with one chunk spanning S and T;
+    it saves q, k, v and the output.  The backward is
+    :func:`flash_attention_bwd` on both devices and launches no kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window):
+        fwd = flash_attention_fwd_cuda if q.is_cuda else flash_attention_fwd_torch
+        out = fwd(q, k, v, causal=causal, q_chunk=q.shape[1], k_chunk=k.shape[1],
+                  window=window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, causal=ctx.causal,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None

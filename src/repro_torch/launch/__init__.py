@@ -1,2 +1,3 @@
 """Launch drivers: elastic re-sharding and set failover (the search side of
-``repro.launch``) and the LM serving CLI (``python -m repro_torch.launch.serve``)."""
+``repro.launch``), the LM serving CLI (``python -m repro_torch.launch.serve``)
+and the LM training CLI (``python -m repro_torch.launch.train``)."""

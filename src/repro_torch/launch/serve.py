@@ -5,7 +5,9 @@
 
 The twin of ``repro.launch.serve``, on the card unless ``--device`` names
 another.  ``--arch`` takes any config (dense, MoE, RG-LRU/local hybrid,
-RWKV6, the Whisper encoder-decoder).  Prints the ``[serve] ... tok/s`` line, the first outputs, and one line
+RWKV6, the Whisper encoder-decoder).  ``--smoke`` on a CUDA device takes
+the reduced config with head width 64, the narrowest K12 takes
+(``configs.smoke_config``), and says so.  Prints the ``[serve] ... tok/s`` line, the first outputs, and one line
 with the flash-attention kernel's (K12's) launches and the card's name and
 power limit (``nvidia-smi``).
 """
@@ -18,7 +20,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, reduce_for_smoke
+from repro_torch.configs import get_config, smoke_config
 from repro_torch.kernels.flash_attention import flash_attention_fwd_cuda
 from repro_torch.serving.engine import Request, ServingEngine
 
@@ -47,7 +49,9 @@ def main(argv=None) -> int:
 
     cfg = get_config(args.arch)
     if args.smoke:
-        cfg = reduce_for_smoke(cfg)
+        cfg, note = smoke_config(cfg, args.device)
+        if note:
+            print(f"[serve] {note}")
 
     eng = ServingEngine(cfg, batch_size=args.batch, max_len=args.max_len,
                         rng_seed=args.seed, device=args.device)

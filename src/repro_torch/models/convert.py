@@ -16,6 +16,14 @@ the reference keeps in float32 whatever the parameter dtype
 RG-LRU gates and ``lam``, ``repro/models/rglru.py:37-48``, and RWKV6's
 ``mu`` (time and channel mix), ``w0``, LoRA, ``u`` and ``ln_scale``,
 ``repro/models/rwkv6.py:37-47,121``).
+
+``numpy_from_params(params, cfg)`` is the inverse: the port's parameters
+as the reference's nested dict of numpy arrays, ``groups`` and
+``encoder.layers`` restacked on the leading axis.  numpy has no bfloat16
+without ``ml_dtypes``, so a bfloat16 leaf comes back bit for bit as raw
+2-byte values (dtype ``V2``, as ``np.load`` gives the reference's own
+bfloat16 checkpoint leaves).  :func:`restack` is the same regrouping over
+any tensors keyed like ``named_parameters()`` (the optimizer's moments).
 """
 from __future__ import annotations
 
@@ -68,3 +76,51 @@ def params_from_numpy(tree: dict, cfg: ArchConfig, device=None) -> nn.ModuleDict
             "layers": unstack(enc["layers"], cfg.encoder_layers, "encoder layers"),
             "final_norm": module(enc["final_norm"])})
     return out
+
+
+def restack(named: dict, cfg: ArchConfig) -> dict:
+    """The reference's nested tree over tensors keyed like the port's
+    ``named_parameters()``: ``groups.<g>.<path>`` and
+    ``encoder.layers.<l>.<path>`` become one leaf each, a list of the
+    per-group (per-layer) tensors in order, stacked on a leading axis in
+    the reference."""
+    n_groups, _ = _split_groups(cfg)
+    tree: dict = {}
+    for name, t in named.items():
+        parts = name.split(".")
+        idx = n = None
+        if parts[0] == "groups":
+            idx, n, parts = int(parts[1]), n_groups, parts[:1] + parts[2:]
+        elif parts[:2] == ["encoder", "layers"]:
+            idx, n, parts = int(parts[2]), cfg.encoder_layers, parts[:2] + parts[3:]
+        node = tree
+        for key in parts[:-1]:
+            node = node.setdefault(key, {})
+        if idx is None:
+            node[parts[-1]] = t
+        else:
+            node.setdefault(parts[-1], [None] * n)[idx] = t
+    return tree
+
+
+def to_numpy(leaf) -> np.ndarray:
+    """A host copy of a tensor, or of a :func:`restack` list stacked on a
+    leading axis; bfloat16 as raw 2-byte values (dtype ``V2``)."""
+    t = (torch.stack(leaf) if isinstance(leaf, list) else leaf).detach().to(
+        "cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
+
+
+def numpy_from_params(params: nn.Module, cfg: ArchConfig) -> dict:
+    """The port's parameters as the reference's nested dict of numpy arrays
+    (bfloat16 leaves as raw 2-byte values), the inverse of
+    :func:`params_from_numpy`."""
+    check_ported(cfg)
+
+    def walk(node):
+        return ({k: walk(v) for k, v in node.items()} if isinstance(node, dict)
+                else to_numpy(node))
+
+    return walk(restack(dict(params.named_parameters()), cfg))

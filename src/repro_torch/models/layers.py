@@ -52,6 +52,14 @@ encoder and cross attention are non-causal with every key valid (the
 cross attention's ``kv_override`` comes with no cache, so ``k_len = T``):
 K12's non-causal path at q_base = k_base = 0, T = 1500 keys.
 
+**Under a gradient** (training: no cache, ``q_base = k_base``, every key
+valid, so always inside the contract) ``_flash_gqa`` goes through
+:class:`~repro_torch.kernels.flash_attention.K12Attention` on both
+devices: K12's forward (its plain version on CPU tensors) and the
+attention gradient in torch ops, ``flash_attention_bwd``; a call outside
+the contract raises there too.  Without a gradient (serving) nothing
+changes.
+
 **Cache handling: sliced.**  The cache is written in place at
 ``cache_pos`` and returned.  A flash call with a cache attends to the
 first ``cache_pos + S`` cache rows with ``k_len = cache_pos + S``, not to
@@ -80,7 +88,8 @@ NEG_INF = -1e30
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
-    # serving slice: no autograd graph is built over the weights
+    # created frozen, so serving builds no autograd graph over the weights;
+    # the trainer turns their gradients on (``params.requires_grad_(True)``)
     return nn.Parameter(t, requires_grad=False)
 
 
@@ -179,11 +188,15 @@ def _flash_gqa(
 ) -> torch.Tensor:
     """Online-softmax attention: K12 on CUDA tensors, the reference's
     recurrence on CPU tensors (every chunk computed, masked ones too, as
-    the reference's scans do)."""
+    the reference's scans do).  While autograd records (grad enabled and
+    q, k or v requiring grad) it is :class:`~repro_torch.kernels.
+    flash_attention.K12Attention` on both devices, inside K12's contract
+    or raising."""
     B, S, KV, G, hd = qg.shape
     T = k.shape[1]
-    if qg.is_cuda:
-        from repro_torch.kernels.flash_attention import flash_attention_fwd_cuda
+    recording = torch.is_grad_enabled() and any(x.requires_grad for x in (qg, k, v))
+    if qg.is_cuda or recording:
+        from repro_torch.kernels import flash_attention as fa
 
         if not all(isinstance(b, int) for b in (q_base, k_base, k_len)):
             raise NotImplementedError("K12 takes host-integer bases and key length")
@@ -193,9 +206,12 @@ def _flash_gqa(
             why = f"scale {scale}; K12 scales by 1/sqrt(hd)"
         if why is not None:
             raise NotImplementedError(f"outside K12's contract: {why}")
-        out = flash_attention_fwd_cuda(qg.reshape(B, S, KV * G, hd), k, v,
-                                       causal=causal, q_chunk=S, k_chunk=T,
-                                       window=window)
+        q = qg.reshape(B, S, KV * G, hd)
+        if recording:  # K12 forward, its gradient in torch ops (both devices)
+            out = fa.K12Attention.apply(q, k, v, causal, window)
+        else:
+            out = fa.flash_attention_fwd_cuda(q, k, v, causal=causal, q_chunk=S,
+                                              k_chunk=T, window=window)
         return out.reshape(B, S, KV, G, hd)
 
     dev, i32, f32 = qg.device, torch.int32, torch.float32

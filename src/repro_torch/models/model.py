@@ -1,9 +1,9 @@
-"""Public model API: inputs, init, forward, prefill and decode for every
-family of the configs (dense, MoE, RG-LRU/local hybrid, RWKV6, the
-Whisper encoder-decoder).
+"""Public model API: inputs, init, the training loss, forward, prefill and
+decode for every family of the configs (dense, MoE, RG-LRU/local hybrid,
+RWKV6, the Whisper encoder-decoder).
 
-Port of ``repro.models.model`` without ``train_loss`` (the training
-slice's) and ``abstract_params`` (the dry run's).  Entry points run on the
+Port of ``repro.models.model`` without ``abstract_params`` (the dry
+run's).  Entry points run on the
 card unless the caller names a device (:func:`init_model`'s ``device``);
 ``make_inputs`` draws from numpy's ``default_rng(seed)``, so the same
 inputs can be handed to the reference.
@@ -16,6 +16,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.index import resolve_device
 from repro_torch.models.transformer import apply_model, init_cache, init_params
+
+AUX_LOSS_COEF = 0.01
 
 
 def make_inputs(cfg: ArchConfig, batch: int, seq: int, *, seed: int = 0,
@@ -46,6 +48,23 @@ def forward_logits(params, cfg: ArchConfig, inputs: dict) -> torch.Tensor:
                                prefix_embeds=inputs.get("prefix_embeds"),
                                encoder_frames=inputs.get("encoder_frames"))
     return logits
+
+
+def train_loss(params, cfg: ArchConfig, inputs: dict) -> torch.Tensor:
+    """Next-token cross entropy (+ the MoE aux loss), float32.  Loss over
+    token positions only (vision prefix positions are context, not
+    targets)."""
+    logits, _, aux = apply_model(params, cfg, inputs["tokens"],
+                                 prefix_embeds=inputs.get("prefix_embeds"),
+                                 encoder_frames=inputs.get("encoder_frames"))
+    n_prefix = cfg.n_prefix_embeds if inputs.get("prefix_embeds") is not None else 0
+    logits = logits[:, n_prefix:, :]
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, inputs["labels"][..., None].long())[..., 0]
+    loss = nll.mean()
+    if cfg.is_moe:
+        loss = loss + AUX_LOSS_COEF * aux
+    return loss
 
 
 def prefill(params, cfg: ArchConfig, inputs: dict,

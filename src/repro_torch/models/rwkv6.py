@@ -139,7 +139,8 @@ def wkv_chunked(r, k, v, log_w, u, s0: Optional[torch.Tensor] = None):
     later = (ti[None, :] >= ti[:, None])[..., None]       # (t, s, 1): s >= t
     decay = A_ex[..., :, None, :] - A[..., None, :, :]    # (B, n, H, C, C, hd)
     decay.masked_fill_(later, -math.inf).exp_()           # masked before exp
-    att = decay.mul_(r[..., :, None, :]).mul_(k[..., None, :, :]).sum(-1)
+    # decay is not written again: autograd reads it in the backward
+    att = torch.einsum("bnhtsd,bnhtd,bnhsd->bnhts", decay, r, k)
     del decay
     o = att @ v + (r * u[:, None, :] * k).sum(-1, keepdim=True) * v
     A_last = A[..., -1:, :]                               # (B, n, H, 1, hd)

@@ -15,8 +15,15 @@ form and runs its own kinds.  Whisper's encoder (``params["encoder"]``:
 every decoder block then has a cross attention (``norm_x``, ``cross``)
 whose K/V prefill computes from the encoder's output and writes to the
 cache (``ck``, ``cv``), where decode reads them.  Every attention of an
-encoder-decoder runs without RoPE.  Remat is a training concern and is
-not ported.
+encoder-decoder runs without RoPE.
+
+Remat as the reference does it (``transformer.py:338-344``): with no
+cache, ``cfg.remat_layers`` set and grad enabled, each ``groups[i]`` runs
+under ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``;
+``remat_policy`` ``"nothing"`` saves nothing, ``"dots"`` saves the matmul
+outputs (:func:`_dots_policy`).  The ``rem`` group and Whisper's encoder
+are not rematerialised.  K12 then launches twice per attention layer of a
+training step (the forward and its recompute) and not in the backward.
 
 The same :func:`apply_model` serves the no-cache forward, prefill (cache
 and ``cache_pos = 0``) and decode (S = 1, ``cache_pos = t``).
@@ -25,12 +32,14 @@ RWKV6 state) is written in place.
 """
 from __future__ import annotations
 
+import functools
 import math
 import operator
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
@@ -246,6 +255,24 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device=None) -> dic
 # Forward
 # ---------------------------------------------------------------------------
 
+#: The ops whose outputs ``remat_policy="dots"`` saves (``dots_saveable``).
+_DOTS = frozenset(getattr(torch.ops.aten, name).default
+                  for name in ("mm", "bmm", "addmm", "baddbmm"))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_context(policy: str):
+    if policy == "nothing":
+        return ckpt.noop_context_fn
+    if policy == "dots":
+        return functools.partial(ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    raise ValueError(f"remat_policy {policy!r}: nothing | dots")
+
+
 def _sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
     """(..., d) float32: sin then cos of ``positions`` over d / 2
     frequencies 10000 ** (-i / (d / 2))."""
@@ -297,14 +324,7 @@ def apply_model(
         if encoder_frames is not None:  # else a decode step: cross K/V cached
             memory = _run_encoder(params, cfg, encoder_frames)
 
-    _, rem_pat = _split_groups(cfg)
-    groups = [(gp, effective_pattern(cfg)) for gp in params["groups"]]
-    if rem_pat:
-        groups.append((params["rem"], rem_pat))
-    caches = ([None] * len(groups) if cache is None
-              else cache["groups"] + ([cache["rem"]] if rem_pat else []))
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for (gp, kinds), gc in zip(groups, caches):
+    def run_group(gp, kinds, gc, x, aux):
         for i, kind in enumerate(kinds):
             name = f"b{i}"
             x, a = _apply_block(gp[name], cfg, kind, x, positions,
@@ -312,6 +332,23 @@ def apply_model(
                                 causal=True)
             if a is not None:
                 aux = aux + a
+        return x, aux
+
+    _, rem_pat = _split_groups(cfg)
+    pat = effective_pattern(cfg)
+    caches = [None] * len(params["groups"]) if cache is None else cache["groups"]
+    remat = cache is None and cfg.remat_layers and torch.is_grad_enabled()
+    context_fn = _remat_context(cfg.remat_policy) if remat else None
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for gp, gc in zip(params["groups"], caches):
+        if remat:
+            x, aux = ckpt.checkpoint(run_group, gp, pat, gc, x, aux, use_reentrant=False,
+                                     context_fn=context_fn)
+        else:
+            x, aux = run_group(gp, pat, gc, x, aux)
+    if rem_pat:
+        x, aux = run_group(params["rem"], rem_pat, None if cache is None else cache["rem"],
+                           x, aux)
 
     x = L.apply_norm(cfg.norm, params["final_norm"], x)
     head = params["head"] if "head" in params else None

@@ -14,6 +14,7 @@ ROOT = Path(__file__).resolve().parents[1]
     ("quickstart_torch.py", "143 ODYS sets = 43,472 nodes"),
     ("search_engine_demo_torch.py", "with set 1 failed on sets [0]"),
     ("serve_lm_torch.py", "served 8 requests OK"),
+    ("train_lm_torch.py", "done"),
 ])
 def test_example_runs_on_cpu(script, expect, tmp_path):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -35,6 +35,8 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     assert "repro_torch.models.moe" in mods
     assert "repro_torch.models.rglru" in mods
     assert "repro_torch.models.rwkv6" in mods
+    assert "repro_torch.training.checkpoint" in mods
+    assert "repro_torch.launch.train" in mods
     code = "\n".join([
         "import sys",
         *(f"sys.modules[{b!r}] = None" for b in BLOCKED),
