@@ -3,7 +3,7 @@
     python3 chip_smoke.py                                  # the full check
     python3 chip_smoke.py --n-docs 200000 --n-queries 128  # a short rehearsal
 
-Phases, run in the order 1, 2, 20, 3–19 (any failure exits non-zero;
+Phases, run in the order 1, 2, 21, 20, 3–19 (any failure exits non-zero;
 nothing is caught):
 
 1. device  — the card's name, power limit and count;
@@ -341,6 +341,24 @@ nothing is caught):
              ``[train] resumed from step 120``, the restored state's sha256
              equal to the saved state's, K12 = 480 then 0; "served 8
              requests OK".
+21. contracts — the kernels' launch contracts (``repro_torch.kernels.
+             registry``); it runs right after phase 2.  (a) ``python -m
+             repro_torch.analysis`` ``check``, ``lint`` and ``selftest``
+             in-process: no finding, every negative fixture rejected by its
+             own check.  (b) Each of the 21 entries launched at each
+             canonical instance under the profiler (the window opened by 64
+             spins): every kernel event's grid and block equal the
+             contract's, its shared memory less ptxas' static bytes equal
+             the contract's dynamic bytes; the outputs equal the plain
+             versions (bit for bit; K12 within 2e-5, 2e-2 and a
+             row-relative 0.05).  (c) The same launches in a subprocess
+             under ``compute-sanitizer --tool memcheck`` with
+             ``PYTORCH_NO_CUDA_MEMORY_CACHING=1`` (every tensor its own
+             allocation): 0 errors; where compute-sanitizer is missing or
+             cannot run its target, (c) is reported as not run.  (d)
+             ``[contracts] <entry> grid=... block=... smem=... bound_ms=...
+             ms=... memcheck=...`` for each entry: ``roofline.kernel_bound``
+             at its first instance beside CUDA-event time.
 
 Every phase prints its seconds.
 
@@ -359,6 +377,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -369,11 +388,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
-INT32_OPS_PER_S = 67e12        # 32-bit CUDA-core peak (the fp32 figure)
-FP32_FLOPS_PER_S = 67e12       # float32 outside the tensor cores
-TF32_FLOPS_PER_S = 495e12      # TF32 tensor cores, dense (split TF32: 3 products)
-BF16_FLOPS_PER_S = 989e12      # bf16 tensor cores, dense
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+# the counting helpers of the kernels' work, the H100's rates and the
+# kernels' bounds (the launch contracts' work)
+from repro_torch.kernels.work import (  # noqa: E402
+    probe_block_cost, probed_postings, probed_ranges, span_block_cost, window_keys)
+from repro_torch.roofline.analysis import (  # noqa: E402
+    BF16_FLOPS_PER_S, FP32_FLOPS_PER_S, HBM_BYTES_PER_S, TF32_FLOPS_PER_S, bound_ms,
+    kernel_bound, lm_param_count)
+
 MAIN_WINDOW, MAIN_Q, MAIN_T, NS = 4096, 32, 4, 4
 TERM_CAPACITY, DOC_HEADROOM = 256, 4096
 FILLS = (0.0, 0.5, 1.0)
@@ -542,115 +565,6 @@ def launched_forms(fn, key: str) -> set:
         raise AssertionError(f"{key}: no launch of {kernel_names(key)} among the "
                              f"device events {sorted(launched)}")
     return names
-
-
-def union_length(lo: np.ndarray, hi: np.ndarray) -> int:
-    """Total length of the union of the intervals [lo, hi) (non-empty ones)."""
-    keep = hi > lo
-    lo, hi = lo[keep], hi[keep]
-    order = np.argsort(lo, kind="stable")
-    total, cur_lo, cur_hi = 0, None, None
-    for a, b in zip(lo[order].tolist(), hi[order].tolist()):
-        if cur_hi is None or a > cur_hi:
-            if cur_hi is not None:
-                total += cur_hi - cur_lo
-            cur_lo, cur_hi = a, b
-        else:
-            cur_hi = max(cur_hi, b)
-    if cur_hi is not None:
-        total += cur_hi - cur_lo
-    return total
-
-
-def probed_postings(b_tile, n_b, bounds, tile) -> int:
-    """Postings a probe plan reads: per (query, term) the union of its
-    planned ranges [max(b_tile*TILE, lo), min((b_tile+n_b)*TILE, hi))."""
-    lo = bounds[..., 0].long().cpu().numpy()
-    hi = bounds[..., 1].long().cpu().numpy()
-    bt = b_tile.long().cpu().numpy() * tile
-    nb = n_b.long().cpu().numpy()
-    rlo = np.maximum(bt, lo[..., None])
-    rhi = np.where(nb > 0, np.minimum(bt + nb * tile, hi[..., None]), rlo)
-    return sum(union_length(rlo[q, t], rhi[q, t])
-               for q in range(rlo.shape[0]) for t in range(rlo.shape[1]))
-
-
-def bound_ms(n_bytes: int, n_ops: int) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / INT32_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
-
-
-def range_blocks(lo: np.ndarray, hi: np.ndarray, block: int) -> np.ndarray:
-    """The distinct blocks that hold the positions of the ranges [lo, hi)."""
-    keep = hi > lo
-    firsts, lasts = lo[keep] // block, (hi[keep] - 1) // block
-    if firsts.size == 0:
-        return np.zeros(0, np.int64)
-    return np.unique(np.concatenate([np.arange(a, b + 1)
-                                     for a, b in zip(firsts.tolist(), lasts.tolist())]))
-
-
-def probed_ranges(b_tile, n_b, bounds, tile):
-    """The planned probe ranges [rlo, rhi) of a plan, each [Q, T, A]."""
-    lo = bounds[..., 0].long().cpu().numpy()
-    hi = bounds[..., 1].long().cpu().numpy()
-    bt = b_tile.long().cpu().numpy() * tile
-    nb = n_b.long().cpu().numpy()
-    rlo = np.maximum(bt, lo[..., None])
-    rhi = np.where(nb > 0, np.minimum(bt + nb * tile, hi[..., None]), rlo)
-    return rlo, rhi
-
-
-def packed_block_cost(blocks: np.ndarray, meta_host: np.ndarray) -> tuple[int, int]:
-    """``(bytes, blocks)`` a packed kernel must read to decode ``blocks``:
-    each block's packed words (4 * width words of 4 bytes) and its 12
-    descriptor bytes.  ``meta_host`` is the twin's ``blk_meta`` up to
-    ``n_blocks``."""
-    blocks = blocks[blocks < meta_host.shape[0]]
-    widths = meta_host[blocks] & 63
-    return int((widths.astype(np.int64) * 16).sum()) + 12 * int(blocks.size), int(blocks.size)
-
-
-def probe_block_cost(b_tile, n_b, bounds, tile, meta_host) -> tuple[int, int]:
-    """``packed_block_cost`` of a probe plan: per (query, term) the blocks
-    of the union of its planned ranges (the convention of
-    ``probed_postings``), summed."""
-    rlo, rhi = probed_ranges(b_tile, n_b, bounds, tile)
-    costs = [packed_block_cost(range_blocks(rlo[q, t], rhi[q, t], 128), meta_host)
-             for q in range(rlo.shape[0]) for t in range(rlo.shape[1])]
-    return sum(c[0] for c in costs), sum(c[1] for c in costs)
-
-
-def span_block_cost(start, length, meta_host) -> tuple[int, int]:
-    """``packed_block_cost`` of each row's span [start, start + length),
-    summed over rows (int tensors of one shape)."""
-    lo = start.long().cpu().numpy().reshape(-1)
-    hi = lo + length.long().cpu().numpy().reshape(-1)
-    costs = [packed_block_cost(range_blocks(lo[i:i + 1], hi[i:i + 1], 128), meta_host)
-             for i in range(lo.shape[0])]
-    return sum(c[0] for c in costs), sum(c[1] for c in costs)
-
-
-def table_probe_cost(desc_h, n_items, bounds_h, col, tile, meta_host=None):
-    """What a work list's probe tiles in column ``col`` (3 main, 5 delta)
-    read: per (query, term) the union of its rows' tiles clipped to the
-    term's bounds, as postings, or with the twin's ``meta_host`` as the
-    ``packed_block_cost`` of the blocks that hold them."""
-    it = desc_h[:n_items].astype(np.int64)
-    it = it[it[:, col] >= 0]
-    b = bounds_h[it[:, 0], it[:, 2]].astype(np.int64)
-    lo = np.maximum(it[:, col] * tile, b[:, 0])
-    hi = np.minimum((it[:, col] + 1) * tile, b[:, 1])
-    keys = it[:, 0] * 64 + it[:, 2]
-    postings, n_bytes, n_blocks = 0, 0, 0
-    for key in np.unique(keys):
-        m = keys == key
-        if meta_host is None:
-            postings += union_length(lo[m], hi[m])
-        else:
-            c = packed_block_cost(range_blocks(lo[m], hi[m], 128), meta_host)
-            n_bytes, n_blocks = n_bytes + c[0], n_blocks + c[1]
-    return postings if meta_host is None else (n_bytes, n_blocks)
 
 
 # the first design's staging (a synchronous probe, no longer in the tree:
@@ -858,38 +772,6 @@ def chain_after(rlo, rhi, docs, keep, *, caps, fences=None, widths=None,
             passes_max = max(passes_max, passes)
             rounds_max = max(rounds_max, rounds)
     return blocks, total, busiest, rounds_max, passes_max
-
-
-def lm_param_count(cfg) -> int:
-    """A model's parameter count from its config's shapes alone: norms (a
-    scale, and a bias for a layernorm), attention or RG-LRU mixers with an
-    MLP or an MoE FFN (its float32 router) by block kind, RWKV6's time and
-    channel mix, an encoder-decoder's cross attention and its norm in every
-    decoder layer and its encoder layers and final norm, the embedding, the
-    head unless tied, the final norm."""
-    d, R = cfg.d_model, cfg.lru_dim or cfg.d_model
-    norm = (2 if cfg.norm == "layernorm" else 1) * d
-    mlp = (3 if cfg.mlp in ("swiglu", "geglu") else 2) * d * cfg.d_ff
-    ffn = cfg.n_experts * mlp + d * cfg.n_experts if cfg.is_moe else mlp
-    attn = 2 * d * cfg.n_heads * cfg.hd + 2 * d * cfg.n_kv_heads * cfg.hd
-    # RWKV6: mu (5 rows), w0, u, ln_scale, r k v g o, the rank-64 LoRA; the
-    # channel mix's mu (2 rows), wk, wv, wr
-    rwkv = 8 * d + 5 * d * d + 2 * 64 * d + 2 * d + 2 * d * cfg.d_ff + d * d
-    mixer = {"attn": attn + ffn, "local": attn + ffn,
-             "rglru": 3 * d * R + (cfg.conv_width + 6) * R + ffn, "rwkv": rwkv}
-    pat = ("rwkv",) if cfg.kind == "rwkv" else cfg.block_pattern
-    cross = attn + norm if cfg.kind == "encdec" else 0
-    layers = sum(mixer[pat[i % len(pat)]] + 2 * norm + cross for i in range(cfg.n_layers))
-    encoder = cfg.encoder_layers * (attn + ffn + 2 * norm) + (norm if cfg.encoder_layers
-                                                              else 0)
-    return layers + encoder + cfg.vocab * d * (1 if cfg.tie_embeddings else 2) + norm
-
-
-def window_keys(S: int, W: int) -> int:
-    """Keys a causal row sees under window W, summed over S rows:
-    sum of min(i + 1, W)."""
-    full = min(S, W)
-    return full * (full + 1) // 2 + (S - full) * W
 
 
 def k12_per_prefill(cfg) -> int:
@@ -1179,10 +1061,8 @@ def lm_moe_hybrid(args, dev, smi: str, wrappers: dict) -> list:
         ms = cuda_ms(run, reps=20, warmup=3)
         plain_ms = cuda_ms(plain, reps=3, warmup=1)
         lib_ms = cuda_ms(sdpa, reps=10, warmup=2)
-        n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        flops = 4 * B_ * H_ * hd_ * keys
-        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
-        bound, by = max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+        bound, by, work = kernel_bound(fa.k12_entry(q), q, k, v, window=rg_w)
+        n_bytes, flops = work.bytes, work.ops
         win_rows[dtype] = (ms, plain_ms, bound, by, lib_ms)
         log(f"[times] K12 window {rg_w} {rg_shape} causal {str(dtype)[6:]}: {ms:.4f} "
             f"ms/launch (CUDA events); plain {plain_ms:.4f} ms; SDPA (boolean window "
@@ -1350,12 +1230,9 @@ def lm_rwkv_whisper(args, dev, smi: str, wrappers: dict) -> list:
         ms = cuda_ms(run_k12, reps=20, warmup=3)
         plain_ms = cuda_ms(plain, reps=3, warmup=1)
         lib_ms = cuda_ms(sdpa, reps=20, warmup=3)
-        keys = S * (S + 1) // 2 if causal else S * Tk
-        flops = 4 * B * H * hd * keys
         peak = BF16_FLOPS_PER_S if q.dtype == bf16 else TF32_FLOPS_PER_S / 3
-        n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
-        bound, by = max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+        bound, by, work = kernel_bound(fa.k12_entry(q), q, k, v, causal=causal)
+        n_bytes, flops = work.bytes, work.ops
         log(f"[times] K12 {label} {(B, S, Tk, H, KV, hd)} "
             f"{'causal' if causal else 'non-causal'} {str(q.dtype)[6:]}: {ms:.4f} ms/launch "
             f"(CUDA events); plain {plain_ms:.4f} ms; SDPA (enable_gqa) {lib_ms:.4f} ms; "
@@ -1709,9 +1586,7 @@ def lm_train(args, dev, smi: str, wrappers: dict) -> list:
             flops = 12 * B * H * hd * keys
             peak = BF16_FLOPS_PER_S if dtype == bf16 else TF32_FLOPS_PER_S / 3
             n_bytes = (4 * q.numel() + 2 * (k.numel() + v.numel())) * q.element_size()
-            t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
-            bound = max(t_bytes, t_ops) * 1e3
-            by = "bytes" if t_bytes >= t_ops else "operations"
+            bound, by = bound_ms(n_bytes, flops, "bf16" if dtype == bf16 else "tf32x3")
             rows[(label, dtype)] = (ms, plain_ms, bound, by, lib_ms, plain_err)
             log(f"[train] K12 under a gradient, {label} {(B, S, T, H, KV, hd)} "
                 f"{'causal' if causal else 'non-causal'}"
@@ -1925,6 +1800,188 @@ def lm_train(args, dev, smi: str, wrappers: dict) -> list:
              "library_ms": lib_ms}]
 
 
+def static_smem(ptxas: dict, event: str) -> int | None:
+    """Static shared memory (ptxas' ``bytes smem``) of the kernel an event
+    names (``void flat_sort_tile<int>(...)``); 0 where ptxas lists none;
+    None where the kernel's instantiations disagree and none matches."""
+    name = event.split("(")[0].replace("void ", "").strip()
+    base = name.split("<")[0]
+    found = {fn: int(m.group(1)) if (m := re.search(r"(\d+) bytes smem", info)) else 0
+             for fn, info in ptxas.items() if fn.split("<")[0] == base}
+    if name in found:
+        return found[name]
+    values = set(found.values())
+    return values.pop() if len(values) == 1 else (0 if not found else None)
+
+
+def kernel_events(fn, names) -> tuple[list, list]:
+    """The kernel events of one call of ``fn()`` whose base name is in
+    ``names``, in launch order, from the profiler's trace: ``[(name, grid,
+    block, args)]``, and every event's argument keys.  A window opens with
+    64 short spins (left out) against lost early events; a window that
+    holds no event of ``names`` is taken again, up to four."""
+    events, keys = [], set()
+    for _ in range(4):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(64):
+                torch.cuda._sleep(1000)
+            fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "trace.json"
+            prof.export_chrome_trace(str(path))
+            trace = json.loads(path.read_text())
+        raw = trace.get("traceEvents", []) if isinstance(trace, dict) else trace
+        kernels = sorted((e for e in raw if e.get("cat") == "kernel"),
+                         key=lambda e: e.get("ts", 0))
+        events = []
+        for e in kernels:
+            a = e.get("args", {})
+            keys |= set(a)
+            base = e.get("name", "").split("(")[0].replace("void ", "").split("<")[0]
+            if base.strip() in names:
+                events.append((e["name"], tuple(a.get("grid", ())),
+                               tuple(a.get("block", ())), a))
+        if events:
+            break
+    return events, sorted(keys)
+
+
+MEMCHECK_TIMEOUT = 420         # seconds for phase 21's sanitized subprocess
+
+
+def memcheck_run(root: Path) -> dict:
+    """``python -m repro_torch.analysis launch`` under ``compute-sanitizer
+    --tool memcheck`` with the caching allocator off, read by
+    ``analysis.launch.memcheck_verdict``: ``{"status": "clean" | "faults" |
+    "not run" | "absent", "errors": N, "by_kernel": {name: N}, "seconds",
+    "detail"}``.  "not run": the sanitizer refused the device in its own
+    words before its target launched anything (``detail`` is its line)."""
+    from repro_torch.analysis.launch import memcheck_verdict
+    from repro_torch.kernels import _build
+
+    cands = [shutil.which("compute-sanitizer")]
+    try:
+        cuda_bin = Path(_build.nvcc_path()).resolve().parent
+        cands += [cuda_bin / "compute-sanitizer",
+                  cuda_bin.parent / "compute-sanitizer" / "compute-sanitizer"]
+    except RuntimeError:
+        pass
+    tool = next((str(c) for c in cands if c and Path(c).is_file()), None)
+    if tool is None:
+        return {"status": "absent", "errors": None, "by_kernel": {}, "seconds": 0.0,
+                "detail": f"no compute-sanitizer on PATH or beside nvcc ({cands[1:]})"}
+    env = dict(os.environ, PYTORCH_NO_CUDA_MEMORY_CACHING="1",
+               PYTHONPATH=str(root / "src") + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [tool, "--tool", "memcheck", "--print-limit", "1000", sys.executable, "-m",
+         "repro_torch.analysis", "launch"],
+        capture_output=True, text=True, env=env, timeout=MEMCHECK_TIMEOUT, cwd=root)
+    seconds = time.perf_counter() - t0
+    text = proc.stdout + proc.stderr
+    (root / "build").mkdir(exist_ok=True)
+    (root / "build" / "memcheck.log").write_text(text)
+    v = memcheck_verdict(text, proc.returncode)
+    return {"status": v.status, "errors": v.errors, "by_kernel": v.by_kernel,
+            "seconds": seconds, "detail": f"{Path(tool).name}: {v.detail}",
+            "tail": text[-4000:]}
+
+
+def contracts_phase(smi: str, built: dict) -> dict:
+    """Phase 21: the launch contracts on the card.  Returns ``{entry:
+    contract record}`` for the kernels record."""
+    from repro_torch.analysis.contracts import check_all, check_contract
+    from repro_torch.analysis.fixtures import broken_contracts, broken_lint_sources
+    from repro_torch.analysis.launch import compare, to_device
+    from repro_torch.analysis.lint import default_root, lint_source, lint_tree
+
+    # (a) the checker, the lints and the selftest, in-process
+    t0 = time.perf_counter()
+    contracts, findings = check_all()
+    lint = lint_tree(default_root())
+    missed = [c.name for c, want in broken_contracts()
+              if want not in {f.check for f in check_contract(c)}]
+    missed += [name for name, rel, src, want in broken_lint_sources()
+               if want not in {f.rule for f in lint_source(src, rel)}]
+    log(f"[contracts] check: {len(contracts)} launch contracts, {len(findings)} "
+        f"findings; lint: {len(lint)} findings; selftest: {len(broken_contracts())} "
+        f"contract and {len(broken_lint_sources())} lint fixtures, {len(missed)} missed; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if findings or lint or missed:
+        raise AssertionError("contracts: " + "; ".join(
+            [str(f) for f in findings] + [str(f) for f in lint] + missed))
+
+    # (b) every instance on the card: the profiler's geometry, the outputs
+    ptxas = {}
+    for b in built.values():
+        ptxas.update(ptxas_info(b.log))
+    records, bad, shown = {}, [], False
+    for c in contracts:
+        rows = []
+        for inst in c.instances:
+            args = to_device(inst.args, "cuda")
+
+            def run(c=c, args=args, inst=inst):
+                return c.wrapper(*args, **inst.kwargs)
+
+            got = run()
+            torch.cuda.synchronize()
+            ok, err = compare(got, c.plain(*inst.args, **inst.kwargs))
+            events, keys = kernel_events(run, set(c.kernels))
+            if not shown:
+                log(f"[contracts] the profiler's kernel event fields: {keys}")
+                shown = True
+            want = [(l.kernel, l.grid, (l.threads, 1, 1), l.smem) for l in inst.launches]
+            seen = []
+            for name, grid, block, a in events:
+                shared = a.get("shared memory")
+                static = static_smem(ptxas, name)
+                dyn = (a["dynamic shared memory"] if "dynamic shared memory" in a else
+                       None if shared is None or static is None else shared - static)
+                seen.append((name.split("(")[0].replace("void ", "").split("<")[0].strip(),
+                             grid, block, dyn))
+            match = seen == want
+            rows.append({"instance": inst.label, "launches": [list(map(
+                lambda x: list(x) if isinstance(x, tuple) else x, w)) for w in want],
+                "profiler_match": match, "outputs_equal": ok, "max_abs_err": err})
+            if not (match and ok):
+                bad.append(f"{c.name} [{inst.label}]: contract {want}, profiler {seen}, "
+                           f"outputs equal {ok} (max abs err {err})")
+        records[c.name] = {"kid": c.kid, "site": c.site, "instances": rows}
+    log(f"[contracts] {sum(len(c.instances) for c in contracts)} instances, "
+        f"{sum(len(i.launches) for c in contracts for i in c.instances)} launches: "
+        f"{len(bad)} mismatches of geometry or output")
+    if bad:
+        raise AssertionError("contracts: " + "\n".join(bad))
+
+    # (c) the same launches under compute-sanitizer's memcheck
+    mc = memcheck_run(Path(__file__).resolve().parent)
+    log(f"[contracts] memcheck: {mc['status']} ({mc['detail']}; {mc['seconds']:.1f} s)"
+        + (f"; errors by kernel {mc['by_kernel']}" if mc["by_kernel"] else ""))
+    if mc["status"] == "faults":
+        raise AssertionError(f"contracts: memcheck ({mc['detail']}), by kernel "
+                             f"{mc['by_kernel']}:\n{mc['tail']}")
+
+    # (d) each entry's bound beside its time, at its first instance
+    for c in contracts:
+        inst = c.instances[0]
+        args = to_device(inst.args, "cuda")
+        ms = cuda_ms(lambda c=c, args=args, inst=inst: c.wrapper(*args, **inst.kwargs),
+                     reps=20, warmup=3)
+        bound, by, _ = kernel_bound(c.name, *args, **inst.kwargs)
+        n_err = (None if mc["status"] != "clean" else
+                 sum(n for k, n in mc["by_kernel"].items() if k in c.kernels))
+        geo = "; ".join(f"{l.kernel} grid={l.grid} block={l.threads} smem={l.smem}"
+                        for l in inst.launches)
+        log(f"[contracts] {c.name} ({c.kid}, {inst.label}): {geo} bound_ms={bound:.6f} "
+            f"({by}) ms={ms:.4f} memcheck={'not run' if n_err is None else n_err} on {smi}")
+        records[c.name].update(bound_ms=bound, bound_by=by, ms=ms, memcheck=n_err)
+    return records
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-docs", type=int, default=4_000_000)
@@ -2031,6 +2088,10 @@ def main() -> int:
     if spills:
         raise AssertionError(f"kernels spill registers: {spills}")
     phase_end("2 build")
+
+    # ------------------------------------------------------------ 21. contracts
+    contract_records = contracts_phase(smi, built)
+    phase_end("21 contracts")
 
     # ------------------------------------------------------------ 20. lm-train
     # before phase 3 takes the card: training phi4-mini needs about 62 GB
@@ -2281,14 +2342,9 @@ def main() -> int:
                        reps=10, warmup=2)
     probe = probed_postings(b_tile, n_b, bounds, TILE)
     drv = int(d_neff.sum())
-    small_in = sum(x.numel() * 4 for x in (d_off, d_neff, active, k1_args[3],
-                                          b_tile, n_b, bounds))
-    k1_bytes = small_in + drv * 8 + probe * 4 + 2 * MAIN_Q * MAIN_WINDOW * 4
-    # one compare per binary-search step, per live driver posting and
-    # active other term
-    k1_ops = int((d_neff.long() * active.long().sum(1)).sum()) * math.ceil(
-        math.log2(MAIN_WINDOW + TILE))
-    k1_bound, k1_by = bound_ms(k1_bytes, k1_ops)
+    k1_bound, k1_by, k1_work = kernel_bound("driver_streamed", *k1_args,
+                                            window=MAIN_WINDOW)
+    k1_bytes = k1_work.bytes
     log(f"[times] K1 window {MAIN_WINDOW}, Q={MAIN_Q}, T={MAIN_T}, shard 0: "
         f"{k1_ms:.4f} ms/launch, {NS} launches/batch; plain {k1_plain:.4f} ms; "
         f"bound {k1_bound:.5f} ms ({k1_bytes} bytes: driver {drv} postings, "
@@ -2320,11 +2376,7 @@ def main() -> int:
         lib = cuda_ms(lambda p=padded: torch.sort(p, dim=-1))
         topk = cuda_ms(lambda x=x, k=k: torch.topk(x, k, dim=-1, largest=False,
                                                    sorted=True))
-        k2_bytes = x.numel() * 4 + x.shape[0] * k * 4
-        # the function, not the network: a selection of k of m keys takes
-        # about m * ceil(log2 k) compares a row
-        k2_ops = x.numel() * math.ceil(math.log2(k))
-        bound, by = bound_ms(k2_bytes, k2_ops)
+        bound, by, _ = kernel_bound("topk_merge_rows", x, k)
         k2_rows[(merge, k)] = (ms, plain, lib, bound, by)
         log(f"[times] K2 {merge} k={k} {tuple(x.shape)}: {ms:.4f} ms (device "
             f"{device_ms(lambda x=x, k=k: tm.merge_topk_rows_cuda(x, k), kernel='K2'):.5f} ms, "
@@ -2744,10 +2796,9 @@ def main() -> int:
     # docID and attr of each posting that reaches the output (the first
     # `window` of the merge), five int32 per query, three outputs
     k3_read = int((na + nb).clamp(max=MAIN_WINDOW).sum())
-    k3_bytes = k3_read * 8 + 5 * MAIN_Q * 4 + 3 * MAIN_Q * MAIN_WINDOW * 4
-    k3_ops = int(sum(min(a + b, MAIN_WINDOW) * (math.ceil(math.log2(min(a, b) + 1)) + 1)
-                     for a, b in zip(na.tolist(), nb.tolist())))
-    k3_bound, k3_by = bound_ms(k3_bytes, k3_ops)
+    k3_bound, k3_by, k3_work = kernel_bound("delta_merge", *k3m, window=MAIN_WINDOW,
+                                            cap=cap)
+    k3_bytes = k3_work.bytes
     log(f"[times] K3 window {MAIN_WINDOW}, Q={MAIN_Q}, cap {cap}, shard 0, fill "
         f"{writer.posting_fill():.3f}: {k3_ms:.4f} ms/launch, {NS} launches/batch; "
         f"plain {k3_plain:.4f} ms; torch.sort(stable) of the (Q, window+cap) keys "
@@ -2779,16 +2830,8 @@ def main() -> int:
     # attrs of valid slots of filtered queries; the probed postings; and it
     # writes the mask.
     valid = (a_docs != INVALID_DOC).long().sum(1)
-    joins = a_active.long().sum(1) > 0
-    k4_slots = (MAIN_Q * MAIN_WINDOW + int(valid.sum())
-                + int(live_slots[joins].sum()) + int(valid[a_filter >= 0].sum()))
-    k4_small = sum(x.numel() * 4 for x in (a_active, mb_tile, mn_b, mbounds, db_tile,
-                                          dn_b, dbounds)) + MAIN_Q * 4
-    k4_bytes = (k4_small + (k4_slots + MAIN_Q * MAIN_WINDOW) * 4
-                + (probe_m + probe_d) * 4)
-    k4_ops = int((live_slots * a_active.long().sum(1)).sum()) * (
-        math.ceil(math.log2(MAIN_WINDOW + TILE)) + math.ceil(math.log2(cap + TILE)))
-    k4_bound, k4_by = bound_ms(k4_bytes, k4_ops)
+    k4_bound, k4_by, k4_work = kernel_bound("streamed_join", *k4m, cap=cap)
+    k4_bytes = k4_work.bytes
     log(f"[times] K4 window {MAIN_WINDOW}, Q={MAIN_Q}, T={MAIN_T}, cap {cap}, "
         f"shard 0: {k4_ms:.4f} ms/launch, {NS} launches/batch; plain "
         f"{k4_plain:.4f} ms; bound {k4_bound:.6f} ms ({k4_by}; {k4_bytes} bytes: "
@@ -3093,14 +3136,9 @@ def main() -> int:
     drv_b, drv_blk = span_block_cost(d_off, d_neff, meta_host[0])
     prb_b, prb_blk = probe_block_cost(b_tile, n_b, bounds, TILE, meta_host[0])
     drv = int(d_neff.sum())
-    small_in = sum(x.numel() * 4 for x in (d_off, d_neff, active, k1p_args[3],
-                                          b_tile, n_b, bounds))
-    k1p_bytes = small_in + drv_b + prb_b + drv * 4 + 2 * MAIN_Q * MAIN_WINDOW * 4
-    # K1's binary-search compares plus four operations (shift, mask, add,
-    # scan step) per decoded posting
-    k1p_ops = int((d_neff.long() * active.long().sum(1)).sum()) * math.ceil(
-        math.log2(MAIN_WINDOW + TILE)) + 4 * BLOCK * (drv_blk + prb_blk)
-    k1p_bound, k1p_by = bound_ms(k1p_bytes, k1p_ops)
+    k1p_bound, k1p_by, k1p_work = kernel_bound("driver_streamed_packed", *k1p_args,
+                                               window=MAIN_WINDOW)
+    k1p_bytes = k1p_work.bytes
     log(f"[times] K1p window {MAIN_WINDOW}, Q={MAIN_Q}, T={MAIN_T}, shard 0: "
         f"{k1p_ms:.4f} ms/launch (device {k1p_dev:.5f} ms), {NS} launches/batch; plain "
         f"{k1p_plain:.4f} ms (device {k1p_plain_dev:.5f} ms); bound {k1p_bound:.6f} ms "
@@ -3131,12 +3169,9 @@ def main() -> int:
     m_b, m_blk = span_block_cost(k3m[2], na, meta_host[0])
     dd_b, dd_blk = span_block_cost(start, d_len, d_meta_host)
     k3p_read = int((na + d_len).clamp(max=MAIN_WINDOW).sum())
-    k3p_bytes = (m_b + dd_b + k3p_read * 4 + 5 * MAIN_Q * 4
-                 + 3 * MAIN_Q * MAIN_WINDOW * 4)
-    k3p_ops = int(sum(min(a + b, MAIN_WINDOW) * (math.ceil(math.log2(min(a, b) + 1)) + 1)
-                      for a, b in zip(na.tolist(), d_len.tolist()))) + 4 * BLOCK * (
-        m_blk + dd_blk)
-    k3p_bound, k3p_by = bound_ms(k3p_bytes, k3p_ops)
+    k3p_bound, k3p_by, k3p_work = kernel_bound(
+        "delta_merge_packed", *pk3, window=MAIN_WINDOW, cap=cap)
+    k3p_bytes = k3p_work.bytes
     log(f"[times] K3p window {MAIN_WINDOW}, Q={MAIN_Q}, cap {cap}, shard 0, fill "
         f"{p_writer.posting_fill():.3f}: {k3p_ms:.4f} ms/launch (device {k3p_dev:.5f} "
         f"ms), {NS} launches/batch; plain {k3p_plain:.4f} ms (device "
@@ -3163,18 +3198,8 @@ def main() -> int:
     k4p_dev, k4p_plain_dev = device_ms(k4p_run, kernel="K4p"), device_ms(k4p_plain_run)
     pm_b, pm_blk = probe_block_cost(mb_tile, mn_b, mbounds, TILE, meta_host[0])
     pdd_b, pdd_blk = probe_block_cost(db_tile, dn_b, dbounds, TILE, d_meta_host)
-    live_slots = (a_live != 0).long().sum(1)
-    valid = (a_docs != INVALID_DOC).long().sum(1)
-    joins = a_active.long().sum(1) > 0
-    k4p_slots = (MAIN_Q * MAIN_WINDOW + int(valid.sum())
-                 + int(live_slots[joins].sum()) + int(valid[a_filter >= 0].sum()))
-    k4p_small = sum(x.numel() * 4 for x in (a_active, mb_tile, mn_b, mbounds, db_tile,
-                                           dn_b, dbounds)) + MAIN_Q * 4
-    k4p_bytes = k4p_small + (k4p_slots + MAIN_Q * MAIN_WINDOW) * 4 + pm_b + pdd_b
-    k4p_ops = int((live_slots * a_active.long().sum(1)).sum()) * (
-        math.ceil(math.log2(MAIN_WINDOW + TILE)) + math.ceil(math.log2(cap + TILE))
-    ) + 4 * BLOCK * (pm_blk + pdd_blk)
-    k4p_bound, k4p_by = bound_ms(k4p_bytes, k4p_ops)
+    k4p_bound, k4p_by, k4p_work = kernel_bound("streamed_join_packed", *pk4, cap=cap)
+    k4p_bytes = k4p_work.bytes
     log(f"[times] K4p window {MAIN_WINDOW}, Q={MAIN_Q}, T={MAIN_T}, cap {cap}, shard 0: "
         f"{k4p_ms:.4f} ms/launch (device {k4p_dev:.5f} ms), {NS} launches/batch; plain "
         f"{k4p_plain:.4f} ms (device {k4p_plain_dev:.5f} ms); bound {k4p_bound:.6f} ms "
@@ -3667,20 +3692,16 @@ def main() -> int:
         + f"; the K6 numpy build alone {t_build * 1e3:.3f} ms; tables of {wl6.n_items} "
         f"/ {wl8.n_items} / {wl7.n_items} rows (K6 / K8 / K7) on {smi}")
 
-    def groups_of(wl):
-        heads = wl.group_heads()
-        first = wl.desc[heads[:-1]]
-        return first[:, 0].astype(np.int64), first[:, 1].astype(np.int64), heads
-
-    def table_small(wl, n_groups):
-        return 32 * wl.n_items + 4 * (n_groups + 1)
-
     compact_rows = {}
 
-    def time_compact(kname, cuda_run, plain_run, n_bytes, n_ops, extra, lib=None):
+    def time_compact(kname, cuda_run, plain_run, contract, extra, lib=None):
+        """Times of one compact kernel; ``contract`` is ``(entry, args,
+        kwargs)`` of its launch, whose work bounds it."""
         ms, plain = cuda_ms(cuda_run), cuda_ms(plain_run, reps=10, warmup=2)
         dev_ms, plain_dev = device_ms(cuda_run, kernel=kname), device_ms(plain_run)
-        bound, by = bound_ms(n_bytes, n_ops)
+        entry, c_args, c_kw = contract
+        bound, by, work = kernel_bound(entry, *c_args, **c_kw)
+        n_bytes = work.bytes
         lib_ms = None if lib is None else cuda_ms(lib)
         compact_rows[kname] = (ms, plain, bound, by, lib_ms)
         log(f"[times] {kname} window {MAIN_WINDOW}, Q={MAIN_Q}, shard 0: {ms:.4f} "
@@ -3689,46 +3710,23 @@ def main() -> int:
                                      f"; torch.sort(stable) {lib_ms:.4f} ms")
             + f"; bound {bound:.6f} ms ({by}; {n_bytes} bytes: {extra}) on {smi}")
 
-    # K6 / K6p
-    q6, i6, heads6_h = groups_of(wl6)
-    neff_h = ka[1].long().cpu().numpy()
-    off_h = ka[0].long().cpu().numpy()
-    live6 = np.clip(neff_h[q6] - i6 * TILE, 0, TILE)
-    bounds6_h = bounds6.long().cpu().numpy()
-    probe6 = table_probe_cost(wl6.desc, wl6.n_items, bounds6_h, 3, TILE)
-    small6 = table_small(wl6, len(q6)) + 12 * MAIN_Q + 8 * MAIN_Q * MAIN_T
-    out6 = 2 * MAIN_Q * MAIN_WINDOW * 4
-    rows6 = wl6.desc[:wl6.n_items]
-    row_group6 = np.cumsum(rows6[:, 4] & 1) - 1
-    ops6 = int(live6[row_group6[rows6[:, 3] >= 0]].sum()) * int(math.log2(TILE))
+    # K6 / K6p; the bounds are the launch contracts' work on these arguments
+    n_groups6 = wl6.group_heads().size - 1
     args6 = (desc6, heads6, ka[0], ka[1], ka[3], t_idx.postings, ka[5], bounds6)
     args6p = args6[:5] + (t_idx.packed,) + args6[6:]
     time_compact("K6", lambda: pi.driver_compact_join_cuda(*args6, window=MAIN_WINDOW),
                  lambda: pi.driver_compact_join_torch(*args6, window=MAIN_WINDOW),
-                 small6 + int(live6.sum()) * 8 + probe6 * 4 + out6, ops6,
-                 f"{len(q6)} groups, {int(live6.sum())} driver postings, probed "
-                 f"{probe6} postings, {wl6.n_items} descriptor rows")
-    d6_b, d6_blk = span_block_cost(torch.from_numpy(off_h[q6] + i6 * TILE),
-                                   torch.from_numpy(live6), meta_host[0])
-    p6_b, p6_blk = table_probe_cost(wl6.desc, wl6.n_items, bounds6_h, 3, TILE,
-                                    meta_host[0])
+                 ("driver_compact", args6, {"window": MAIN_WINDOW}),
+                 f"{n_groups6} groups, {wl6.n_items} descriptor rows")
     time_compact("K6p", lambda: pi.driver_compact_join_packed_cuda(
                      *args6p, window=MAIN_WINDOW),
                  lambda: pi.driver_compact_join_packed_torch(*args6p, window=MAIN_WINDOW),
-                 small6 + d6_b + p6_b + int(live6.sum()) * 4 + out6,
-                 ops6 + 4 * BLOCK * (d6_blk + p6_blk),
-                 f"driver {d6_blk} blocks {d6_b} bytes, probes {p6_blk} blocks "
-                 f"{p6_b} bytes, {wl6.n_items} descriptor rows")
+                 ("driver_compact_packed", args6p, {"window": MAIN_WINDOW}),
+                 f"{n_groups6} groups, {wl6.n_items} descriptor rows")
 
     # K8 / K8p at fill 1.0
     d_meta1 = d1.packed.blk_meta[:d1.packed.n_blocks].cpu().numpy()
-    na8 = k3m[3].long().clamp(max=MAIN_WINDOW)
     start8, dlen8 = dm._slab(k3m[8], d1.offsets, d1.lengths, cap)
-    read8 = int((na8 + dlen8).clamp(max=MAIN_WINDOW).sum())
-    small8 = table_small(wl8, MAIN_Q) + 5 * MAIN_Q * 4
-    out8 = 3 * MAIN_Q * MAIN_WINDOW * 4
-    ops8 = int(sum(min(a + b, MAIN_WINDOW) * (math.ceil(math.log2(min(a, b) + 1)) + 1)
-                   for a, b in zip(na8.tolist(), dlen8.tolist())))
     args8 = (desc8, heads8, *k3m)
     args8p = (desc8, heads8, t_idx.packed, *k3m[1:4], d1.packed, *k3m[5:])
     m_docs8, _ = dm._stream(t_idx.postings, t_idx.attrs, k3m[2].long(), k3m[3].long(),
@@ -3737,19 +3735,14 @@ def main() -> int:
     keys8 = torch.cat([m_docs8, d_docs8], dim=-1).contiguous()
     time_compact("K8", lambda: dm.merge_compact_cuda(*args8, window=MAIN_WINDOW, cap=cap),
                  lambda: dm.merge_compact_torch(*args8, window=MAIN_WINDOW, cap=cap),
-                 small8 + read8 * 8 + out8, ops8,
-                 f"{read8} postings of main {int(na8.sum())} + delta {int(dlen8.sum())} "
-                 f"read, {wl8.n_items} descriptor rows",
+                 ("merge_compact", args8, {"window": MAIN_WINDOW, "cap": cap}),
+                 f"{wl8.n_items} descriptor rows",
                  lib=lambda: torch.sort(keys8, dim=-1, stable=True))
-    m8_b, m8_blk = span_block_cost(k3m[2], na8, meta_host[0])
-    dd8_b, dd8_blk = span_block_cost(start8, dlen8, d_meta1)
     time_compact("K8p", lambda: dm.merge_compact_packed_cuda(*args8p, window=MAIN_WINDOW,
                                                              cap=cap),
                  lambda: dm.merge_compact_packed_torch(*args8p, window=MAIN_WINDOW, cap=cap),
-                 small8 + m8_b + dd8_b + read8 * 4 + out8,
-                 ops8 + 4 * BLOCK * (m8_blk + dd8_blk),
-                 f"main {m8_blk} blocks {m8_b} bytes, delta {dd8_blk} blocks {dd8_b} "
-                 f"bytes, {read8} attrs")
+                 ("merge_compact_packed", args8p, {"window": MAIN_WINDOW, "cap": cap}),
+                 f"{wl8.n_items} descriptor rows")
 
     main_forms = {
         key: launched_forms(run, key) for key, run in (
@@ -3763,40 +3756,16 @@ def main() -> int:
         f"launched {main_forms} (profiler trace): the chunk kernels")
 
     # K7 / K7p at fill 1.0
-    a7_docs, _, a7_live, _, a7_active, a7_filter = k4m[:6]
-    valid7 = (a7_docs != INVALID_DOC).long().sum(1)
-    live7 = (a7_live != 0).long().sum(1)
-    joins7 = a7_active.long().sum(1) > 0
-    slots7 = (MAIN_Q * MAIN_WINDOW + int(valid7.sum()) + int(live7[joins7].sum())
-              + int(valid7[a7_filter >= 0].sum()))
-    b7_h, db7_h = bounds7.long().cpu().numpy(), dbounds7.long().cpu().numpy()
-    pm7 = table_probe_cost(wl7.desc, wl7.n_items, b7_h, 3, TILE)
-    pd7 = table_probe_cost(wl7.desc, wl7.n_items, db7_h, 5, TILE)
-    small7 = table_small(wl7, len(groups_of(wl7)[0])) + 4 * MAIN_Q + 16 * MAIN_Q * MAIN_T
-    out7 = MAIN_Q * MAIN_WINDOW * 4
-    rows7 = wl7.desc[:wl7.n_items]
-    q7, i7, _ = groups_of(wl7)
-    slots_g7 = np.clip((a7_live != 0).long().view(MAIN_Q, -1, TILE).sum(-1)
-                       .cpu().numpy()[q7, i7], 0, TILE)
-    rg7 = np.cumsum(rows7[:, 4] & 1) - 1
-    ops7 = int((slots_g7[rg7] * ((rows7[:, 3] >= 0).astype(np.int64)
-                                 + (rows7[:, 5] >= 0))).sum()) * int(math.log2(TILE))
+    a7_docs, _, a7_live, _, _, a7_filter = k4m[:6]
     args7 = (desc7, heads7, *k4m[:4], k4m[5], t_idx.postings, bounds7, d1.postings,
              dbounds7)
     args7p = args7[:7] + (t_idx.packed, bounds7, d1.packed, dbounds7)
     time_compact("K7", lambda: pi.streamed_compact_join_cuda(*args7),
                  lambda: pi.streamed_compact_join_torch(*args7),
-                 small7 + slots7 * 4 + out7 + (pm7 + pd7) * 4, ops7,
-                 f"{int(valid7.sum())} valid and {int(live7.sum())} live driver slots, "
-                 f"probed main {pm7} + delta {pd7} postings, {wl7.n_items} descriptor rows")
-    pm7_b, pm7_blk = table_probe_cost(wl7.desc, wl7.n_items, b7_h, 3, TILE, meta_host[0])
-    pd7_b, pd7_blk = table_probe_cost(wl7.desc, wl7.n_items, db7_h, 5, TILE, d_meta1)
+                 ("streamed_compact", args7, {}), f"{wl7.n_items} descriptor rows")
     time_compact("K7p", lambda: pi.streamed_compact_join_packed_cuda(*args7p),
                  lambda: pi.streamed_compact_join_packed_torch(*args7p),
-                 small7 + slots7 * 4 + out7 + pm7_b + pd7_b,
-                 ops7 + 4 * BLOCK * (pm7_blk + pd7_blk),
-                 f"probes main {pm7_blk} blocks {pm7_b} bytes + delta {pd7_blk} blocks "
-                 f"{pd7_b} bytes")
+                 ("streamed_compact_packed", args7p, {}), f"{wl7.n_items} descriptor rows")
 
     def table_chain_log(key, desc, heads, tbounds, docs, keep, arrays, fences=None,
                         widths=None):
@@ -4374,55 +4343,42 @@ def main() -> int:
     # times, slave 0, main-path shapes
     staged_rows = {}
 
-    def time_row(key, run, plain_run, n_bytes, n_ops, extra, lib=None, lib_name="",
+    def time_row(key, run, plain_run, contract, extra, lib=None, lib_name="",
                  kernel=None):
+        """Times of one kernel; ``contract`` is ``(entry, args, kwargs)`` of
+        its launch, whose work bounds it."""
         ms, plain = cuda_ms(run), cuda_ms(plain_run, reps=10, warmup=2)
         dev_ms, plain_dev = device_ms(run, kernel=kernel), device_ms(plain_run)
-        bound, by = bound_ms(n_bytes, n_ops)
+        entry, c_args, c_kw = contract
+        bound, by, work = kernel_bound(entry, *c_args, **c_kw)
         lib_ms = None if lib is None else cuda_ms(lib)
         staged_rows[key] = (ms, plain, bound, by, lib_ms)
         log(f"[times] {key} {extra}: {ms:.4f} ms/launch (device {dev_ms:.5f} ms); "
             f"plain {plain:.4f} ms (device {plain_dev:.5f} ms)"
             + ("" if lib is None else f"; {lib_name} {lib_ms:.4f} ms")
-            + f"; bound {bound:.6f} ms ({by}; {n_bytes} bytes) on {smi}")
+            + f"; bound {bound:.6f} ms ({by}; {work.bytes} bytes) on {smi}")
 
-    def k9_cost(a9):
-        a, aa, al, b, active, filt, b_start, n_b = a9
-        q_n, w_b = a.shape[0], b.shape[-1]
-        valid = (a != INVALID_DOC).long().sum(1)
+    def skip_probed(b_start, n_b, w_b):
+        """Postings in the skip ranges of a skip map ``[..., A]``."""
         span = torch.tensor([0, w_b], dtype=torch.int32, device=dev).expand(
-            *active.shape, 2)
-        probed = probed_postings(b_start, n_b, span, TILE)
-        n_bytes = (a.numel() + int(valid[filt >= 0].sum())
-                   + (0 if al is None else int(valid.sum()))
-                   + active.numel() + q_n + 2 * b_start.numel() + probed
-                   + a.numel()) * 4
-        n_ops = int((valid * active.long().sum(1)).sum()) * math.ceil(math.log2(w_b))
-        return n_bytes, n_ops, probed
+            *b_start.shape[:-1], 2)
+        return probed_postings(b_start, n_b, span, TILE)
 
     for label, a9 in (("static", k9_args(idx0, main_batch, MAIN_WINDOW)),
                       ("fill 1.0", k9_args(idx0, main_batch, MAIN_WINDOW,
                                            delta=p_views[1.0][0]))):
-        n_bytes, n_ops, probed = k9_cost(a9)
+        probed = skip_probed(a9[6], a9[7], a9[3].shape[-1])
         time_row(f"K9 {label}", lambda a9=a9: pi.batched_block_skip_join_cuda(*a9),
-                 lambda a9=a9: pi.batched_block_skip_join_torch(*a9), n_bytes, n_ops,
+                 lambda a9=a9: pi.batched_block_skip_join_torch(*a9),
+                 ("batched_block_skip", a9, {}),
                  f"Q={MAIN_Q}, T={MAIN_T}, W={MAIN_WINDOW}, shard 0, {probed} "
                  f"postings in skip ranges", kernel="K9")
 
-    def k10_cost(a10):
-        a, aa, b, filt, b_start, n_b = a10
-        valid = int((a != INVALID_DOC).sum())
-        span = torch.tensor([[[0, b.shape[0]]]], dtype=torch.int32, device=dev)
-        probed = probed_postings(b_start[None, None], n_b[None, None], span, TILE)
-        n_bytes = (a.numel() + (valid if int(filt) >= 0 else 0) + 2 + 2 * b_start.numel()
-                   + probed + a.numel()) * 4
-        return n_bytes, valid * math.ceil(math.log2(max(b.shape[0], 2))), probed
-
     for label, a10 in (("bench 4096 x 8192", bench10), ("hottest lists", hot10)):
-        n_bytes, n_ops, probed = k10_cost(a10)
         a_, b_ = a10[0], a10[2]
+        probed = skip_probed(a10[4][None, None], a10[5][None, None], b_.shape[0])
         time_row(f"K10 {label}", lambda a10=a10: pi.block_skip_join_cuda(*a10),
-                 lambda a10=a10: pi.block_skip_join_torch(*a10), n_bytes, n_ops,
+                 lambda a10=a10: pi.block_skip_join_torch(*a10), ("block_skip", a10, {}),
                  f"{a_.numel()} x {b_.numel()}, {probed} postings in skip ranges",
                  lib=lambda a_=a_, b_=b_: torch.isin(a_, b_),
                  lib_name="torch.isin (membership alone)", kernel="K10")
@@ -4432,47 +4388,25 @@ def main() -> int:
                          0, 1 << 30, 1 << 20).astype(np.int32)).to(dev)),
                      ("float32 n=2**20", torch.from_numpy(rng13.normal(
                          size=1 << 20).astype(np.float32)).to(dev))):
-        n = x.numel()
         time_row(f"K11 {label}", lambda x=x: tm.bitonic_sort_cuda(x),
-                 lambda x=x: tm.bitonic_sort_torch(x), 8 * n,
-                 n * math.ceil(math.log2(n)), f"{n} keys",
+                 lambda x=x: tm.bitonic_sort_torch(x),
+                 ("flat_sort_f32" if x.dtype == torch.float32 else "flat_sort_i32",
+                  (x,), {}), f"{x.numel()} keys",
                  lib=lambda x=x: torch.sort(x), lib_name="torch.sort")
     time_row("K11 merge_topk (16, 128)", lambda: tm.merge_topk(c16, 128),
-             lambda: tm.bitonic_sort_torch(c16.reshape(-1))[:128], 8 * c16.numel(),
-             c16.numel() * math.ceil(math.log2(c16.numel())), "2048 candidates",
+             lambda: tm.bitonic_sort_torch(c16.reshape(-1))[:128],
+             ("flat_sort_i32", (c16.reshape(-1),), {}), "2048 candidates",
              lib=lambda: torch.sort(c16.reshape(-1)).values[:128],
              lib_name="torch.sort")
 
     modes, _, wl_s = static_args(0, main_batch, MAIN_WINDOW)
-    a4 = modes["K4s"][2]
-    s_valid = (a4[0] != INVALID_DOC).long().sum(1)
-    s_joins = a4[4].long().sum(1)
-    s_slots = (MAIN_Q * MAIN_WINDOW + int(s_valid.sum()) * 2
-               + int(s_valid[a4[5] >= 0].sum()))
-    s_small = sum(x.numel() * 4 for x in a4[7:10]) + 4 * MAIN_Q * (1 + MAIN_T)
-    probe_s = probed_postings(*a4[7:10], TILE)
-    pk_b, pk_blk = probe_block_cost(*a4[7:10], TILE, meta_host[0])
-    ops_s = int((s_valid * s_joins).sum()) * math.ceil(math.log2(MAIN_WINDOW + TILE))
-    out_s = MAIN_Q * MAIN_WINDOW * 4
-    b7_s = modes["K7s"][2][8].long().cpu().numpy()
-    pm7_s = table_probe_cost(wl_s.desc, wl_s.n_items, b7_s, 3, TILE)
-    pm7p_b, pm7p_blk = table_probe_cost(wl_s.desc, wl_s.n_items, b7_s, 3, TILE,
-                                        meta_host[0])
-    tbl_s = 32 * wl_s.n_items + 4 * (wl_s.group_heads().size)
-    for key, n_bytes, n_ops, extra in (
-        ("K4s", s_small + s_slots * 4 + probe_s * 4 + out_s, ops_s,
-         f"probed {probe_s} postings"),
-        ("K4ps", s_small + s_slots * 4 + pk_b + out_s, ops_s + 4 * BLOCK * pk_blk,
-         f"probes {pk_blk} blocks {pk_b} bytes"),
-        ("K7s", tbl_s + s_slots * 4 + pm7_s * 4 + out_s, ops_s,
-         f"probed {pm7_s} postings, {wl_s.n_items} descriptor rows"),
-        ("K7ps", tbl_s + s_slots * 4 + pm7p_b + out_s, ops_s + 4 * BLOCK * pm7p_blk,
-         f"probes {pm7p_blk} blocks {pm7p_b} bytes, {wl_s.n_items} rows"),
-    ):
+    for key, entry in (("K4s", "streamed_join"), ("K4ps", "streamed_join_packed"),
+                       ("K7s", "streamed_compact"), ("K7ps", "streamed_compact_packed")):
         cuda_fn, plain_fn, a, kw = modes[key]
         time_row(key, lambda c=cuda_fn, a=a, kw=kw: c(*a, **kw),
-                 lambda p=plain_fn, a=a, kw=kw: p(*a, **kw), n_bytes, n_ops,
-                 f"static mode, Q={MAIN_Q}, T={MAIN_T}, W={MAIN_WINDOW}, shard 0, {extra}",
+                 lambda p=plain_fn, a=a, kw=kw: p(*a, **kw), (entry, a, kw),
+                 f"static mode, Q={MAIN_Q}, T={MAIN_T}, W={MAIN_WINDOW}, shard 0"
+                 + (f", {wl_s.n_items} descriptor rows" if key.startswith("K7") else ""),
                  kernel={"K4s": "K4", "K4ps": "K4p", "K7s": "K7", "K7ps": "K7p"}[key])
     _, pad_batch, pad_live = live_cases(main_batch)[1]
     for mix, b, live in (("all live", main_batch, None),
@@ -4753,11 +4687,9 @@ def main() -> int:
             plain_ms = cuda_ms(plain, reps=3, warmup=1)
             plain_dev = device_ms(plain, reps=2)
             lib_ms, lib_dev = cuda_ms(sdpa, reps=20, warmup=3), device_ms(sdpa, reps=10)
-            n_bytes = 2 * (q.numel() + k.numel() + v.numel()) * q.element_size()
-            flops = 4 * b_ * h_ * s_ * t_ * hd_ // 2
-            t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
-            bound, by = max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                                     else "operations")
+            bound, by, work = kernel_bound(fa.k12_entry(q), q, k, v)
+            n_bytes, flops = work.bytes, work.ops
+            t_bytes = n_bytes / HBM_BYTES_PER_S
             flash_rows[config, dtype] = (ms, plain_ms, bound, by, lib_ms)
 
             def dev_reading(x):
@@ -5520,10 +5452,7 @@ def main() -> int:
     lm_ms = cuda_ms(run, reps=20, warmup=3)
     lm_plain = cuda_ms(plain, reps=3, warmup=1)
     lm_lib = cuda_ms(sdpa, reps=20, warmup=3)
-    n_bytes = 2 * (q.numel() + k.numel() + v.numel()) * q.element_size()
-    flops = 4 * 4 * lm_cfg.n_heads * s_ * s_ * lm_cfg.hd // 2
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
-    lm_bound, lm_by = max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    lm_bound, lm_by, _ = kernel_bound(fa.k12_entry(q), q, k, v)
     log(f"[times] K12 at the first served prefill's shape (4, {s_}, {s_}, 24, 8, 128) causal "
         f"bfloat16: {lm_ms:.4f} ms/launch (CUDA events; x {lm_cfg.n_layers} layers "
         f"{lm_cfg.n_layers * lm_ms:.3f} ms of "
@@ -5654,6 +5583,17 @@ def main() -> int:
     record["kernels"].extend(lm18_records)
     record["kernels"].extend(lm19_records)
     record["kernels"].extend(lm20_records)
+    # each row's entries' launch contracts as phase 21 held them on the card
+    static_mode = {"K4s": "K4", "K4ps": "K4p", "K7s": "K7", "K7ps": "K7p"}
+    for row in record["kernels"]:
+        kid = row["name"].split()[0]
+        row["contract"] = {
+            entry: {"geometry": r["instances"][0]["launches"],
+                    "instances": len(r["instances"]),
+                    "profiler_match": all(i["profiler_match"] for i in r["instances"]),
+                    "memcheck": r["memcheck"]}
+            for entry, r in contract_records.items()
+            if r["kid"] == static_mode.get(kid, kid)}
     print(json.dumps(record), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -52,6 +52,8 @@ their chunk grid.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -66,7 +68,11 @@ from repro_torch.core.index import (
     pack_flat_postings,
     unpack_flat_postings_torch,
 )
+from repro_torch.kernels import registry as _reg
+from repro_torch.kernels import work as _wk
+from repro_torch.kernels.registry import Access, Work
 from repro_torch.kernels.worklist import (
+    DESC_COLS,
     build_merge_worklist,
     live_rows,
     output_rows,
@@ -507,10 +513,13 @@ def merge_delta_windows(
         fn = (merge_delta_windows_packed_cuda if packed.words.is_cuda
               else merge_delta_windows_packed_torch)
         m_src, d_src = packed, d_packed
-    return fn(m_src, attrs, m_off.to(torch.int32).contiguous(),
-              m_neff.to(torch.int32).contiguous(), d_src, d_attrs,
-              d_offsets, d_lengths, terms.to(torch.int32).contiguous(),
-              window=window, cap=cap)
+    args = (m_src, attrs, m_off.to(torch.int32).contiguous(),
+            m_neff.to(torch.int32).contiguous(), d_src, d_attrs, d_offsets,
+            d_lengths, terms.to(torch.int32).contiguous())
+    # the packed wrapper's chunk and row forms do the same work
+    with _reg.dispatched("delta_merge" if packed is None else "delta_merge_packed", *args,
+                         window=window, cap=cap):
+        return fn(*args, window=window, cap=cap)
 
 
 # ---------------------------------------------------------------------------
@@ -680,10 +689,12 @@ def merge_delta_windows_compact(
         fn = (merge_compact_packed_cuda if packed.words.is_cuda
               else merge_compact_packed_torch)
         m_src, d_src = packed, d_packed
-    return fn(desc, heads, m_src, attrs, m_off.to(torch.int32).contiguous(),
-              m_neff.to(torch.int32).contiguous(), d_src, d_attrs, d_offsets,
-              d_lengths, terms.to(torch.int32).contiguous(), window=window,
-              cap=cap)
+    args = (desc, heads, m_src, attrs, m_off.to(torch.int32).contiguous(),
+            m_neff.to(torch.int32).contiguous(), d_src, d_attrs, d_offsets,
+            d_lengths, terms.to(torch.int32).contiguous())
+    with _reg.dispatched("merge_compact" if packed is None else "merge_compact_packed",
+                         *args, window=window, cap=cap):
+        return fn(*args, window=window, cap=cap)
 
 
 def plan_merge_compact(m_neff, *, window: int, live_q=None, packed: bool = False):
@@ -699,3 +710,293 @@ def plan_merge_compact(m_neff, *, window: int, live_q=None, packed: bool = False
         kernel="merge_delta_windows_compact" + ("_packed" if packed else ""),
         dense_steps=q_n * s_w,
     )
+
+
+# ---------------------------------------------------------------------------
+# Launch contracts (repro_torch.kernels.registry) and the merges' work
+# ---------------------------------------------------------------------------
+#
+# The canonical instances are merge_edge_inputs' chunk-edge cases: at
+# window 4096 and cap 256 (the chunk forms, staged), at window 65536 and
+# cap 16384 (K3 unstaged, K3p's row form with a global scratch) and at
+# window 16384 and cap 16384 (K3p's row form in shared memory).
+
+#: (window, cap) of the canonical merges.
+_MAIN, _LARGE, _ROW_SMEM = (4096, 256), (65536, 16384), (16384, 16384)
+
+
+def _host(x) -> np.ndarray:
+    return x.long().reshape(-1).cpu().numpy()
+
+
+def merge_work(m_src, attrs, m_off, m_neff, d_src, d_attrs, d_offsets, d_lengths,
+               terms, *, window: int, cap: int, n_groups: int | None = None,
+               table_rows: int = 0) -> Work:
+    """K3's (K3p's, with twins) least work: each query's postings that
+    reach the output (docID and attr, or their blocks and attrs), five
+    int32 a query, three outputs; each output slot's co-rank search
+    (``log2(min(na, nb) + 1) + 1`` compares), and four operations a
+    decoded posting.  With ``n_groups`` (K8/K8p) the table's bytes too."""
+    q_n = terms.shape[0]
+    na = m_neff.long().clamp(max=window).cpu()
+    start, d_len = _slab(terms, d_offsets, d_lengths, cap)
+    nb = d_len.cpu()
+    read = int((na + nb).clamp(max=window).sum())
+    small = 5 * q_n * 4 + (0 if n_groups is None else 32 * table_rows + 4 * (n_groups + 1))
+    out = 3 * q_n * window * 4
+    ops = int(sum(min(a + b, window) * (math.ceil(math.log2(min(a, b) + 1)) + 1)
+                  for a, b in zip(na.tolist(), nb.tolist())))
+    if isinstance(m_src, PackedFlatArrays):
+        m_meta = m_src.blk_meta[:m_src.n_blocks].cpu().numpy()
+        d_meta = d_src.blk_meta[:d_src.n_blocks].cpu().numpy()
+        m_b, m_blk = _wk.span_block_cost(m_off, na, m_meta)
+        d_b, d_blk = _wk.span_block_cost(start, d_len, d_meta)
+        return Work(m_b + d_b + read * 4 + small + out, ops + 4 * BLOCK * (m_blk + d_blk),
+                    "int32")
+    return Work(read * 8 + small + out, ops, "int32")
+
+
+def merge_compact_work(desc, heads, *args, window: int, cap: int) -> Work:
+    """K8's (K8p's) least work: K3's on the same streams, and the table."""
+    return merge_work(*args, window=window, cap=cap, n_groups=heads.numel() - 1,
+                      table_rows=int(heads[-1]))
+
+
+def _merge_inputs(window: int, cap: int, packed: bool):
+    raw, twins = merge_edge_inputs(window, cap)
+    if packed:
+        return (twins[0],) + raw[1:4] + (twins[1],) + raw[5:]
+    return raw
+
+
+def _merge_operands(args, packed: bool, q_n: int, window: int) -> list:
+    """Operands of a merge launch: the flat streams (padded by
+    ``flat_tile_pad`` per query slot and per slab array), the query and
+    slab arrays, three outputs."""
+    m_src, attrs, m_off, m_neff, d_src, d_attrs, d_offsets, d_lengths, terms = args
+    ends = _host(m_off) + np.minimum(_host(m_neff), window)
+    live = int(-(-ends.max() // BLOCK) * BLOCK) if ends.size else 0
+    d_live = int((_host(d_offsets) + _host(d_lengths)).max())
+    ops = []
+    for prefix, src, a_name, a, lv in (("", m_src, "attrs", attrs, live),
+                                       ("d_", d_src, "d_attrs", d_attrs, d_live)):
+        if packed:
+            ops += _reg.packed_operands(prefix, src)
+        else:
+            ops.append(_reg.flat_operand(f"{prefix}postings", src, lv))
+        ops.append(_reg.flat_operand(a_name, a, lv))
+    ops += [_reg.operand(n, x) for n, x in (("m_off", m_off), ("m_neff", m_neff),
+                                            ("d_offsets", d_offsets),
+                                            ("d_lengths", d_lengths), ("terms", terms))]
+    ops += [_reg.Operand(n, "int32", q_n * window)
+            for n in ("out_docs", "out_attrs", "out_src")]
+    return ops
+
+
+def _stream_reads(prefix: str, woff, lo: int, hi: int, attrs: str) -> list:
+    """A staged range of a stream: its docIDs (raw, or the codec blocks
+    that hold them) and its attrs."""
+    if hi <= lo:
+        return []
+    docs = ([Access(f"{prefix}postings", lo, hi)] if woff is None
+            else _reg.packed_read(prefix, woff, lo, hi, bulk=False))
+    return docs + [Access(attrs, lo, hi)]
+
+
+class _Queries:
+    """Each query's streams on the host, as ``main_stream`` and
+    ``delta_length`` of ``csrc/merge_path.cuh`` read them."""
+
+    def __init__(self, args, window: int, cap: int):
+        m_src, _, m_off, m_neff, d_src, _, d_offsets, d_lengths, terms = args
+        self.m_off, self.m_neff, self.terms = _host(m_off), _host(m_neff), _host(terms)
+        self.d_off, self.d_len = _host(d_offsets), _host(d_lengths)
+        self.n_terms, self.window, self.cap = self.d_off.size, window, cap
+        packed = isinstance(m_src, PackedFlatArrays)
+        self.woff = (_host(m_src.blk_woff), _host(d_src.blk_woff)) if packed else (None, None)
+
+    def stream(self, q: int, m_cap: int):
+        """``(meta reads, m0, na, d0, nb)`` of query ``q``."""
+        t = int(self.terms[q])
+        tt = min(max(t, 0), self.n_terms - 1)
+        na = min(max(int(self.m_neff[q]), 0), self.window, m_cap)
+        nb = 0 if t < 0 else min(max(int(self.d_len[tt]), 0), self.cap)
+        meta = [Access("m_off", q, q + 1), Access("m_neff", q, q + 1),
+                Access("terms", q, q + 1), Access("d_lengths", tt, tt + 1),
+                Access("d_offsets", tt, tt + 1)]
+        return meta, int(self.m_off[q]), na, int(self.d_off[tt]), nb
+
+
+def _chunk_launch(kernel, *, grid, chunk, smem, stage, qs, locate, window, cap):
+    """A chunk-form merge launch (``merge_chunk_body`` /
+    ``merge_chunk_packed_body``): block (x, y) the chunk of slots ``[x *
+    chunk, ...)`` of its row's query; it reads the query's streams, the
+    staged main range (``staged_main``, before it knows the slab's
+    length), the delta range of ``chunk_ranges`` and, with no slab, its
+    slots of the window; it writes its slots of the three outputs."""
+    m_woff, d_woff = qs.woff
+
+    def reads(b):
+        q, m_cap, extra = locate(b)
+        meta, m0, na, d0, nb = qs.stream(q, m_cap)
+        k0 = b[0] * chunk
+        mlo, mhi = staged_main(na, k0, cap, chunk)
+        out = extra + meta
+        if stage or m_woff is not None:
+            out += _stream_reads("", m_woff, m0 + mlo, m0 + mhi, "attrs")
+        n = na + nb
+        if k0 >= n:
+            return out
+        if nb == 0:
+            return out + _stream_reads("", m_woff, m0 + k0, m0 + min(k0 + chunk, n), "attrs")
+        ilo, ihi, jlo, jhi = chunk_ranges(na, nb, k0, chunk)
+        out += _stream_reads("d_", d_woff, d0 + jlo, d0 + jhi, "d_attrs")
+        if not stage and m_woff is None:
+            out += _stream_reads("", None, m0 + ilo, m0 + ihi, "attrs")
+        return out
+
+    def writes(b):
+        q, _, _ = locate(b)
+        k0 = b[0] * chunk
+        hi = min(k0 + chunk, window)
+        return [Access(o, q * window + k0, q * window + hi)
+                for o in ("out_docs", "out_attrs", "out_src")]
+
+    return _reg.Launch(kernel, grid, chunk, smem, smem > _reg.SMEM_STATIC_LIMIT,
+                       reads, writes)
+
+
+def _row_launch(kernel, *, n_rows, qs, locate, window, cap, scratch):
+    """The large-cap form (``packed_merge_row``): one block of
+    ``ROW_THREADS`` a query, its whole main window's and slab's blocks
+    decoded into a row of shared memory or, past the opt-in limit, of a
+    global scratch; it writes the query's three output rows."""
+    m_room, row = k3p_row(window, cap)
+    m_woff, d_woff = qs.woff
+
+    def reads(b):
+        q, m_cap, extra = locate(b)
+        meta, m0, na, d0, nb = qs.stream(q, m_cap)
+        return (extra + meta + _stream_reads("", m_woff, m0, m0 + na, "attrs")
+                + _stream_reads("d_", d_woff, d0, d0 + nb, "d_attrs")
+                + ([Access("scratch", b[0] * row, (b[0] + 1) * row)] if scratch else []))
+
+    def writes(b):
+        q, _, _ = locate(b)
+        out = [Access(o, q * window, (q + 1) * window)
+               for o in ("out_docs", "out_attrs", "out_src")]
+        return out + ([Access("scratch", b[0] * row, (b[0] + 1) * row)] if scratch else [])
+
+    smem = 0 if scratch else row * 4
+    return _reg.Launch(kernel, (n_rows, 1, 1), _reg.ROW_THREADS, smem,
+                       smem > _reg.SMEM_STATIC_LIMIT, reads, writes)
+
+
+def _dense_rows(window):
+    return lambda b: (b[1], window, [])
+
+
+def _dense_row_form(window):
+    return lambda b: (b[0], window, [])
+
+
+def _table_rows(desc, heads, by):
+    desc_h, heads_h = desc.long().numpy(), _host(heads)
+
+    def locate(b):
+        g = b[by]
+        r0 = int(heads_h[g])
+        return (int(desc_h[r0, 0]), int(heads_h[g + 1] - r0) * TILE,
+                [Access("heads", g, g + 2), Access("desc", 8 * r0, 8 * r0 + 1)])
+    return locate
+
+
+def _merge_instances(name: str):
+    """The canonical instances of one merge entry."""
+    packed = "packed" in name
+    compact = name.startswith("merge_compact")
+    row = name.endswith("_row")
+    cases = ((_LARGE, _ROW_SMEM) if row else ((_MAIN, _LARGE) if not packed else (_MAIN,)))
+    out = []
+    for window, cap in cases:
+        args = _merge_inputs(window, cap, packed)
+        q_n = args[8].numel()
+        qs = _Queries(args, window, cap)
+        operands = _merge_operands(args, packed, q_n, window)
+        call = args
+        if compact:
+            live_q, wl = (_pow2_merge_live(args[3], window) if (window, cap) == _MAIN
+                          else (np.ones(q_n, bool), plan_merge_compact(args[3], window=window)))
+            desc, heads = table_to_device(wl, "cpu")
+            operands = [_reg.operand("desc", desc, padding_from=wl.n_items * DESC_COLS,
+                                     pad="worklist_entry", spare=DESC_COLS),
+                        _reg.operand("heads", heads)] + operands
+            call = (desc, heads) + args
+            n_rows = heads.numel() - 1
+        else:
+            n_rows = q_n
+        chunk = K8_CHUNK if compact else K3_CHUNK
+        if row:
+            m_room, row_ints = k3p_row(window, cap)
+            scratch = row_ints * 4 > _reg.SMEM_OPTIN
+            if scratch:
+                operands.append(_reg.Operand("scratch", "int32", n_rows * row_ints))
+            locate = _table_rows(desc, heads, 0) if compact else _dense_row_form(window)
+            launch = _row_launch(f"{'merge_compact' if compact else 'delta_merge'}_packed_row_kernel",
+                                 n_rows=n_rows, qs=qs, locate=locate, window=window,
+                                 cap=cap, scratch=scratch)
+            label = f"window {window}, cap {cap}, row in {'a global scratch' if scratch else 'shared memory'}"
+        else:
+            stage = chunk_fits(window, cap, _reg.SMEM_OPTIN, packed=packed)
+            rooms = (chunk_rooms(window, cap, packed=packed) if stage or packed else (0, 0))
+            smem = 8 * sum(rooms)
+            locate = _table_rows(desc, heads, 1) if compact else _dense_rows(window)
+            kernel = ("merge_compact" if compact else "delta_merge") + (
+                "_packed_kernel" if packed else "_kernel")
+            launch = _chunk_launch(kernel, grid=(-(-window // chunk), n_rows, 1), chunk=chunk,
+                                   smem=smem, stage=stage, qs=qs, locate=locate,
+                                   window=window, cap=cap)
+            label = f"window {window}, cap {cap}, {'staged' if stage else 'unstaged'}"
+        if compact:
+            label += f", {wl.n_items} items, live {live_q.tolist()}"
+        out.append(_reg.Instance(label, tuple(operands), (launch,), call,
+                                 {"window": window, "cap": cap}))
+    return out
+
+
+def _pow2_merge_live(m_neff, window: int):
+    """The first ``live_q`` pattern (dropping queries from the front) whose
+    merge work list has a power-of-two item count, else all live."""
+    q_n = m_neff.numel()
+    first = None
+    for drop in range(q_n):
+        live_q = np.arange(q_n) >= drop
+        wl = plan_merge_compact(m_neff, window=window, live_q=live_q)
+        first = first or (live_q, wl)
+        if wl.n_items & (wl.n_items - 1) == 0:
+            return live_q, wl
+    return first
+
+
+def _merge_contract(name, kid, kernels, wrapper, plain, work):
+    @_reg.launch_contract(name, kid=kid, kernels=kernels, wrapper=wrapper, plain=plain,
+                          work=work)
+    def builder():
+        return _merge_instances(name)
+    return builder
+
+
+_merge_contract("delta_merge", "K3", ("delta_merge_kernel",), merge_delta_windows_cuda,
+                merge_delta_windows_torch, merge_work)
+_merge_contract("delta_merge_packed", "K3p", ("delta_merge_packed_kernel",),
+                merge_delta_windows_packed_cuda, merge_delta_windows_packed_torch,
+                merge_work)
+_merge_contract("delta_merge_packed_row", "K3p", ("delta_merge_packed_row_kernel",),
+                merge_delta_windows_packed_cuda, merge_delta_windows_packed_torch,
+                merge_work)
+_merge_contract("merge_compact", "K8", ("merge_compact_kernel",), merge_compact_cuda,
+                merge_compact_torch, merge_compact_work)
+_merge_contract("merge_compact_packed", "K8p", ("merge_compact_packed_kernel",),
+                merge_compact_packed_cuda, merge_compact_packed_torch, merge_compact_work)
+_merge_contract("merge_compact_packed_row", "K8p", ("merge_compact_packed_row_kernel",),
+                merge_compact_packed_cuda, merge_compact_packed_torch, merge_compact_work)

@@ -42,7 +42,12 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+
+from repro_torch.kernels import registry as _reg
+from repro_torch.kernels import work as _wk
+from repro_torch.kernels.registry import Access, Work
 
 NEG_INF = -1e30
 #: Head widths the CUDA kernel is instantiated for (its register tile).
@@ -244,7 +249,14 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     """GQA flash-attention forward, (B, S, H, hd) in ``q.dtype``: the
     kernel on CUDA tensors, the plain version on CPU tensors."""
     fn = flash_attention_fwd_cuda if q.is_cuda else flash_attention_fwd_torch
-    return fn(q, k, v, causal=causal, q_chunk=q_chunk, k_chunk=k_chunk, window=window)
+    kw = dict(causal=causal, q_chunk=q_chunk, k_chunk=k_chunk, window=window)
+    with _reg.dispatched(k12_entry(q), q, k, v, **kw):
+        return fn(q, k, v, **kw)
+
+
+def k12_entry(q) -> str:
+    """The K12 entry of ``q``'s dtype."""
+    return "flash_attention_bf16" if q.dtype == torch.bfloat16 else "flash_attention_f32"
 
 
 def flash_attention_bwd(q, k, v, out, dout, *, causal: bool = True, window=None):
@@ -314,8 +326,9 @@ class K12Attention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window):
         fwd = flash_attention_fwd_cuda if q.is_cuda else flash_attention_fwd_torch
-        out = fwd(q, k, v, causal=causal, q_chunk=q.shape[1], k_chunk=k.shape[1],
-                  window=window)
+        kw = dict(causal=causal, q_chunk=q.shape[1], k_chunk=k.shape[1], window=window)
+        with _reg.dispatched(k12_entry(q), q, k, v, **kw):
+            out = fwd(q, k, v, **kw)
         ctx.save_for_backward(q, k, v, out)
         ctx.causal, ctx.window = causal, window
         return out
@@ -326,3 +339,118 @@ class K12Attention(torch.autograd.Function):
         dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, causal=ctx.causal,
                                          window=ctx.window)
         return dq, dk, dv, None, None
+
+
+# ---------------------------------------------------------------------------
+# Launch contracts (repro_torch.kernels.registry) and the kernel's work
+# ---------------------------------------------------------------------------
+
+
+def k12_geometry(dtype, hd: int) -> tuple[int, int, int, int]:
+    """``(bq, bk, threads, smem)`` of ``csrc/flash_attention.cu``'s kernel
+    for ``dtype`` at head width ``hd``: q rows and keys a tile, threads a
+    block, dynamic shared memory (1 KB of alignment slack, the q tile, the
+    ring's tiles, the mbarriers)."""
+    if dtype == torch.bfloat16:
+        bk, stages = (128, 3) if hd <= 128 else (64, 2)
+        smem = 1024 + 2 * (_reg.TC_BQ * hd + 2 * stages * bk * hd) + 8 * (1 + 2 * stages)
+        return _reg.TC_BQ, bk, _reg.TC_THREADS, smem
+    nc = 2 if hd <= 128 else 1
+    bq, bk = 64 * nc, 4096 // hd
+    smem = (1024 + 4 * (bq * hd + 5 * _reg.F_STAGES * bk * hd)
+            + 8 * (1 + 5 * _reg.F_STAGES))
+    return bq, bk, 128 * (nc + 1), smem
+
+
+def flash_attention_work(q, k, v, *, causal: bool = True, q_chunk: int = 128,
+                         k_chunk: int = 128, window=None) -> Work:
+    """K12's least work: q, k and v read once and the output written once;
+    two products of ``2 * hd`` FLOPs for each (row, key) pair the mask
+    keeps (:func:`~repro_torch.kernels.work.attention_keys`), at the tensor cores'
+    bf16 rate, or float32's split-TF32 rate (three TF32 products)."""
+    B, S, H, hd = q.shape
+    T = k.shape[1]
+    keys = _wk.attention_keys(S, T, causal=causal, window=_window(window, causal))
+    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    return Work(n_bytes, 4 * B * H * hd * keys,
+                "bf16" if q.dtype == torch.bfloat16 else "tf32x3")
+
+
+def _k12_instance(label, dtype, B, S, T, H, KV, hd, *, causal, window=None, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn((B, n, h, hd), generator=g).to(dtype)
+               for n, h in ((S, H), (T, KV), (T, KV)))
+    bq, bk, threads, smem = k12_geometry(dtype, hd)
+    w = _window(window, causal)
+    es = q.element_size()
+
+    def rows(x, b, h, r0, r1, n, heads):
+        base = ((b * n + r0) * heads + h) * hd
+        return Access(x, base, base + hd, True, True, heads * hd, r1 - r0)
+
+    def span(b):
+        bh, qt = b[0], b[1]
+        r0, r1 = qt * bq, min(S, (qt + 1) * bq)
+        if not causal:
+            k0, k1 = 0, T
+        else:
+            k0 = max(0, r0 - w + 1) // bk * bk if w else 0
+            k1 = min(T, -(-r1 // bk) * bk)
+        return bh // H, bh % H, r0, r1, k0, k1
+
+    def reads(b):
+        bb, h, r0, r1, k0, k1 = span(b)
+        kvh = h // (H // KV)
+        out = [rows("q", bb, h, r0, r1, S, H)]
+        if k1 > k0:
+            out += [rows("k", bb, kvh, k0, k1, T, KV), rows("v", bb, kvh, k0, k1, T, KV)]
+        return out
+
+    def writes(b):
+        bb, h, r0, r1, _, _ = span(b)
+        return [rows("out", bb, h, r0, r1, S, H)]
+
+    launch = _reg.Launch(
+        "flash_attention_wgmma_kernel" if dtype == torch.bfloat16
+        else "flash_attention_tf32_kernel",
+        (B * H, -(-S // bq), 1), threads, smem, True, reads, writes)
+
+    def strides(n, heads):
+        return (hd * es, heads * hd * es, n * heads * hd * es)
+
+    name = str(dtype).replace("torch.", "")
+    operands = (_reg.operand("q", q, strides=strides(S, H)),
+                _reg.operand("k", k, strides=strides(T, KV)),
+                _reg.operand("v", v, strides=strides(T, KV)),
+                _reg.Operand("out", name, q.numel()))
+    kwargs = {"causal": causal, "q_chunk": S, "k_chunk": T, "window": window}
+    return _reg.Instance(label, operands, (launch,), (q, k, v), kwargs)
+
+
+def _k12_instances(dtype):
+    return [
+        _k12_instance("causal (1, 993, 993, 4, 2, 64)", dtype, 1, 993, 993, 4, 2, 64,
+                      causal=True),
+        _k12_instance("windowed W 300 (1, 993, 993, 2, 1, 128)", dtype, 1, 993, 993, 2, 1,
+                      128, causal=True, window=300, seed=1),
+        _k12_instance("cross (2, 7, 1500, 2, 2, 64)", dtype, 2, 7, 1500, 2, 2, 64,
+                      causal=False, seed=2),
+        _k12_instance("causal (1, 300, 300, 2, 1, 256)", dtype, 1, 300, 300, 2, 1, 256,
+                      causal=True, seed=3),
+    ]
+
+
+@_reg.launch_contract("flash_attention_f32", kid="K12",
+                      kernels=("flash_attention_tf32_kernel",),
+                      wrapper=flash_attention_fwd_cuda, plain=flash_attention_fwd_torch,
+                      work=flash_attention_work)
+def _flash_attention_f32_contract():
+    return _k12_instances(torch.float32)
+
+
+@_reg.launch_contract("flash_attention_bf16", kid="K12",
+                      kernels=("flash_attention_wgmma_kernel",),
+                      wrapper=flash_attention_fwd_cuda, plain=flash_attention_fwd_torch,
+                      work=flash_attention_work)
+def _flash_attention_bf16_contract():
+    return _k12_instances(torch.bfloat16)

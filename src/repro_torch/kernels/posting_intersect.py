@@ -84,6 +84,7 @@ K9's streams) start on 16 bytes and end, rounded, inside their arrays.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.index import (
@@ -94,8 +95,12 @@ from repro_torch.core.index import (
     INVALID_DOC,
     TILE,
     PackedFlatArrays,
+    pack_flat_postings,
     unpack_flat_postings_torch,
 )
+from repro_torch.kernels import registry as _reg
+from repro_torch.kernels import work as _wk
+from repro_torch.kernels.registry import Access, Work
 from repro_torch.kernels.worklist import (
     FLAG_TERM_START,
     build_intersect_worklist,
@@ -345,8 +350,9 @@ def driver_streamed_join(d_off, d_neff, active, attr_filter, postings, attrs,
     """The kernel on a CUDA tensor, its plain version on a CPU tensor."""
     fn = (driver_streamed_join_cuda if postings.is_cuda
           else driver_streamed_join_torch)
-    return fn(d_off, d_neff, active, attr_filter, postings, attrs,
-              b_tile, n_b, bounds, window=window)
+    args = (d_off, d_neff, active, attr_filter, postings, attrs, b_tile, n_b, bounds)
+    with _reg.dispatched("driver_streamed", *args, window=window):
+        return fn(*args, window=window)
 
 
 def driver_streamed_join_packed_torch(
@@ -401,8 +407,9 @@ def driver_streamed_join_packed(d_off, d_neff, active, attr_filter, packed,
     """K1p on a CUDA twin, its plain version on a CPU twin."""
     fn = (driver_streamed_join_packed_cuda if packed.words.is_cuda
           else driver_streamed_join_packed_torch)
-    return fn(d_off, d_neff, active, attr_filter, packed, attrs,
-              b_tile, n_b, bounds, window=window)
+    args = (d_off, d_neff, active, attr_filter, packed, attrs, b_tile, n_b, bounds)
+    with _reg.dispatched("driver_streamed_packed", *args, window=window):
+        return fn(*args, window=window)
 
 
 def _driver_plan(d_off, d_neff, terms, active, offsets, lengths, block_max,
@@ -544,7 +551,8 @@ def streamed_join(*args, cap: int):
     """K4 on CUDA tensors, its plain version on CPU tensors (arguments as
     :func:`streamed_join_torch`)."""
     fn = streamed_join_cuda if args[0].is_cuda else streamed_join_torch
-    return fn(*args, cap=cap)
+    with _reg.dispatched("streamed_join", *args, cap=cap):
+        return fn(*args, cap=cap)
 
 
 def streamed_join_packed_torch(
@@ -611,7 +619,8 @@ def streamed_join_packed(*args, cap: int):
     """K4p on CUDA tensors, its plain version on CPU tensors (arguments as
     :func:`streamed_join_packed_torch`)."""
     fn = streamed_join_packed_cuda if args[0].is_cuda else streamed_join_packed_torch
-    return fn(*args, cap=cap)
+    with _reg.dispatched("streamed_join_packed", *args, cap=cap):
+        return fn(*args, cap=cap)
 
 
 def _streamed_plans(a_docs, terms, active, offsets, lengths, block_max,
@@ -892,8 +901,9 @@ def driver_compact_join(desc, heads, d_off, d_neff, attr_filter, postings,
                         attrs, bounds, *, window: int):
     """K6 on CUDA tensors, its plain version on CPU tensors."""
     fn = driver_compact_join_cuda if postings.is_cuda else driver_compact_join_torch
-    return fn(desc, heads, d_off, d_neff, attr_filter, postings, attrs, bounds,
-              window=window)
+    args = (desc, heads, d_off, d_neff, attr_filter, postings, attrs, bounds)
+    with _reg.dispatched("driver_compact", *args, window=window):
+        return fn(*args, window=window)
 
 
 def driver_compact_join_packed_torch(desc, heads, d_off, d_neff, attr_filter,
@@ -941,8 +951,9 @@ def driver_compact_join_packed(desc, heads, d_off, d_neff, attr_filter, packed,
     """K6p on a CUDA twin, its plain version on a CPU twin."""
     fn = (driver_compact_join_packed_cuda if packed.words.is_cuda
           else driver_compact_join_packed_torch)
-    return fn(desc, heads, d_off, d_neff, attr_filter, packed, attrs, bounds,
-              window=window)
+    args = (desc, heads, d_off, d_neff, attr_filter, packed, attrs, bounds)
+    with _reg.dispatched("driver_compact_packed", *args, window=window):
+        return fn(*args, window=window)
 
 
 def intersect_batched_driver_streamed_compact(
@@ -1083,7 +1094,8 @@ def streamed_compact_join(*args):
     """K7 on CUDA tensors, its plain version on CPU tensors (arguments as
     :func:`streamed_compact_join_torch`)."""
     fn = streamed_compact_join_cuda if args[2].is_cuda else streamed_compact_join_torch
-    return fn(*args)
+    with _reg.dispatched("streamed_compact", *args):
+        return fn(*args)
 
 
 def streamed_compact_join_packed_torch(desc, heads, a_docs, a_attrs, a_live,
@@ -1145,7 +1157,8 @@ def streamed_compact_join_packed(*args):
     :func:`streamed_compact_join_packed_torch`)."""
     fn = (streamed_compact_join_packed_cuda if args[2].is_cuda
           else streamed_compact_join_packed_torch)
-    return fn(*args)
+    with _reg.dispatched("streamed_compact_packed", *args):
+        return fn(*args)
 
 
 def intersect_batched_streamed_compact(
@@ -1371,7 +1384,9 @@ def batched_block_skip_join(a_docs, a_attrs, a_live, b_docs, active,
     """K9 on CUDA tensors, its plain version on CPU tensors."""
     fn = (batched_block_skip_join_cuda if a_docs.is_cuda
           else batched_block_skip_join_torch)
-    return fn(a_docs, a_attrs, a_live, b_docs, active, attr_filter, b_start, n_b)
+    args = (a_docs, a_attrs, a_live, b_docs, active, attr_filter, b_start, n_b)
+    with _reg.dispatched("batched_block_skip", *args):
+        return fn(*args)
 
 
 def intersect_batched_block_skip(
@@ -1454,7 +1469,9 @@ block_skip_join_cuda.launches = 0
 def block_skip_join(a_docs, a_attrs, b_docs, attr_filter, b_start, n_b):
     """K10 on CUDA tensors, its plain version on CPU tensors."""
     fn = block_skip_join_cuda if a_docs.is_cuda else block_skip_join_torch
-    return fn(a_docs, a_attrs, b_docs, attr_filter, b_start, n_b)
+    args = (a_docs, a_attrs, b_docs, attr_filter, b_start, n_b)
+    with _reg.dispatched("block_skip", *args):
+        return fn(*args)
 
 
 def intersect_block_skip(a_docs: torch.Tensor, a_attrs: torch.Tensor,
@@ -1482,3 +1499,756 @@ def block_skip_args(a_docs, a_attrs, b_docs, attr_filter=-1):
                            device=a.device).reshape(1)
     return (a, _pad_to_tile(a_attrs.to(torch.int32), int(INVALID_ATTR)).contiguous(),
             b, filt, b_start, n_b)
+
+
+# ---------------------------------------------------------------------------
+# Launch contracts (repro_torch.kernels.registry) and the joins' work
+# ---------------------------------------------------------------------------
+#
+# The canonical instances: two tiny indexes through the port's builder,
+# one whose last list's live extent ends exactly on a TILE (an empty list
+# among them), one ending inside a tile; three queries each, a NO_TERM
+# slot, an empty driver, filters on and off.  The packed instances widen
+# the last live block of the inner index to 32-bit gaps.
+
+#: List lengths of the canonical indexes (tile edge, inner).
+_EDGE_LISTS = (1024, 500, 512, 0, 1900)
+_INNER_LISTS = (1500, 700, 300, 2100, 0)
+#: Their queries: driver terms, other terms (-1: NO_TERM), filters.
+_EDGE_Q = ((4, 0, 1), ((0, 2), (4, 3), (-1, -1)), (-1, 1, -1))
+_INNER_Q = ((3, 0, 4), ((0, 1), (2, -1), (1, 3)), (-1, 0, 1))
+#: K1's window (two driver tiles) and K4's (a partial tile and sub-tile).
+_K1_WINDOW, _K4_WINDOW = 2048, 1500
+_K4_CAP = 256
+#: ``csrc/probe_async.cuh``'s driver slots a block.
+JOIN_SUB = _reg.JOIN_SUB
+
+
+def _host(x) -> np.ndarray:
+    return x.long().reshape(-1).cpu().numpy()
+
+
+def _small_bytes(*xs) -> int:
+    return sum(x.numel() * 4 for x in xs if x is not None)
+
+
+def _meta(pk: PackedFlatArrays) -> np.ndarray:
+    return pk.blk_meta[:pk.n_blocks].cpu().numpy()
+
+
+def canonical_index(lists, *, widen: bool = False):
+    """``(tensors, live)``: a canonical index
+    (:func:`~repro_torch.kernels.registry.synthetic_flat_index`) as CPU
+    int32 tensors; with ``widen`` the last live block holds gaps of 2**17
+    (a width-32 block of the codec)."""
+    arrays, live = _reg.synthetic_flat_index(lists)
+    arrays = {k: arrays[k].copy() for k in ("postings", "attrs", "offsets",
+                                             "lengths", "block_max")}
+    if widen:
+        p, ends = arrays["postings"], arrays["offsets"] + arrays["lengths"]
+        t = int(np.argmax(np.where(arrays["lengths"] > 0, ends, -1)))
+        end = int(ends[t])
+        first = end - 1 - (end - 1) % BLOCK
+        base = int(p[first - 1]) + 1 if first > arrays["offsets"][t] else int(p[first])
+        p[first:end] = base + np.arange(end - first, dtype=np.int64) * 2**17
+        arrays["block_max"] = p.reshape(-1, BLOCK).max(axis=1)
+    return _reg.tensors(arrays), live
+
+
+def canonical_batch(t, drivers, others, filters, *, window: int):
+    """``(d_off, d_neff, terms, active, attr_filter)`` of a query batch on a
+    canonical index."""
+    drv = torch.tensor(drivers, dtype=torch.int32)
+    idx = drv.clamp(min=0).long()
+    d_off = torch.where(drv >= 0, t["offsets"][idx], 0).to(torch.int32)
+    d_neff = torch.where(drv >= 0, t["lengths"][idx].clamp(max=window), 0).to(torch.int32)
+    terms = torch.tensor(others, dtype=torch.int32)
+    return (d_off, d_neff, terms, (terms >= 0).to(torch.int32),
+            torch.tensor(filters, dtype=torch.int32))
+
+
+def canonical_driver(t, d_off, d_neff, *, window: int):
+    """A materialized driver of ``window`` slots per query from a
+    canonical batch: docIDs and attrs of the driver lists (INVALID past
+    them), a live stream with every seventh valid slot dead and tombstone
+    flags cycling DEAD / SUPERSEDED / none.  Returns ``(a_docs, a_attrs,
+    a_live, a_flags)``."""
+    pos = torch.arange(window, dtype=torch.int64)
+    valid = pos[None, :] < d_neff[:, None]
+    idx = (d_off[:, None].long() + pos).clamp(max=t["postings"].numel() - 1)
+    a_docs = torch.where(valid, t["postings"][idx], _INVALID)
+    a_attrs = torch.where(valid, t["attrs"][idx], int(INVALID_ATTR))
+    a_live = (valid & (pos % 7 != 3)).to(torch.int32)
+    cyc = torch.tensor([0, int(DOC_DEAD), 0, int(DOC_SUPERSEDED), 0])[pos % 5]
+    a_flags = torch.where(valid, cyc, 0).to(torch.int32)
+    return a_docs, a_attrs, a_live, a_flags
+
+
+def _canonical(packed: bool):
+    """Both canonical indexes with their batches at K1's window: ``(label,
+    tensors, live, batch, twin)``, ``twin`` None unless ``packed``."""
+    out = []
+    for label, lists, q in (("tile edge", _EDGE_LISTS, _EDGE_Q),
+                            ("inner", _INNER_LISTS, _INNER_Q)):
+        t, live = canonical_index(lists, widen=packed and label == "inner")
+        batch = canonical_batch(t, *q, window=_K1_WINDOW)
+        twin = pack_flat_postings(t["postings"], device="cpu") if packed else None
+        out.append((label, t, live, batch, twin))
+    return out
+
+
+def _canonical_delta(n_terms: int):
+    """The delta of the canonical instances: slabs of ``_K4_CAP``, full,
+    empty, partial, one short of full and short."""
+    fills = (_K4_CAP, 0, 100, _K4_CAP - 1, 17)[:n_terms]
+    arrays = _reg.synthetic_delta_arrays(n_terms, _K4_CAP, fills)
+    return _reg.tensors(arrays), n_terms * _K4_CAP
+
+
+def _src_operands(prefix: str, src, live: int) -> list:
+    """The operands of a posting source: a raw flat array or a twin."""
+    if isinstance(src, PackedFlatArrays):
+        return _reg.packed_operands(prefix, src)
+    return [_reg.flat_operand(f"{prefix}postings", src, live)]
+
+
+def _stream_table(rlo, rhi, act) -> tuple[np.ndarray, np.ndarray]:
+    """Streams zeroed where their term is not active (``set_term``)."""
+    act = act > 0
+    return np.where(act, rlo, 0), np.where(act, rhi, 0)
+
+
+def _stream_reads(lo_row, hi_row, sources) -> list:
+    """Reads of one block's streams: stream ``j`` from ``sources[j %
+    len(sources)]``, a raw name (bulk copies) or ``(prefix, woff)`` of a
+    twin (its blocks' descriptors and words)."""
+    out = []
+    for j, (lo, hi) in enumerate(zip(lo_row.tolist(), hi_row.tolist())):
+        src = sources[j % len(sources)]
+        if isinstance(src, str):
+            out += _reg.bulk_read(src, lo, hi)
+        else:
+            out += _reg.packed_read(src[0], src[1], lo, hi)
+    return out
+
+
+def _join_launch(kernel, *, grid, nstr, packed, locate, meta, driver, st_lo,
+                 st_hi, sources, outs, window):
+    """A join launch of ``csrc/slave_join.cuh``'s bodies: ``JOIN_SUB + 32``
+    threads, ``probe_layout(nstr, packed)`` bytes of shared memory (opted
+    in above 48 KB), a block's reads its location's, its driver slots' and
+    its streams' (rows of ``st_lo``/``st_hi``), its writes the slots
+    ``[t0, min(t0 + JOIN_SUB, window))`` of row ``q`` of each output."""
+    smem = _reg.probe_smem(nstr, packed)
+
+    def reads(b):
+        q, t0, loc, extra = locate(b)
+        return (extra + meta(q, t0) + driver(q, t0)
+                + _stream_reads(st_lo[loc], st_hi[loc], sources))
+
+    def writes(b):
+        q, t0, _, _ = locate(b)
+        hi = min(t0 + JOIN_SUB, window)
+        return [Access(o, q * window + t0, q * window + hi) for o in outs] if hi > t0 else []
+
+    return _reg.Launch(kernel, grid, JOIN_SUB + 32, smem,
+                       smem > _reg.SMEM_STATIC_LIMIT, reads, writes)
+
+
+def _dense_locate(num_a: int):
+    def locate(b):
+        x, q, _ = b
+        i = x // _reg.NSUB
+        return q, i * TILE + (x % _reg.NSUB) * JOIN_SUB, q * num_a + i, []
+    return locate
+
+
+def _table_locate(desc, heads):
+    desc_h, heads_h = desc.long().numpy(), _host(heads)
+
+    def locate(b):
+        g = b[0] // _reg.NSUB
+        r0, r1 = int(heads_h[g]), int(heads_h[g + 1])
+        q, i = int(desc_h[r0, 0]), int(desc_h[r0, 1])
+        extra = [Access("heads", g, g + 2), Access("desc", 8 * r0, 8 * r1)]
+        return q, i * TILE + (b[0] % _reg.NSUB) * JOIN_SUB, g, extra
+    return locate
+
+
+def _flat_driver(d_off, d_neff, src):
+    """K1's and K6's driver slots: read by position from the flat arrays,
+    the first ``n_sub`` of the block's (raw), or decoded from the blocks
+    that hold them (packed)."""
+    off_h, neff_h = _host(d_off), _host(d_neff)
+    woff = _host(src.blk_woff) if isinstance(src, PackedFlatArrays) else None
+
+    def driver(q, t0):
+        lo = int(off_h[q]) + t0
+        n = max(0, min(int(neff_h[q]) - t0, JOIN_SUB))
+        out = [Access("attrs", lo, lo + n)] if n else []
+        if woff is None:
+            return out + ([Access("postings", lo, lo + n)] if n else [])
+        return out + _reg.packed_read("", woff, lo, lo + n, bulk=False)
+    return driver
+
+
+def _window_driver(names, window):
+    """K4's, K7's and K9's driver: ``window`` slots a query of each of the
+    materialized rows ``names``."""
+    def driver(q, t0):
+        hi = min(t0 + JOIN_SUB, window)
+        return [Access(n, q * window + t0, q * window + hi) for n in names] if hi > t0 else []
+    return driver
+
+
+def _dense_meta(t_n, num_a, per_q, plans):
+    """Reads of a dense plan at (q, i): one int of each ``per_q`` array,
+    the query's ``[Q, T]`` row of ``active``, its ``[Q, T, A]`` plan
+    entries at tile i (a strided read) and its ``[Q, T, 2]`` bounds."""
+    def meta(q, t0):
+        i = t0 // TILE
+        out = [Access(n, q, q + 1) for n in per_q]
+        for name, kind in plans:
+            if kind == "qt":
+                out.append(Access(name, q * t_n, (q + 1) * t_n))
+            elif kind == "qta":
+                base = q * t_n * num_a + i
+                out.append(Access(name, base, base + 1, stride=num_a, count=t_n))
+            else:
+                out.append(Access(name, 2 * q * t_n, 2 * (q + 1) * t_n))
+        return out
+    return meta
+
+
+def _operands(names_tensors) -> list:
+    return [_reg.operand(n, x) for n, x in names_tensors if x is not None]
+
+
+def driver_streamed_work(d_off, d_neff, active, attr_filter, src, attrs, b_tile,
+                         n_b, bounds, *, window: int) -> Work:
+    """K1's (K1p's, with a twin) least work: the plan and query arrays, the
+    live driver postings (their docIDs, or the blocks that hold them, and
+    their attrs), the probed postings (the union of each (query, term)'s
+    planned ranges, or their blocks), the two outputs; one compare per
+    binary-search step, per live driver posting and active other term,
+    and four operations a decoded posting."""
+    q_n = d_off.shape[0]
+    small = _small_bytes(d_off, d_neff, active, attr_filter, b_tile, n_b, bounds)
+    drv, out = int(d_neff.sum()), 2 * q_n * window * 4
+    ops = int((d_neff.long() * active.long().sum(1)).sum()) * _wk.log2_ceil(window + TILE)
+    if isinstance(src, PackedFlatArrays):
+        meta = _meta(src)
+        drv_b, drv_blk = _wk.span_block_cost(d_off, d_neff, meta)
+        prb_b, prb_blk = _wk.probe_block_cost(b_tile, n_b, bounds, TILE, meta)
+        return Work(small + drv_b + prb_b + drv * 4 + out,
+                    ops + 4 * BLOCK * (drv_blk + prb_blk), "int32")
+    probe = _wk.probed_postings(b_tile, n_b, bounds, TILE)
+    return Work(small + drv * 8 + probe * 4 + out, ops, "int32")
+
+
+def _k1_instances(packed: bool):
+    out = []
+    for label, t, live, (d_off, d_neff, terms, active, filt), twin in _canonical(packed):
+        window = _K1_WINDOW
+        b_tile, n_b, bounds = plan_driver_streamed(
+            d_off, d_neff, terms, active, t["offsets"], t["lengths"], t["block_max"],
+            window=window)
+        q_n, t_n, num_a = b_tile.shape
+        src = twin if packed else t["postings"]
+        args = (d_off, d_neff, active, filt, src, t["attrs"], b_tile, n_b, bounds)
+        rlo, rhi = _wk.probed_ranges(b_tile, n_b, bounds, TILE)
+        act = np.broadcast_to(active.numpy()[:, :, None], rlo.shape)
+        lo, hi = _stream_table(rlo, rhi, act)
+        # (q, t, i) -> row q * A + i, stream t
+        lo, hi = (x.transpose(0, 2, 1).reshape(q_n * num_a, t_n) for x in (lo, hi))
+        operands = (_operands([("d_off", d_off), ("d_neff", d_neff), ("active", active),
+                          ("attr_filter", filt), ("b_tile", b_tile), ("n_b", n_b),
+                          ("bounds", bounds)])
+                    + _src_operands("", src, live)
+                    + [_reg.flat_operand("attrs", t["attrs"], live),
+                       _reg.Operand("out_docs", "int32", q_n * window),
+                       _reg.Operand("out_mask", "int32", q_n * window)])
+        launch = _join_launch(
+            "driver_streamed_packed_kernel" if packed else "driver_streamed_kernel",
+            grid=(num_a * _reg.NSUB, q_n, 1), nstr=t_n, packed=packed,
+            locate=_dense_locate(num_a),
+            meta=_dense_meta(t_n, num_a, ("d_off", "d_neff", "attr_filter"),
+                             (("active", "qt"), ("b_tile", "qta"), ("n_b", "qta"),
+                              ("bounds", "qt2"))),
+            driver=_flat_driver(d_off, d_neff, src), st_lo=lo, st_hi=hi,
+            sources=[("", _host(src.blk_woff)) if packed else "postings"],
+            outs=("out_docs", "out_mask"), window=window)
+        out.append(_reg.Instance(label, tuple(operands), (launch,), args,
+                                 {"window": window}))
+    return out
+
+
+@_reg.launch_contract("driver_streamed", kid="K1", kernels=("driver_streamed_kernel",),
+                      wrapper=driver_streamed_join_cuda,
+                      plain=driver_streamed_join_torch, work=driver_streamed_work)
+def _driver_streamed_contract():
+    return _k1_instances(False)
+
+
+@_reg.launch_contract("driver_streamed_packed", kid="K1p",
+                      kernels=("driver_streamed_packed_kernel",),
+                      wrapper=driver_streamed_join_packed_cuda,
+                      plain=driver_streamed_join_packed_torch, work=driver_streamed_work)
+def _driver_streamed_packed_contract():
+    return _k1_instances(True)
+
+
+def _probe_cost(src, b_tile, n_b, bounds):
+    """``(bytes, blocks)`` a probe plan reads from ``src`` (raw: 4 bytes a
+    probed posting, no block)."""
+    if isinstance(src, PackedFlatArrays):
+        return _wk.probe_block_cost(b_tile, n_b, bounds, TILE, _meta(src))
+    return _wk.probed_postings(b_tile, n_b, bounds, TILE) * 4, 0
+
+
+def streamed_join_work(a_docs, a_attrs, a_live, a_flags, active, attr_filter, src,
+                       b_tile, n_b, bounds, d_src, d_tile, n_d, d_bounds, *,
+                       cap: int) -> Work:
+    """K4's (K4p's, with twins) least work.  Under merge-on-read: every
+    driver docID, the live stream of valid slots, the flags of live slots
+    of queries that join a term, the attrs of valid slots of filtered
+    queries, the plans, the probed postings (or blocks) of both probes,
+    the mask; two binary searches per live slot and active term.  In the
+    static mode: the docIDs, the live stream of valid slots and their
+    attrs where filtered, the main plan, one search per valid slot and
+    active term."""
+    q_n, window = a_docs.shape
+    t_n = active.shape[1]
+    valid = (a_docs != _INVALID).long().sum(1)
+    filtered = int(valid[attr_filter >= 0].sum())
+    out = q_n * window * 4
+    m_b, m_blk = _probe_cost(src, b_tile, n_b, bounds)
+    if d_src is None:
+        slots = q_n * window + int(valid.sum()) * 2 + filtered
+        small = _small_bytes(b_tile, n_b, bounds) + 4 * q_n * (1 + t_n)
+        ops = int((valid * active.long().sum(1)).sum()) * _wk.log2_ceil(window + TILE)
+        return Work(small + slots * 4 + m_b + out, ops + 4 * BLOCK * m_blk, "int32")
+    d_b, d_blk = _probe_cost(d_src, d_tile, n_d, d_bounds)
+    live = (a_live != 0).long().sum(1)
+    joins = active.long().sum(1) > 0
+    slots = q_n * window + int(valid.sum()) + int(live[joins].sum()) + filtered
+    small = _small_bytes(active, b_tile, n_b, bounds, d_tile, n_d, d_bounds) + q_n * 4
+    ops = int((live * active.long().sum(1)).sum()) * (
+        _wk.log2_ceil(window + TILE) + _wk.log2_ceil(cap + TILE))
+    return Work(small + (slots + q_n * window) * 4 + m_b + d_b,
+                ops + 4 * BLOCK * (m_blk + d_blk), "int32")
+
+
+def _k4_setup(packed: bool, has_delta: bool):
+    """K4's canonical inputs on both indexes: ``(label, t, live, batch,
+    twin, driver, delta, d_twin, d_live, plans)``."""
+    out = []
+    for label, t, live, batch, twin in _canonical(packed):
+        d_off, d_neff, terms, active, filt = batch
+        drv = canonical_driver(t, d_off, d_neff, window=_K4_WINDOW)
+        delta, d_live = _canonical_delta(t["offsets"].numel())
+        d_twin = (pack_flat_postings(delta["d_postings"], span_blocks=_K4_CAP // BLOCK,
+                                     device="cpu") if packed and has_delta else None)
+        d = (delta["d_offsets"], delta["d_lengths"], delta["d_block_max"]) \
+            if has_delta else (None,) * 3
+        a_any, main, dplan, cap = _streamed_plans(
+            drv[0], terms, active, t["offsets"], t["lengths"], t["block_max"], *d)
+        out.append((label, t, live, batch, twin, drv, delta, d_twin, d_live,
+                    (a_any, main, dplan, cap)))
+    return out
+
+
+def _k4_instances(packed: bool):
+    out = []
+    for has_delta in (True, False):
+        for (label, t, live, (d_off, d_neff, terms, active, filt), twin, drv,
+             delta, d_twin, d_live, (_, main, dplan, cap)) in _k4_setup(packed, has_delta):
+            a_docs, a_attrs, a_live, a_flags = drv
+            q_n, window = a_docs.shape
+            t_n = active.shape[1]
+            num_a = -(-window // TILE)
+            src = twin if packed else t["postings"]
+            d_src = (d_twin if packed else delta["d_postings"]) if has_delta else None
+            args = (a_docs, a_attrs, a_live, a_flags if has_delta else None, active,
+                    filt, src, *main, d_src, *(dplan or (None,) * 3))
+            spt = 2 if has_delta else 1
+            act = np.broadcast_to(active.numpy()[:, :, None], (q_n, t_n, num_a))
+            tables = [_stream_table(*_wk.probed_ranges(*main, TILE), act)]
+            if has_delta:
+                tables.append(_stream_table(*_wk.probed_ranges(*dplan, TILE), act))
+            # (q, t, i, kind) -> row q * A + i, stream t * spt + kind
+            lo, hi = (np.stack([tb[k] for tb in tables], -1).transpose(0, 2, 1, 3)
+                      .reshape(q_n * num_a, t_n * spt) for k in (0, 1))
+            sources = [("", _host(src.blk_woff)) if packed else "postings"]
+            if has_delta:
+                sources.append(("d_", _host(d_src.blk_woff)) if packed else "d_postings")
+            rows = ("a_docs", "a_attrs", "a_live") + (("a_flags",) if has_delta else ())
+            plan_names = (("active", "qt"), ("b_tile", "qta"), ("n_b", "qta"),
+                          ("bounds", "qt2"))
+            if has_delta:
+                plan_names += (("d_tile", "qta"), ("n_d", "qta"), ("d_bounds", "qt2"))
+            operands = (_operands([("a_docs", a_docs), ("a_attrs", a_attrs), ("a_live", a_live),
+                              ("a_flags", args[3]), ("active", active),
+                              ("attr_filter", filt), ("b_tile", main[0]),
+                              ("n_b", main[1]), ("bounds", main[2])]
+                             + ([("d_tile", dplan[0]), ("n_d", dplan[1]),
+                                 ("d_bounds", dplan[2])] if has_delta else []))
+                        + _src_operands("", src, live)
+                        + (_src_operands("d_", d_src, d_live) if has_delta else [])
+                        + [_reg.Operand("out_mask", "int32", q_n * window)])
+            launch = _join_launch(
+                "streamed_join_packed_kernel" if packed else "streamed_join_kernel",
+                grid=(num_a * _reg.NSUB, q_n, 1), nstr=t_n * spt, packed=packed,
+                locate=_dense_locate(num_a),
+                meta=_dense_meta(t_n, num_a, ("attr_filter",), plan_names),
+                driver=_window_driver(rows, window), st_lo=lo, st_hi=hi,
+                sources=sources, outs=("out_mask",), window=window)
+            out.append(_reg.Instance(
+                f"{label}, {'merge-on-read' if has_delta else 'static'}",
+                tuple(operands), (launch,), args, {"cap": cap}))
+    return out
+
+
+@_reg.launch_contract("streamed_join", kid="K4", kernels=("streamed_join_kernel",),
+                      wrapper=streamed_join_cuda, plain=streamed_join_torch,
+                      work=streamed_join_work)
+def _streamed_join_contract():
+    return _k4_instances(False)
+
+
+@_reg.launch_contract("streamed_join_packed", kid="K4p",
+                      kernels=("streamed_join_packed_kernel",),
+                      wrapper=streamed_join_packed_cuda, plain=streamed_join_packed_torch,
+                      work=streamed_join_work)
+def _streamed_join_packed_contract():
+    return _k4_instances(True)
+
+
+def _pow2_live(plan_fn, q_n: int):
+    """The first ``live_q`` pattern (all live, then fewer) whose work list
+    has a power-of-two item count (the edge where the table's spare entry
+    is all its padding), else all live; returns ``(live_q, result)``."""
+    first = None
+    for mask in range((1 << q_n) - 1, 0, -1):
+        live_q = np.array([(mask >> q) & 1 for q in range(q_n)], bool)
+        res = plan_fn(live_q)
+        n = res[0].n_items
+        if first is None:
+            first = (live_q, res)
+        if n and n & (n - 1) == 0:
+            return live_q, res
+    return first
+
+
+def _desc_operands(desc, heads, n_items: int) -> list:
+    from repro_torch.kernels.worklist import DESC_COLS
+
+    return [_reg.operand("desc", desc, padding_from=n_items * DESC_COLS,
+                         pad="worklist_entry", spare=DESC_COLS),
+            _reg.operand("heads", heads)]
+
+
+def _table_groups(desc, heads):
+    heads_h = _host(heads)
+    first = desc.long().cpu().numpy()[heads_h[:-1]]
+    return first[:, 0], first[:, 1], heads_h
+
+
+def driver_compact_work(desc, heads, d_off, d_neff, attr_filter, src, attrs, bounds,
+                        *, window: int) -> Work:
+    """K6's (K6p's) least work: the table (32 bytes a row, 4 a head), the
+    query arrays and bounds, each group's live driver slots (docIDs and
+    attrs, or blocks and attrs), the probed postings per (query, term) of
+    the table's rows (or their blocks), both outputs; a search per live
+    driver slot per probe row."""
+    q_n, t_n = bounds.shape[:2]
+    q6, i6, heads_h = _table_groups(desc, heads)
+    n_items = int(heads_h[-1])
+    live6 = np.clip(_host(d_neff)[q6] - i6 * TILE, 0, TILE)
+    desc_h = desc.cpu().numpy()
+    rows = desc_h[:n_items]
+    bounds_h = bounds.long().cpu().numpy()
+    small = 32 * n_items + 4 * (len(q6) + 1) + 12 * q_n + 8 * q_n * t_n
+    out = 2 * q_n * window * 4
+    row_group = np.cumsum(rows[:, 4] & 1) - 1
+    ops = int(live6[row_group[rows[:, 3] >= 0]].sum()) * int(np.log2(TILE))
+    if isinstance(src, PackedFlatArrays):
+        meta = _meta(src)
+        d_b, d_blk = _wk.span_block_cost(_host(d_off)[q6] + i6 * TILE, live6, meta)
+        p_b, p_blk = _wk.table_probe_cost(desc_h, n_items, bounds_h, 3, TILE, meta)
+        return Work(small + d_b + p_b + int(live6.sum()) * 4 + out,
+                    ops + 4 * BLOCK * (d_blk + p_blk), "int32")
+    probe = _wk.table_probe_cost(desc_h, n_items, bounds_h, 3, TILE)
+    return Work(small + int(live6.sum()) * 8 + probe * 4 + out, ops, "int32")
+
+
+def _k6_instances(packed: bool):
+    from repro_torch.kernels.worklist import table_to_device
+
+    out = []
+    for label, t, live, (d_off, d_neff, terms, active, filt), twin in _canonical(packed):
+        window = _K1_WINDOW
+        live_q, (wl, bounds) = _pow2_live(lambda lq: plan_driver_compact(
+            d_off, d_neff, terms, active, t["offsets"], t["lengths"], t["block_max"],
+            window=window, live_q=lq, packed=packed), d_off.shape[0])
+        desc, heads = table_to_device(wl, "cpu")
+        q_n, t_n = bounds.shape[:2]
+        n_groups = heads.numel() - 1
+        src = twin if packed else t["postings"]
+        args = (desc, heads, d_off, d_neff, filt, src, t["attrs"], bounds)
+        lo, hi, act = (x.numpy() for x in table_streams(desc, heads, bounds))
+        lo, hi = _stream_table(lo, hi, act)
+        operands = (_desc_operands(desc, heads, wl.n_items)
+                    + _operands([("d_off", d_off), ("d_neff", d_neff), ("attr_filter", filt),
+                            ("bounds", bounds)])
+                    + _src_operands("", src, live)
+                    + [_reg.flat_operand("attrs", t["attrs"], live),
+                       _reg.Operand("out_docs", "int32", q_n * window),
+                       _reg.Operand("out_mask", "int32", q_n * window)])
+        launch = _join_launch(
+            "driver_compact_packed_kernel" if packed else "driver_compact_kernel",
+            grid=(n_groups * _reg.NSUB, 1, 1), nstr=t_n, packed=packed,
+            locate=_table_locate(desc, heads),
+            meta=_dense_meta(t_n, 1, ("d_off", "d_neff", "attr_filter"),
+                             (("bounds", "qt2"),)),
+            driver=_flat_driver(d_off, d_neff, src), st_lo=lo, st_hi=hi,
+            sources=[("", _host(src.blk_woff)) if packed else "postings"],
+            outs=("out_docs", "out_mask"), window=window)
+        out.append(_reg.Instance(f"{label}, {wl.n_items} items, live {live_q.tolist()}",
+                                 tuple(operands), (launch,), args, {"window": window}))
+    return out
+
+
+@_reg.launch_contract("driver_compact", kid="K6", kernels=("driver_compact_kernel",),
+                      wrapper=driver_compact_join_cuda, plain=driver_compact_join_torch,
+                      work=driver_compact_work)
+def _driver_compact_contract():
+    return _k6_instances(False)
+
+
+@_reg.launch_contract("driver_compact_packed", kid="K6p",
+                      kernels=("driver_compact_packed_kernel",),
+                      wrapper=driver_compact_join_packed_cuda,
+                      plain=driver_compact_join_packed_torch, work=driver_compact_work)
+def _driver_compact_packed_contract():
+    return _k6_instances(True)
+
+
+def streamed_compact_work(desc, heads, a_docs, a_attrs, a_live, a_flags, attr_filter,
+                          src, bounds, d_src, d_bounds) -> Work:
+    """K7's (K7p's) least work: K4's driver reads (a query joins a term
+    where a row of its groups starts a term run), the table, the probed
+    postings per (query, term) of its rows (or their blocks), the mask; a
+    search per live slot of a group per probe of each row."""
+    q_n, window = a_docs.shape
+    t_n = bounds.shape[1]
+    q7, i7, heads_h = _table_groups(desc, heads)
+    n_items = int(heads_h[-1])
+    desc_h = desc.cpu().numpy()
+    rows = desc_h[:n_items]
+    rg = np.cumsum(rows[:, 4] & 1) - 1
+    joins = np.zeros(q_n, bool)
+    joins[q7[rg[(rows[:, 4] & FLAG_TERM_START) != 0]]] = True
+    joins = torch.from_numpy(joins).to(a_live.device)
+    valid = (a_docs != _INVALID).long().sum(1)
+    live = (a_live != 0).long().sum(1)
+    filtered = int(valid[attr_filter >= 0].sum())
+    table = 32 * n_items + 4 * (len(q7) + 1)
+    out = q_n * window * 4
+    slots_g = np.clip(_pad_to_tile((a_live != 0).int(), 0).long().view(q_n, -1, TILE)
+                      .sum(-1).cpu().numpy()[q7, i7], 0, TILE)
+    has_delta = d_src is not None
+    probes = (rows[:, 3] >= 0).astype(np.int64) + (
+        (rows[:, 5] >= 0) if has_delta else 0)
+    ops = int((slots_g[rg] * probes).sum()) * int(np.log2(TILE))
+
+    def cost(s, b, col):
+        b_h = b.long().cpu().numpy()
+        if isinstance(s, PackedFlatArrays):
+            return _wk.table_probe_cost(desc_h, n_items, b_h, col, TILE, _meta(s))
+        return _wk.table_probe_cost(desc_h, n_items, b_h, col, TILE) * 4, 0
+
+    m_b, m_blk = cost(src, bounds, 3)
+    if not has_delta:
+        slots = q_n * window + int(valid.sum()) * 2 + filtered
+        return Work(table + slots * 4 + m_b + out, ops + 4 * BLOCK * m_blk, "int32")
+    d_b, d_blk = cost(d_src, d_bounds, 5)
+    slots = q_n * window + int(valid.sum()) + int(live[joins].sum()) + filtered
+    small = table + 4 * q_n + 16 * q_n * t_n
+    return Work(small + slots * 4 + out + m_b + d_b, ops + 4 * BLOCK * (m_blk + d_blk),
+                "int32")
+
+
+def _k7_instances(packed: bool):
+    from repro_torch.kernels.worklist import table_to_device
+
+    out = []
+    for has_delta in (True, False):
+        for (label, t, live, (d_off, d_neff, terms, active, filt), twin, drv, delta,
+             d_twin, d_live, _) in _k4_setup(packed, has_delta):
+            a_docs, a_attrs, a_live, a_flags = drv
+            d = ((delta["d_offsets"], delta["d_lengths"], delta["d_block_max"])
+                 if has_delta else (None,) * 3)
+            live_q, (wl, bounds, d_bounds) = _pow2_live(lambda lq: plan_streamed_compact(
+                a_docs, terms, active, t["offsets"], t["lengths"], t["block_max"], *d,
+                live_q=lq, packed=packed), a_docs.shape[0])
+            desc, heads = table_to_device(wl, "cpu")
+            q_n, window = a_docs.shape
+            t_n = bounds.shape[1]
+            n_groups = heads.numel() - 1
+            src = twin if packed else t["postings"]
+            d_src = (d_twin if packed else delta["d_postings"]) if has_delta else None
+            args = (desc, heads, a_docs, a_attrs, a_live, a_flags if has_delta else None,
+                    filt, src, bounds, d_src, d_bounds)
+            spt = 2 if has_delta else 1
+            lo, hi, act = (x.numpy() for x in table_streams(desc, heads, bounds, d_bounds))
+            lo, hi = _stream_table(lo, hi, act)
+            sources = [("", _host(src.blk_woff)) if packed else "postings"]
+            if has_delta:
+                sources.append(("d_", _host(d_src.blk_woff)) if packed else "d_postings")
+            rows = ("a_docs", "a_attrs", "a_live") + (("a_flags",) if has_delta else ())
+            plan_names = (("bounds", "qt2"),) + ((("d_bounds", "qt2"),) if has_delta else ())
+            operands = (_desc_operands(desc, heads, wl.n_items)
+                        + _operands([("a_docs", a_docs), ("a_attrs", a_attrs),
+                                ("a_live", a_live), ("a_flags", args[5]),
+                                ("attr_filter", filt), ("bounds", bounds),
+                                ("d_bounds", d_bounds)])
+                        + _src_operands("", src, live)
+                        + (_src_operands("d_", d_src, d_live) if has_delta else [])
+                        + [_reg.Operand("out_mask", "int32", q_n * window)])
+            launch = _join_launch(
+                "streamed_compact_packed_kernel" if packed else "streamed_compact_kernel",
+                grid=(n_groups * _reg.NSUB, 1, 1), nstr=t_n * spt, packed=packed,
+                locate=_table_locate(desc, heads),
+                meta=_dense_meta(t_n, 1, ("attr_filter",), plan_names),
+                driver=_window_driver(rows, window), st_lo=lo, st_hi=hi,
+                sources=sources, outs=("out_mask",), window=window)
+            out.append(_reg.Instance(
+                f"{label}, {'merge-on-read' if has_delta else 'static'}, "
+                f"{wl.n_items} items, live {live_q.tolist()}",
+                tuple(operands), (launch,), args, {}))
+    return out
+
+
+@_reg.launch_contract("streamed_compact", kid="K7", kernels=("streamed_compact_kernel",),
+                      wrapper=streamed_compact_join_cuda,
+                      plain=streamed_compact_join_torch, work=streamed_compact_work)
+def _streamed_compact_contract():
+    return _k7_instances(False)
+
+
+@_reg.launch_contract("streamed_compact_packed", kid="K7p",
+                      kernels=("streamed_compact_packed_kernel",),
+                      wrapper=streamed_compact_join_packed_cuda,
+                      plain=streamed_compact_join_packed_torch, work=streamed_compact_work)
+def _streamed_compact_packed_contract():
+    return _k7_instances(True)
+
+
+def batched_block_skip_work(a_docs, a_attrs, a_live, b_docs, active, attr_filter,
+                            b_start, n_b) -> Work:
+    """K9's least work: the driver docIDs, attrs of valid slots of
+    filtered queries, the live stream of valid slots (when given), the
+    active flags, filters and skip map, the postings in the skip ranges,
+    the mask; a search over the other-term window per valid slot and
+    active term."""
+    q_n, w_b = a_docs.shape[0], b_docs.shape[-1]
+    valid = (a_docs != _INVALID).long().sum(1)
+    span = torch.tensor([0, w_b], dtype=torch.int32).expand(*active.shape, 2)
+    probed = _wk.probed_postings(b_start, n_b, span, TILE)
+    n_bytes = (a_docs.numel() + int(valid[attr_filter >= 0].sum())
+               + (0 if a_live is None else int(valid.sum()))
+               + active.numel() + q_n + 2 * b_start.numel() + probed
+               + a_docs.numel()) * 4
+    ops = int((valid * active.long().sum(1)).sum()) * _wk.log2_ceil(w_b)
+    return Work(n_bytes, ops, "int32")
+
+
+def block_skip_work(a_docs, a_attrs, b_docs, attr_filter, b_start, n_b) -> Work:
+    """K10's least work: K9's at one query and one active term."""
+    valid = int((a_docs != _INVALID).sum())
+    span = torch.tensor([[[0, b_docs.shape[0]]]], dtype=torch.int32)
+    probed = _wk.probed_postings(b_start[None, None], n_b[None, None], span, TILE)
+    n_bytes = (a_docs.numel() + (valid if int(attr_filter) >= 0 else 0) + 2
+               + 2 * b_start.numel() + probed + a_docs.numel()) * 4
+    return Work(n_bytes, valid * _wk.log2_ceil(max(b_docs.shape[0], 2)), "int32")
+
+
+def _skip_launch(kernel, *, q_n, t_n, num_a, w_b, b_start, n_b, active, rows, meta):
+    lo, hi, act = (x.numpy() for x in skip_streams(b_start, n_b, active, w_b))
+    lo, hi = _stream_table(lo, hi, act)
+    lo, hi = (x.transpose(0, 2, 1).reshape(q_n * num_a, t_n) for x in (lo, hi))
+    window = num_a * TILE
+    return _join_launch(kernel, grid=(num_a * _reg.NSUB, q_n, 1), nstr=t_n,
+                        packed=False, locate=_dense_locate(num_a), meta=meta,
+                        driver=_window_driver(rows, window), st_lo=lo, st_hi=hi,
+                        sources=["b_docs"], outs=("out_mask",), window=window)
+
+
+def _term_windows(t, terms, w_b: int):
+    """``[Q, T, w_b]``: the first ``w_b`` postings of each slot's list
+    (INVALID past it and for NO_TERM)."""
+    pos = torch.arange(w_b, dtype=torch.int64)
+    tt = terms.clamp(min=0).long()
+    n = torch.where(terms >= 0, t["lengths"][tt], 0)[..., None]
+    idx = (t["offsets"][tt][..., None].long() + pos).clamp(max=t["postings"].numel() - 1)
+    return torch.where(pos < n, t["postings"][idx], _INVALID).to(torch.int32)
+
+
+@_reg.launch_contract("batched_block_skip", kid="K9", kernels=("staged_join_kernel",),
+                      wrapper=batched_block_skip_join_cuda,
+                      plain=batched_block_skip_join_torch, work=batched_block_skip_work)
+def _batched_block_skip_contract():
+    out = []
+    for label, t, _, (d_off, d_neff, terms, active, filt), _ in _canonical(False):
+        a_docs, a_attrs, a_live, _ = canonical_driver(t, d_off, d_neff, window=_K4_WINDOW)
+        b_docs = _term_windows(t, terms, 2000)
+        for with_live in (True, False):
+            args = batched_block_skip_args(a_docs, a_attrs, b_docs, active, filt,
+                                           a_live if with_live else None)
+            a, aa, al, b, act, f, b_start, n_b = args
+            q_n, t_n, w_b = b.shape
+            num_a = a.shape[1] // TILE
+            rows = ("a_docs", "a_attrs") + (("a_live",) if with_live else ())
+            launch = _skip_launch(
+                "staged_join_kernel", q_n=q_n, t_n=t_n, num_a=num_a, w_b=w_b,
+                b_start=b_start, n_b=n_b, active=act, rows=rows,
+                meta=_dense_meta(t_n, num_a, ("attr_filter",),
+                                 (("active", "qt"), ("b_start", "qta"), ("n_b", "qta"))))
+            operands = _operands([("a_docs", a), ("a_attrs", aa), ("a_live", al),
+                             ("b_docs", b), ("active", act), ("attr_filter", f),
+                             ("b_start", b_start), ("n_b", n_b)]) + [
+                _reg.Operand("out_mask", "int32", a.numel())]
+            out.append(_reg.Instance(f"{label}, a_live {'given' if with_live else 'null'}",
+                                     tuple(operands), (launch,), args, {}))
+    return out
+
+
+@_reg.launch_contract("block_skip", kid="K10", kernels=("skip_join_kernel",),
+                      wrapper=block_skip_join_cuda, plain=block_skip_join_torch,
+                      work=block_skip_work)
+def _block_skip_contract():
+    out = []
+    t, _ = canonical_index(_INNER_LISTS)
+    lists = [t["postings"][int(o):int(o) + int(n)]
+             for o, n in zip(t["offsets"], t["lengths"])]
+    for label, a_t, b_t, filt in (("lists 3 and 0", 3, 0, -1), ("list 1 and 3", 1, 3, 1),
+                                  ("against an empty list", 0, 4, -1)):
+        a_attrs = t["attrs"][int(t["offsets"][a_t]):][:lists[a_t].numel()]
+        # an empty list as the kernel takes it: one tile of INVALID
+        b_list = lists[b_t] if lists[b_t].numel() else torch.full((TILE,), _INVALID)
+        args = block_skip_args(lists[a_t], a_attrs, b_list.to(torch.int32), filt)
+        a, aa, b, f, b_start, n_b = args
+        num_a, w_b = a.numel() // TILE, b.numel()
+        launch = _skip_launch(
+            "skip_join_kernel", q_n=1, t_n=1, num_a=num_a, w_b=w_b,
+            b_start=b_start[None, None], n_b=n_b[None, None], active=None,
+            rows=("a_docs", "a_attrs"),
+            meta=lambda q, t0: [Access("attr_filter", 0, 1),
+                                Access("b_start", t0 // TILE, t0 // TILE + 1),
+                                Access("n_b", t0 // TILE, t0 // TILE + 1)])
+        operands = _operands([("a_docs", a), ("a_attrs", aa), ("b_docs", b),
+                         ("attr_filter", f), ("b_start", b_start), ("n_b", n_b)]) + [
+            _reg.Operand("out_mask", "int32", a.numel())]
+        out.append(_reg.Instance(label, tuple(operands), (launch,), args, {}))
+    return out

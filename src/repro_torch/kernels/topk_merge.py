@@ -34,12 +34,15 @@ device; the names are the reference's.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.index import INVALID_DOC
+from repro_torch.kernels import registry as _reg
+from repro_torch.kernels.registry import Access, Work
 
 _INVALID = int(INVALID_DOC)
 
@@ -214,9 +217,9 @@ merge_topk_rows_cuda.launches = 0
 def merge_topk_rows(cands: torch.Tensor, k: int) -> torch.Tensor:
     """``(Q, m)`` candidate ids -> ``(Q, k)`` best, ascending per row: the
     kernel on a CUDA tensor, the plain version on a CPU tensor."""
-    if cands.is_cuda:
-        return merge_topk_rows_cuda(cands, k)
-    return merge_topk_rows_torch(cands, k)
+    fn = merge_topk_rows_cuda if cands.is_cuda else merge_topk_rows_torch
+    with _reg.dispatched("topk_merge_rows", cands, k):
+        return fn(cands, k)
 
 
 # ---------------------------------------------------------------------------
@@ -280,7 +283,10 @@ def bitonic_sort(x: torch.Tensor) -> torch.Tensor:
     """Ascending sort of a 1-D int32 or float32 vector, with the
     reference's padding: the kernel on a CUDA tensor, the plain version on
     a CPU tensor."""
-    return bitonic_sort_cuda(x) if x.is_cuda else bitonic_sort_torch(x)
+    fn = bitonic_sort_cuda if x.is_cuda else bitonic_sort_torch
+    entry = "flat_sort_f32" if x.dtype == torch.float32 else "flat_sort_i32"
+    with _reg.dispatched(entry, x):
+        return fn(x)
 
 
 def merge_topk(cands: torch.Tensor, k: int) -> torch.Tensor:
@@ -288,3 +294,121 @@ def merge_topk(cands: torch.Tensor, k: int) -> torch.Tensor:
     ``cands`` [ns, k'], ascending: the first k of :func:`bitonic_sort` of
     the flattened array (the loser tree's output)."""
     return bitonic_sort(cands.reshape(-1))[:k]
+
+
+# ---------------------------------------------------------------------------
+# Launch contracts (repro_torch.kernels.registry) and the sorts' work
+# ---------------------------------------------------------------------------
+
+#: ``csrc/flat_sort.cu``'s keys a merge-pass block.
+SORT_BLOCK_KEYS = _reg.KPT * _reg.TILE_THREADS
+
+
+def topk_merge_work(cands: torch.Tensor, k: int) -> Work:
+    """K2's least work: the candidates in, ``k`` a row out; a selection of
+    ``k`` of ``m`` keys takes about ``m * ceil(log2 k)`` compares a row
+    (the function, not the network)."""
+    return Work(cands.numel() * 4 + cands.shape[0] * k * 4,
+                cands.numel() * math.ceil(math.log2(k)), "int32")
+
+
+def _topk_instance(label: str, q_n: int, m: int, k: int, seed: int):
+    rng = np.random.default_rng(seed)
+    cands = torch.from_numpy(rng.integers(0, 1 << 20, (q_n, m)).astype(np.int32))
+    cands[:, ::7] = _INVALID
+    mpad = _padded_width(m)
+    kk = min(k, mpad)
+    if mpad <= RUN:
+        rpb = _reg.ROWS_PER_BLOCK
+
+        def rows(b):
+            return range(b[0] * rpb, min((b[0] + 1) * rpb, q_n))
+
+        launch = _reg.Launch(
+            "topk_merge_warp_kernel", (-(-q_n // rpb), 1, 1), 32 * rpb, 0, False,
+            lambda b: [Access("cands", r * m, (r + 1) * m) for r in rows(b)],
+            lambda b: [Access("out", r * kk, (r + 1) * kk) for r in rows(b)])
+    else:
+        threads, _ = merge_rounds(m, kk)
+        keys = -(-m // RUN) * RUN
+        smem = (keys + keys // 32) * 4
+        launch = _reg.Launch(
+            "topk_merge_runs_kernel", (q_n, 1, 1), threads, smem,
+            smem > _reg.SMEM_STATIC_LIMIT,
+            lambda b: [Access("cands", b[0] * m, (b[0] + 1) * m)],
+            lambda b: [Access("out", b[0] * kk, (b[0] + 1) * kk)])
+    operands = (_reg.operand("cands", cands), _reg.Operand("out", "int32", q_n * kk))
+    return _reg.Instance(label, operands, (launch,), (cands, k), {})
+
+
+@_reg.launch_contract("topk_merge_rows", kid="K2",
+                      kernels=("topk_merge_warp_kernel", "topk_merge_runs_kernel"),
+                      wrapper=merge_topk_rows_cuda, plain=merge_topk_rows_torch,
+                      work=topk_merge_work)
+def _topk_merge_rows_contract():
+    return [_topk_instance("warp, 5 rows of 200, k 10", 5, 200, 10, 0),
+            _topk_instance("warp, k past m (100, k 300)", 4, 100, 300, 1),
+            _topk_instance("runs, 3 rows of 5000, k 100", 3, 5000, 100, 2),
+            _topk_instance("runs past 48 KB, 2 rows of 12000, k 1000", 2, 12000, 1000, 3)]
+
+
+def sort_work(x: torch.Tensor) -> Work:
+    """K11's least work: the keys in and out, ``n ceil(log2 n)`` compares."""
+    n = x.numel()
+    return Work(8 * n, n * math.ceil(math.log2(max(n, 2))), "int32")
+
+
+def _sort_instance(label: str, x: torch.Tensor):
+    n = x.numel()
+    m = _padded_width(n)
+    tile = min(m, SORT_TILE)
+    passes = max(0, (m // tile).bit_length() - 1)
+    bufs = ("out", "scratch")
+    cur = bufs[passes & 1]
+    launches = [_reg.Launch(
+        f"flat_sort_tile", (m // tile, 1, 1), tile // _reg.KPT, 0, False,
+        lambda b, t=tile: [Access("x", b[0] * t, min((b[0] + 1) * t, n))]
+        if b[0] * t < n else [],
+        lambda b, t=tile, c=cur: [Access(c, b[0] * t, (b[0] + 1) * t)])]
+    run = tile
+    while run < m:
+        nxt = bufs[1] if cur == bufs[0] else bufs[0]
+        launches.append(_reg.Launch(
+            "flat_sort_merge", (m // SORT_BLOCK_KEYS, 1, 1), _reg.TILE_THREADS, 0, False,
+            # a block's merge-path partition lies in its pair of runs
+            lambda b, c=cur, L=run: [Access(c, b[0] * SORT_BLOCK_KEYS // (2 * L) * 2 * L,
+                                            (b[0] * SORT_BLOCK_KEYS // (2 * L) + 1) * 2 * L,
+                                            consumed=True)],
+            lambda b, c=nxt: [Access(c, b[0] * SORT_BLOCK_KEYS,
+                                     (b[0] + 1) * SORT_BLOCK_KEYS)]))
+        cur, run = nxt, run * 2
+    dtype = str(x.dtype).replace("torch.", "")
+    operands = [_reg.operand("x", x), _reg.Operand("out", dtype, m)]
+    if m > SORT_TILE:
+        operands.append(_reg.Operand("scratch", dtype, m))
+    return _reg.Instance(label, tuple(operands), tuple(launches), (x,), {})
+
+
+def _sort_instances(dtype):
+    rng = np.random.default_rng(11)
+
+    def keys(n):
+        if dtype == torch.float32:
+            return torch.from_numpy(rng.normal(size=n).astype(np.float32))
+        return torch.from_numpy(rng.integers(0, 1 << 30, n).astype(np.int32))
+
+    return [_sort_instance(f"n {n}", keys(n)) for n in (300, 3000, 4096 * 2 + 1, 20000)]
+
+
+@_reg.launch_contract("flat_sort_i32", kid="K11",
+                      kernels=("flat_sort_tile", "flat_sort_merge"),
+                      wrapper=bitonic_sort_cuda, plain=bitonic_sort_torch, work=sort_work)
+def _flat_sort_i32_contract():
+    return _sort_instances(torch.int32)
+
+
+@_reg.launch_contract("flat_sort_f32", kid="K11",
+                      kernels=("flat_sort_tile", "flat_sort_merge"),
+                      wrapper=bitonic_sort_cuda, plain=bitonic_sort_torch, work=sort_work)
+def _flat_sort_f32_contract():
+    return _sort_instances(torch.float32)

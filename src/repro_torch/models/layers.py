@@ -197,6 +197,7 @@ def _flash_gqa(
     recording = torch.is_grad_enabled() and any(x.requires_grad for x in (qg, k, v))
     if qg.is_cuda or recording:
         from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import registry
 
         if not all(isinstance(b, int) for b in (q_base, k_base, k_len)):
             raise NotImplementedError("K12 takes host-integer bases and key length")
@@ -210,8 +211,9 @@ def _flash_gqa(
         if recording:  # K12 forward, its gradient in torch ops (both devices)
             out = fa.K12Attention.apply(q, k, v, causal, window)
         else:
-            out = fa.flash_attention_fwd_cuda(q, k, v, causal=causal, q_chunk=S,
-                                              k_chunk=T, window=window)
+            kw = dict(causal=causal, q_chunk=S, k_chunk=T, window=window)
+            with registry.dispatched(fa.k12_entry(q), q, k, v, **kw):
+                out = fa.flash_attention_fwd_cuda(q, k, v, **kw)
         return out.reshape(B, S, KV, G, hd)
 
     dev, i32, f32 = qg.device, torch.int32, torch.float32

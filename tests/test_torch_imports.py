@@ -37,6 +37,14 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     assert "repro_torch.models.rwkv6" in mods
     assert "repro_torch.training.checkpoint" in mods
     assert "repro_torch.launch.train" in mods
+    for m in ("repro_torch.kernels.registry", "repro_torch.kernels.work",
+              "repro_torch.analysis",
+              "repro_torch.analysis.__main__", "repro_torch.analysis.geometry",
+              "repro_torch.analysis.contracts", "repro_torch.analysis.fixtures",
+              "repro_torch.analysis.lint", "repro_torch.analysis.launch",
+              "repro_torch.roofline", "repro_torch.roofline.analysis",
+              "repro_torch.roofline.op_cost"):
+        assert m in mods, m
     code = "\n".join([
         "import sys",
         *(f"sys.modules[{b!r}] = None" for b in BLOCKED),
@@ -70,6 +78,22 @@ def test_no_jax_or_repro_import_in_source(path):
             continue
         for name in names:
             assert name.split(".")[0] not in BLOCKED, (path, name)
+
+
+def test_kernel_layer_does_not_import_the_roofline_or_the_checker():
+    """The kernels state their launches and their work; the roofline prices
+    the work and the checker reads the launches, not the other way round."""
+    for path in sorted((PKG / "kernels").rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert not name.startswith(("repro_torch.roofline", "repro_torch.analysis")), (
+                    path, name)
 
 
 def test_chip_smoke_without_card_fails_and_prints_no_result(tmp_path):
