@@ -3,8 +3,8 @@
     python3 chip_smoke.py                                  # the full check
     python3 chip_smoke.py --n-docs 200000 --n-queries 128  # a short rehearsal
 
-Phases, run in the order 1, 2, 21, 20, 3–19 (any failure exits non-zero;
-nothing is caught):
+Phases, run in the order 1, 2, 21, 20, 3–16, 22, 17–19 (any failure
+exits non-zero; nothing is caught):
 
 1. device  — the card's name, power limit and count;
 2. build   — nvcc builds every kernel (K1–K4, the work-list kernels
@@ -360,6 +360,41 @@ nothing is caught):
              ms=... memcheck=...`` for each entry: ``roofline.kernel_bound``
              at its first instance beside CUDA-event time.
 
+22. mesh  — the search engine across processes (``torch.distributed``),
+             after phase 16, on phase 3's index (k 10, its 512 queries in
+             16 batches of 32) and the raw snapshot of phase 11's writer at
+             fill 1.0 (phase 8's stream).  (a) In this process, ``nccl`` at
+             world 1 (the payloads on the card): ``distributed_query_topk``
+             with ns 1 on the 3000-page corpus under both merges equal to
+             the one-card ``query_topk``, and ``distributed_vocab_topk`` at
+             phi4-mini's vocabulary (B 4, V 200064, k 1 and 10, both
+             strategies) equal to ``torch.topk`` of the whole logits,
+             ``greedy_token(mesh=)`` to argmax.  Then one ``gloo`` world
+             of 9 spawned ranks, all on this card (``nccl`` refuses two
+             ranks on one card): rank 0 the front, ranks 1–8 the slaves;
+             each slave loads its own shard, saved once by this process.
+             (b) Ranks 1–4, a ``(4,)`` ``("data",)`` mesh: the 512 queries
+             through ``distributed_query_topk(mesh=)`` under
+             ``tournament`` and ``allgather``, docids and n_hits equal to
+             the one-process form bit for bit, K1 16 and K2 32 / 16 a
+             rank; (c) merge-on-read on each rank's slice of the snapshot,
+             K3 16, K4 16 and K2 32 a rank, equal; (d)
+             ``replicated_query_topk`` on ``(2, 4)`` ``("pod", "data")``
+             over ranks 1–8, each pod its 16 rows of every batch, equal;
+             (e) ``SearchService(set_meshes=set_mesh_slices(2, 4))`` on the
+             front, cache off, the 512 queries of the default mix (k 10,
+             50, 1000) equal to the one-card ``SearchService`` answer for
+             answer, then after ``fail(0)`` every batch on set 1, equal
+             again; the batches each set served; (f) ranks 1–4, a ``(4,)``
+             ``("model",)`` mesh: ``distributed_vocab_topk`` and
+             ``greedy_token(mesh=)`` at (4, 200064) equal to ``torch.topk``
+             and argmax.  (g) ``python -m repro_torch.launch.
+             _parallel_selftest --device cuda``'s ``main``: its 8 ``gloo``
+             ranks on this card, every check OK and
+             ``PARALLEL_SELFTEST_PASS``.  Host ms a batch of each form
+             beside the one-process form's, each rank's peak memory, the
+             world's seconds; any mismatch, failed rank or timeout fails.
+
 Every phase prints its seconds.
 
 The line before the last is the card as ``nvidia-smi`` names it; the one
@@ -369,10 +404,13 @@ Without a CUDA device the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import ctypes
 import dataclasses
+import datetime
 import inspect
+import io
 import json
 import math
 import os
@@ -1980,6 +2018,356 @@ def contracts_phase(smi: str, built: dict) -> dict:
             f"({by}) ms={ms:.4f} memcheck={'not run' if n_err is None else n_err} on {smi}")
         records[c.name].update(bound_ms=bound, bound_by=by, ms=ms, memcheck=n_err)
     return records
+
+
+# ---------------------------------------------------------------------------
+# Phase 22: the search engine across processes
+# ---------------------------------------------------------------------------
+
+MESH_WORLD = 9                 # the front (rank 0) + 2 sets x NS slaves
+MESH_SLAVES = list(range(1, MESH_WORLD))
+MESH_K = 10
+VOCAB_PHI4 = 200064            # phi4-mini-3.8b's vocabulary
+VOCAB_KS = (1, 10)
+
+
+def search_wrappers() -> dict:
+    """The search kernels' CUDA wrappers (each counts its launches)."""
+    from repro_torch.kernels import delta_merge as dm
+    from repro_torch.kernels import posting_intersect as pi
+    from repro_torch.kernels import topk_merge as tm
+
+    return {"K1": pi.driver_streamed_join_cuda, "K2": tm.merge_topk_rows_cuda,
+            "K3": dm.merge_delta_windows_cuda, "K4": pi.streamed_join_cuda}
+
+
+def mesh_rank(rank: int, world: int, spec: dict) -> dict:
+    """One rank of phase 22's gloo world, all on ``cuda:0``.  Ranks 1–4
+    hold shards 0–3 and run (b), (c) and (f) on a ``(4,)`` mesh; ranks 1–8
+    run (d) on ``(2, 4)`` ``("pod", "data")``; then rank 0 is the front
+    of (e)'s sliced service and ranks 1–8 serve its two sets.  Each form:
+    one warm-up batch, then the 16 batches with the launch counters at 0,
+    each batch timed on the host clock around a synchronise."""
+    from repro_torch.core.engine import QueryBatch
+    from repro_torch.core.faults import SetHealth
+    from repro_torch.core.index import ShardedIndex
+    from repro_torch.core.parallel import (
+        distributed_query_topk, replicated_query_topk, set_mesh_slices)
+    from repro_torch.indexing.delta import ShardedDelta
+    from repro_torch.launch.mesh import make_mesh, rank_device
+    from repro_torch.serving.router import distributed_vocab_topk, greedy_token
+    from repro_torch.serving.search import SearchService, serve_set
+
+    marks = [("joined", time.time())]       # wall clock: the parent subtracts its spawn
+    dev = rank_device()
+    torch.cuda.set_device(dev)
+    torch.zeros(1, device=dev)
+    marks.append(("cuda", time.time()))
+    wrappers = search_wrappers()
+    m4 = make_mesh([1, 2, 3, 4], ("data",))
+    m24 = make_mesh([[1, 2, 3, 4], [5, 6, 7, 8]], ("pod", "data"))
+    mv = make_mesh([1, 2, 3, 4], ("model",))
+    marks.append(("meshes", time.time()))
+    out: dict = {"device": str(dev), "marks": marks}
+    shard_dir = Path(spec["shard_dir"])
+
+
+    def form(name, fn, batches):
+        fn(batches[0])                                    # warm-up, not counted
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        docs, hits, ms = [], [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            res = fn(b)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            docs.append(res.docids.cpu().numpy())
+            hits.append(res.n_hits.cpu().numpy())
+        out[name] = {"docids": np.stack(docs), "n_hits": np.stack(hits),
+                     "ms": ms, "launches": {k: w.launches for k, w in wrappers.items()}}
+        marks.append((name, time.time()))
+
+    engine = dict(ns=NS, k=MESH_K, window=MAIN_WINDOW, attr_strategy="embed",
+                  backend="kernel")
+    if rank:
+        s = (rank - 1) % NS
+        saved = torch.load(shard_dir / f"shard{s}.pt")   # this rank's shard alone
+        index = ShardedIndex(*(t.to(dev)[None] for t in saved["index"]))
+        delta = ShardedDelta(*(t.to(dev)[None] for t in saved["delta"]))
+        del saved
+        marks.append(("loaded", time.time()))
+        batches = [QueryBatch(*(torch.from_numpy(a).to(dev) for a in b))
+                   for b in spec["batches"]]
+        if rank <= NS:                                   # (b), (c) on (4,)
+            for merge in ("tournament", "allgather"):
+                form(f"static-{merge}", lambda b, m=merge: distributed_query_topk(
+                    index, b, mesh=m4, merge=m, **engine), batches)
+            form("mor", lambda b: distributed_query_topk(
+                index, b, delta, mesh=m4, merge="tournament", **engine), batches)
+        form("replicated", lambda b: replicated_query_topk(        # (d) on (2, 4)
+            index, b, mesh=m24, merge="tournament", **engine), batches)
+        if rank <= NS:                                   # (f) on (4,) "model"
+            full = spec["logits"]
+            v = full.shape[-1] // NS
+            local = torch.from_numpy(full[:, s * v:(s + 1) * v].copy()).to(dev)
+            for strategy in ("tournament", "allgather"):
+                for k in VOCAB_KS:
+                    val, ids = distributed_vocab_topk(local, mesh=mv, k=k,
+                                                      strategy=strategy)
+                    out[f"vocab-{strategy}-{k}"] = (val.cpu().numpy(), ids.cpu().numpy())
+            out["greedy"] = greedy_token(local, mesh=mv).cpu().numpy()
+            marks.append(("vocab", time.time()))
+        del index, delta, batches
+        torch.cuda.empty_cache()
+    slices = set_mesh_slices(2, NS)                      # (e): every rank
+    marks.append(("slices", time.time()))
+    if rank:
+        for w in wrappers.values():
+            w.launches = 0
+        out["served"] = serve_set(slices, device=dev)
+        out["set_launches"] = {k: w.launches for k, w in wrappers.items()}
+    else:
+        stacked = [torch.load(shard_dir / f"shard{s}.pt")["index"] for s in range(NS)]
+        index = ShardedIndex(*(torch.stack([st[f] for st in stacked]).to(dev)
+                               for f in range(len(ShardedIndex._fields))))
+        del stacked
+        health = SetHealth.all_alive(2)
+        t0 = time.perf_counter()
+        svc = SearchService(index, spec["meta"], set_meshes=slices, n_sets=2,
+                            set_health=health, cache_size=0, device=dev,
+                            **spec["service"])
+        out["place_s"] = time.perf_counter() - t0
+        try:
+            for label in ("both sets", "set 0 failed"):
+                if label == "set 0 failed":
+                    svc.scheduler.router.fail(0)
+                before = [st.n_batches for st in svc.scheduler.router.sets]
+                t0 = time.perf_counter()
+                tickets = [svc.submit(t, site, k=k)
+                           for (t, site), k in zip(spec["queries"], spec["ks"])]
+                svc.drain()
+                out[label] = {
+                    "answers": [(t.result.docids, t.result.n_hits) for t in tickets],
+                    "s": time.perf_counter() - t0,
+                    "batches": [st.n_batches - b for st, b in
+                                zip(svc.scheduler.router.sets, before)]}
+        finally:
+            svc.shutdown()
+    out["peak"] = torch.cuda.max_memory_allocated(dev)
+    marks.append(("served", time.time()))
+    return out
+
+
+def mesh_phase(args, dev, smi, sharded, meta, queries, ks, delta, small,
+               main_kw) -> dict:
+    """Phase 22 (see the module doc); returns the per-rank launch counts of
+    (b)–(d) for the record."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core.engine import make_query_batch, query_topk
+    from repro_torch.core.index import build_sharded_index
+    from repro_torch.core.parallel import distributed_query_topk
+    from repro_torch.launch.spawn import run_ranks
+    from repro_torch.serving.router import distributed_vocab_topk, greedy_token
+    from repro_torch.serving.search import SearchService
+
+    wrappers = search_wrappers()
+    t_phase = time.perf_counter()
+    n_b = len(queries) // MAIN_Q
+    host_batches = [make_query_batch(queries[i * MAIN_Q:(i + 1) * MAIN_Q], t_max=MAIN_T,
+                                     meta=meta, strategy="embed", device="cpu")
+                    for i in range(n_b)]
+    batches = [type(b)(*(x.to(dev) for x in b)) for b in host_batches]
+    rng = np.random.default_rng(args.seed)
+    logits = rng.standard_normal((4, VOCAB_PHI4), dtype=np.float32)
+    logits_d = torch.from_numpy(logits).to(dev)
+    engine = dict(ns=NS, k=MESH_K, window=MAIN_WINDOW, attr_strategy="embed",
+                  backend="kernel")
+
+    def one_process(fn):
+        fn(batches[0])
+        torch.cuda.synchronize()
+        docs, hits, ms = [], [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            res = fn(b)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            docs.append(res.docids.cpu().numpy())
+            hits.append(res.n_hits.cpu().numpy())
+        return np.stack(docs), np.stack(hits), ms
+
+    want = {name: one_process(fn) for name, fn in (
+        ("static-tournament", lambda b: distributed_query_topk(
+            sharded, b, merge="tournament", **engine)),
+        ("static-allgather", lambda b: distributed_query_topk(
+            sharded, b, merge="allgather", **engine)),
+        ("mor", lambda b: distributed_query_topk(
+            sharded, b, delta, merge="tournament", **engine)))}
+
+    # (a) nccl at world 1, in this process: the collectives' payloads on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous",
+                                rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=300))
+        try:
+            idx1, meta1 = build_sharded_index(small, 1, device=dev)
+            m1 = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+            mv1 = init_device_mesh("cuda", (1,), mesh_dim_names=("model",))
+            s_q = [(list(q), None) for q in ([3], [5, 9], [1, 2], [7], [11, 4], [0])] * 16
+            for i in range(0, len(s_q), MAIN_Q):
+                b = make_query_batch(s_q[i:i + MAIN_Q], t_max=MAIN_T, meta=meta1,
+                                     device=dev)
+                d1, h1 = query_topk(idx1.shard(0), b, k=MESH_K, window=MAIN_WINDOW)
+                for merge in ("tournament", "allgather"):
+                    got = distributed_query_topk(idx1, b, mesh=m1, ns=1, k=MESH_K,
+                                                 window=MAIN_WINDOW, merge=merge)
+                    if not (torch.equal(got.docids, d1) and torch.equal(got.n_hits, h1)):
+                        raise AssertionError(f"mesh (a): nccl {merge} differs from "
+                                             "the one-card query_topk")
+            for k in VOCAB_KS:
+                val, ids = distributed_vocab_topk(logits_d, mesh=mv1, k=k)
+                top = torch.topk(logits_d, k)
+                if not (torch.equal(val, top.values) and torch.equal(ids.long(), top.indices)):
+                    raise AssertionError(f"mesh (a): nccl vocab top-{k} differs")
+            if not torch.equal(greedy_token(logits_d, mesh=mv1),
+                               torch.argmax(logits_d, -1).to(torch.int32)):
+                raise AssertionError("mesh (a): nccl greedy_token differs from argmax")
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    log(f"[mesh] (a) {backend} world 1 on {dev}: distributed_query_topk ns 1 on the "
+        f"3000-page corpus, {len(s_q)} queries, both merges, equal to the one-card "
+        f"query_topk (docids, n_hits); distributed_vocab_topk at phi4-mini's vocabulary "
+        f"(4, {VOCAB_PHI4}) k {VOCAB_KS} equal to torch.topk, greedy_token(mesh=) to "
+        f"argmax")
+
+    # (b)-(f): one gloo world of 9 ranks sharing the card
+    shard_dir = Path(__file__).resolve().parent / "build" / "mesh22"
+    shutil.rmtree(shard_dir, ignore_errors=True)
+    shard_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    for s in range(NS):
+        torch.save({"index": [x[s].cpu() for x in sharded],
+                    "delta": [x[s].cpu() for x in delta]}, shard_dir / f"shard{s}.pt")
+    t_save = time.perf_counter() - t0
+    one_card = SearchService(sharded, meta, cache_size=0, **main_kw)
+    t0 = time.perf_counter()
+    tickets = [one_card.submit(q, site, k=k) for (q, site), k in zip(queries, ks)]
+    one_card.drain()
+    t_one_card = time.perf_counter() - t0
+    svc_want = [(t.result.docids, t.result.n_hits) for t in tickets]
+    spec = dict(shard_dir=str(shard_dir), meta=meta, queries=queries, ks=ks,
+                logits=logits,
+                batches=[tuple(x.numpy() for x in b) for b in host_batches],
+                service=dict(main_kw))
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0, w0 = time.perf_counter(), time.time()
+        ranks = run_ranks(mesh_rank, MESH_WORLD, spec, rdzv_dir=tmp, timeout=600)
+        t_world = time.perf_counter() - t0
+    shutil.rmtree(shard_dir, ignore_errors=True)
+    devices = sorted({r["device"] for r in ranks})
+    log(f"[mesh] (b)-(f) a gloo world of {MESH_WORLD} ranks (front + 2 x {NS}) on "
+        f"{devices} (every rank on the one card): {t_world:.1f} s from spawn to the "
+        f"last join; shards saved in {t_save:.1f} s, each rank loaded its own")
+    for r in (0, 1, NS + 1):
+        log(f"[mesh] rank {r} timeline, s from the spawn: " + ", ".join(
+            f"{label} {t - w0:.1f}" for label, t in ranks[r]["marks"]))
+
+    expect = {"static-tournament": {"K1": n_b, "K2": 2 * n_b, "K3": 0, "K4": 0},
+              "static-allgather": {"K1": n_b, "K2": n_b, "K3": 0, "K4": 0},
+              "mor": {"K1": 0, "K2": 2 * n_b, "K3": n_b, "K4": n_b},
+              "replicated": {"K1": n_b, "K2": 2 * n_b, "K3": 0, "K4": 0}}
+    per_rank = {}
+    for name in ("static-tournament", "static-allgather", "mor"):
+        w_docs, w_hits, w_ms = want[name]
+        for r in range(1, NS + 1):
+            got = ranks[r][name]
+            if not (np.array_equal(got["docids"], w_docs)
+                    and np.array_equal(got["n_hits"], w_hits)):
+                raise AssertionError(f"mesh {name}: rank {r} differs from the "
+                                     "one-process distributed_query_topk")
+            if got["launches"] != expect[name]:
+                raise AssertionError(f"mesh {name}: rank {r} launches "
+                                     f"{got['launches']} != {expect[name]}")
+        per_rank[name] = ranks[1][name]["launches"]
+        ms = [np.mean(ranks[r][name]["ms"]) for r in range(1, NS + 1)]
+        log(f"[mesh] ({'c' if name == 'mor' else 'b'}) {name}: {len(queries)} queries "
+            f"in {n_b} batches on 4 gloo ranks, docids and n_hits equal to the "
+            f"one-process form bit for bit; launches per rank {per_rank[name]}; "
+            f"host ms a batch (mean over ranks 1-4) {np.mean(ms):.3f} against the "
+            f"one-process form's {np.mean(w_ms):.3f} on {smi}")
+    w_docs, w_hits, _ = want["static-tournament"]
+    half = MAIN_Q // 2
+    for r in MESH_SLAVES:
+        pod = (r - 1) // NS
+        got = ranks[r]["replicated"]
+        rows = slice(pod * half, (pod + 1) * half)
+        if not (np.array_equal(got["docids"], w_docs[:, rows])
+                and np.array_equal(got["n_hits"], w_hits[:, rows])):
+            raise AssertionError(f"mesh replicated: rank {r} (pod {pod}) differs")
+        if got["launches"] != expect["replicated"]:
+            raise AssertionError(f"mesh replicated: rank {r} launches {got['launches']}")
+    per_rank["replicated"] = ranks[1]["replicated"]["launches"]
+    log(f"[mesh] (d) replicated_query_topk on (2, 4) (\"pod\", \"data\"), 8 ranks: each "
+        f"pod answered its {half} rows of every batch, equal to the one-process form; "
+        f"launches per rank {per_rank['replicated']}; host ms a batch "
+        f"{np.mean([np.mean(ranks[r]['replicated']['ms']) for r in MESH_SLAVES]):.3f}")
+
+    front = ranks[0]
+    for label in ("both sets", "set 0 failed"):
+        run = front[label]
+        if run["answers"] != svc_want:
+            bad = sum(a != b for a, b in zip(run["answers"], svc_want))
+            raise AssertionError(f"mesh (e) {label}: {bad} answers differ from the "
+                                 "one-card SearchService")
+        log(f"[mesh] (e) SearchService(set_meshes=set_mesh_slices(2, {NS})) {label}: "
+            f"{len(queries)} queries equal to the one-card service answer for answer; "
+            f"batches served by set 0 / set 1: {run['batches']}; {run['s']:.3f} s "
+            f"({run['s'] / sum(run['batches']) * 1e3:.3f} ms a batch) against the "
+            f"one-card service's {t_one_card:.3f} s")
+    if front["set 0 failed"]["batches"][0] != 0 or min(front["both sets"]["batches"]) == 0:
+        raise AssertionError(f"mesh (e): set batches {front['both sets']['batches']}, "
+                             f"after fail(0) {front['set 0 failed']['batches']}")
+    log(f"[mesh] (e) the front placed 2 x {NS} shards in {front['place_s']:.2f} s; "
+        f"batches each slave answered {[ranks[r]['served'] for r in MESH_SLAVES]}; "
+        f"slave launches {[ranks[r]['set_launches'] for r in (1, NS + 1)]} (ranks 1, "
+        f"{NS + 1})")
+    for strategy in ("tournament", "allgather"):
+        for k in VOCAB_KS:
+            top = torch.topk(logits_d, k)
+            for r in range(1, NS + 1):
+                val, ids = ranks[r][f"vocab-{strategy}-{k}"]
+                if not (np.array_equal(val, top.values.cpu().numpy())
+                        and np.array_equal(ids, top.indices.cpu().numpy())):
+                    raise AssertionError(f"mesh (f) vocab {strategy} k {k}: rank {r}")
+    argmax = torch.argmax(logits_d, -1).cpu().numpy()
+    if any(not np.array_equal(ranks[r]["greedy"], argmax) for r in range(1, NS + 1)):
+        raise AssertionError("mesh (f): greedy_token(mesh=) differs from argmax")
+    log(f"[mesh] (f) distributed_vocab_topk on 4 gloo ranks at (4, {VOCAB_PHI4}), "
+        f"k {VOCAB_KS}, both strategies: values and ids equal to torch.topk of the "
+        f"whole logits on every rank; greedy_token(mesh=) equal to argmax")
+    from repro_torch.launch import _parallel_selftest
+
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = _parallel_selftest.main(["--device", "cuda", "--timeout", "300"])
+    lines = out.getvalue().splitlines()
+    if rc != 0 or "PARALLEL_SELFTEST_PASS" not in lines:
+        raise AssertionError(f"mesh (g): the parallel self-test gave rc {rc}: {lines}")
+    log(f"[mesh] (g) python -m repro_torch.launch._parallel_selftest --device cuda "
+        f"(its main, 8 gloo ranks on the card): {' | '.join(lines)}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(f"[mesh] peak device memory per rank (bytes): "
+        f"{[r['peak'] for r in ranks]}; this process {torch.cuda.max_memory_allocated()}"
+        f" on {smi}")
+    log(f"[mesh] phase seconds {time.perf_counter() - t_phase:.1f}")
+    return per_rank
 
 
 def main() -> int:
@@ -5283,6 +5671,13 @@ def main() -> int:
     log("[model] python -m repro_torch.obs demo / check / inert on the card: rc 0")
     phase_end("16 model")
 
+    # ------------------------------------------------------------ 22. mesh
+    # the search engine across processes, on phase 3's index and phase 11's
+    # packed writer at fill 1.0 (phase 8's stream; its raw snapshot)
+    mesh_launches = mesh_phase(args, dev, smi, sharded, meta, queries, ks,
+                               p_writer.device_delta(), small, main_kw)
+    phase_end("22 mesh")
+
     # ------------------------------------------------------------ 17. lm
     # The LM serving path at phi4-mini-3.8b's full width and depth, bf16,
     # random weights from the seed; K12 in every prefill's attention.
@@ -5594,6 +5989,12 @@ def main() -> int:
                     "memcheck": r["memcheck"]}
             for entry, r in contract_records.items()
             if r["kid"] == static_mode.get(kid, kid)}
+    # phase 22: each search kernel's launches on one rank of each mesh form
+    for row in record["kernels"]:
+        kid = row["name"].split()[0]
+        if kid in ("K1", "K2", "K3", "K4"):
+            row["mesh_launches_per_rank"] = {form: c[kid]
+                                             for form, c in mesh_launches.items()}
     print(json.dumps(record), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -39,7 +39,12 @@ class Request:
 
 class ServingEngine:
     def __init__(self, cfg: ArchConfig, *, batch_size: int, max_len: int,
-                 rng_seed: int = 0, device=None, params=None):
+                 rng_seed: int = 0, device=None, params=None, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "ServingEngine(mesh=): serving a tensor-parallel (sharded) model "
+                "is the next slice of the port (ROADMAP Queue 2); "
+                "greedy_token(mesh=) already runs the vocab-sharded top-k")
         self.cfg = cfg
         self.batch_size = batch_size
         self.max_len = max_len

@@ -8,19 +8,27 @@ scheduler's least-loaded multi-set router with the set-granular failover of
 and resumes receiving them the moment it recovers.  Wire it into
 :class:`~repro_torch.serving.scheduler.MasterScheduler` via ``router=``
 (the :class:`~repro_torch.serving.search.SearchService` ``set_health=``
-knob does so).  On one card the sets time-share the device; the router
-only decides which set's accounting a batch joins.
+knob does so).  With ``set_meshes`` each set is its own ranks; without,
+the sets time-share the service's device and the router only decides
+which set's accounting a batch joins.
 
-**Greedy decoding**: :func:`greedy_token` is the LM serving engine's
-argmax over the vocabulary.  The JAX package distributes it over a
-vocab-sharded mesh (``distributed_vocab_topk``); on one card there is no
-mesh, and that path is out of this round.
+**LM head top-k**: greedy or top-k decoding with the LM head sharded over
+the ``model`` axis is the ODYS master/slave merge problem: each rank owns
+a vocabulary slice (its "document partition"), takes its local top-k
+(the slave top-k), and a log-depth tournament merges candidates (the
+master's loser tree), so k candidates a rank move instead of the whole
+(B, V) logits.  :func:`distributed_vocab_topk` runs it over a
+:class:`~torch.distributed.device_mesh.DeviceMesh`, one process a rank.
+A tie between values keeps the lower token id, on every rank (ROADMAP
+R11), which is the copy the reference hands back.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.core.faults import SetHealth
+from repro_torch.core.parallel import exchange, gather
 from repro_torch.serving.scheduler import MultiSetRouter, SetState
 
 
@@ -92,11 +100,83 @@ class HealthAwareRouter(MultiSetRouter):
         self.health.recover(set_id)
 
 
-def greedy_token(logits: torch.Tensor, *, mesh=None) -> torch.Tensor:
+def _top_k(values: torch.Tensor, k: int):
+    """Descending top-k along the last axis that keeps the earlier position
+    on a tie, as ``lax.top_k`` (``torch.topk`` does not promise an order
+    among equal values)."""
+    v, sel = torch.sort(values, dim=-1, descending=True, stable=True)
+    return v[..., :k], sel[..., :k]
+
+
+def _merge_scored(av, ai, bv, bi, k: int):
+    """Merge two descending (B, k) scored candidate sets -> the best k; on
+    a tie the first set's candidate wins."""
+    v, sel = _top_k(torch.cat([av, bv], dim=-1), k)
+    return v, torch.gather(torch.cat([ai, bi], dim=-1), -1, sel)
+
+
+def tournament_topk_scored(values, indices, mesh: DeviceMesh, axis: str, n: int,
+                           k: int):
+    """Butterfly merge of this rank's (B, k) candidates over ``axis`` (n a
+    power of two).  In each round the partner with the lower coordinate
+    holds the lower token ids and goes first, so on a tie every rank keeps
+    the lower id and all ranks end equal."""
+    if n & (n - 1):
+        raise ValueError(f"tournament top-k needs a power-of-two axis, got {n}")
+    group, i = mesh.get_group(axis), mesh.get_local_rank(axis)
+    d = 1
+    while d < n:
+        ov = exchange(values, group, i ^ d)
+        oi = exchange(indices, group, i ^ d)
+        if i & d:
+            values, indices = _merge_scored(ov, oi, values, indices, k)
+        else:
+            values, indices = _merge_scored(values, indices, ov, oi, k)
+        d *= 2
+    return values, indices
+
+
+def distributed_vocab_topk(
+    local_logits: torch.Tensor,
+    *,
+    mesh: DeviceMesh,
+    k: int = 1,
+    axis: str = "model",
+    strategy: str = "tournament",
+    batch_axes=None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Global top-k ``(values, token_ids)`` of vocab-sharded logits.
+
+    Every rank of ``axis`` calls it with its slice ``local_logits`` (B,
+    V/n), slice ``i`` holding token ids ``[i*V/n, (i+1)*V/n)``, and gets the
+    (B, k) result: values descending, ids int32, the lower id first on a
+    tie.  ``strategy`` is ``"tournament"`` (log2(n) exchanges of k
+    candidates) or ``"allgather"`` (every rank's k, one top-k).
+    ``batch_axes`` names mesh axes the batch is split over (each rank
+    passes its rows); no collective crosses them."""
+    del batch_axes  # the rows a rank holds are its own; only ``axis`` merges
+    if strategy not in ("tournament", "allgather"):
+        raise ValueError(f"unknown strategy {strategy!r}")
+    n = mesh.size(mesh.mesh_dim_names.index(axis))
+    shard = mesh.get_local_rank(axis)
+    lv, li = _top_k(local_logits, k)                  # the slave side
+    gi = (li + shard * local_logits.shape[-1]).to(torch.int32)  # global ids
+    if strategy == "tournament":
+        return tournament_topk_scored(lv, gi, mesh, axis, n, k)
+    group = mesh.get_group(axis)
+    allv = torch.cat(gather(lv, group), dim=-1)      # (B, n*k), rank order
+    alli = torch.cat(gather(gi, group), dim=-1)
+    v, sel = _top_k(allv, k)
+    return v, torch.gather(alli, -1, sel)
+
+
+def greedy_token(logits: torch.Tensor, *, mesh: DeviceMesh | None = None,
+                 axis: str = "model") -> torch.Tensor:
     """argmax next token (B,) int32 over the last axis; the first maximum
-    on a tie, as ``jnp.argmax``.  A ``mesh`` is refused: the port serves on
-    one card."""
-    if mesh is not None:
-        raise NotImplementedError("greedy_token: no mesh on one card (the "
-                                  "distributed vocab top-k is out of this round)")
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+    on a tie, as ``jnp.argmax``.  With a ``mesh`` that has ``axis``,
+    ``logits`` is this rank's vocabulary slice and the token comes from
+    :func:`distributed_vocab_topk` (k = 1), the same on every rank."""
+    if mesh is None or axis not in (mesh.mesh_dim_names or ()):
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    _, idx = distributed_vocab_topk(logits, mesh=mesh, k=1, axis=axis)
+    return idx[..., 0].to(torch.int32)

@@ -35,21 +35,41 @@ stamp.  :meth:`SearchService.compact`
 :class:`~repro_torch.serving.router.HealthAwareRouter` into the scheduler:
 a dead set receives no batches and takes them again once it recovers;
 with every set dead, dispatch raises ``RuntimeError`` and the queued
-tickets stay queued.  The ``n_sets`` sets time-share the service's one
-device (``set_id`` picks no device).  Per-set devices (``set_meshes``)
-need several GPUs; the constructor refuses them.
+tickets stay queued.  Without ``set_meshes`` the ``n_sets`` sets
+time-share the service's one device (``set_id`` picks no device).
+
+**Sets on their own ranks** (``set_meshes``, from
+:func:`~repro_torch.core.parallel.set_mesh_slices`): the paper's §5.2
+scale-out as process topology.  The world is one front rank (rank 0, the
+paper's master, with no shard of its own) plus ``n_sets * ns`` slave
+ranks; the service runs on the front, and every slave rank runs
+:func:`serve_set`.  Each (front, set) pair has a process group of its
+own, so two sets' batches can be in flight from two threads.  The front
+places each set's shards on that set's ranks at start and after
+:meth:`SearchService.compact`, places the writer's snapshot on a set when
+a batch goes there after the version moved, and sends each batch the
+router picked to that set, whose ranks answer through
+:func:`~repro_torch.core.parallel.replicated_query_topk` on their slice
+and return the merged result from the slice's first rank.  A set the
+health mask marks dead gets no batch.  :meth:`SearchService.shutdown`
+stops every set's loop.  The messages are host tensors under ``gloo``.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 
-from repro_torch.core.engine import make_query_batch
+import torch
+import torch.distributed as dist
+
+from repro_torch.core.engine import QueryBatch, make_query_batch
 from repro_torch.core.index import INVALID_DOC, IndexMeta, ShardedIndex, resolve_device
-from repro_torch.core.parallel import SearchResult, distributed_query_topk
+from repro_torch.core.parallel import (
+    SearchResult, distributed_query_topk, replicated_query_topk, wire_device)
 from repro_torch.data.corpus import Corpus
 from repro_torch.indexing.compaction import compact as _compact
-from repro_torch.indexing.delta import DeltaWriter
+from repro_torch.indexing.delta import DeltaWriter, ShardedDelta
 from repro_torch.obs.registry import MetricsRegistry, get_registry
 from repro_torch.serving.router import HealthAwareRouter
 from repro_torch.serving.scheduler import MasterScheduler, QueryTicket
@@ -78,6 +98,12 @@ class SearchService:
     ``writer``.  ``auto_compact`` (a fill fraction, or None) compacts when
     a mutation pushes the posting fill past it, and hands the writer a
     doubled ``doc_headroom`` when the document fill crosses it instead.
+
+    ``set_meshes`` (one ``(pod=1, data=ns)`` mesh a set, ``n_sets`` of
+    them) runs each routed batch on its set's own ranks (module doc); the
+    service must then be built on rank 0, collectively with
+    :func:`serve_set` on every other rank, and shut down with
+    :meth:`shutdown`.
     """
 
     def __init__(
@@ -112,10 +138,15 @@ class SearchService:
         set_meshes=None,
     ):
         if set_meshes is not None:
-            raise NotImplementedError(
-                "per-set devices (set_meshes) need several GPUs and are not "
-                "in the one-card port (no multi-GPU serving); the n_sets "
-                "sets time-share the service's device")
+            set_meshes = list(set_meshes)
+            if len(set_meshes) != n_sets:
+                raise ValueError(
+                    f"{len(set_meshes)} set_meshes for n_sets={n_sets}")
+            for m in set_meshes:
+                shape = dict(zip(m.mesh_dim_names, m.mesh.shape))
+                if shape.get("data") != ns or shape.get("pod") != 1:
+                    raise ValueError(
+                        f"set mesh must be (pod=1, data={ns}), got {shape}")
         self.device = resolve_device(device)
         if index.postings.device != self.device:
             raise ValueError(f"index lives on {index.postings.device}, "
@@ -156,6 +187,14 @@ class SearchService:
                   else HealthAwareRouter(n_sets, set_health))
         self.registry = registry if registry is not None else get_registry()
         self._exec_phases: dict[str, float] | None = None
+        self._links: list[_SetLink] = []
+        if set_meshes is not None:
+            if dist.get_rank() != FRONT:
+                raise ValueError(f"the sliced service runs on rank {FRONT} (the "
+                                 f"front), not rank {dist.get_rank()}")
+            self._links = [_SetLink(g, m) for g, m in
+                           zip(set_groups(set_meshes), set_meshes)]
+            self._place_set_indexes()
         self.scheduler = MasterScheduler(
             self._execute,
             batch_size=batch_size,
@@ -212,6 +251,10 @@ class SearchService:
             self._require_writer(), verify=verify,
             term_capacity=term_capacity, doc_headroom=doc_headroom,
         )
+        if self._links:
+            # the main index changed: every set re-places it, and the
+            # writer's rebase moved its version, so no stale delta survives
+            self._place_set_indexes()
 
     def _maybe_compact(self) -> None:
         w = self.writer
@@ -237,14 +280,36 @@ class SearchService:
         extra = 1 if (site is not None and self.strategy == "site_term") else 0
         return len(terms) + extra
 
-    def _run_engine(self, queries, *, t_max: int, k: int) -> SearchResult:
-        """One batch end-to-end on the device at the given padded shapes,
-        merge-on-read against the writer's current snapshot if there is
-        one."""
+    def _place_set_indexes(self) -> None:
+        """(Re)place the main index on every set: each rank of a set gets
+        its shard, so each set holds a whole replica (the replication that
+        makes sets independent failure and capacity domains)."""
+        for link in self._links:
+            with link.lock:
+                link.place("index", self.index, dict(
+                    ns=self.ns, window=self.window, strategy=self.strategy,
+                    merge=self.merge, backend=self.backend))
+                link.delta_version = None      # the set dropped its delta
+
+    def _run_engine(self, queries, *, t_max: int, k: int,
+                    set_id: int | None = None) -> SearchResult:
+        """One batch end-to-end at the given padded shapes, merge-on-read
+        against the writer's current snapshot if there is one: on the
+        service's device, or with ``set_meshes`` and a ``set_id`` on that
+        set's ranks."""
         batch = make_query_batch(
             queries, t_max=t_max, meta=self.meta, strategy=self.strategy,
             device=self.device,
         )
+        if self._links and set_id is not None:
+            link = self._links[set_id]
+            with link.lock:
+                if self.writer is not None:
+                    version = self.writer.version
+                    if link.delta_version != version:
+                        link.place("delta", self.writer.device_delta(), {})
+                        link.delta_version = version
+                return link.run(batch, k)
         delta = None if self.writer is None else self.writer.device_delta()
         return distributed_query_topk(
             self.index, batch, delta, ns=self.ns, k=k, window=self.window,
@@ -259,7 +324,8 @@ class SearchService:
 
     def _execute(self, queries, t_max: int, k: int, set_id: int) -> list[SearchHit]:
         """Scheduler executor: run one formed micro-batch.  ``set_id`` is
-        the router's pick; the in-process sets time-share the one device.
+        the router's pick: with ``set_meshes`` the batch runs on that set's
+        ranks; otherwise the sets time-share the one device.
 
         With a live registry the batch's service splits at the batch
         boundary only: host build + kernel launches, the copy of the
@@ -267,7 +333,7 @@ class SearchService:
         result extraction."""
         timed = self.registry.enabled
         w0 = time.perf_counter() if timed else 0.0
-        res = self._run_engine(queries, t_max=t_max, k=k)
+        res = self._run_engine(queries, t_max=t_max, k=k, set_id=set_id)
         w1 = time.perf_counter() if timed else 0.0
         docs = res.docids.cpu().numpy()
         hits = res.n_hits.cpu().numpy()
@@ -319,3 +385,126 @@ class SearchService:
     def stats(self) -> dict:
         """Scheduler/cache/router counters (see MasterScheduler.stats)."""
         return self.scheduler.stats()
+
+    def shutdown(self) -> None:
+        """Stop every set's :func:`serve_set` loop (with ``set_meshes``;
+        a no-op otherwise, and on a second call)."""
+        links, self._links = self._links, []
+        for link in links:
+            with link.lock:
+                link.send_header("stop", None)
+
+
+# ---------------------------------------------------------------------------
+# Sets on their own ranks: the front's links and the slaves' loop
+# ---------------------------------------------------------------------------
+
+#: The front's rank: the paper's master, which holds no shard.
+FRONT = 0
+
+
+def set_groups(set_meshes) -> list:
+    """One process group a set: the front and the set's ranks.  Collective:
+    every rank of the world calls it, in the same order (the service's
+    constructor on the front, :func:`serve_set` on the slaves)."""
+    return [dist.new_group([FRONT, *m.mesh.flatten().tolist()])
+            for m in set_meshes]
+
+
+class _SetLink:
+    """The front's end of one set: its group, its ranks in data order, and
+    a lock that keeps one batch's messages together."""
+
+    def __init__(self, group, mesh):
+        self.group = group
+        self.ranks = mesh.mesh.flatten().tolist()
+        self.lock = threading.Lock()
+        self.delta_version = None
+
+    def send_header(self, kind: str, info) -> None:
+        dist.broadcast_object_list([(kind, info)], src=FRONT, group=self.group)
+
+    def place(self, kind: str, stacked, info: dict) -> None:
+        """Send rank ``j`` of the set shard ``j`` of a stacked index or
+        delta (its arrays' shapes go first, in the header)."""
+        self.send_header(kind, {**info, "shapes": [tuple(x.shape[1:]) for x in stacked]})
+        wire = wire_device(self.group, stacked[0].device)
+        for j, rank in enumerate(self.ranks):
+            for x in stacked:
+                dist.send(x[j].to(wire).contiguous(), dst=rank, group=self.group)
+
+    def run(self, batch: QueryBatch, k: int) -> SearchResult:
+        """Send the batch, receive the merged result from the set's first
+        rank."""
+        self.send_header("batch", {"k": k, "shape": tuple(batch.terms.shape)})
+        dev = batch.terms.device
+        wire = wire_device(self.group, dev)
+        for x in batch:
+            dist.broadcast(x.to(wire).contiguous(), src=FRONT, group=self.group)
+        q_n = batch.n_queries
+        docids = torch.empty((q_n, k), dtype=torch.int32, device=wire)
+        n_hits = torch.empty((q_n,), dtype=torch.int32, device=wire)
+        dist.recv(docids, src=self.ranks[0], group=self.group)
+        dist.recv(n_hits, src=self.ranks[0], group=self.group)
+        return SearchResult(docids.to(dev), n_hits.to(dev))
+
+
+def _recv_shard(cls, shapes, group, device):
+    """This rank's shard from the front, as a stack of leading dimension 1
+    on ``device``."""
+    wire = wire_device(group, device)
+    out = []
+    for shape in shapes:
+        buf = torch.empty(shape, dtype=torch.int32, device=wire)
+        dist.recv(buf, src=FRONT, group=group)
+        out.append(buf.to(device)[None])
+    return cls(*out)
+
+
+def serve_set(set_meshes, *, device=None) -> int:
+    """A slave rank's loop: take the front's index, delta, batch and stop
+    messages for this rank's set and answer each batch; returns the number
+    of batches answered once stopped.  Collective with the front's
+    :class:`SearchService` (``set_meshes`` the same slices); a rank in no
+    slice only joins the groups and returns 0.  ``device`` is where this
+    rank computes (``cuda`` unless named)."""
+    dev = resolve_device(device)
+    groups = set_groups(set_meshes)
+    me = dist.get_rank()
+    mine = [s for s, m in enumerate(set_meshes) if me in m.mesh.flatten().tolist()]
+    if not mine:
+        return 0
+    mesh, group = set_meshes[mine[0]], groups[mine[0]]
+    wire = wire_device(group, dev)
+    index = delta = params = None
+    served = 0
+    while True:
+        msg = [None]
+        dist.broadcast_object_list(msg, src=FRONT, group=group)
+        kind, info = msg[0]
+        if kind == "stop":
+            return served
+        if kind == "index":
+            index = _recv_shard(ShardedIndex, info["shapes"], group, dev)
+            params = {key: info[key] for key in
+                      ("ns", "window", "strategy", "merge", "backend")}
+            delta = None
+        elif kind == "delta":
+            delta = _recv_shard(ShardedDelta, info["shapes"], group, dev)
+        elif kind == "batch":
+            parts = []
+            for shape in (info["shape"], info["shape"][:1], info["shape"][:1]):
+                buf = torch.empty(shape, dtype=torch.int32, device=wire)
+                dist.broadcast(buf, src=FRONT, group=group)
+                parts.append(buf.to(dev))
+            res = replicated_query_topk(
+                index, QueryBatch(*parts), delta, mesh=mesh, ns=params["ns"],
+                k=info["k"], window=params["window"],
+                attr_strategy=params["strategy"], merge=params["merge"],
+                backend=params["backend"])
+            if mesh.get_local_rank("data") == 0:
+                dist.send(res.docids.to(wire).contiguous(), dst=FRONT, group=group)
+                dist.send(res.n_hits.to(wire).contiguous(), dst=FRONT, group=group)
+            served += 1
+        else:
+            raise ValueError(f"unknown message {kind!r}")

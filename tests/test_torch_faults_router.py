@@ -264,8 +264,10 @@ def test_service_health_metrics(setup):
 
 def test_service_set_meshes_still_refused(setup):
     *_, psh, pmeta = setup
-    with pytest.raises(NotImplementedError, match="several GPUs"):
-        SearchService(psh, pmeta, ns=1, device="cpu", set_meshes=[object()])
+    # per-set ranks have come (tests/test_torch_search_sets.py): a count
+    # of slices other than n_sets raises the reference's ValueError
+    with pytest.raises(ValueError, match="1 set_meshes for n_sets=2"):
+        SearchService(psh, pmeta, ns=1, device="cpu", n_sets=2, set_meshes=[object()])
     with pytest.raises(ValueError, match="health mask covers"):
         SearchService(psh, pmeta, ns=1, device="cpu", n_sets=3,
                       set_health=pt_faults.SetHealth.all_alive(2))

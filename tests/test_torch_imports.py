@@ -43,7 +43,9 @@ def test_every_module_imports_with_jax_and_repro_blocked():
               "repro_torch.analysis.contracts", "repro_torch.analysis.fixtures",
               "repro_torch.analysis.lint", "repro_torch.analysis.launch",
               "repro_torch.roofline", "repro_torch.roofline.analysis",
-              "repro_torch.roofline.op_cost"):
+              "repro_torch.roofline.op_cost",
+              "repro_torch.launch.mesh", "repro_torch.launch.spawn",
+              "repro_torch.launch._parallel_selftest"):
         assert m in mods, m
     code = "\n".join([
         "import sys",

@@ -17,6 +17,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
 
 import jax
 import jax.numpy as jnp
@@ -95,14 +97,22 @@ def test_identical_prompts_give_identical_outputs():
     assert eng.step_batch() == []
 
 
-def test_greedy_token_ties_and_mesh():
+def test_greedy_token_ties_and_mesh(tmp_path):
     rng = np.random.default_rng(0)
     logits = rng.integers(0, 4, size=(16, 50)).astype(np.float32)  # many ties
     got = greedy_token(torch.from_numpy(logits))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), np.asarray(jnp.argmax(logits, axis=-1)))
-    with pytest.raises(NotImplementedError):
-        greedy_token(torch.from_numpy(logits), mesh=object())
+    # on a 1-rank ("model",) mesh the vocab-sharded top-k equals argmax
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rendezvous",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("model",))
+        on_mesh = greedy_token(torch.from_numpy(logits), mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    assert on_mesh.dtype == torch.int32
+    np.testing.assert_array_equal(on_mesh.numpy(), got.numpy())
 
 
 def test_engine_without_card_or_device_raises(monkeypatch):

@@ -3,6 +3,8 @@ package's ``SearchService`` (ns=1 on a one-device mesh, ``backend="jnp"``)
 on the same query stream — hits, batch counts, cache hits and
 ``pad_fraction`` identical — plus the ``form_batch``, LRU, router and
 failure cases of the scheduler copy."""
+import types
+
 import pytest
 import torch
 
@@ -101,13 +103,16 @@ def test_service_refuses_later_slices(setup):
     _, _, psh, pmeta = setup
     with pytest.raises(ValueError, match="needs the base corpus"):
         SearchService(psh, pmeta, ns=1, device="cpu", updatable=True)
-    # health-aware routing has come (tests/test_torch_faults_router.py);
-    # per-set devices have not
+    # health-aware routing has come (tests/test_torch_faults_router.py),
+    # and per-set ranks (tests/test_torch_search_sets.py): a slice of
+    # another shape than (pod=1, data=ns) raises the reference's ValueError
     svc = SearchService(psh, pmeta, ns=1, device="cpu",
                         set_health=SetHealth.all_alive(1))
     assert isinstance(svc.scheduler.router, HealthAwareRouter)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        SearchService(psh, pmeta, ns=1, device="cpu", set_meshes=[object()])
+    wide = types.SimpleNamespace(mesh_dim_names=("pod", "data"),
+                                 mesh=torch.zeros((1, 2), dtype=torch.int32))
+    with pytest.raises(ValueError, match=r"set mesh must be \(pod=1, data=1\)"):
+        SearchService(psh, pmeta, ns=1, device="cpu", set_meshes=[wide])
     with pytest.raises(RuntimeError, match="read-only"):
         SearchService(psh, pmeta, ns=1, device="cpu").delete([0])
 
