@@ -394,6 +394,30 @@ exits non-zero; nothing is caught):
              ``PARALLEL_SELFTEST_PASS``.  Host ms a batch of each form
              beside the one-process form's, each rank's peak memory, the
              world's seconds; any mismatch, failed rank or timeout fails.
+23. tp    — tensor parallelism (the LM substrate's sharding on DTensor),
+             right after phase 20, before phase 3's index takes the card;
+             one ``gloo`` world of 4 spawned ranks at a time, all on
+             this card.  (a) ``ServingEngine(mesh=)`` on a
+             (data 1, model 4) mesh: phi4-mini-3.8b at full width and
+             depth, bf16 from the seed, batch 4 of prompts of 64–256
+             tokens, 8 new tokens: the same tokens on every rank, K12 32
+             launches a rank in the prefill (one a layer, on its 6 query
+             and 2 KV heads), first-token logits within a row-relative
+             0.1 of the one-process engine's; its float32 twin cut to 2
+             layers: the one-process twin's tokens, every step's logits
+             within a row-relative 1e-3.  (b) ``python -m
+             repro_torch.launch.train --mesh host`` on (data 2, model 2)
+             (the ranks spawned through ``train._rank_main``): phi4-mini
+             at full width cut to 2 layers, B 4 x S 512, 3 steps: the
+             loss falls, each step's within 1e-2 relative of the
+             one-process run's on the same weights and batches, K12 12
+             launches a rank under a gradient.  (c) ``python -m
+             repro_torch.launch.dryrun --arch phi4-mini-3.8b --shape
+             decode_32k --mesh single`` in a subprocess, its record
+             printed (97 all-reduces, 128 all-gathers).  K12 at the
+             ranks' local shapes against its plain version, with
+             ``roofline.kernel_bound`` and SDPA; per-rank seconds and
+             peak memory, the card's name and power limit.
 
 Every phase prints its seconds.
 
@@ -2370,6 +2394,247 @@ def mesh_phase(args, dev, smi, sharded, meta, queries, ks, delta, small,
     return per_rank
 
 
+TP_WORLD = 4                   # phase 23's ranks, all on this card (gloo)
+TP_NEW = 8                     # tokens each served request generates
+TP_TRAIN = ("--arch", "phi4-mini-3.8b", "--layers", "2", "--batch", "4", "--seq", "512",
+            "--steps", "3", "--device", "cuda")
+TP_BF16_TOL = 0.1              # bf16 first-token logits, TP 4 vs one process (row-rel L2)
+TP_F32_TOL = 1e-3              # float32 twin's logits, every step (row-rel L2)
+TP_LOSS_TOL = 1e-2             # bf16 training losses, (2, 2) vs one process (relative)
+
+
+def tp_serve_rank(rank: int, world: int, spec: dict) -> dict:
+    """One rank of phase 23 (a): a (data 1, model 4) mesh of the gloo
+    world, all on ``cuda:0``.  Serves the prompts with
+    ``ServingEngine(mesh=)`` on phi4-mini at full width and depth (bf16)
+    and on its float32 twin cut to 2 layers; K12's launches counted from 0
+    around each served batch."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch._tp_selftest import RecordingEngine
+    from repro_torch.launch.mesh import make_host_mesh, rank_device
+    from repro_torch.models.model import init_model
+    from repro_torch.serving.engine import Request
+
+    dev = rank_device("cuda")
+    torch.cuda.set_device(dev)
+    mesh = make_host_mesh(data=1, model=world, device_type="cuda")
+    base = get_config("phi4-mini-3.8b")
+    twin = dc.replace(base, n_layers=2, param_dtype="float32", compute_dtype="float32")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for name, cfg in (("bf16", base), ("f32", twin)):
+        t0 = time.perf_counter()
+        params = init_model(cfg, seed=spec["seed"], device=dev)
+        eng = RecordingEngine(cfg, batch_size=len(spec["prompts"]),
+                              max_len=spec["max_len"], device=dev, params=params,
+                              mesh=mesh)
+        del params
+        torch.cuda.empty_cache()
+        t_place = time.perf_counter() - t0
+        for i, p in enumerate(spec["prompts"]):
+            eng.submit(Request(i, p, max_new_tokens=TP_NEW))
+        torch.cuda.synchronize()
+        fa.flash_attention_fwd_cuda.launches = 0
+        t0 = time.perf_counter()
+        done = eng.step_batch()
+        torch.cuda.synchronize()
+        # rank 0 keeps the float32 twin's every step, bf16's first token
+        keep = (eng.logits if name == "f32" else eng.logits[:1]) if rank == 0 else None
+        out[name] = {"tokens": [r.output for r in done],
+                     "k12": fa.flash_attention_fwd_cuda.launches,
+                     "place_s": t_place, "serve_s": time.perf_counter() - t0,
+                     "logits": keep}
+        del eng
+        torch.cuda.empty_cache()
+    out["peak"] = torch.cuda.max_memory_allocated(dev)
+    return out
+
+
+def tp_phase(args, dev, smi: str, wrappers: dict) -> list:
+    """Phase 23 (see the module doc); returns its kernel records."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch._tp_selftest import RecordingEngine
+    from repro_torch.launch.spawn import run_ranks
+    from repro_torch.models.model import init_model
+    from repro_torch.serving.engine import Request
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = get_config("phi4-mini-3.8b")
+    twin = dc.replace(base, n_layers=2, param_dtype="float32", compute_dtype="float32")
+    rng = np.random.default_rng(args.seed + 23)
+    prompts = [rng.integers(0, base.vocab, size=n).astype(np.int32)
+               for n in (64, 256, 130, 200)]
+    plen = max(map(len, prompts))
+    spec = {"seed": args.seed, "prompts": prompts, "max_len": plen + TP_NEW}
+
+    # (a) the one-process engine on the same weights and prompts
+    torch.backends.cuda.matmul.allow_tf32 = False
+    one = {}
+    for name, cfg in (("bf16", base), ("f32", twin)):
+        eng = RecordingEngine(cfg, batch_size=len(prompts), max_len=spec["max_len"],
+                              device=dev, params=init_model(cfg, seed=args.seed, device=dev))
+        for i, p in enumerate(prompts):
+            eng.submit(Request(i, p, max_new_tokens=TP_NEW))
+        one[name] = ([r.output for r in eng.step_batch()], eng.logits)
+        del eng
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent / "build") as rdzv:
+        ranks = run_ranks(tp_serve_rank, TP_WORLD, spec, rdzv_dir=rdzv, timeout=600)
+    t_serve_world = time.perf_counter() - t0
+    k12_layers = k12_per_prefill(base)
+    for r, res in enumerate(ranks):
+        for name, cfg in (("bf16", base), ("f32", twin)):
+            if res[name]["tokens"] != ranks[0][name]["tokens"]:
+                raise AssertionError(f"tp (a) {name}: rank {r}'s tokens differ from rank 0's")
+            if res[name]["k12"] != k12_per_prefill(cfg):
+                raise AssertionError(f"tp (a) {name}: rank {r} launched K12 "
+                                     f"{res[name]['k12']} times, not one a layer "
+                                     f"({k12_per_prefill(cfg)}) in its prefill")
+    tp_first = torch.from_numpy(ranks[0]["bf16"]["logits"][0])
+    one_first = torch.from_numpy(one["bf16"][1][0])
+    if tp_first.shape != (len(prompts), base.vocab) or not bool(torch.isfinite(tp_first).all()):
+        raise AssertionError(f"tp (a): first-token logits {tuple(tp_first.shape)} "
+                             f"or not finite")
+    rr_bf16 = fa.max_row_rel_err(tp_first, one_first)
+    same_bf16 = sum(a == b for a, b in zip(ranks[0]["bf16"]["tokens"], one["bf16"][0]))
+    rr_f32 = max(fa.max_row_rel_err(torch.from_numpy(a), torch.from_numpy(b))
+                 for a, b in zip(ranks[0]["f32"]["logits"], one["f32"][1]))
+    log(f"[tp] (a) ServingEngine(mesh=(data 1, model {TP_WORLD})) on {TP_WORLD} gloo ranks "
+        f"on {dev}: {base.name} full width and depth ({base.n_layers} layers, bf16, "
+        f"random weights from seed {args.seed}), batch {len(prompts)} of prompts "
+        f"{[len(p) for p in prompts]} x {TP_NEW} tokens: the same tokens on every rank; "
+        f"K12 {ranks[0]['bf16']['k12']} launches a rank in the prefill ({k12_layers} "
+        f"layers, local q (4, {plen}, {base.n_heads // TP_WORLD}, {base.hd}), k/v "
+        f"(4, {plen}, {base.n_kv_heads // TP_WORLD}, {base.hd})); first-token logits vs "
+        f"the one-process engine: row-relative {rr_bf16:.4g} (bound {TP_BF16_TOL}); "
+        f"{same_bf16} of {len(prompts)} requests with the one-process tokens (bf16: not "
+        f"required)")
+    log(f"[tp] (a) float32 twin ({twin.n_layers} layers, full width): tokens "
+        f"{'equal' if ranks[0]['f32']['tokens'] == one['f32'][0] else 'DIFFER'} to the "
+        f"one-process engine's, every step's logits within row-relative {rr_f32:.3g} "
+        f"(bound {TP_F32_TOL}); K12 {ranks[0]['f32']['k12']} a rank")
+    log("[tp] (a) seconds a rank (place, serve): " + ", ".join(
+        f"r{r} {res['bf16']['place_s']:.1f}/{res['bf16']['serve_s']:.1f} (bf16) "
+        f"{res['f32']['place_s']:.1f}/{res['f32']['serve_s']:.1f} (f32)"
+        for r, res in enumerate(ranks)) + f"; the world {t_serve_world:.1f} s; peak "
+        f"device memory a rank (bytes): {[res['peak'] for res in ranks]}; on {smi}")
+    if rr_bf16 > TP_BF16_TOL:
+        raise AssertionError(f"tp (a): bf16 first-token logits row-relative {rr_bf16}")
+    if ranks[0]["f32"]["tokens"] != one["f32"][0] or rr_f32 > TP_F32_TOL:
+        raise AssertionError(f"tp (a): the float32 twin's tokens or logits ({rr_f32}) "
+                             f"differ from the one-process engine's")
+    del one, ranks, tp_first, one_first
+    torch.cuda.empty_cache()
+
+    # (b) train --mesh host on (data 2, model 2) against one process
+    t0 = time.perf_counter()
+    one_run = train_cli.train(train_cli.parse_args([*TP_TRAIN, "--seed", str(args.seed)]))
+    t_one = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    argv = [*TP_TRAIN, "--seed", str(args.seed), "--mesh", "host", "--ranks",
+            str(TP_WORLD)]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent / "build") as rdzv:
+        runs = run_ranks(train_cli._rank_main, TP_WORLD, argv, rdzv_dir=rdzv, timeout=600)
+    t_train_world = time.perf_counter() - t0
+    losses, one_losses = runs[0]["losses"], one_run["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, one_losses)]
+    k12_train = [r["k12"] for r in runs]
+    want_k12 = 2 * 2 * 3                    # 2 layers x (forward + remat) x 3 steps
+    log(f"[tp] (b) python -m repro_torch.launch.train {' '.join(argv)}: {TP_WORLD} gloo "
+        f"ranks on (data 2, model 2): losses {[round(x, 5) for x in losses]}, one process "
+        f"{[round(x, 5) for x in one_losses]} (relative {max(rel):.3g}, bound "
+        f"{TP_LOSS_TOL}); K12 under a gradient {k12_train} a rank (one process "
+        f"{one_run['k12']}), local q (2, 512, {base.n_heads // 2}, {base.hd}); seconds "
+        f"{[round(r['seconds'], 1) for r in runs]} a rank, the world {t_train_world:.1f} "
+        f"s, one process {one_run['seconds']:.1f} s ({t_one:.1f} s with set-up); peak "
+        f"device memory a rank {[r['peak'] for r in runs]} bytes; on {smi}")
+    if any(r["losses"] != losses for r in runs):
+        raise AssertionError("tp (b): the ranks' losses differ")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"tp (b): the loss did not fall: {losses}")
+    if max(rel) > TP_LOSS_TOL:
+        raise AssertionError(f"tp (b): losses {losses} vs one process {one_losses}")
+    if any(k != want_k12 for k in k12_train) or one_run["k12"] != want_k12:
+        raise AssertionError(f"tp (b): K12 launches {k12_train}, one process "
+                             f"{one_run['k12']}; expected {want_k12}")
+    torch.cuda.empty_cache()
+
+    # (c) one dry-run cell on a fake world of 256 ranks, in a subprocess
+    src_dir = str(Path(__file__).resolve().parent / "src")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent / "build") as d:
+        cli = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "phi4-mini-3.8b",
+             "--shape", "decode_32k", "--mesh", "single", "--out", d],
+            capture_output=True, text=True, timeout=300,
+            env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+                [src_dir, *filter(None, [os.environ.get("PYTHONPATH")])])))
+        path = Path(d) / "phi4-mini-3.8b_decode_32k_single.json"
+        rec = json.loads(path.read_text()) if path.exists() else None
+    log(f"[tp] (c) python -m repro_torch.launch.dryrun --arch phi4-mini-3.8b --shape "
+        f"decode_32k --mesh single: rc {cli.returncode}, {time.perf_counter() - t0:.1f} s; "
+        f"record {json.dumps(rec)}")
+    if cli.returncode != 0 or rec is None or rec["collectives"] != {
+            "all_reduce": 3 * base.n_layers + 1, "all_gather_into_tensor": 4 * base.n_layers}:
+        raise AssertionError(f"tp (c): the dry run: rc {cli.returncode}\n"
+                             f"{cli.stderr[-3000:]}")
+
+    # K12 at the ranks' local shapes, against its plain version and SDPA
+    records = []
+    gen = torch.Generator().manual_seed(args.seed)
+    for label, (b, s_, h, kv), launches in (
+            (f"phi4-mini TP {TP_WORLD} serving prefill, local", (4, plen, base.n_heads
+                                                                 // TP_WORLD,
+                                                                 base.n_kv_heads
+                                                                 // TP_WORLD), k12_layers),
+            ("phi4-mini (2, 2) training, local", (2, 512, base.n_heads // 2,
+                                                  base.n_kv_heads // 2), want_k12)):
+        q, k, v = (torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+                   for shape in ((b, s_, h, base.hd), (b, s_, kv, base.hd),
+                                 (b, s_, kv, base.hd)))
+        run = lambda: fa.flash_attention_fwd_cuda(q, k, v, q_chunk=s_, k_chunk=s_)  # noqa: E731
+        plain = lambda: fa.flash_attention_fwd_torch(q, k, v, q_chunk=s_, k_chunk=s_)  # noqa: E731
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        got, want = run().float(), plain().float()
+        err, rr = float((got - want).abs().max()), fa.max_row_rel_err(got, want)
+        if err > 2e-2 or rr >= fa.BF16_ROW_REL_TOL:
+            raise AssertionError(f"tp: K12 at {label} ({b}, {s_}, {h}, {kv}): max abs "
+                                 f"{err}, row-relative {rr}")
+        ms, plain_ms, lib = (cuda_ms(run, reps=20, warmup=3), cuda_ms(plain, reps=3,
+                                                                      warmup=1),
+                             cuda_ms(sdpa, reps=20, warmup=3))
+        bound, by, _ = kernel_bound(fa.k12_entry(q), q, k, v)
+        log(f"[tp] K12 at {label} ({b}, {s_}, {s_}, {h}, {kv}, {base.hd}) causal bfloat16: "
+            f"{ms:.4f} ms/launch (CUDA events); plain {plain_ms:.4f} ms; SDPA (enable_gqa) "
+            f"{lib:.4f} ms; bound {bound:.4f} ms ({by}); max abs err vs plain {err:.3g}, "
+            f"row-relative {rr:.4f}; {launches} launches a rank; on {smi}")
+        records.append({
+            "name": f"K12 flash_attention_fwd ({label} ({b}, {s_}, {h}, {kv}, {base.hd}), "
+                    f"causal, bfloat16)",
+            "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:136", "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": lib})
+        del q, k, v, qt, kt, vt, got, want
+    torch.cuda.empty_cache()
+    log(f"[tp] phase seconds {time.perf_counter() - t_phase:.1f}; this process's peak "
+        f"{torch.cuda.max_memory_allocated()} bytes")
+    return records
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-docs", type=int, default=4_000_000)
@@ -2485,6 +2750,11 @@ def main() -> int:
     # before phase 3 takes the card: training phi4-mini needs about 62 GB
     lm20_records = lm_train(args, dev, smi, wrappers)
     phase_end("20 lm-train")
+
+    # ------------------------------------------------------------ 23. tp
+    # also before phase 3: four training ranks hold about 17 GB each
+    tp_records = tp_phase(args, dev, smi, wrappers)
+    phase_end("23 tp")
 
     # ------------------------------------------------------------ 3. data
     cfg = CorpusConfig(n_docs=args.n_docs, vocab_size=100_000, mean_doc_len=64,
@@ -5866,6 +6136,7 @@ def main() -> int:
     lm19_records = lm_rwkv_whisper(args, dev, smi, wrappers)
     phase_end("19 lm-rwkv-whisper")
 
+
     k2_main = k2_rows[("tournament", 1000)]
     fill1 = mor[1.0]
     record = {"kernels": [
@@ -5978,6 +6249,7 @@ def main() -> int:
     record["kernels"].extend(lm18_records)
     record["kernels"].extend(lm19_records)
     record["kernels"].extend(lm20_records)
+    record["kernels"].extend(tp_records)
     # each row's entries' launch contracts as phase 21 held them on the card
     static_mode = {"K4s": "K4", "K4ps": "K4p", "K7s": "K7", "K7ps": "K7p"}
     for row in record["kernels"]:

@@ -9,8 +9,21 @@ keyed as the reference's dicts (``wq wk wv wo``, ``w_in w_gate w_out``,
 functions draw from an explicit ``torch.Generator`` on the target device
 (the reference's JAX keys cannot be reproduced: parity goes through
 :func:`repro_torch.models.convert.params_from_numpy`).  The reference's
-``constrain`` calls are sharding hints, no-ops on one card, and are
-dropped.
+``constrain`` calls stand at the same sites (:mod:`repro_torch.models.
+sharding`): without a mesh they do nothing.
+
+**Under a mesh** (parameters and activations DTensors, ``use_mesh``)
+every op is a DTensor op, except the attention core that K12 computes:
+:func:`_local_heads` runs :func:`_flash_gqa` through ``local_map`` on each
+rank's local query heads and the K/V heads they read.  Where the heads do
+not divide the ``model`` axis (24 or 56 heads on 16) every rank computes
+them all; where the K/V heads do not (one KV head, or 8 on 16) they are
+gathered and each rank picks the ones its heads read.  A reshape that
+would split or merge a sharded dim in a way DTensor cannot express
+(:func:`_split`, :func:`_merge_last`) first replicates it.  A decode
+step over a head_dim-sharded cache follows the reference's plan: q is
+sharded on head_dim too, the logits are partial sums reduced over
+``model``, and P·V stays head_dim-sharded.
 
 What each part replaces in ``src/repro/models/layers.py``: ``init_norm``
 / ``apply_norm`` (:32-52, float32 inside, eps 1e-6); ``apply_rope``
@@ -82,6 +95,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch._subclasses.fake_tensor import is_fake
+from torch.distributed.tensor import Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
+
+from repro_torch.models.sharding import constrain, is_dtensor, redistribute, replicate_partials
 
 Params = nn.ParameterDict
 NEG_INF = -1e30
@@ -94,6 +112,8 @@ def _param(t: torch.Tensor) -> nn.Parameter:
 
 
 def _init_w(gen: torch.Generator, shape, dtype, scale: float | None = None):
+    if gen.device.type == "meta":  # abstract parameters: shapes and dtypes only
+        return _param(torch.empty(shape, dtype=dtype, device="meta"))
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
@@ -195,7 +215,8 @@ def _flash_gqa(
     B, S, KV, G, hd = qg.shape
     T = k.shape[1]
     recording = torch.is_grad_enabled() and any(x.requires_grad for x in (qg, k, v))
-    if qg.is_cuda or recording:
+    fake = is_fake(qg)   # the dry run: counted as K12, its plain version one tile
+    if qg.is_cuda or recording or fake:
         from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import registry
 
@@ -212,8 +233,9 @@ def _flash_gqa(
             out = fa.K12Attention.apply(q, k, v, causal, window)
         else:
             kw = dict(causal=causal, q_chunk=S, k_chunk=T, window=window)
+            fwd = fa.flash_attention_fwd_cuda if qg.is_cuda else fa.flash_attention_fwd_torch
             with registry.dispatched(fa.k12_entry(q), q, k, v, **kw):
-                out = fa.flash_attention_fwd_cuda(q, k, v, **kw)
+                out = fwd(q, k, v, **kw)
         return out.reshape(B, S, KV, G, hd)
 
     dev, i32, f32 = qg.device, torch.int32, torch.float32
@@ -266,6 +288,167 @@ def _flash_gqa(
 
 
 # ---------------------------------------------------------------------------
+# Reshapes and the attention core under a mesh (DTensor inputs)
+# ---------------------------------------------------------------------------
+
+def _replicated_on(t, dims):
+    """``t`` with every mesh dim that shards one of tensor dims ``dims``
+    replicated (a no-op for a plain tensor or when none does)."""
+
+    if not is_dtensor(t):
+        return t
+    want = [Replicate() if isinstance(pl, Shard) and pl.dim in dims else pl
+            for pl in t.placements]
+    return redistribute(t, want)
+
+
+def _split(t: torch.Tensor, dim: int, *sizes: int) -> torch.Tensor:
+    """Dim ``dim`` split into ``sizes``.  DTensor keeps a shard of it on
+    the first new dim only when ``sizes[0]`` divides over its mesh dim;
+    otherwise the dim is replicated first."""
+
+    dim %= t.ndim
+    if is_dtensor(t):
+        mesh = t.device_mesh
+        if any(isinstance(pl, Shard) and pl.dim == dim and sizes[0] % mesh.size(i)
+               for i, pl in enumerate(t.placements)):
+            t = _replicated_on(t, (dim,))
+    return t.reshape(*t.shape[:dim], *sizes, *t.shape[dim + 1:])
+
+
+def _merge_last(t: torch.Tensor, k: int) -> torch.Tensor:
+    """The last ``k`` dims merged into one.  DTensor keeps a shard of the
+    first of them only; a shard of a later one is replicated first."""
+    nd = t.ndim
+    t = _replicated_on(t, tuple(range(nd - k + 1, nd)))
+    return t.reshape(*t.shape[:nd - k], -1)
+
+
+def _local_heads(q, k, v, core, *rows):
+    """``core(qg, k, v, *rows)`` (an attention core on plain tensors: qg
+    (B, S, KV, G, hd) in, the same shape out) on DTensors q (B, S, H, hd)
+    and k, v (B, T, KV, hd) through ``local_map``: each rank runs it (K12
+    on the card, for :func:`_flash_gqa`) over its local query heads and
+    the K/V heads they read; ``rows`` (B, ...) enter as q's batch.
+    Returns (B, S, H, hd), sharded on heads as q is.
+
+    Heads go over ``model`` when H divides it (else every rank takes all
+    H); K/V heads stay sharded when KV divides it too (a rank's query
+    heads then read exactly its K/V shard), else they are gathered and
+    each rank takes the heads its queries read: one K/V head when its
+    heads sit inside one group (``G % H_local == 0``), one a query head
+    otherwise (their gradients are then partial sums over ``model``).
+    The batch keeps q's placement."""
+
+    mesh = q.device_mesh
+    names = mesh.mesh_dim_names
+    H, KV = q.shape[2], k.shape[2]
+    G = H // KV
+    mi = names.index("model") if "model" in names else None
+    n = 1 if mi is None else mesh.size(mi)
+    heads_split = n > 1 and H % n == 0
+    kv_split = heads_split and KV % n == 0
+    coord = 0 if mi is None else mesh.get_local_rank("model")
+
+    def pl(split):
+        return [((Shard(2) if split else Replicate()) if i == mi else
+                 (p if isinstance(p, Shard) and p.dim == 0 else Replicate()))
+                for i, p in enumerate(q.placements)]
+
+    q_pl, kv_pl = pl(heads_split), pl(kv_split)
+    rows_pl = pl(False)
+    q = redistribute(q, q_pl)
+    k = redistribute(k, kv_pl)
+    v = redistribute(v, kv_pl)
+    rows = tuple(redistribute(r, rows_pl) for r in rows)
+
+    def body(ql, kl, vl, *rl):
+        B, S, Hl, hd = ql.shape
+        h0 = coord * Hl if heads_split else 0
+        if kv_split or Hl == H:
+            kvl, g = kl.shape[2], G
+        elif G % Hl == 0:                     # every local head in one group
+            kl, vl = (t[:, :, h0 // G:h0 // G + 1] for t in (kl, vl))
+            kvl, g = 1, Hl
+        else:                                 # one K/V head a query head
+            idx = torch.arange(h0, h0 + Hl, device=kl.device) // G
+            kl, vl = kl.index_select(2, idx), vl.index_select(2, idx)
+            kvl, g = Hl, 1
+        out = core(ql.reshape(B, S, kvl, g, hd), kl.contiguous(), vl.contiguous(), *rl)
+        return out.reshape(B, S, Hl, hd)
+
+    # K/V gathered for split heads: each rank's gradient covers its heads
+    # only, a partial sum over ``model``
+    kv_grad = [Partial() if i == mi and heads_split and not kv_split else p
+               for i, p in enumerate(kv_pl)]
+    n_rows = len(rows)
+    return local_map(body, out_placements=q_pl,
+                     in_placements=(q_pl, kv_pl, kv_pl) + (rows_pl,) * n_rows,
+                     in_grad_placements=(q_pl, kv_grad, kv_grad) + (rows_pl,) * n_rows,
+                     device_mesh=mesh)(q, k, v, *rows)
+
+
+def _hd_plan(kv, q_model, out_model):
+    """Placements for a product of ``x`` with the head_dim-sharded cache
+    tensor ``kv`` (B, T, KV, hd): on ``model`` ``x`` takes ``q_model`` and
+    the result ``out_model``; on the other mesh dims ``x`` and the result
+    follow the cache (batch rows, or, for a length-sharded cache,
+    ``x``'s T slice and a partial result)."""
+
+    mi = kv.device_mesh.mesh_dim_names.index("model")
+    x_pl, out_pl = [], []
+    for i, p in enumerate(kv.placements):
+        if i == mi:
+            x_pl.append(q_model)
+            out_pl.append(out_model)
+        elif p == Shard(0):
+            x_pl.append(Shard(0))
+            out_pl.append(Shard(0))
+        elif p == Shard(1):
+            x_pl.append(None)
+            out_pl.append(None)
+        else:
+            x_pl.append(Replicate())
+            out_pl.append(Replicate())
+    return x_pl, out_pl
+
+
+def _hd_partial(qg, k):
+    """Logits (B, KV, G, S, T) of head_dim-sharded qg and k, each rank
+    contracting its head_dim slice: partial sums over ``model``."""
+
+    q_pl, out_pl = _hd_plan(k, Shard(4), Partial())
+    q_pl = [Replicate() if p is None else p for p in q_pl]
+    out_pl = [Shard(4) if p is None else p for p in out_pl]   # a T slice
+    qg = redistribute(qg, q_pl)
+    return local_map(lambda a, b: torch.einsum("bskgh,btkh->bkgst", a, b),
+                     out_placements=out_pl, in_placements=(q_pl, list(k.placements)),
+                     device_mesh=k.device_mesh)(qg, k)
+
+
+def _hd_local(probs, v):
+    """P·V (B, S, KV, G, hd) of probs (B, KV, G, S, T) and a
+    head_dim-sharded v, each rank its head_dim slice."""
+
+    p_pl, out_pl = _hd_plan(v, Replicate(), Shard(4))
+    p_pl = [Shard(4) if p is None else p for p in p_pl]       # its T slice
+    out_pl = [Partial() if p is None else p for p in out_pl]
+    probs = redistribute(probs, p_pl)
+    return local_map(lambda a, b: torch.einsum("bkgst,btkh->bskgh", a, b),
+                     out_placements=out_pl, in_placements=(p_pl, list(v.placements)),
+                     device_mesh=v.device_mesh)(probs, v)
+
+
+def _model_shards_dim(t, dim: int) -> bool:
+    """Whether DTensor ``t`` is sharded on tensor dim ``dim`` over ``model``."""
+
+    if not is_dtensor(t) or "model" not in t.device_mesh.mesh_dim_names:
+        return False
+    pl = t.placements[t.device_mesh.mesh_dim_names.index("model")]
+    return isinstance(pl, Shard) and pl.dim == dim
+
+
+# ---------------------------------------------------------------------------
 # Attention (GQA / MQA / cross) with optional KV cache & sliding window
 # ---------------------------------------------------------------------------
 
@@ -299,14 +482,16 @@ def attention(
     k_chunk: int = 1024,
 ) -> tuple[torch.Tensor, Optional[dict]]:
     B, S, D = x.shape
-    q = (x @ p["wq"]).reshape(B, S, n_heads, hd)
+    # q/k/v carry no explicit constraints, as in the reference: their
+    # heads are sharded as wq/wk/wv's flat feature dim allows
+    q = _split(x @ p["wq"], -1, n_heads, hd)
     if kv_override is not None:
         k, v = kv_override
         memory = k  # mark as cross-attention (no causal/rope path below)
     else:
         kv_src = memory if memory is not None else x
-        k = (kv_src @ p["wk"]).reshape(B, kv_src.shape[1], n_kv, hd)
-        v = (kv_src @ p["wv"]).reshape(B, kv_src.shape[1], n_kv, hd)
+        k = _split(kv_src @ p["wk"], -1, n_kv, hd)
+        v = _split(kv_src @ p["wv"], -1, n_kv, hd)
 
     if rope_theta is not None and memory is None:
         q = apply_rope(q, positions, rope_theta)
@@ -321,7 +506,6 @@ def attention(
         new_cache = cache
 
     g = n_heads // n_kv
-    qg = q.reshape(B, S, n_kv, g, hd)
     scale = 1.0 / math.sqrt(hd)
     use_causal = causal and memory is None
 
@@ -331,44 +515,81 @@ def attention(
             q_base, k_len = cache_pos, cache_pos + S
             if cache_pos:
                 k, v = cache["k"][:, :k_len], cache["v"][:, :k_len]
+            # cached prefill: K/V gathered once a layer over ``model``
+            k = constrain(k, "batch", None, None, None)
+            v = constrain(v, "batch", None, None, None)
         else:
             # no cache: query and key positions share their base, so the
             # masks are relative (the reference's q_base = k_base)
             q_base, k_len = 0, k.shape[1]
-        out = _flash_gqa(
-            qg, k, v, q_base, 0, k_len,
-            causal=use_causal, window=window, scale=scale,
-            q_chunk=q_chunk, k_chunk=k_chunk,
-        ).reshape(B, S, n_heads * hd)
+        kw = dict(causal=use_causal, window=window, scale=scale, q_chunk=q_chunk,
+                  k_chunk=k_chunk)
+        if is_dtensor(q):
+            out = _local_heads(q, k, v, lambda qg, kl, vl: _flash_gqa(
+                qg, kl, vl, q_base, 0, k_len, **kw))
+        else:
+            out = _flash_gqa(q.reshape(B, S, n_kv, g, hd), k, v, q_base, 0, k_len,
+                             **kw)
+        out = constrain(_merge_last(out, out.ndim - 2), "batch", None, "model")
         return out @ p["wo"], new_cache
 
     if cache is not None:
         k, v = cache["k"], cache["v"]
-        k_pos = torch.arange(k.shape[1], dtype=torch.int32, device=x.device)
-        k_pos = k_pos[None, :].expand(B, -1)
-        k_valid = k_pos <= (cache_pos + S - 1)
-    elif memory is not None:
-        k_pos = torch.arange(k.shape[1], dtype=torch.int32, device=x.device)
-        k_pos = k_pos[None, :].expand(B, -1)
-        k_valid = torch.ones(k.shape[:2], dtype=torch.bool, device=x.device)
+    mask_kw = dict(valid_upto=None if cache is None else cache_pos + S - 1,
+                   cross=memory is not None, causal=use_causal, window=window)
+    if S == 1 and _model_shards_dim(k, 3):
+        # decode over a head_dim-sharded cache: q sharded on head_dim too, so
+        # the logits are local partial contractions reduced over ``model``,
+        # and P·V stays head_dim-sharded like v
+        qg = constrain(_split(q, 2, n_kv, g), "batch", None, None, None, "model")
+        logits = _hd_partial(qg.to(torch.float32), k.to(torch.float32)) * scale
+        logits = redistribute(logits, replicate_partials(logits.placements))
+        mask = _key_mask(positions, k.shape[1], **mask_kw)
+        logits = torch.where(mask[:, None, None, :, :], logits, NEG_INF)
+        out = _merge_last(_hd_local(torch.softmax(logits, dim=-1).to(x.dtype),
+                                    v.to(x.dtype)), 3)
+    elif is_dtensor(q):
+        out = _merge_last(_local_heads(
+            q, k, v, lambda qg, kl, vl, pos: _naive_core(qg, kl, vl, pos, scale, x.dtype,
+                                                         **mask_kw), positions), 2)
     else:
-        k_pos = positions[:, : k.shape[1]].expand(B, k.shape[1])
-        k_valid = torch.ones(k.shape[:2], dtype=torch.bool, device=x.device)
+        out = _naive_core(q.reshape(B, S, n_kv, g, hd), k, v, positions, scale, x.dtype,
+                          **mask_kw).reshape(B, S, n_heads * hd)
+    out = constrain(out, "batch", None, "model")
+    return out @ p["wo"], new_cache
 
-    f32 = torch.float32
-    logits = torch.einsum("bskgh,btkh->bkgst", qg.to(f32), k.to(f32)) * scale
-    mask = k_valid[:, None, :].expand(B, S, k.shape[1])
-    if use_causal:
+
+def _key_mask(positions, T: int, *, valid_upto, cross: bool, causal: bool, window):
+    """(B, S, T) the keys each query may read: cached rows up to
+    ``valid_upto``, a cross attention's every key, causal and windowed by
+    position."""
+    B, S = positions.shape
+    dev = positions.device
+    if valid_upto is not None or cross:
+        k_pos = torch.arange(T, dtype=torch.int32, device=dev)[None, :].expand(B, -1)
+    else:
+        k_pos = positions[:, :T].expand(B, T)
+    mask = (k_pos <= valid_upto if valid_upto is not None
+            else torch.ones((B, T), dtype=torch.bool, device=dev))
+    mask = mask[:, None, :].expand(B, S, T)
+    if causal:
         qpos = positions[:, :, None]                 # (B,S,1)
         kpos = k_pos[:, None, :]                     # (B,1,T)
         mask = mask & (kpos <= qpos)
         if window is not None:
             mask = mask & (kpos > qpos - window)
+    return mask
+
+
+def _naive_core(qg, k, v, positions, scale: float, dtype, **mask_kw):
+    """The reference's einsum attention of qg (B, S, KV, G, hd) over k, v
+    (B, T, KV, hd): logits in float32, masked, softmax, P·V in ``dtype``."""
+    f32 = torch.float32
+    logits = torch.einsum("bskgh,btkh->bkgst", qg.to(f32), k.to(f32)) * scale
+    mask = _key_mask(positions, k.shape[1], **mask_kw)
     logits = torch.where(mask[:, None, None, :, :], logits, NEG_INF)
-    probs = torch.softmax(logits, dim=-1).to(x.dtype)
-    out5 = torch.einsum("bkgst,btkh->bskgh", probs, v.to(x.dtype))
-    out = out5.reshape(B, S, n_heads * hd)
-    return out @ p["wo"], new_cache
+    probs = torch.softmax(logits, dim=-1).to(dtype)
+    return torch.einsum("bkgst,btkh->bskgh", probs, v.to(dtype))
 
 
 def init_kv_cache(batch: int, length: int, n_kv: int, hd: int, dtype, *,
@@ -400,6 +621,7 @@ def apply_mlp(kind: str, p, x: torch.Tensor) -> torch.Tensor:
         h = F.gelu(h, approximate="tanh")
     else:
         raise ValueError(kind)
+    h = constrain(h, "batch", None, "model")
     return h @ p["w_out"]
 
 
@@ -412,7 +634,8 @@ def init_embedding(gen: torch.Generator, vocab: int, d_model: int, dtype) -> Par
 
 
 def embed(p, tokens: torch.Tensor) -> torch.Tensor:
-    return p["emb"][tokens]
+    # a vocab-sharded table gives each rank's rows and a partial sum
+    return F.embedding(tokens, p["emb"])
 
 
 def init_head(gen: torch.Generator, d_model: int, vocab: int, dtype) -> Params:
@@ -421,6 +644,7 @@ def init_head(gen: torch.Generator, d_model: int, vocab: int, dtype) -> Params:
 
 def lm_logits(head, emb, x: torch.Tensor) -> torch.Tensor:
     if head is not None:
-        return x @ head["w"]
-    # tied embeddings (gemma-style 1/sqrt(d) logit scaling)
-    return (x @ emb["emb"].T) * (x.shape[-1] ** -0.5)
+        logits = x @ head["w"]
+    else:  # tied embeddings (gemma-style 1/sqrt(d) logit scaling)
+        logits = (x @ emb["emb"].T) * (x.shape[-1] ** -0.5)
+    return constrain(logits, "batch", None, "model")

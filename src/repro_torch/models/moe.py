@@ -2,8 +2,14 @@
 
 Port of ``repro.models.moe``: ``init_moe`` (:28-37), ``_route_row``
 (:40-73) as :func:`route`, batched over B without a vmap, and
-``apply_moe`` (:76-118).  The reference's ``constrain`` calls are sharding
-hints, no-ops on one card, and are dropped.
+``apply_moe`` (:76-118), with the reference's ``constrain`` calls at
+their sites.  Under a mesh the routing (stable sort, ``searchsorted``,
+scatters), the dispatch gather and the combine run on each rank's batch
+rows through ``local_map`` (``models.sharding.rows_local``): the router
+is replicated, and the combine takes every expert's slots, so ``y`` is
+gathered over ``model`` first.  The expert products run on each rank's
+blocks too (:func:`_expert_ffn`): the experts over ``model`` when E
+divides it, else each expert's d_ff.
 
 Per batch row: capacity ``cap = max(1, int(cf * S * topk / E))``; each
 expert takes its first ``cap`` assigned (token, slot) pairs in token order,
@@ -39,8 +45,12 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.models.layers import Params, _init_w
+from repro_torch.models.sharding import (constrain, grad_placements, is_dtensor, redistribute,
+                                         reduce_grad, rows_local)
 
 
 def init_moe(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int,
@@ -127,28 +137,85 @@ def apply_moe(p, x: torch.Tensor, *, n_experts: int, topk: int,
     B, S, D = x.shape
     E = n_experts
     cap = capacity(capacity_factor, S, topk, E)
-    plan = route(x, p["router"], E, topk, cap)
+    plan = Route(*rows_local(lambda x, r: _fields(route(x, r, E, topk, cap)),
+                             (x,), (p["router"],), n_out=4))
+    buf = rows_local(_dispatch, (x, plan.slot_src))                 # (B,E*cap,D)
+    buf = constrain(buf.reshape(B, E, cap, D), "batch", "expert", None, None)
+    y = _expert_ffn(buf, p["w_in"], p["w_gate"] if "w_gate" in p else None, p["w_out"],
+                    mlp)                                            # (B,E,cap,D)
+    y = constrain(y, "batch", "expert", None, None)
+    yflat = y.reshape(B, E * cap, D)
+    gate = plan.slot_gate[..., None].to(y.dtype)
+    if is_dtensor(gate):   # placed as the expert slots (the gather back explicit)
+        gate = redistribute(gate, yflat.placements)
+    yflat = yflat * gate
+    out = rows_local(lambda yf, key: _combine(yf, key, S, topk), (yflat, plan.slot_key))
+    aux = plan.aux.mean()
+    if is_dtensor(aux):   # the rows' mean, whole on every rank
+        aux = redistribute(aux, [Replicate()] * aux.device_mesh.ndim)
+    return out.to(x.dtype), aux
 
-    rows = torch.arange(B, device=x.device)[:, None]
-    xpad = torch.cat([x, x.new_zeros((B, 1, D))], dim=1)
-    buf = xpad[rows, plan.slot_src]                                 # (B,E*cap,D)
-    # (E, B * cap, D): one batched product an expert weight
-    buf = buf.reshape(B, E, cap, D).transpose(0, 1).reshape(E, B * cap, D)
-    h = buf @ p["w_in"]
+
+def _experts(buf, w_in, w_gate, w_out, mlp: str) -> torch.Tensor:
+    """The expert MLPs of the dispatch buffer (B, E, cap, D): one batched
+    product an expert weight over (E, B * cap, D)."""
+    B, E, cap, D = buf.shape
+    x = buf.transpose(0, 1).reshape(E, B * cap, D)
+    h = x @ w_in
     if mlp in ("swiglu", "geglu"):
-        g = buf @ p["w_gate"]
+        g = x @ w_gate
         act = F.silu(g) if mlp == "swiglu" else F.gelu(g, approximate="tanh")
         h = act * h
     else:
         h = F.gelu(h, approximate="tanh")
-    y = (h @ p["w_out"]).reshape(E, B, cap, D).transpose(0, 1)      # (B,E,cap,D)
-    yflat = y.reshape(B, E * cap, D) * plan.slot_gate[..., None].to(y.dtype)
+    return (h @ w_out).reshape(E, B, cap, D).transpose(0, 1)
 
-    # combine: each token's kept slots in ascending order (the reference's
-    # scatter order), a dropped pair reading the zero row E * cap
+
+def _expert_ffn(buf, w_in, w_gate, w_out, mlp: str) -> torch.Tensor:
+    """:func:`_experts`; under a mesh on each rank's blocks through
+    ``local_map`` (a DTensor reshape would merge the batch, split over
+    two mesh dims on two pods, with the slots): the experts over
+    ``model`` (the output sharded on them) or each expert's d_ff (the
+    output a partial sum, and so is the buffer's gradient)."""
+    if not is_dtensor(buf):
+        return _experts(buf, w_in, w_gate, w_out, mlp)
+    mesh = buf.device_mesh
+    names = mesh.mesh_dim_names
+    mi = names.index("model") if "model" in names else None
+    ff_split = mi is not None and w_in.placements[mi] == Shard(2)
+    out = [Partial() if i == mi and ff_split else p for i, p in enumerate(buf.placements)]
+    ws = (w_in, w_gate, w_out)
+    in_pl = (list(buf.placements),) + tuple(None if w is None else list(w.placements)
+                                            for w in ws)
+    grads = grad_placements(in_pl, buf.placements)
+    grads = (out,) + grads[1:]
+    return local_map(lambda b, wi, wg, wo: _experts(b, wi, wg, wo, mlp),
+                     out_placements=out, in_placements=in_pl,
+                     in_grad_placements=grads, device_mesh=mesh)(reduce_grad(buf), *ws)
+
+
+def _fields(plan: Route) -> tuple:
+    return tuple(getattr(plan, f.name) for f in dataclasses.fields(plan))
+
+
+def _dispatch(x: torch.Tensor, slot_src: torch.Tensor) -> torch.Tensor:
+    """(B, E * cap, D): each slot's token row (the zero row S for an empty
+    slot)."""
+    B, _, D = x.shape
+    rows = torch.arange(B, device=x.device)[:, None]
+    return torch.cat([x, x.new_zeros((B, 1, D))], dim=1)[rows, slot_src]
+
+
+def _combine(yflat: torch.Tensor, slot_key: torch.Tensor, S: int, topk: int
+             ) -> torch.Tensor:
+    """Each token's kept slots of ``yflat`` (B, E * cap, D) summed in
+    ascending order (the reference's scatter order), a dropped pair
+    reading the zero row E * cap."""
+    B, _, D = yflat.shape
+    rows = torch.arange(B, device=yflat.device)[:, None]
     ypad = torch.cat([yflat, yflat.new_zeros((B, 1, D))], dim=1)
-    keys = plan.slot_key.reshape(B, S, topk).sort(dim=-1).values
-    out = torch.zeros((B, S, D), dtype=y.dtype, device=x.device)
+    keys = slot_key.reshape(B, S, topk).sort(dim=-1).values
+    out = torch.zeros((B, S, D), dtype=yflat.dtype, device=yflat.device)
     for j in range(topk):
         out = out + ypad[rows, keys[..., j]]
-    return out.to(x.dtype), plan.aux.mean()
+    return out

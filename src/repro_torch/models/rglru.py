@@ -28,6 +28,11 @@ overwrites.  The reference returns ``h`` in the compute dtype and the conv
 window in ``u``'s dtype, so what it carries after a step is rounded to
 that dtype (bf16 in the full configs); the port stores those rounded
 values in its float32 buffers, which hold them exactly.
+
+**Under a mesh** ``u`` is constrained to (batch, None, model) as in the
+reference, the conv and the gates are DTensor ops on the channel shards,
+and the gates and the doubling scan run on each rank's block through
+``local_map`` (channels are independent).
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import Params, _init_w, _param
+from repro_torch.models.sharding import constrain, local_apply
 
 C_FACTOR = 8.0
 
@@ -46,7 +52,8 @@ def init_rglru_block(gen: torch.Generator, d_model: int, r_dim: int,
                      conv_width: int, dtype) -> Params:
     dev, f32 = gen.device, torch.float32
     # lam so that a^c lies in (0.9, 0.999): the standard LRU init
-    u = 0.9 + 0.099 * torch.rand((r_dim,), generator=gen, dtype=f32, device=dev)
+    u = (torch.full((r_dim,), 0.9, dtype=f32, device=dev) if dev.type == "meta" else
+         0.9 + 0.099 * torch.rand((r_dim,), generator=gen, dtype=f32, device=dev))
     uc = u ** (1.0 / C_FACTOR)
     return Params({
         "w_in": _init_w(gen, (d_model, r_dim), dtype),
@@ -93,19 +100,24 @@ def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return b
 
 
+def _gates(uf, wr, br, wi, bi, lam):
+    """The recurrence's (a_t, b_t) of float32 u (B, S, R), channel by
+    channel."""
+    r = torch.sigmoid(uf * wr + br)
+    i = torch.sigmoid(uf * wi + bi)
+    a = torch.exp(C_FACTOR * r * F.logsigmoid(lam))
+    return a, torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * uf)
+
+
 def _rglru_scan(u: torch.Tensor, p, h0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """u: (B, S, R) -> h (B, S, R) in u's dtype; h0 (B, R) is folded in as
     a virtual step 0 (a = 0, b = h0), as in the reference."""
-    uf = u.to(torch.float32)
-    r = torch.sigmoid(uf * p["gate_wr"] + p["gate_br"])
-    i = torch.sigmoid(uf * p["gate_wi"] + p["gate_bi"])
-    log_a = C_FACTOR * r * F.logsigmoid(p["lam"])
-    a = torch.exp(log_a)
-    b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * uf)
+    a, b = local_apply(_gates, u.to(torch.float32), p["gate_wr"], p["gate_br"],
+                       p["gate_wi"], p["gate_bi"], p["lam"], n_out=2)
     if h0 is not None:
         a = torch.cat([torch.zeros_like(a[:, :1]), a], dim=1)
         b = torch.cat([h0.to(torch.float32)[:, None, :], b], dim=1)
-    h = _linear_scan(a, b)
+    h = local_apply(_linear_scan, a, b)
     if h0 is not None:
         h = h[:, 1:]
     return h.to(u.dtype)
@@ -117,7 +129,7 @@ def apply_rglru_block(p, x: torch.Tensor, state: Optional[dict] = None
     "conv": (B, W - 1, R)}, float32) is read, then overwritten in place
     with the values the reference would carry (see the module note)."""
     gate = F.gelu(x @ p["w_gate_br"], approximate="tanh")
-    u = x @ p["w_in"]
+    u = constrain(x @ p["w_in"], "batch", None, "model")
     u, conv_state = _depthwise_causal_conv(
         u, p["conv_k"], p["conv_b"], None if state is None else state["conv"])
     h = _rglru_scan(u, p, None if state is None else state["h"])

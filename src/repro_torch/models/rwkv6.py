@@ -53,6 +53,12 @@ the reference's step as it is (:func:`_wkv_step`): 51 for the time mix.
 plain version the tests and the card-side check hold the chunked form
 against; the model never calls it.
 
+**Under a mesh** ``r`` is constrained to (batch, None, model, None) as
+in the reference (heads over ``model``) and :func:`wkv_chunked` runs on
+each rank's heads through ``local_map`` (heads are independent), with
+``k``, ``v``, ``log w``, ``u`` and the carried state placed as ``r``'s
+heads; ``h`` of the channel mix is constrained to (batch, None, model).
+
 **Carried state, in place.**  ``state`` holds ``s`` (B, H, hd, hd) float32
 and ``x_prev`` (B, D) in the compute dtype; :func:`apply_rwkv_time_mix`
 and :func:`apply_rwkv_channel_mix` read them, then overwrite them.
@@ -64,9 +70,13 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
-from repro_torch.models.layers import Params, _init_w, _param
+from repro_torch.models.layers import Params, _init_w, _param, _split
 from repro_torch.models.rglru import _linear_scan
+from repro_torch.models.sharding import (constrain, grad_placements, is_dtensor,
+                                         redistribute)
 
 LORA_R = 64
 #: Steps of a chunk of :func:`wkv_chunked`.
@@ -157,6 +167,44 @@ def wkv_chunked(r, k, v, log_w, u, s0: Optional[torch.Tensor] = None):
     return o, states[:, n]
 
 
+def _wkv_one(r, k, v, log_w, u, s0=None):
+    """A decode step's recurrence (S = 1): the reference's step as it is
+    (:func:`_wkv_step`), inputs and output (B, 1, H, hd)."""
+    if s0 is None:
+        B, _, H, K = r.shape
+        s0 = r.new_zeros((B, H, K, K))
+    o, s = _wkv_step(s0, r[:, 0], k[:, 0], v[:, 0], torch.exp(log_w[:, 0]), u)
+    return o[:, None], s
+
+
+def _prev(state: dict, x: torch.Tensor) -> torch.Tensor:
+    """The carried ``x_prev`` in x's dtype, whole on every rank of
+    ``model`` (the cache keeps it sharded there)."""
+    return constrain(state["x_prev"].to(x.dtype), "batch", None)
+
+
+def _wkv_heads(fn, r, k, v, log_w, u, s0):
+    """``fn`` (:func:`wkv_chunked` or :func:`_wkv_one`) on DTensors
+    through ``local_map``: every input placed as ``r`` (B, S, H, hd) on
+    the batch and the heads, ``u`` (H, hd) and the state (B, H, hd, hd) on
+    the same heads."""
+
+    mesh = r.device_mesh
+    pl = list(r.placements)
+    u_pl = [Shard(0) if p == Shard(2) else Replicate() for p in pl]
+    s_pl = [Shard(1) if p == Shard(2) else p for p in pl]
+    k, v, log_w = (redistribute(t, pl) for t in (k, v, log_w))
+    u = redistribute(u, u_pl)
+    if s0 is None:
+        B, _, H, K = r.shape
+        s0 = r.new_zeros((B, H, K, K))
+    s0 = redistribute(s0, s_pl)
+    in_pl = (pl, pl, pl, pl, u_pl, s_pl)
+    return local_map(fn, out_placements=(pl, s_pl), in_placements=in_pl,
+                     in_grad_placements=grad_placements(in_pl, pl),
+                     device_mesh=mesh)(r, k, v, log_w, u, s0)
+
+
 def apply_rwkv_time_mix(p, x: torch.Tensor, head_dim: int,
                         state: Optional[dict] = None
                         ) -> tuple[torch.Tensor, Optional[dict]]:
@@ -165,21 +213,20 @@ def apply_rwkv_time_mix(p, x: torch.Tensor, head_dim: int,
     B, S, D = x.shape
     H = D // head_dim
     f32 = torch.float32
-    x_prev = x.new_zeros((B, D)) if state is None else state["x_prev"].to(x.dtype)
+    x_prev = x.new_zeros((B, D)) if state is None else _prev(state, x)
     zr, zk, zv, zg, zw = (_shift(x, p["mu"][i], x_prev) for i in range(5))
-    r, k, v = ((z @ p[name]).reshape(B, S, H, head_dim).to(f32)
+    r, k, v = (_split(z @ p[name], -1, H, head_dim).to(f32)
                for z, name in ((zr, "wr"), (zk, "wk"), (zv, "wv")))
+    r = constrain(r, "batch", None, "model", None)
     g = zg @ p["wg"]
     lora = torch.tanh(zw.to(f32) @ p["w_lora_a"]) @ p["w_lora_b"]
     log_w = -torch.exp(p["w0"] + lora).reshape(B, S, H, head_dim)
     s0 = None if state is None else state["s"].to(f32)
-    if S == 1:
-        o, s_final = _wkv_step(r.new_zeros((B, H, head_dim, head_dim)) if s0 is None
-                               else s0, r[:, 0], k[:, 0], v[:, 0],
-                               torch.exp(log_w[:, 0]), p["u"])
-        o = o[:, None]
+    fn = _wkv_one if S == 1 else wkv_chunked
+    if is_dtensor(r):
+        o, s_final = _wkv_heads(fn, r, k, v, log_w, p["u"], s0)
     else:
-        o, s_final = wkv_chunked(r, k, v, log_w, p["u"], s0)
+        o, s_final = fn(r, k, v, log_w, p["u"], s0)
     # per-head group norm, float32
     mu = o.mean(-1, keepdim=True)
     var = ((o - mu) ** 2).mean(-1, keepdim=True)
@@ -206,11 +253,12 @@ def apply_rwkv_channel_mix(p, x: torch.Tensor, state: Optional[dict] = None
     """x (B, S, D) -> (y, state); ``state`` ({"x_prev": (B, D)}) is read,
     then overwritten in place."""
     B, S, D = x.shape
-    x_prev = x.new_zeros((B, D)) if state is None else state["x_prev"].to(x.dtype)
+    x_prev = x.new_zeros((B, D)) if state is None else _prev(state, x)
     zk = _shift(x, p["mu"][0], x_prev)
     zr = _shift(x, p["mu"][1], x_prev)
-    h = torch.square(F.relu(zk @ p["wk"]))
-    y = torch.sigmoid(zr @ p["wr"]) * (h @ p["wv"])
+    h = constrain(torch.square(F.relu(zk @ p["wk"])), "batch", None, "model")
+    # wv is sharded on its output dim (the rules' ``wv``): h whole for it
+    y = torch.sigmoid(zr @ p["wr"]) * (constrain(h, "batch", None, None) @ p["wv"])
     if state is not None:
         state["x_prev"].copy_(x[:, -1, :])
     return y, state

@@ -46,6 +46,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
 from repro_torch.models import rwkv6 as RW
+from repro_torch.models.sharding import (constrain, current_mesh, mesh_ops, rows_like,
+                                         use_mesh)
 
 BLOCK_KINDS = ("attn", "local", "rglru", "rwkv")
 
@@ -164,14 +166,13 @@ def _apply_block(
                                         None if cache is None else cache["rw"]["time"])
     else:
         raise ValueError(kind)
-    x = x + out
+    x = x + constrain(out, "batch", None, None)
 
     if "cross" in p:
         hx = L.apply_norm(cfg.norm, p["norm_x"], x)
         if memory is not None:  # prefill / no cache: the cross K/V from memory
-            B, T = memory.shape[:2]
-            ck = (memory @ p["cross"]["wk"]).reshape(B, T, cfg.n_kv_heads, cfg.hd)
-            cv = (memory @ p["cross"]["wv"]).reshape(B, T, cfg.n_kv_heads, cfg.hd)
+            ck = L._split(memory @ p["cross"]["wk"], -1, cfg.n_kv_heads, cfg.hd)
+            cv = L._split(memory @ p["cross"]["wv"], -1, cfg.n_kv_heads, cfg.hd)
             if cache is not None:
                 cache["ck"].copy_(ck)
                 cache["cv"].copy_(cv)
@@ -184,7 +185,7 @@ def _apply_block(
             kv_override=(ck, cv),
             impl=cfg.attn_impl, q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk,
         )
-        x = x + out
+        x = x + constrain(out, "batch", None, None)
 
     h = L.apply_norm(cfg.norm, p["norm2"], x)
     aux = None
@@ -197,7 +198,10 @@ def _apply_block(
                                  capacity_factor=cfg.capacity_factor, mlp=cfg.mlp)
     else:
         out = L.apply_mlp(cfg.mlp, p["mlp"], h)
-    return x + out, aux
+    # a row-parallel product's partial sums are reduced before the residual
+    # add, as GSPMD reduces them (a DTensor would carry them on)
+    x = x + constrain(out, "batch", None, None)
+    return constrain(x, "batch", None, None), aux
 
 
 # ---------------------------------------------------------------------------
@@ -287,7 +291,8 @@ def _run_encoder(p, cfg: ArchConfig, frames: torch.Tensor) -> torch.Tensor:
     """Whisper-style encoder over precomputed (stub) frame embeddings
     (B, T, D): non-causal ``"attn"`` blocks, no cache."""
     B, T, _ = frames.shape
-    pos = torch.arange(T, dtype=torch.int32, device=frames.device)[None].expand(B, T)
+    pos = rows_like(torch.arange(T, dtype=torch.int32, device=frames.device)[None]
+                    .expand(B, T), frames)
     x = frames.to(cfg.cdtype) + _sinusoidal(pos, cfg.d_model).to(cfg.cdtype)
     for lp in p["encoder"]["layers"]:
         x, _ = _apply_block(lp, cfg, "attn", x, pos, None, None, None, causal=False)
@@ -305,33 +310,50 @@ def apply_model(
     cache_pos: Optional[int] = None,
     positions: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, Optional[dict], torch.Tensor]:
-    """Returns (logits (B,S,V) float32, the cache written in place, aux)."""
+    """Returns (logits (B,S,V) float32, the cache written in place, aux).
+    Under a mesh (``models.sharding.use_mesh``) ``tokens``, the
+    parameters and the cache are DTensors and so are the results."""
     check_ported(cfg)
+    with mesh_ops():
+        return _apply_model(params, cfg, tokens, prefix_embeds, encoder_frames, cache,
+                            cache_pos, positions)
+
+
+def _apply_model(params, cfg, tokens, prefix_embeds, encoder_frames, cache, cache_pos,
+                 positions):
     if cache_pos is not None:
         cache_pos = operator.index(cache_pos)
     B, S = tokens.shape
     x = L.embed(params["emb"], tokens).to(cfg.cdtype)
     if prefix_embeds is not None:
-        x = torch.cat([prefix_embeds.to(cfg.cdtype), x], dim=1)
+        # the lookup's partial sums reduced first: a cat takes like placements
+        x = torch.cat([prefix_embeds.to(cfg.cdtype), constrain(x, "batch", None, None)],
+                      dim=1)
         S = x.shape[1]
     if positions is None:
         base = cache_pos if cache_pos is not None else 0
         positions = (base + torch.arange(S, dtype=torch.int32, device=x.device))
-        positions = positions[None].expand(B, S)
+        positions = rows_like(positions[None].expand(B, S), x)
     memory = None
     if cfg.kind == "encdec":
         x = x + _sinusoidal(positions, cfg.d_model).to(cfg.cdtype)
+    x = constrain(x, "batch", None, None)
+    if cfg.kind == "encdec":
         if encoder_frames is not None:  # else a decode step: cross K/V cached
             memory = _run_encoder(params, cfg, encoder_frames)
 
+    mesh = current_mesh()
+
     def run_group(gp, kinds, gc, x, aux):
-        for i, kind in enumerate(kinds):
-            name = f"b{i}"
-            x, a = _apply_block(gp[name], cfg, kind, x, positions,
-                                None if gc is None else gc[name], cache_pos, memory,
-                                causal=True)
-            if a is not None:
-                aux = aux + a
+        # the mesh again: remat recomputes this in the backward's thread
+        with use_mesh(mesh), mesh_ops():
+            for i, kind in enumerate(kinds):
+                name = f"b{i}"
+                x, a = _apply_block(gp[name], cfg, kind, x, positions,
+                                    None if gc is None else gc[name], cache_pos, memory,
+                                    causal=True)
+                if a is not None:
+                    aux = aux + a
         return x, aux
 
     _, rem_pat = _split_groups(cfg)

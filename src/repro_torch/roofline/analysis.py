@@ -18,8 +18,8 @@ NVIDIA H100 SXM5 datasheet's, dense (no sparsity):
   does three TF32 products a product, so its peak is a third of that);
 - CUDA cores, float32 and 32-bit integer: 67e12 operations/s (the figure
   the kernel bounds of the port's record use for integer work);
-- NVLink 4: 450e9 bytes/s each way; kept for the collective term, which is
-  0 on one card.
+- NVLink 4: 450e9 bytes/s each way, for the collective term (0 on one
+  card; a dry-run cell's link bytes over it).
 
 What a kernel's data needs (postings probed, packed blocks decoded,
 attention keys kept) is counted beside the kernels, in
@@ -72,6 +72,38 @@ def roofline_from_cost(cost, chips: int = 1, *, model_flops: float = 0.0,
     compute_s = cost.flops / (chips * peak)
     memory_s = cost.hbm_bytes / (chips * HBM_BYTES_PER_S)
     collective_s = cost.link_bytes / NVLINK_BYTES_PER_S if chips > 1 else 0.0
+    terms = {"compute": compute_s, "memory": memory_s, "collective": collective_s}
+    return Roofline(
+        flops=cost.flops, hbm_bytes=cost.hbm_bytes, link_bytes=cost.link_bytes,
+        chips=chips, compute_s=compute_s, memory_s=memory_s,
+        collective_s=collective_s, dominant=max(terms, key=terms.get),
+        model_flops=model_flops,
+        useful_ratio=(model_flops / (cost.flops * chips)) if cost.flops else 0.0,
+    )
+
+
+def link_factor(kind: str, n: int) -> float:
+    """Ring-algorithm bytes on the busiest link per operand byte of a
+    collective over n ranks (the reference's ``_link_factor``)."""
+    if n <= 1:
+        return 0.0
+    if kind == "all-reduce":
+        return 2.0 * (n - 1) / n
+    if kind == "all-gather":       # operand = local shard
+        return float(n - 1)
+    if kind in ("reduce-scatter", "all-to-all"):   # operand = full array
+        return (n - 1) / n
+    return 1.0
+
+
+def roofline_per_device(cost, chips: int, *, model_flops: float = 0.0,
+                        peak: float = BF16_FLOPS_PER_S) -> Roofline:
+    """The three terms of one rank's counted cost (a dry-run cell's:
+    per-device FLOPs, HBM and link bytes, as the reference's post-SPMD
+    module) on an H100 of an NVLink mesh of ``chips`` cards."""
+    compute_s = cost.flops / peak
+    memory_s = cost.hbm_bytes / HBM_BYTES_PER_S
+    collective_s = cost.link_bytes / NVLINK_BYTES_PER_S
     terms = {"compute": compute_s, "memory": memory_s, "collective": collective_s}
     return Roofline(
         flops=cost.flops, hbm_bytes=cost.hbm_bytes, link_bytes=cost.link_bytes,

@@ -14,6 +14,17 @@ mix; for Whisper also the cross K/V, which decode only reads) is made by
 ``prefill`` and written in place by every decode step.  An encoder-decoder's prefill runs the
 encoder over zero frames (B, encoder_seq, D) in the compute dtype, as the
 reference's engine does.
+
+**Tensor parallel** (``mesh=``, a ``DeviceMesh`` with ``data`` and
+``model`` axes, one process a rank, every rank building the engine with
+the same arguments): the parameters are placed as DTensors by
+``launch.shardings.param_pspecs`` (each rank keeps its block of the
+weights drawn from the seed), the prompt batch by ``io_pspec`` and the
+cache by ``cache_pspecs``; prefill and decode run under
+``models.sharding.use_mesh``.  Each rank's logits are its vocabulary
+slice of its batch rows, which go to ``greedy_token(mesh=)``: the
+tokens are the same on every rank.  The reference's engine passes its
+mesh to ``greedy_token`` only and places no parameters (ROADMAP R12).
 """
 from __future__ import annotations
 
@@ -21,10 +32,13 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.index import resolve_device
+from repro_torch.launch.shardings import distribute, distribute_params, io_pspec
 from repro_torch.models.model import decode_step, init_model, prefill
+from repro_torch.models.sharding import full, is_dtensor, rows_placements, use_mesh
 from repro_torch.serving.router import greedy_token
 from repro_torch.serving.scheduler import form_batch
 
@@ -40,17 +54,15 @@ class Request:
 class ServingEngine:
     def __init__(self, cfg: ArchConfig, *, batch_size: int, max_len: int,
                  rng_seed: int = 0, device=None, params=None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "ServingEngine(mesh=): serving a tensor-parallel (sharded) model "
-                "is the next slice of the port (ROADMAP Queue 2); "
-                "greedy_token(mesh=) already runs the vocab-sharded top-k")
         self.cfg = cfg
         self.batch_size = batch_size
         self.max_len = max_len
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.params = (params if params is not None
                        else init_model(cfg, seed=rng_seed, device=self.device))
+        if mesh is not None:
+            distribute_params(self.params, mesh)
         self.queue: list[Request] = []
 
     def submit(self, req: Request) -> None:
@@ -80,16 +92,36 @@ class ServingEngine:
             inputs["encoder_frames"] = torch.zeros(
                 (self.batch_size, self.cfg.encoder_seq, self.cfg.d_model),
                 dtype=self.cfg.cdtype, device=self.device)
-        logits, cache = prefill(self.params, self.cfg, inputs, self.max_len)
-        pos = plen
-        n_new = max(r.max_new_tokens for r in batch)
-        tok = greedy_token(logits)
-        for r, t in zip(batch, tok.tolist()):
-            r.output.append(t)
-        for _ in range(n_new - 1):
-            logits, cache = decode_step(self.params, self.cfg, tok[:, None], cache, pos)
-            tok = greedy_token(logits)
-            pos += 1
-            for r, t in zip(batch, tok.tolist()):
-                r.output.append(t)
+        if self.mesh is not None:
+            inputs = {k: distribute(v, io_pspec(self.mesh, tuple(v.shape)), self.mesh)
+                      for k, v in inputs.items()}
+        with use_mesh(self.mesh):
+            logits, cache = prefill(self.params, self.cfg, inputs, self.max_len)
+            pos = plen
+            n_new = max(r.max_new_tokens for r in batch)
+            tok = self._next(logits, batch)
+            for _ in range(n_new - 1):
+                logits, cache = decode_step(self.params, self.cfg, tok[:, None], cache,
+                                            pos)
+                tok = self._next(logits, batch)
+                pos += 1
         return [r for r in batch if r.rid >= 0]
+
+    def _next(self, logits: torch.Tensor, batch: list[Request]) -> torch.Tensor:
+        """The greedy tokens of ``logits`` (B, V), appended to the requests'
+        outputs; under a mesh a DTensor placed as the logits' batch."""
+        if not is_dtensor(logits):
+            tok = greedy_token(logits)
+            host = tok.tolist()
+        else:
+            names = self.mesh.mesh_dim_names
+            vocab_split = ("model" in names and logits.placements[
+                names.index("model")] == Shard(1))
+            local = greedy_token(logits.to_local(),
+                                 mesh=self.mesh if vocab_split else None)
+            tok = DTensor.from_local(local, self.mesh, rows_placements(logits),
+                                     run_check=False, shape=logits.shape[:1], stride=(1,))
+            host = full(tok).tolist()
+        for r, t in zip(batch, host):
+            r.output.append(t)
+        return tok

@@ -20,6 +20,12 @@ TrainState` is written as the reference's: the parameters with
 the parameters' order; it needs the model's config.  Other trees are
 nested dicts and tuples of tensors or numpy arrays.
 
+A sharded state (DTensor leaves, ``launch/train.py --mesh host``) is
+written whole: every rank gathers each leaf (a collective), rank 0 writes
+the bytes of the one-rank save, and every rank waits for it; a restore
+reads the whole leaves on every rank and copies each rank's block into
+its DTensors.
+
 bfloat16: the reference (numpy with ``ml_dtypes``) writes a bfloat16 leaf
 as npz ``|V2`` and reads it back as ``|V2`` (ROADMAP R10).  The port writes
 the same 2-byte values with ``"bfloat16"`` in the manifest, and reads a
@@ -35,8 +41,10 @@ import shutil
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.models.convert import restack, to_numpy
+from repro_torch.models.sharding import full, is_dtensor, local_block
 
 
 def _tree(tree, cfg):
@@ -61,7 +69,22 @@ def _leaves(tree) -> list:
 
 
 def _host(leaf) -> np.ndarray:
-    return np.asarray(leaf) if isinstance(leaf, np.ndarray) else to_numpy(leaf)
+    if isinstance(leaf, np.ndarray):
+        return np.asarray(leaf)
+    return to_numpy([full(t) for t in leaf] if isinstance(leaf, list) else full(leaf))
+
+
+def _rank0() -> bool:
+    """Whether this process writes: rank 0 of a world, or no world."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _into(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """Copy the whole ``src`` into ``dst``: a DTensor takes its own block."""
+    if is_dtensor(dst):
+        src = local_block(src, dst.placements, dst.device_mesh)
+        dst = dst.to_local()
+    dst.copy_(src)
 
 
 def state_digest(tree, cfg=None) -> str:
@@ -74,15 +97,16 @@ def state_digest(tree, cfg=None) -> str:
 
 def save_checkpoint(directory: str, step: int, tree, cfg=None, *,
                     n_shards: int = 4) -> str:
-    os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"step_{step:09d}")
     tmp = os.path.join(directory, f".tmp.step_{step:09d}")
+    arrays = [_host(x) for x in _leaves(_tree(tree, cfg))]
+    if not _rank0():
+        dist.barrier()
+        return final
+    os.makedirs(directory, exist_ok=True)
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-
-    leaves = _leaves(_tree(tree, cfg))
-    arrays = [_host(x) for x in leaves]
     order = sorted(range(len(arrays)), key=lambda i: -arrays[i].nbytes)
     assignment, loads = {}, [0] * n_shards
     for i in order:
@@ -106,6 +130,8 @@ def save_checkpoint(directory: str, step: int, tree, cfg=None, *,
     if os.path.exists(final):
         shutil.rmtree(final)
     os.rename(tmp, final)
+    if dist.is_initialized():
+        dist.barrier()
     return final
 
 
@@ -153,7 +179,7 @@ def restore_checkpoint(directory: str, step: int, like, cfg=None):
         for a, like_leaf in zip(out, leaves):
             for dst, src in (zip(like_leaf, a) if isinstance(like_leaf, list)
                              else [(like_leaf, a)]):
-                dst.copy_(src)
+                _into(dst, src)
     return like
 
 

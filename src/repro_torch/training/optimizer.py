@@ -14,6 +14,13 @@ parameters needs two float32 temporaries of its largest leaf, not a
 float32 copy of every gradient.  Moments are float32 tensors keyed like
 ``named_parameters()``, ``step`` an int32 tensor; :func:`adamw_update`
 writes the parameters and the moments in place.
+
+Under a mesh the parameters and moments are DTensors (moments placed by
+``launch.shardings.opt_pspecs``, ZeRO-1): a leaf's gradient is
+redistributed to its moments' placement (a reduce-scatter of a partial
+gradient), the update computed there, and the new value redistributed to
+the parameter's placement (``models.sharding.redistribute``) before it is
+written.
 """
 from __future__ import annotations
 
@@ -22,6 +29,9 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from repro_torch.models.sharding import full, is_dtensor, redistribute
 
 F32 = torch.float32
 
@@ -66,10 +76,26 @@ def lr_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
     return cfg.lr * warm * frac
 
 
+def _placed_as(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``x`` redistributed to ``like``'s placements (DTensors), else as it is."""
+    return redistribute(x, like.placements) if is_dtensor(x) else x
+
+
+def _sq_norm(g: torch.Tensor) -> torch.Tensor:
+    """The float32 sum of squares of ``g``; of a DTensor (no partial
+    placement), each rank's block's, summed over the mesh dims that shard
+    it (an all-reduce)."""
+    if not is_dtensor(g):
+        return torch.linalg.vector_norm(g, dtype=F32).square()
+
+    local = torch.linalg.vector_norm(g.to_local(), dtype=F32).square()
+    pls = [Partial() if isinstance(p, Shard) else Replicate() for p in g.placements]
+    return full(DTensor.from_local(local, g.device_mesh, pls, run_check=False))
+
+
 def global_norm(grads: dict) -> torch.Tensor:
     """sqrt of the sum of squares of every gradient, in float32."""
-    sq = [torch.linalg.vector_norm(g, dtype=F32).square() for g in grads.values()]
-    return torch.sqrt(torch.stack(sq).sum())
+    return torch.sqrt(torch.stack([_sq_norm(g) for g in grads.values()]).sum())
 
 
 @torch.no_grad()
@@ -82,6 +108,8 @@ def adamw_update(cfg: AdamWConfig, params: torch.nn.Module, grads: dict,
     named = dict(params.named_parameters())
     if set(grads) != set(named):
         raise ValueError(f"gradients for {sorted(set(grads) ^ set(named))} missing or extra")
+    # under a mesh: each gradient reduced into its moments' placement
+    grads = {n: _placed_as(g, state.mu[n]) for n, g in grads.items()}
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
@@ -96,7 +124,8 @@ def adamw_update(cfg: AdamWConfig, params: torch.nn.Module, grads: dict,
         v.mul_(cfg.b2).addcmul_(g, g, value=1 - cfg.b2)
         del g
         denom = (v / b2c).sqrt_().add_(cfg.eps)
-        delta = (m / b1c).div_(denom).add_(p, alpha=cfg.weight_decay).mul_(lr)
-        p.copy_(denom.copy_(p).sub_(delta))
-        del denom, delta
+        pm = _placed_as(p, m)
+        delta = (m / b1c).div_(denom).add_(pm, alpha=cfg.weight_decay).mul_(lr)
+        p.copy_(_placed_as(denom.copy_(pm).sub_(delta), p))
+        del denom, delta, pm
     return params, OptState(step, state.mu, state.nu), {"grad_norm": gnorm, "lr": lr}

@@ -11,7 +11,9 @@ float32 buffers, then the sums and the loss are divided by the count (the
 reference's ``lax.scan``); ``.backward()`` into ``.grad`` would sum in
 the parameters' dtype.  The state is updated in place (the twin of
 ``donate_argnums``); the parameters must require grad
-(``params.requires_grad_(True)``: they are created frozen).
+(``params.requires_grad_(True)``: they are created frozen).  Under a
+mesh (``models.sharding.use_mesh``, DTensor state and batch) the step runs
+as it is, each op a DTensor op (``launch/train.py --mesh host``).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.model import train_loss
+from repro_torch.models.sharding import mesh_ops
 from repro_torch.training.optimizer import AdamWConfig, OptState, adamw_update
 
 
@@ -43,6 +46,10 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *, remat: bool = True
     del remat  # the reference's signature: remat is cfg.remat_layers
 
     def step(state: TrainState, inputs: dict) -> tuple[TrainState, dict]:
+        with mesh_ops():
+            return _step(state, inputs)
+
+    def _step(state: TrainState, inputs: dict) -> tuple[TrainState, dict]:
         named = dict(state.params.named_parameters())
         frozen = [n for n, p in named.items() if not p.requires_grad]
         if frozen:
@@ -58,8 +65,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *, remat: bool = True
                 raise ValueError(f"batch {b} does not split into {microbatches} "
                                  f"microbatches")
             loss = torch.zeros((), dtype=torch.float32, device=inputs["tokens"].device)
-            grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                     for n, p in named.items()}
+            grads = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in named.items()}
             for mb in zip(*(x.chunk(microbatches) for x in inputs.values())):
                 mb_loss = train_loss(state.params, cfg, dict(zip(inputs, mb)))
                 for acc, g in zip(grads.values(), _grads(mb_loss, named)):

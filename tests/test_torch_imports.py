@@ -45,7 +45,9 @@ def test_every_module_imports_with_jax_and_repro_blocked():
               "repro_torch.roofline", "repro_torch.roofline.analysis",
               "repro_torch.roofline.op_cost",
               "repro_torch.launch.mesh", "repro_torch.launch.spawn",
-              "repro_torch.launch._parallel_selftest"):
+              "repro_torch.launch._parallel_selftest", "repro_torch.models.sharding",
+              "repro_torch.launch.shardings", "repro_torch.launch.specs",
+              "repro_torch.launch.dryrun", "repro_torch.launch._tp_selftest"):
         assert m in mods, m
     code = "\n".join([
         "import sys",
