@@ -3,8 +3,8 @@
     python3 chip_smoke.py                                  # the full check
     python3 chip_smoke.py --n-docs 200000 --n-queries 128  # a short rehearsal
 
-Phases, run in the order 1, 2, 21, 20, 3–16, 22, 17–19 (any failure
-exits non-zero; nothing is caught):
+Phases, run in the order 1, 2, 21, 20, 23, 24, 25, 3–16, 22, 17–19 (any
+failure exits non-zero; nothing is caught):
 
 1. device  — the card's name, power limit and count;
 2. build   — nvcc builds every kernel (K1–K4, the work-list kernels
@@ -418,6 +418,52 @@ exits non-zero; nothing is caught):
              ranks' local shapes against its plain version, with
              ``roofline.kernel_bound`` and SDPA; per-rank seconds and
              peak memory, the card's name and power limit.
+24. lm-archs — the registered archs no earlier phase serves, at full
+             width, right after phase 23 (before phase 3's index takes the
+             card), one at a time, each freed before the next
+             (``LM_ARCH_CELLS``): starcoder2-7b (LayerNorm, GELU MLP, G 9)
+             and deepseek-coder-33b (66.7 GB, G 7) with no cut,
+             mixtral-8x7b cut to 16 of 32 layers (window 4096, top-2 of 8)
+             and internvl2-76b to 24 of 80 (a 256-embedding vision prefix).
+             For each: the bytes held and the reckoned peak (weights, cache,
+             logits, init's transient) against the card; a float32 twin cut
+             to 2 layers (TF32 off): flash (K12 float32) within a
+             row-relative 1e-3 of naive at every position, prefill (with the
+             prefix) + 8 decode steps within 1e-3 of the forward (an MoE's on
+             a no-drop capacity copy), Mixtral's at S 4500 past its window;
+             its bf16 twin's K12 last-position logits within 1.5x the naive
+             bf16 path's error; the parameter count against the shapes and
+             init seconds; InternVL2's prefill of 256 prefix embeddings +
+             1024 tokens and 8 decode steps (K12 = 24 at S 1280, none in
+             decode); ``ServingEngine`` (batch 4 x 8 prompts of 128–1024
+             tokens x 16 for starcoder2, batch 2 x 4 prompts x 8 for
+             deepseek and InternVL2 (text), batch 2 x 4 prompts of
+             4500–6000 x 16 for Mixtral): tokens in the vocabulary, the
+             first batch again equal, K12 one a layer a prefill (windowed
+             for Mixtral) and none in decode, nothing else; Mixtral's drop
+             share; prefill ms, decode ms, tokens/s, peak; the starcoder2
+             serve CLI in a subprocess (K12 64); K12 at the first served
+             prefill's shape against its plain version, beside its bound
+             and SDPA;
+25. lm-train-families — the families no earlier phase trains, right after
+             phase 24 (``LM_TRAIN_CELLS``): rwkv6-1.6b, recurrentgemma-2b
+             and whisper-base at full width and depth, Moonlight-16B-A3B cut
+             to 6 of 48 layers.  A float32 twin at its smallest whole
+             pattern (TF32 off): ``train_loss``'s gradients through K12 vs
+             naive per leaf within a relative L2 of 1e-4 (recurrentgemma's
+             3 layers at S 2560, past its window); for RWKV6 layer 0's
+             ``wkv_chunked`` gradients (r, k, v, log w, u) vs
+             ``wkv_scan_torch``'s at B 1, S 2048 within 1e-4, with the
+             log-decays met.  Then 4 bf16 steps of ``make_train_step``
+             (AdamW, remat) on one batch (B 1 x S 2048; Whisper B 8 x 448
+             with 1500 frames from the seed): losses and gradient norms
+             finite, the loss falling, K12 a step 0, 16, 30 (the encoder's
+             6 are not rematerialised) and 12, nothing else; step ms,
+             tokens/s, 6·N·tokens as a share of 989 TFLOP/s, peak, the MoE
+             drop share; K12 forward + backward at every shape the steps
+             ran against autograd, beside its bound and SDPA's; then
+             ``python -m repro_torch.launch.train --arch rwkv6-1.6b
+             --steps 2 --batch 1 --seq 512`` in a subprocess, rc 0.
 
 Every phase prints its seconds.
 
@@ -446,6 +492,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -490,6 +537,21 @@ def kernel_names(key: str) -> tuple:
 
 def log(*a):
     print(*a, flush=True)
+
+
+def src_env(**extra: str) -> dict:
+    """This process's environment with the checkout's ``src`` first on
+    ``PYTHONPATH`` (and ``extra`` set), for a subprocess of the port."""
+    src_dir = str(Path(__file__).resolve().parent / "src")
+    return dict(os.environ, **extra, PYTHONPATH=os.pathsep.join(
+        [src_dir, *filter(None, [os.environ.get("PYTHONPATH")])]))
+
+
+def run_module(module: str, cmd: list, timeout: float) -> subprocess.CompletedProcess:
+    """``python -m <module> <cmd>`` in a subprocess of the port
+    (:func:`src_env`), its output captured as text."""
+    return subprocess.run([sys.executable, "-m", module, *cmd], capture_output=True,
+                          text=True, timeout=timeout, env=src_env())
 
 
 def nvidia_smi_line() -> str:
@@ -836,6 +898,14 @@ def chain_after(rlo, rhi, docs, keep, *, caps, fences=None, widths=None,
     return blocks, total, busiest, rounds_max, passes_max
 
 
+def plain_chunk(n: int) -> int:
+    """A key chunk for K12's plain version over ``n`` keys: the largest
+    divisor of n up to 1024, or n itself where that divisor is under 128
+    (the plain version takes whole chunks only)."""
+    d = max(c for c in range(1, min(n, 1024) + 1) if n % c == 0)
+    return d if d >= 128 else n
+
+
 def k12_per_prefill(cfg) -> int:
     """K12 launches of one prefill or no-cache forward: one for each layer
     with attention (none in an RWKV6 model or an RG-LRU block), and in an
@@ -881,6 +951,57 @@ class LMRun:
 
         self.layers._flash_gqa = spy
         return lambda: setattr(self.layers, "_flash_gqa", real)
+
+    def spy_routes(self, routes: list):
+        """Append (pairs dropped, pairs, cap) of every prompt's MoE routing
+        (S > 1) to ``routes`` from now on; returns the undo."""
+        from repro_torch.models import moe as moe_mod
+        real = moe_mod.route
+
+        def spy(x, router, n_experts, topk, cap):
+            plan = real(x, router, n_experts, topk, cap)
+            if x.shape[1] > 1:
+                routes.append((int((plan.slot_key == n_experts * cap).sum()),
+                               plan.slot_key.numel(), cap))
+            return plan
+
+        moe_mod.route = spy
+        return lambda: setattr(moe_mod, "route", real)
+
+    def k12_times(self, q, k, v, *, causal, label, window=None):
+        """K12's ms beside its plain version's, SDPA's (``enable_gqa``; a
+        boolean mask for a window) and its bound; returns (ms, plain ms,
+        bound ms, bound by, SDPA ms)."""
+        fa = self.fa
+        B, S, H, hd = q.shape
+        Tk, KV = k.shape[1], k.shape[2]
+        run_k12 = lambda: fa.flash_attention_fwd_cuda(  # noqa: E731
+            q, k, v, causal=causal, q_chunk=S, k_chunk=Tk, window=window)
+        plain = lambda: fa.flash_attention_fwd_torch(  # noqa: E731
+            q, k, v, causal=causal, q_chunk=S, k_chunk=plain_chunk(Tk), window=window)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        mask = None
+        if window is not None:
+            pos = torch.arange(S, device=q.device)
+            mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None, enable_gqa=True)
+        ms = cuda_ms(run_k12, reps=20, warmup=3)
+        plain_ms = cuda_ms(plain, reps=3, warmup=1)
+        lib_ms = cuda_ms(sdpa, reps=20, warmup=3)
+        bf16 = q.dtype == torch.bfloat16
+        peak = BF16_FLOPS_PER_S if bf16 else TF32_FLOPS_PER_S / 3
+        bound, by, work = kernel_bound(fa.k12_entry(q), q, k, v, causal=causal,
+                                       window=window)
+        log(f"[times] K12 {label} {(B, S, Tk, H, KV, hd)} "
+            f"{'causal' if causal else 'non-causal'}"
+            f"{f', W {window}' if window else ''} {str(q.dtype)[6:]}: {ms:.4f} ms/launch "
+            f"(CUDA events); plain {plain_ms:.4f} ms; SDPA (enable_gqa"
+            f"{', boolean window mask' if window else ''}) {lib_ms:.4f} ms; bound "
+            f"{bound:.4f} ms ({by}: {work.ops} flops at {peak / 1e12:.0f} TFLOP/s, "
+            f"{work.bytes} bytes at 3.35 TB/s); K12 / SDPA {ms / lib_ms:.2f}x, K12 / bound "
+            f"{ms / bound:.2f}x; on {self.smi}")
+        return ms, plain_ms, bound, by, lib_ms
 
     def serve(self, cfg, params, prompts, *, batch, max_len, new_tokens, tag):
         """Serve ``prompts`` through a ServingEngine, then the first batch
@@ -962,13 +1083,15 @@ class LMRun:
         """On a float32 twin: flash (K12 float32) vs naive within a
         row-relative 1e-3 at every position, and prefill of all but 8
         tokens plus 8 teacher-forced decode steps (tokens alone: an
-        encoder-decoder's cross K/V come from the cache) vs the forward
+        encoder-decoder's cross K/V come from the cache; a vision prefix
+        goes into the prefill, the steps at positions P + t) vs the forward
         within 1e-3 (on ``nodrop``, a no-drop capacity copy, where given).
         Returns (K12 launches of the forward, its K12 calls, the forward's
         last-position logits)."""
         lm, fa = self.lm, self.fa
         tokens = inputs["tokens"]
         S = tokens.shape[1]
+        P = inputs["prefix_embeds"].shape[1] if "prefix_embeds" in inputs else 0
         n_k12 = k12_per_prefill(cfg32)
         self.k12_calls.clear()
         self.reset_launches()
@@ -984,13 +1107,14 @@ class LMRun:
             raise AssertionError(f"{tag} float32: launches {n} then "
                                  f"{self.launches_now()}; expected K12 = {n_k12} in the "
                                  f"flash forward only")
-        if full.shape != (tokens.shape[0], S, cfg32.vocab) or not bool(
+        if full.shape != (tokens.shape[0], P + S, cfg32.vocab) or not bool(
                 torch.isfinite(full).all()):
             raise AssertionError(f"{tag} float32 logits {tuple(full.shape)} or not finite")
         rr, ab = fa.max_row_rel_err(full, naive), float((full - naive).abs().max())
         del naive
         calls = list(self.k12_calls)
-        log(f"{self.tag} {tag} float32 forward_logits {tuple(tokens.shape)}: flash (K12 "
+        log(f"{self.tag} {tag} float32 forward_logits {tuple(tokens.shape)}"
+            + (f" after {P} prefix embeddings" if P else "") + ": flash (K12 "
             f"split TF32, {n['K12']} launches, (S, T, causal, window) "
             f"{sorted(set(calls), key=str)}) vs naive: max abs err {ab:.4g}, row-relative "
             f"{rr:.4g} (bound 1e-3, every position)")
@@ -1002,12 +1126,15 @@ class LMRun:
             full = lm.forward_logits(params32, cfg32, inputs)
         last32 = full[:, -1].clone()
         last, cache = lm.prefill(params32, cfg32, {**inputs, "tokens": tokens[:, :S - 8]},
-                                 max_len=S)
-        errs = [fa.max_row_rel_err(last, full[:, S - 9])]
-        for t in range(S - 8, S):
-            step, cache = lm.decode_step(params32, cfg32, tokens[:, t:t + 1], cache, t)
+                                 max_len=P + S)
+        errs = [fa.max_row_rel_err(last, full[:, P + S - 9])]
+        for t in range(P + S - 8, P + S):
+            step, cache = lm.decode_step(params32, cfg32, tokens[:, t - P:t - P + 1], cache,
+                                         t)
             errs.append(fa.max_row_rel_err(step, full[:, t]))
-        log(f"{self.tag} {tag} float32 prefill ({S - 8}) + 8 decode steps vs forward_logits"
+        log(f"{self.tag} {tag} float32 prefill ("
+            + (f"{P} prefix embeddings + " if P else "") + f"{S - 8}) + 8 decode steps vs "
+            f"forward_logits"
             + (f" (capacity_factor {cfg32.capacity_factor}: no drops)" if nodrop else "")
             + ": row-relative " + ", ".join(f"{e:.3g}" for e in errs) + " (bound 1e-3)")
         if max(errs) > 1e-3:
@@ -1023,7 +1150,6 @@ def lm_moe_hybrid(args, dev, smi: str, wrappers: dict) -> list:
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import model as lm
-    from repro_torch.models import moe as moe_mod
 
     f32, bf16 = torch.float32, torch.bfloat16
     tol = {f32: 2e-5, bf16: 2e-2}
@@ -1209,23 +1335,14 @@ def lm_moe_hybrid(args, dev, smi: str, wrappers: dict) -> list:
         f"init {t_init:.2f} s from seed {args.seed}; {torch.cuda.memory_allocated()} "
         f"bytes allocated now")
     routes = []
-    real_route = moe_mod.route
-
-    def spy_route(x, router, n_experts, topk, cap):
-        plan = real_route(x, router, n_experts, topk, cap)
-        if x.shape[1] > 1:
-            routes.append((int((plan.slot_key == n_experts * cap).sum()),
-                           plan.slot_key.numel(), cap))
-        return plan
-
     prompts = [rng.integers(0, mo_cfg.vocab, size=int(rng.integers(128, 1025)))
                .astype(np.int32) for _ in range(8)]
-    moe_mod.route = spy_route
+    undo = lmr.spy_routes(routes)
     try:
         mo_counts, _, plens = lmr.serve(mo_cfg, mo_params, prompts, batch=4, max_len=1040,
                                         new_tokens=16, tag=mo_cfg.name)
     finally:
-        moe_mod.route = real_route
+        undo()
     first = routes[:mo_cfg.n_layers]
     log(f"[lm18] {mo_cfg.name} serve: (token, slot) pairs dropped at capacity in the first "
         f"prefill (S {plens[0]}, cap {first[0][2]}): {sum(d for d, _, _ in first)} of "
@@ -1277,32 +1394,6 @@ def lm_rwkv_whisper(args, dev, smi: str, wrappers: dict) -> list:
                 *(torch.randn((B, Tk, KV, hd), generator=gen).to(dev, dtype)
                   for _ in range(2)))
 
-    def k12_times(q, k, v, causal, label):
-        """K12's ms beside its plain version's, SDPA's and its bound."""
-        B, S, _, _ = q.shape
-        Tk = k.shape[1]
-        ck = 500 if Tk % 500 == 0 else Tk
-        run_k12 = lambda: fa.flash_attention_fwd_cuda(  # noqa: E731
-            q, k, v, causal=causal, q_chunk=S, k_chunk=Tk)
-        plain = lambda: fa.flash_attention_fwd_torch(  # noqa: E731
-            q, k, v, causal=causal, q_chunk=S, k_chunk=ck)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=causal, enable_gqa=True)
-        ms = cuda_ms(run_k12, reps=20, warmup=3)
-        plain_ms = cuda_ms(plain, reps=3, warmup=1)
-        lib_ms = cuda_ms(sdpa, reps=20, warmup=3)
-        peak = BF16_FLOPS_PER_S if q.dtype == bf16 else TF32_FLOPS_PER_S / 3
-        bound, by, work = kernel_bound(fa.k12_entry(q), q, k, v, causal=causal)
-        n_bytes, flops = work.bytes, work.ops
-        log(f"[times] K12 {label} {(B, S, Tk, H, KV, hd)} "
-            f"{'causal' if causal else 'non-causal'} {str(q.dtype)[6:]}: {ms:.4f} ms/launch "
-            f"(CUDA events); plain {plain_ms:.4f} ms; SDPA (enable_gqa) {lib_ms:.4f} ms; "
-            f"bound {bound:.4f} ms ({by}: {flops} flops at {peak / 1e12:.0f} TFLOP/s, "
-            f"{n_bytes} bytes at 3.35 TB/s); K12 / SDPA {ms / lib_ms:.2f}x, K12 / bound "
-            f"{ms / bound:.2f}x; on {smi}")
-        return ms, plain_ms, bound, by, lib_ms
-
     # -------------------------------------------------------------- (i)
     # K12 at Whisper's callers: the encoder (S = T = 1500), the cross
     # attention (a few to 448 queries against 1500 keys) and the decoder's
@@ -1343,7 +1434,7 @@ def lm_rwkv_whisper(args, dev, smi: str, wrappers: dict) -> list:
                 f"{'causal' if causal else 'non-causal'} {str(dtype)[6:]}: max abs err "
                 + ", ".join(errs) + f" (bounds rtol = atol = {tol[dtype]:g}"
                 + (f", row-relative {fa.BF16_ROW_REL_TOL:g}" if dtype == bf16 else "") + ")")
-            k12_times(q, k, v, causal, f"whisper-base {caller}")
+            lmr.k12_times(q, k, v, causal=causal, label=f"whisper-base {caller}")
             del q, k, v, got, want, g, wt
     if bad:
         raise AssertionError("K12 at Whisper's shapes: " + "; ".join(bad))
@@ -1505,17 +1596,16 @@ def lm_rwkv_whisper(args, dev, smi: str, wrappers: dict) -> list:
     rows = {}
     for caller, (S, Tk, causal) in callers.items():
         q, k, v = attn_inputs(8, S, Tk, bf16)
-        rows[caller] = k12_times(q, k, v, causal, f"whisper-base {caller} at the first "
-                                                  f"served prefill's shape")
+        rows[caller] = lmr.k12_times(q, k, v, causal=causal,
+                                     label=f"whisper-base {caller} at the first served "
+                                           f"prefill's shape")
         del q, k, v
     del wh_params
     torch.cuda.empty_cache()
 
     # -------------------------------------------------------------- (iv)
     # both serve CLIs on the card, side by side
-    src_dir = str(Path(__file__).resolve().parent / "src")
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [src_dir, *filter(None, [os.environ.get("PYTHONPATH")])]))
+    env = src_env()
     t0 = time.perf_counter()
     procs = {arch: subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch, "--requests",
@@ -1553,6 +1643,99 @@ def lm_rwkv_whisper(args, dev, smi: str, wrappers: dict) -> list:
         for caller, key in callers.items()]
 
 
+K12_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # relative L2 of dq, dk, dv
+
+
+def rel_l2(got, want) -> float:
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def k12_grad_case(lmr, gen, label, shape, causal, window, dtype) -> tuple:
+    """K12 under a gradient (``K12Attention``: K12's forward, the attention
+    gradient in torch ops) at ``shape`` (B, S, T, H, KV, hd): dq, dk, dv
+    against torch autograd through the float32 full-logits attention on
+    the same inputs (one K12 launch a forward + backward), and its forward
+    + backward ms beside its bound (12·B·H·hd·keys flops), the plain route
+    (K12's plain forward, the same backward) and SDPA's forward +
+    backward.  Returns (ms, plain ms, bound ms, bound by, SDPA ms, max abs
+    difference from the plain route)."""
+    fa, dev, wrappers, smi = lmr.fa, lmr.dev, lmr.wrappers, lmr.smi
+    B, S, T, H, KV, hd = shape
+    bf16 = torch.bfloat16
+    q, dout = (torch.randn((B, S, H, hd), generator=gen).to(dev, dtype) for _ in range(2))
+    k, v = (torch.randn((B, T, KV, hd), generator=gen).to(dev, dtype) for _ in range(2))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    n0 = wrappers["K12"].launches
+    out = fa.K12Attention.apply(*leaves, causal, window)
+    got = torch.autograd.grad(out, leaves, dout)
+    if wrappers["K12"].launches - n0 != 1:
+        raise AssertionError(f"K12 under a gradient: {wrappers['K12'].launches - n0} "
+                             f"launches for one forward + backward (expected 1)")
+    ref = [x.float().requires_grad_(True) for x in (q, k, v)]
+    want = torch.autograd.grad(fa.flash_attention_ref(*ref, causal=causal, window=window),
+                               ref, dout.float())
+    del ref
+    errs = [rel_l2(g.float(), w) for g, w in zip(got, want)]
+    abs_err = max(float((g.float() - w).abs().max()) for g, w in zip(got, want))
+    del want
+    # the plain route: K12's plain forward, the same backward
+    pc = plain_chunk(T)
+    plain_out = fa.flash_attention_fwd_torch(q, k, v, causal=causal, q_chunk=S, k_chunk=pc,
+                                             window=window)
+    plain = fa.flash_attention_bwd(q, k, v, plain_out, dout, causal=causal, window=window)
+    plain_err = max(float((g.float() - p.float()).abs().max())
+                    for g, p in zip((out.detach(), *got), (plain_out, *plain)))
+    del plain_out, plain, out, got
+
+    def k12_fb():
+        o = fa.K12Attention.apply(*leaves, causal, window)
+        torch.autograd.grad(o, leaves, dout)
+
+    def plain_fb():
+        o = fa.flash_attention_fwd_torch(q, k, v, causal=causal, q_chunk=S, k_chunk=pc,
+                                         window=window)
+        fa.flash_attention_bwd(q, k, v, o, dout, causal=causal, window=window)
+
+    sd = [x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v)]
+    mask = None
+    if window is not None:
+        pos = torch.arange(S, device=dev)
+        mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+
+    def sdpa_fb():
+        o = torch.nn.functional.scaled_dot_product_attention(
+            *sd, attn_mask=mask, is_causal=causal and mask is None, enable_gqa=True)
+        torch.autograd.grad(o, sd, dout.transpose(1, 2))
+
+    ms = cuda_ms(k12_fb, reps=5, warmup=2)
+    plain_ms = cuda_ms(plain_fb, reps=2, warmup=1)
+    lib_ms = cuda_ms(sdpa_fb, reps=5, warmup=2)
+    keys = (window_keys(S, window) if window else S * (S + 1) // 2) if causal else S * T
+    # forward 2 products, backward 4 (dP, dV, dQ, dK): 2 flops each
+    flops = 12 * B * H * hd * keys
+    peak = BF16_FLOPS_PER_S if dtype == bf16 else TF32_FLOPS_PER_S / 3
+    n_bytes = (4 * q.numel() + 2 * (k.numel() + v.numel())) * q.element_size()
+    bound, by = bound_ms(n_bytes, flops, "bf16" if dtype == bf16 else "tf32x3")
+    tol = K12_GRAD_TOL[dtype]
+    log(f"{lmr.tag} K12 under a gradient, {label} {shape} "
+        f"{'causal' if causal else 'non-causal'}{f', W {window}' if window else ''} "
+        f"{str(dtype)[6:]}: dq, dk, dv vs autograd through float32 attention: relative L2 "
+        + ", ".join(f"{e:.3g}" for e in errs)
+        + f" (bound {tol}), max abs {abs_err:.4g}; out, dq, dk, dv vs the plain route "
+        f"(K12's plain forward, the same backward): max abs {plain_err:.4g}; forward + "
+        f"backward {ms:.4f} ms (CUDA events), plain {plain_ms:.4f} ms, SDPA (enable_gqa"
+        f"{', boolean window mask' if window else ''}) {lib_ms:.4f} ms; bound "
+        f"{bound:.4f} ms ({by}: {flops} flops at {peak / 1e12:.0f} TFLOP/s, {n_bytes} bytes "
+        f"at 3.35 TB/s); on {smi}")
+    if max(errs) > tol or not all(math.isfinite(e) for e in errs):
+        raise AssertionError(f"K12 under a gradient, {label} {dtype}: relative L2 {errs} > "
+                             f"{tol}")
+    del q, k, v, dout, leaves, sd, mask
+    torch.cuda.empty_cache()
+    return ms, plain_ms, bound, by, lib_ms, plain_err
+
+
 def lm_train(args, dev, smi: str, wrappers: dict) -> list:
     """Phase 20: LM training.  K12 under a gradient against autograd, a
     float32 twin's gradients and microbatches, phi4-mini-3.8b trained at
@@ -1560,7 +1743,6 @@ def lm_train(args, dev, smi: str, wrappers: dict) -> list:
     serve example, on the card.  Returns the phase's kernel record."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, TokenStream
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import model as lm
     from repro_torch.training.optimizer import AdamWConfig, init_opt_state
     from repro_torch.training.train_step import TrainState, make_train_step
@@ -1574,142 +1756,30 @@ def lm_train(args, dev, smi: str, wrappers: dict) -> list:
     gen = torch.Generator().manual_seed(args.seed + 20)
     cfg = get_config("phi4-mini-3.8b")
 
-    def rel_l2(got, want) -> float:
-        got, want = got.double(), want.double()
-        return float((got - want).norm() / want.norm().clamp_min(1e-30))
-
     # -------------------------------------------------------------- (i)
     # K12 under a gradient (K12Attention: K12's forward, the attention
     # gradient in torch ops) against torch autograd through the float32
     # full-logits attention on the same inputs; its forward + backward
     # time beside its bound, the plain route's and SDPA's
-    grad_tol = {f32: 1e-4, bf16: 2e-2}     # relative L2 of each of dq, dk, dv
     cases = [("phi4-mini", 1, 2048, 2048, cfg.n_heads, cfg.n_kv_heads, cfg.hd, True, None),
              ("recurrentgemma-2b local", 1, 4096, 4096, 10, 1, 256, True, 2048),
              ("whisper-base encoder", 2, 1500, 1500, 8, 8, 64, False, None)]
     rows = {}
     for label, B, S, T, H, KV, hd, causal, window in cases:
         for dtype in (f32, bf16):
-            q, dout = (torch.randn((B, S, H, hd), generator=gen).to(dev, dtype)
-                       for _ in range(2))
-            k, v = (torch.randn((B, T, KV, hd), generator=gen).to(dev, dtype)
-                    for _ in range(2))
-            leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
-            n0 = wrappers["K12"].launches
-            out = fa.K12Attention.apply(*leaves, causal, window)
-            got = torch.autograd.grad(out, leaves, dout)
-            if wrappers["K12"].launches - n0 != 1:
-                raise AssertionError(f"K12 under a gradient: "
-                                     f"{wrappers['K12'].launches - n0} launches for one "
-                                     f"forward + backward (expected 1)")
-            ref = [x.float().requires_grad_(True) for x in (q, k, v)]
-            want = torch.autograd.grad(
-                fa.flash_attention_ref(*ref, causal=causal, window=window), ref,
-                dout.float())
-            del ref
-            errs = [rel_l2(g.float(), w) for g, w in zip(got, want)]
-            abs_err = max(float((g.float() - w).abs().max()) for g, w in zip(got, want))
-            del want
-            # the plain route: K12's plain forward, the same backward
-            plain_out = fa.flash_attention_fwd_torch(q, k, v, causal=causal, q_chunk=S,
-                                                     k_chunk=T, window=window)
-            plain = fa.flash_attention_bwd(q, k, v, plain_out, dout, causal=causal,
-                                           window=window)
-            plain_err = max(float((g.float() - p.float()).abs().max())
-                            for g, p in zip((out.detach(), *got), (plain_out, *plain)))
-            del plain_out, plain, out, got
-
-            def k12_fb():
-                o = fa.K12Attention.apply(*leaves, causal, window)
-                torch.autograd.grad(o, leaves, dout)
-
-            def plain_fb():
-                o = fa.flash_attention_fwd_torch(q, k, v, causal=causal, q_chunk=S,
-                                                 k_chunk=T, window=window)
-                fa.flash_attention_bwd(q, k, v, o, dout, causal=causal, window=window)
-
-            sd = [x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v)]
-            mask = None
-            if window is not None:
-                pos = torch.arange(S, device=dev)
-                mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
-
-            def sdpa_fb():
-                o = torch.nn.functional.scaled_dot_product_attention(
-                    *sd, attn_mask=mask, is_causal=causal and mask is None, enable_gqa=True)
-                torch.autograd.grad(o, sd, dout.transpose(1, 2))
-
-            ms = cuda_ms(k12_fb, reps=5, warmup=2)
-            plain_ms = cuda_ms(plain_fb, reps=2, warmup=1)
-            lib_ms = cuda_ms(sdpa_fb, reps=5, warmup=2)
-            keys = (window_keys(S, window) if window else S * (S + 1) // 2) if causal \
-                else S * T
-            # forward 2 products, backward 4 (dP, dV, dQ, dK): 2 flops each
-            flops = 12 * B * H * hd * keys
-            peak = BF16_FLOPS_PER_S if dtype == bf16 else TF32_FLOPS_PER_S / 3
-            n_bytes = (4 * q.numel() + 2 * (k.numel() + v.numel())) * q.element_size()
-            bound, by = bound_ms(n_bytes, flops, "bf16" if dtype == bf16 else "tf32x3")
-            rows[(label, dtype)] = (ms, plain_ms, bound, by, lib_ms, plain_err)
-            log(f"[train] K12 under a gradient, {label} {(B, S, T, H, KV, hd)} "
-                f"{'causal' if causal else 'non-causal'}"
-                f"{f', W {window}' if window else ''} {str(dtype)[6:]}: dq, dk, dv vs "
-                f"autograd through float32 attention: relative L2 "
-                + ", ".join(f"{e:.3g}" for e in errs)
-                + f" (bound {grad_tol[dtype]}), max abs {abs_err:.4g}; out, dq, dk, dv vs "
-                f"the plain route (K12's plain forward, the same backward): max abs "
-                f"{plain_err:.4g}; forward + backward {ms:.4f} ms (CUDA events), plain "
-                f"{plain_ms:.4f} ms, SDPA (enable_gqa"
-                f"{', boolean window mask' if window else ''}) {lib_ms:.4f} ms; bound "
-                f"{bound:.4f} ms ({by}: {flops} flops at {peak / 1e12:.0f} TFLOP/s, "
-                f"{n_bytes} bytes at 3.35 TB/s); on {smi}")
-            if max(errs) > grad_tol[dtype] or not all(math.isfinite(e) for e in errs):
-                raise AssertionError(f"K12 under a gradient, {label} {dtype}: relative L2 "
-                                     f"{errs} > {grad_tol[dtype]}")
-            del q, k, v, dout, leaves, sd, mask
-            torch.cuda.empty_cache()
+            rows[(label, dtype)] = k12_grad_case(lmr, gen, label, (B, S, T, H, KV, hd),
+                                                 causal, window, dtype)
 
     # -------------------------------------------------------------- (ii)
     # the float32 twin at full width, depth cut to 2 layers: train_loss's
     # gradients through K12 against the naive attention's, leaf by leaf,
     # and one step with 2 microbatches against one without
+    twin_grad_check(lmr, args, cfg, TrainCell(cfg.name, None, 1, 512, 2, 512))
     cfg2 = dataclasses.replace(cfg, n_layers=2, param_dtype="float32",
                                compute_dtype="float32")
     ds = TokenStream(DataConfig(vocab=cfg.vocab, seq_len=512, global_batch=2,
                                 seed=args.seed))
     batch2 = {k: torch.from_numpy(x).to(dev) for k, x in ds.batch(0).items()}
-    batch1 = {k: x[:1] for k, x in batch2.items()}
-    params = lm.init_model(cfg2, seed=args.seed, device=dev).requires_grad_(True)
-    names = [n for n, _ in params.named_parameters()]
-    grads = {}
-    for impl in ("flash", "naive"):
-        lmr.reset_launches()
-        loss = lm.train_loss(params, dataclasses.replace(cfg2, attn_impl=impl), batch1)
-        grads[impl] = (float(loss.detach()),
-                       torch.autograd.grad(loss, list(params.parameters())),
-                       lmr.launches_now())
-        del loss
-    want_k12 = 2 * cfg2.n_layers          # forward and remat recompute
-    if grads["flash"][2] != {**lmr.no_launch, "K12": want_k12} or \
-            grads["naive"][2] != lmr.no_launch:
-        raise AssertionError(f"twin: launches {grads['flash'][2]} (flash), "
-                             f"{grads['naive'][2]} (naive); expected K12 = {want_k12} "
-                             f"and none")
-    leaf_err = {n: rel_l2(a, b) for n, a, b in zip(names, grads["flash"][1],
-                                                    grads["naive"][1])}
-    worst = max(leaf_err, key=leaf_err.get)
-    log(f"[train] float32 twin ({cfg2.n_layers} layers of phi4-mini-3.8b at full width, B 1, "
-        f"S 512, TF32 off): train_loss flash {grads['flash'][0]:.6f}, naive "
-        f"{grads['naive'][0]:.6f}; K12 {grads['flash'][2]['K12']} launches (forward and "
-        f"recompute); gradients through K12 vs naive, relative L2 per leaf: worst "
-        f"{leaf_err[worst]:.3g} ({worst}), median "
-        f"{float(np.median(list(leaf_err.values()))):.3g} over {len(names)} leaves "
-        f"(bound 1e-4)")
-    if leaf_err[worst] > 1e-4 or abs(grads["flash"][0] - grads["naive"][0]) > \
-            1e-5 * abs(grads["naive"][0]):
-        raise AssertionError(f"twin: gradient relative L2 {leaf_err[worst]} ({worst}) or "
-                             f"losses {grads['flash'][0]}, {grads['naive'][0]}")
-    del grads, params
-    torch.cuda.empty_cache()
     opt2 = AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=8, grad_clip=1e9)
     p0 = [p.detach().clone() for p in lm.init_model(cfg2, seed=args.seed,
                                                      device=dev).parameters()]
@@ -1813,12 +1883,10 @@ def lm_train(args, dev, smi: str, wrappers: dict) -> list:
     # the train example (cold start, then resume) and the serve example on
     # the card, at their default device, side by side
     root = Path(__file__).resolve().parent
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [str(root / "src"), *filter(None, [os.environ.get("PYTHONPATH")])]))
     t0 = time.perf_counter()
     procs = {name: subprocess.Popen([sys.executable, str(root / "examples" / name)],
                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                    text=True, env=env)
+                                    text=True, env=src_env())
              for name in ("train_lm_torch.py", "serve_lm_torch.py")}
     try:
         outs = {name: p.communicate(timeout=600) for name, p in procs.items()}
@@ -1860,6 +1928,650 @@ def lm_train(args, dev, smi: str, wrappers: dict) -> list:
              "launches": train_launches["K12"], "max_abs_err": plain_err, "ms": ms,
              "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
              "library_ms": lib_ms}]
+
+def tensor_bytes(tree) -> int:
+    """Bytes of every tensor in a nested dict or list (a decode cache)."""
+    if torch.is_tensor(tree):
+        return tree.numel() * tree.element_size()
+    return sum(tensor_bytes(t) for t in (tree.values() if isinstance(tree, dict) else tree))
+
+
+def reckon_serve(cfg, batch: int, max_len: int, seq: int) -> dict:
+    """What serving ``cfg`` holds at its peak, from its shapes alone (on
+    the ``meta`` device): the weights, the cache of ``batch`` x
+    ``max_len``, a prefill's logits over ``seq`` positions (bf16, then
+    float32: 6 bytes an element) and init's transient (its largest leaf
+    drawn in float32, scaled, then cast: 10 bytes an element, before any
+    cache exists)."""
+    from repro_torch.models import model as lm
+    from repro_torch.models.transformer import init_cache
+
+    leaves = list(lm.abstract_params(cfg).parameters())
+    weights = sum(p.numel() * p.element_size() for p in leaves)
+    init = 10 * max(p.numel() for p in leaves)
+    cache = tensor_bytes(init_cache(cfg, batch, max_len, device="meta"))
+    logits = 6 * batch * seq * cfg.vocab
+    return {"weights": weights, "cache": cache, "logits": logits, "init": init,
+            "peak": weights + max(init, cache + logits)}
+
+
+class ServeCell(NamedTuple):
+    """One arch of phase 24: its depth cut (None: none), the served
+    traffic (``n_prompts`` prompts of ``prompt`` = (lo, hi) tokens from
+    the seed, in batches of ``batch``, ``new_tokens`` each; ``max_len`` hi
+    + 16) and the float32 twin's tokens (B 2, 2 layers)."""
+    arch: str
+    layers: int | None
+    batch: int
+    n_prompts: int
+    prompt: tuple
+    new_tokens: int
+    twin_seq: int
+    cli: bool = False      # then the serve CLI in a subprocess, the model freed
+
+
+#: Phase 24's archs, run in this order, each freed before the next.  Cuts
+#: (in depth only): Mixtral's 32 layers of 1.451 B parameters (93.4 GB in
+#: bf16) to 16 (47.0 GB), InternVL2's 80 of 0.856 B (153 GB) to 24 (45.3
+#: GB): each with its cache and transients inside one 80 GB card.
+LM_ARCH_CELLS = (
+    ServeCell("starcoder2-7b", None, 4, 8, (128, 1024), 16, 1000, cli=True),
+    ServeCell("deepseek-coder-33b", None, 2, 4, (128, 1024), 8, 1000),
+    ServeCell("mixtral-8x7b", 16, 2, 4, (4500, 6000), 16, 4500),
+    ServeCell("internvl2-76b", 24, 2, 4, (128, 1024), 8, 1000),
+)
+
+
+def serve_cli(args, arch: str, want_k12: int, tag: str, *, max_len: int = 64) -> None:
+    """``python -m repro_torch.launch.serve --arch <arch>`` on the card in a
+    subprocess (8 requests, batch 4, 8 new tokens): rc 0 and ``want_k12``
+    K12 launches."""
+    cmd = ["--arch", arch, "--requests", "8", "--batch", "4", "--new-tokens", "8",
+           "--max-len", str(max_len), "--seed", str(args.seed)]
+    t0 = time.perf_counter()
+    cli = run_module("repro_torch.launch.serve", cmd, 600)
+    m = re.search(r"\[serve\] K12 launches (\d+)", cli.stdout)
+    log(f"{tag} python -m repro_torch.launch.serve {' '.join(cmd)}: rc {cli.returncode}, "
+        f"{time.perf_counter() - t0:.1f} s: " + " | ".join(cli.stdout.strip().splitlines()))
+    if cli.returncode != 0 or not m or int(m.group(1)) != want_k12:
+        raise AssertionError(f"the {arch} serve CLI: rc {cli.returncode}, K12 "
+                             f"{m and m.group(1)} (expected {want_k12})\n{cli.stderr[-4000:]}")
+
+
+def serve_arch(lmr, args, cell: ServeCell, rng) -> dict:
+    """Phase 24 for one arch: the reckoned peak, a float32 twin (2 layers,
+    full width) with its bf16 twin, the model at its cut, its vision
+    prefix path, served batches, the CLI, and K12 at the first served
+    prefill's shape.  Returns the arch's K12 record."""
+    from repro_torch.configs import get_config
+
+    lm, fa, dev, tag = lmr.lm, lmr.fa, lmr.dev, lmr.tag
+    bf16 = torch.bfloat16
+    full = get_config(cell.arch)
+    cfg = full if cell.layers is None else dataclasses.replace(full, n_layers=cell.layers)
+    name, window, P = cfg.name, cfg.sliding_window, cfg.n_prefix_embeds
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    lo, hi = cell.prompt
+    max_len = hi + 16
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    rk = reckon_serve(cfg, cell.batch, max_len, hi)
+    if P:   # the vision prefix path: B 2, P + hi positions, 8 decode steps
+        rk_p = reckon_serve(cfg, 2, P + hi + 8, P + hi)
+        rk = max(rk, rk_p, key=lambda r: r["peak"])
+    log(f"{tag} {name}: {held} bytes held at the start (card {total}); reckoned peak "
+        f"{rk['peak']} bytes = weights {rk['weights']} + max(init transient {rk['init']}, "
+        f"cache {rk['cache']} + prefill logits {rk['logits']})"
+        + (f"; depth cut {full.n_layers} -> {cfg.n_layers} layers (the whole model "
+           f"{reckon_serve(full, cell.batch, max_len, hi)['weights']} bytes)"
+           if cell.layers else "; no cut"))
+    if held + rk["peak"] > 0.95 * total:
+        raise AssertionError(f"{name}: reckoned peak {rk['peak']} + held {held} passes "
+                             f"0.95 of the card's {total} bytes")
+
+    # ------------------------------------------------ the float32 twin
+    cut2 = dataclasses.replace(cfg, n_layers=2)
+    p2 = lm.init_model(cut2, seed=args.seed, device=dev)
+    p32 = copy.deepcopy(p2).float()
+    c32 = dataclasses.replace(cut2, param_dtype="float32", compute_dtype="float32")
+    if P:
+        inputs = lm.make_inputs(c32, 2, P + cell.twin_seq, seed=args.seed, device=dev)
+        del inputs["labels"]
+    else:
+        inputs = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab, size=(2, cell.twin_seq)).astype(np.int32)).to(dev)}
+    # a no-drop capacity: every expert can take every token
+    nodrop = (dataclasses.replace(c32, capacity_factor=float(-(-cfg.n_experts //
+                                                               cfg.topk_experts)))
+              if cfg.is_moe else None)
+    _, calls, last32 = lmr.twin_checks(c32, p32, inputs, f"{name} (2 layers)", nodrop=nodrop)
+    s_tw = P + cell.twin_seq
+    if calls != [(s_tw, s_tw, True, window)] * 2:
+        raise AssertionError(f"{name} float32 twin: K12 calls {calls}")
+    # bfloat16, the same weights: K12's last-position logits no further from
+    # the float32 ones than 1.5 times the naive bf16 path's
+    bf_cfg = cut2 if nodrop is None else dataclasses.replace(
+        cut2, capacity_factor=nodrop.capacity_factor)
+    bf_in = {k: (x.to(bf16) if x.is_floating_point() else x) for k, x in inputs.items()}
+    bf_last = {impl: lm.forward_logits(p2, dataclasses.replace(bf_cfg, attn_impl=impl),
+                                       bf_in)[:, -1].clone() for impl in ("flash", "naive")}
+    rr_bf = {impl: fa.max_row_rel_err(x, last32) for impl, x in bf_last.items()}
+    log(f"{tag} {name} (2 layers) bfloat16 last-position logits vs float32"
+        + (f" (capacity factor {bf_cfg.capacity_factor}: no drops)" if nodrop else "")
+        + f": K12 row-relative {rr_bf['flash']:.4g}, naive bf16 {rr_bf['naive']:.4g} "
+        f"(bound 1.5x naive)")
+    if not rr_bf["flash"] <= 1.5 * rr_bf["naive"]:
+        raise AssertionError(f"{name}: bf16 K12 error {rr_bf} beyond 1.5x the naive path's")
+    del p2, p32, inputs, bf_in, bf_last, last32
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ the model
+    t0 = time.perf_counter()
+    params = lm.init_model(cfg, seed=args.seed, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n = lm.count_params(params)
+    if n != lm_param_count(cfg):
+        raise AssertionError(f"{name}: {n} parameters, not {lm_param_count(cfg)} from the "
+                             f"config's shapes")
+    log(f"{tag} {name}: {cfg.n_layers} layers"
+        + (f" (cut from {full.n_layers})" if cell.layers else " (no depth cut)")
+        + f", d {cfg.d_model}, H {H}, KV {KV} (G {H // KV}), hd {hd}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab}, {cfg.mlp}, {cfg.norm}"
+        + (f", sliding window {window}" if window else "")
+        + (f", {cfg.n_experts} experts top-{cfg.topk_experts} at capacity factor "
+           f"{cfg.capacity_factor}" if cfg.is_moe else "")
+        + (f", {P} vision prefix embeddings" if P else "")
+        + f"; {n} parameters ({sum(p.numel() * p.element_size() for p in params.parameters())}"
+        f" bytes), init {t_init:.2f} s from seed {args.seed}; "
+        f"{torch.cuda.memory_allocated()} bytes allocated now")
+    n_k12 = k12_per_prefill(cfg)
+
+    if P:
+        # the vision prefix: prefill of P embeddings + hi tokens, then 8 decode
+        # steps from position P + hi (the engine serves text only)
+        inp = lm.make_inputs(cfg, 2, P + hi, seed=args.seed, device=dev)
+        lmr.k12_calls.clear()
+        lmr.reset_launches()
+        undo = lmr.spy_gqa()
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            last, cache = lm.prefill(params, cfg, {"tokens": inp["tokens"],
+                                                   "prefix_embeds": inp["prefix_embeds"]},
+                                     max_len=P + hi + 8)
+            torch.cuda.synchronize()
+            t_pre = time.perf_counter() - t0
+            n_pre, p_calls = lmr.launches_now(), list(lmr.k12_calls)
+            toks, dec = [torch.argmax(last, -1)], []
+            ok = bool(torch.isfinite(last).all())
+            for i in range(8):
+                t0 = time.perf_counter()
+                logits, cache = lm.decode_step(params, cfg, toks[-1][:, None].to(torch.int32),
+                                               cache, P + hi + i)
+                toks.append(torch.argmax(logits, -1))
+                torch.cuda.synchronize()
+                dec.append(time.perf_counter() - t0)
+                ok = ok and bool(torch.isfinite(logits).all())
+        finally:
+            undo()
+        out = torch.stack(toks, 1)
+        if (n_pre != {**lmr.no_launch, "K12": n_k12} or lmr.launches_now() != n_pre
+                or p_calls != [(P + hi, P + hi, True, None)] * n_k12 or not ok
+                or not bool(((out >= 0) & (out < cfg.vocab)).all())):
+            raise AssertionError(f"{name} prefix path: launches {n_pre} then "
+                                 f"{lmr.launches_now()}, K12 calls {sorted(set(p_calls))}, "
+                                 f"finite {ok}, tokens {out.tolist()}")
+        log(f"{tag} {name} prefill of {P} prefix embeddings + {hi} tokens (B 2, from the "
+            f"seed by make_inputs) then 8 decode steps from position {P + hi}: prefill "
+            f"{t_pre * 1e3:.2f} ms (K12 {n_pre['K12']}, every one at S = T = {P + hi}), "
+            f"decode {np.mean(dec) * 1e3:.3f} ms a token (no K12), logits finite, tokens "
+            f"{out.tolist()}; peak {torch.cuda.max_memory_allocated()} bytes")
+        del inp, last, cache, logits, toks, out
+        torch.cuda.empty_cache()
+
+    # ------------------------------------------------ served
+    prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(lo, hi + 1)))
+               .astype(np.int32) for _ in range(cell.n_prompts)]
+    routes = []
+    undo = lmr.spy_routes(routes) if cfg.is_moe else (lambda: None)
+    try:
+        counts, calls, plens = lmr.serve(cfg, params, prompts, batch=cell.batch,
+                                         max_len=max_len, new_tokens=cell.new_tokens,
+                                         tag=name)
+    finally:
+        undo()
+    if calls != [(s, s, True, window) for s in plens for _ in range(n_k12)]:
+        raise AssertionError(f"{name} serve: K12 calls (S, T, causal, window) {calls}")
+    if window:
+        log(f"{tag} {name} serve: every K12 launch at window {window} ({len(calls)}, S "
+            f"{plens}); decode from positions {plens} to {[s + cell.new_tokens - 1 for s in plens]}"
+            f", past the window: {min(plens) > window}")
+        if not min(plens) > window:
+            raise AssertionError(f"{name}: prompts {plens} do not pass the window {window}")
+    if routes:
+        first = routes[:cfg.n_layers]
+        log(f"{tag} {name} serve: (token, slot) pairs dropped at capacity in the first "
+            f"prefill (S {plens[0]}, cap {first[0][2]}): {sum(d for d, _, _ in first)} of "
+            f"{sum(n for _, n, _ in first)} "
+            f"({sum(d for d, _, _ in first) / sum(n for _, n, _ in first):.4f}) over "
+            f"{len(first)} layers; in every prefill "
+            f"{sum(d for d, _, _ in routes) / sum(n for _, n, _ in routes):.4f}")
+    del params
+    torch.cuda.empty_cache()
+    if cell.cli:
+        serve_cli(args, cell.arch, 2 * k12_per_prefill(full), tag)
+
+    # ------------------------------------------------ K12 at the served shape
+    s_ = plens[0]
+    g = torch.Generator().manual_seed(args.seed + 24)
+    q = torch.randn((cell.batch, s_, H, hd), generator=g).to(dev, bf16)
+    k, v = (torch.randn((cell.batch, s_, KV, hd), generator=g).to(dev, bf16)
+            for _ in range(2))
+    got = fa.flash_attention_fwd_cuda(q, k, v, q_chunk=s_, k_chunk=s_, window=window).float()
+    want = fa.flash_attention_fwd_torch(q, k, v, q_chunk=s_, k_chunk=plain_chunk(s_),
+                                        window=window).float()
+    err, rr = float((got - want).abs().max()), fa.max_row_rel_err(got, want)
+    log(f"{tag} K12 at {name}'s first served prefill ({cell.batch}, {s_}, {s_}, {H}, {KV}, "
+        f"{hd}) causal{f', W {window}' if window else ''} bfloat16 vs its plain version: "
+        f"max abs err {err:.3g}, row-relative {rr:.4f} (bounds 2e-2, "
+        f"{fa.BF16_ROW_REL_TOL:g})")
+    if not torch.allclose(got, want, rtol=2e-2, atol=2e-2) or rr >= fa.BF16_ROW_REL_TOL:
+        raise AssertionError(f"{name}: K12 at the served shape: max abs {err}, row-relative "
+                             f"{rr}")
+    del got, want
+    ms, plain_ms, bound, by, lib_ms = lmr.k12_times(
+        q, k, v, causal=True, window=window, label=f"{name} at the first served prefill's "
+                                                   f"shape")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return {"name": f"K12 flash_attention_fwd ({name} serving prefill, "
+                    f"{(cell.batch, s_, s_, H, KV, hd)}, causal"
+                    f"{f', window {window}' if window else ''}, bfloat16)",
+            "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:136",
+            "launches": counts["K12"], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+
+
+def lm_archs(args, dev, smi: str, wrappers: dict) -> list:
+    """Phase 24: the registered archs never served on the card before
+    (:data:`LM_ARCH_CELLS`), each at full width, served through ``ServingEngine``.
+    Returns the phase's kernel records."""
+    lmr = LMRun(wrappers, dev, smi, "[lm24]")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(args.seed + 24)
+    t_phase = time.perf_counter()
+    records = []
+    for cell in LM_ARCH_CELLS:
+        t0 = time.perf_counter()
+        records.append(serve_arch(lmr, args, cell, rng))
+        log(f"[lm24] {cell.arch}: {time.perf_counter() - t0:.1f} s")
+    log(f"[lm24] phase seconds {time.perf_counter() - t_phase:.1f}")
+    return records
+
+
+class TrainCell(NamedTuple):
+    """One family of phase 25: the trained model's depth cut (None: none),
+    its batch (B x S tokens from ``TokenStream``), and the float32 twin's
+    depth (the config's smallest whole block pattern) and tokens."""
+    arch: str
+    layers: int | None
+    batch: int
+    seq: int
+    twin_layers: int
+    twin_seq: int
+
+
+#: Phase 25's families, in this order.  Moonlight's 48 layers are cut to
+#: 6: bf16 weights and gradients and AdamW's two float32 moments take 12
+#: bytes a parameter, 4.09 B parameters 49 GB, with about 25 GB left for
+#: activations, logits and the update's transients.  recurrentgemma's
+#: twin is one whole (rglru, rglru, local) group at S 2560, so its window
+#: of 2048 bites.
+LM_TRAIN_CELLS = (
+    TrainCell("rwkv6-1.6b", None, 1, 2048, 1, 2048),
+    TrainCell("recurrentgemma-2b", None, 1, 2048, 3, 2560),
+    TrainCell("whisper-base", None, 8, 448, 1, 448),
+    TrainCell("moonshot-v1-16b-a3b", 6, 1, 2048, 1, 1024),
+)
+
+#: bf16 steps of ``make_train_step`` each family of phase 25 takes.
+TRAIN_STEPS = 4
+
+
+def train_batch(cfg, batch: int, seq: int, seed: int, dev) -> dict:
+    """Step 0 of ``TokenStream`` on the card; an encoder-decoder's
+    ``encoder_frames`` (B, encoder_seq, D) drawn from ``default_rng(seed)``
+    in the compute dtype."""
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+
+    out = {k: torch.from_numpy(x).to(dev) for k, x in TokenStream(DataConfig(
+        vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=seed)).batch(0).items()}
+    if cfg.kind == "encdec":
+        frames = np.random.default_rng(seed).standard_normal(
+            (batch, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+        out["encoder_frames"] = torch.from_numpy(frames).to(dev, cfg.cdtype)
+    return out
+
+
+def k12_per_step(cfg) -> int:
+    """K12 launches of one training step under remat: each attention twice
+    (the forward and its recompute) but the encoder's, which is not
+    rematerialised."""
+    return 2 * k12_per_prefill(cfg) - cfg.encoder_layers
+
+
+def rwkv_grad_check(lmr, args, cfg, cell) -> None:
+    """RWKV6's float32 twin (1 layer, full width): layer 0's
+    ``wkv_chunked`` inputs at B x S, then its gradients for r, k, v, log w
+    and u against ``wkv_scan_torch``'s under autograd (w = exp(log w) in
+    the graph), per leaf within a relative L2 of 1e-4, all finite."""
+    from repro_torch.models import rwkv6 as rw
+
+    lm, dev, tag = lmr.lm, lmr.dev, lmr.tag
+    tw = dataclasses.replace(cfg, n_layers=cell.twin_layers, param_dtype="float32",
+                             compute_dtype="float32")
+    p32 = lm.init_model(tw, seed=args.seed, device=dev)
+    batch = train_batch(tw, cell.batch, cell.twin_seq, args.seed, dev)
+    real, got_in = rw.wkv_chunked, []
+
+    def capture(*a):
+        if not got_in:
+            got_in.extend(t.detach().clone() for t in a if torch.is_tensor(t))
+        return real(*a)
+
+    rw.wkv_chunked = capture
+    try:
+        with torch.no_grad():
+            lm.forward_logits(p32, tw, {"tokens": batch["tokens"]})
+    finally:
+        rw.wkv_chunked = real
+    r, k, v, lw, u = got_in
+    g = torch.Generator().manual_seed(args.seed + 25)
+    d_o = torch.randn(r.shape, generator=g).to(dev)
+    d_s = torch.randn((r.shape[0], r.shape[2], r.shape[3], r.shape[3]), generator=g).to(dev)
+    grads = {}
+    for form in ("chunked", "step"):
+        leaves = [t.clone().requires_grad_(True) for t in (r, k, v, lw, u)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if form == "chunked":
+            o, s_fin = rw.wkv_chunked(*leaves)
+        else:
+            o, s_fin = rw.wkv_scan_torch(*leaves[:3], torch.exp(leaves[3]), leaves[4])
+        grads[form] = torch.autograd.grad((o * d_o).sum() + (s_fin * d_s).sum(), leaves)
+        torch.cuda.synchronize()
+        grads[form + " s"] = time.perf_counter() - t0
+    errs = {name: rel_l2(a, b) for name, a, b in zip(("r", "k", "v", "log_w", "u"),
+                                                      grads["chunked"], grads["step"])}
+    finite = all(bool(torch.isfinite(x).all()) for x in grads["chunked"])
+    log(f"{tag} {cfg.name} layer 0 (float32 twin, B {cell.batch}, S {cell.twin_seq}): "
+        f"wkv_chunked's gradients vs wkv_scan_torch's under autograd, relative L2: "
+        + ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
+        + f" (bound 1e-4); finite {finite}; log w min {float(lw.min()):.4g}, median "
+        f"{float(lw.median()):.4g}, {int((lw < -30).sum())} of {lw.numel()} below -30, "
+        f"{int((torch.exp(lw) == 0).sum())} whose exp underflows to 0; forward + backward "
+        f"{grads['chunked s'] * 1e3:.1f} ms chunked, {grads['step s'] * 1e3:.1f} ms step by "
+        f"step (host clock)")
+    if max(errs.values()) > 1e-4 or not finite:
+        raise AssertionError(f"{cfg.name}: wkv gradients relative L2 {errs}, finite {finite}")
+    del r, k, v, lw, u, got_in, grads, d_o, d_s
+
+    # layer 0's time mix at w0 = log 50 (log w about -50 every step, past
+    # -103 at its deepest): the gradients of w0, the LoRA, u and mu through
+    # the chunked form against the step-by-step one, which a difference of
+    # cumulative sums lost (ROADMAP Queue 3)
+    blk = p32["groups"][0]["b0"]
+    x = lmr.layers.apply_norm(tw.norm, blk["norm1"], torch.randn(
+        (cell.batch, 256, tw.d_model), generator=g).to(dev))
+    dy = torch.randn(x.shape, generator=g).to(dev)
+    names = ("w0", "w_lora_a", "w_lora_b", "u", "mu")
+    tp = {n: t.detach().clone() for n, t in blk["time"].items()}
+    tp["w0"].fill_(math.log(50.0))
+    grads = {}
+    for form in ("chunked", "step"):
+        leaves = {n: t.clone().requires_grad_(n in names) for n, t in tp.items()}
+        if form == "step":
+            rw.wkv_chunked = lambda r_, k_, v_, lw_, u_, s0=None: rw.wkv_scan_torch(  # noqa: E731
+                r_, k_, v_, torch.exp(lw_), u_, s0)
+        try:
+            y, _ = rw.apply_rwkv_time_mix(leaves, x, tw.rwkv_head_dim, None)
+        finally:
+            rw.wkv_chunked = real
+        grads[form] = torch.autograd.grad((y * dy).sum(), [leaves[n] for n in names])
+    errs = {n: rel_l2(a, b) for n, a, b in zip(names, grads["chunked"], grads["step"])}
+    finite = all(bool(torch.isfinite(t).all()) for t in grads["chunked"])
+    log(f"{tag} {cfg.name} layer 0's time mix (float32, B {cell.batch}, S 256, w0 "
+        f"log 50): parameter gradients through wkv_chunked vs wkv_scan_torch, relative L2: "
+        + ", ".join(f"{n} {e:.3g}" for n, e in errs.items()) + f" (bound 1e-4); finite "
+        f"{finite}")
+    if max(errs.values()) > 1e-4 or not finite:
+        raise AssertionError(f"{cfg.name}: time-mix gradients at w0 log 50: {errs}, "
+                             f"finite {finite}")
+    del p32, blk, x, dy, tp, leaves, grads
+    torch.cuda.empty_cache()
+
+
+def twin_grad_check(lmr, args, cfg, cell) -> None:
+    """A float32 twin at full width cut to ``cell.twin_layers`` (TF32
+    off): ``train_loss``'s gradients through K12 against the naive
+    attention's, per leaf within a relative L2 of 1e-4, with the twin's
+    K12 launches (:func:`k12_per_step`).  Every leaf gets a gradient on
+    both paths: those that get none are named and fail the check."""
+    lm, dev, tag = lmr.lm, lmr.dev, lmr.tag
+    tw = dataclasses.replace(cfg, n_layers=cell.twin_layers,
+                             encoder_layers=min(cfg.encoder_layers, cell.twin_layers),
+                             param_dtype="float32", compute_dtype="float32")
+    params = lm.init_model(tw, seed=args.seed, device=dev).requires_grad_(True)
+    batch = train_batch(tw, cell.batch, cell.twin_seq, args.seed, dev)
+    leaves = list(params.parameters())
+    names = [n for n, _ in params.named_parameters()]
+    out = {}
+    for impl in ("flash", "naive"):
+        lmr.reset_launches()
+        loss = lm.train_loss(params, dataclasses.replace(tw, attn_impl=impl), batch)
+        out[impl] = (float(loss.detach()), torch.autograd.grad(loss, leaves, allow_unused=True),
+                     lmr.launches_now())
+        del loss
+    unused = {impl: [n for n, g in zip(names, o[1]) if g is None] for impl, o in out.items()}
+    if any(unused.values()):
+        raise AssertionError(f"{cfg.name} twin: leaves with no gradient {unused}")
+    want = k12_per_step(tw)
+    if out["flash"][2] != {**lmr.no_launch, "K12": want} or out["naive"][2] != lmr.no_launch:
+        raise AssertionError(f"{cfg.name} twin: launches {out['flash'][2]} (flash), "
+                             f"{out['naive'][2]} (naive); expected K12 = {want} and none")
+    leaf_err = {n: rel_l2(a, b) for n, a, b in zip(names, out["flash"][1], out["naive"][1])}
+    worst = max(leaf_err, key=leaf_err.get)
+    finite = all(bool(torch.isfinite(g).all()) for g in out["flash"][1])
+    log(f"{tag} {cfg.name} float32 twin ({tw.n_layers} layers"
+        + (f" and {tw.encoder_layers} encoder layers" if tw.encoder_layers else "")
+        + f" at full width, B {cell.batch}, S {cell.twin_seq}, TF32 off): train_loss flash "
+        f"{out['flash'][0]:.6f}, naive {out['naive'][0]:.6f}; K12 {out['flash'][2]['K12']} "
+        f"launches (the forward and the remat recompute"
+        + (", the encoder's once" if tw.encoder_layers else "") + "); gradients through "
+        f"K12 vs naive, relative L2 per leaf: worst {leaf_err[worst]:.3g} ({worst}), median "
+        f"{float(np.median(list(leaf_err.values()))):.3g} over {len(names)} leaves, each "
+        f"with a gradient on both paths (bound 1e-4"
+        + ("; the MoE dispatch's backward accumulates with atomics, so the "
+           "expert leaves are compared within this tolerance, not bit for bit"
+           if cfg.is_moe else "") + f"); finite {finite}")
+    if (leaf_err[worst] > 1e-4 or not finite
+            or abs(out["flash"][0] - out["naive"][0]) > 1e-5 * abs(out["naive"][0])):
+        raise AssertionError(f"{cfg.name} twin: gradient relative L2 {leaf_err[worst]} "
+                             f"({worst}), finite {finite}, losses {out['flash'][0]}, "
+                             f"{out['naive'][0]}")
+    del params, batch, leaves, out
+    torch.cuda.empty_cache()
+
+
+def train_family(lmr, args, cell: TrainCell) -> list:
+    """Phase 25 for one family: its twin's gradient check, ``TRAIN_STEPS``
+    bf16 steps of ``make_train_step`` (AdamW, remat) on one batch, then
+    K12 forward + backward at each attention shape the steps ran.  Returns
+    a K12 record for each such shape."""
+    from repro_torch.configs import get_config
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_step import TrainState, make_train_step
+
+    lm, dev, smi, tag = lmr.lm, lmr.dev, lmr.smi, lmr.tag
+    full = get_config(cell.arch)
+    cfg = full if cell.layers is None else dataclasses.replace(full, n_layers=cell.layers)
+    name = cfg.name
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    leaves = list(lm.abstract_params(cfg).parameters())
+    n_meta = sum(p.numel() for p in leaves)
+    # weights and gradients in their dtype, AdamW's two float32 moments
+    state_bytes = sum(2 * p.numel() * p.element_size() + 8 * p.numel() for p in leaves)
+    log(f"{tag} {name}: {held} bytes held at the start; {n_meta} parameters, weights + "
+        f"gradients + moments {state_bytes} bytes"
+        + (f" (depth cut {full.n_layers} -> {cfg.n_layers}: the whole model's would be "
+           f"{12 * lm_param_count(full)} bytes at 12 a parameter)" if cell.layers
+           else " (no cut)"))
+    if held + state_bytes > 0.75 * torch.cuda.get_device_properties(dev).total_memory:
+        raise AssertionError(f"{name}: the train state {state_bytes} bytes leaves too "
+                             f"little of the card")
+    if cfg.kind == "rwkv":
+        rwkv_grad_check(lmr, args, cfg, cell)
+    else:
+        twin_grad_check(lmr, args, cfg, cell)
+
+    # ------------------------------------------------ bf16 steps
+    t0 = time.perf_counter()
+    params = lm.init_model(cfg, seed=args.seed, device=dev).requires_grad_(True)
+    state = TrainState(params, init_opt_state(params))
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n = lm.count_params(params)
+    if n != lm_param_count(cfg):
+        raise AssertionError(f"{name}: {n} parameters, not {lm_param_count(cfg)}")
+    n_enc = sum(p.numel() for p in params["encoder"].parameters()) if "encoder" in params \
+        else 0
+    batch = train_batch(cfg, cell.batch, cell.seq, args.seed, dev)
+    step = make_train_step(cfg, AdamWConfig(lr=1e-4, warmup_steps=1,
+                                            total_steps=TRAIN_STEPS))
+    routes = []
+    undo_r = lmr.spy_routes(routes) if cfg.is_moe else (lambda: None)
+    undo = lmr.spy_gqa()
+    lmr.k12_calls.clear()
+    lmr.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, times, per_step = [], [], [], []
+    try:
+        for _ in range(TRAIN_STEPS):
+            k0 = lmr.wrappers["K12"].launches
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            per_step.append(lmr.wrappers["K12"].launches - k0)
+    finally:
+        undo()
+        undo_r()
+    launches, calls = lmr.launches_now(), list(lmr.k12_calls)
+    peak = torch.cuda.max_memory_allocated()
+    p_finite = all(bool(torch.isfinite(p).all()) for p in params.parameters())
+    want = k12_per_step(cfg)
+    steady = float(np.mean(times[1:]))
+    tokens = cell.batch * cell.seq
+    d, f = cfg.d_model, cfg.d_ff
+    inactive = (cfg.n_layers * (cfg.n_experts - cfg.topk_experts)
+                * (3 if cfg.mlp in ("swiglu", "geglu") else 2) * d * f if cfg.is_moe else 0)
+    # 6·N·tokens: the decoder's parameters over its tokens, the encoder's over
+    # its frames; an MoE's active parameters only
+    flops = 6 * ((n - n_enc - inactive) * tokens + n_enc * cell.batch * cfg.encoder_seq)
+    log(f"{tag} {name} ({cfg.n_layers} layers"
+        + (f" of {full.n_layers}" if cell.layers else ", no cut")
+        + f", {n} parameters, bf16 from seed {args.seed}, init {t_init:.2f} s; AdamW float32 "
+        f"moments; remat {cfg.remat_policy!r}): {TRAIN_STEPS} steps on one TokenStream "
+        f"batch (B {cell.batch}, S {cell.seq}"
+        + (f", {cfg.encoder_seq} encoder frames from the seed" if n_enc else "")
+        + "): loss " + ", ".join(f"{x:.4f}" for x in losses)
+        + "; grad_norm " + ", ".join(f"{x:.4f}" for x in norms)
+        + " (finite: every gradient leaf is, since an inf or NaN leaf makes the global "
+        f"norm one); parameters finite after the last step {p_finite}; step ms "
+        + ", ".join(f"{t * 1e3:.1f}" for t in times)
+        + f" (host clock, synchronised; steps 1-{TRAIN_STEPS - 1} mean {steady * 1e3:.2f}); "
+        f"{tokens / steady:.1f} tokens/s; 6·N·tokens {flops:.4g} flops"
+        + (f" (N active {n - inactive})" if inactive else "")
+        + (f" (decoder over {tokens} tokens, encoder {n_enc} over "
+           f"{cell.batch * cfg.encoder_seq} frames)" if n_enc else "")
+        + f" = {flops / steady / BF16_FLOPS_PER_S:.4f} of 989 TFLOP/s; K12 {per_step} a "
+        f"step (expected {want}), nothing else launched; peak {peak} bytes; on {smi}")
+    if routes:
+        drop = sum(x for x, _, _ in routes) / sum(y for _, y, _ in routes)
+        log(f"{tag} {name}: (token, slot) pairs dropped at capacity (cap {routes[0][2]}) "
+            f"over the steps' forwards and recomputes: {drop:.4f}; aux loss in the loss")
+    if (not all(math.isfinite(x) for x in losses + norms) or not losses[-1] < losses[0]
+            or not p_finite):
+        raise AssertionError(f"{name} training: losses {losses}, grad norms {norms}, "
+                             f"parameters finite {p_finite}")
+    if per_step != [want] * TRAIN_STEPS or launches != {**lmr.no_launch,
+                                                         "K12": want * TRAIN_STEPS}:
+        raise AssertionError(f"{name} training: K12 {per_step} a step (expected {want}), "
+                             f"launches {launches}")
+    del state, params, m, batch
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ K12 at the steps' shapes
+    rows = []
+    gen = torch.Generator().manual_seed(args.seed + 25)
+    for S, T, causal, window in sorted(set(calls), key=str):
+        caller = ("encoder" if S == T == cfg.encoder_seq and not causal and n_enc else
+                  "cross" if not causal else "decoder self" if n_enc else
+                  "local" if window else "attention")
+        shape = (cell.batch, S, T, cfg.n_heads, cfg.n_kv_heads, cfg.hd)
+        ms, plain_ms, bound, by, lib_ms, plain_err = k12_grad_case(
+            lmr, gen, f"{name} {caller}", shape, causal, window, torch.bfloat16)
+        rows.append({
+            "name": f"K12 flash_attention_fwd under a gradient ({name} training {caller}, "
+                    f"{shape}, {'causal' if causal else 'non-causal'}"
+                    f"{f', window {window}' if window else ''}, bfloat16; ms: forward + "
+                    f"backward)",
+            "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:136",
+            "launches": calls.count((S, T, causal, window)), "max_abs_err": plain_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib_ms})
+    return rows
+
+
+def lm_train_families(args, dev, smi: str, wrappers: dict) -> list:
+    """Phase 25: the families never trained on the card before
+    (:data:`LM_TRAIN_CELLS`), then the train CLI on rwkv6-1.6b.  Returns the phase's
+    kernel records."""
+    lmr = LMRun(wrappers, dev, smi, "[lm25]")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    records = []
+    for cell in LM_TRAIN_CELLS:
+        t0 = time.perf_counter()
+        records += train_family(lmr, args, cell)
+        log(f"[lm25] {cell.arch}: {time.perf_counter() - t0:.1f} s")
+    # the train CLI at full width, the phase's models freed
+    cmd = ["--arch", "rwkv6-1.6b", "--steps", "2", "--batch", "1", "--seq", "512",
+           "--seed", str(args.seed)]
+    t0 = time.perf_counter()
+    cli = run_module("repro_torch.launch.train", cmd, 600)
+    losses = [float(x) for x in re.findall(r"loss=(\S+)", cli.stdout)]
+    log(f"[lm25] python -m repro_torch.launch.train {' '.join(cmd)}: rc {cli.returncode}, "
+        f"{time.perf_counter() - t0:.1f} s: " + " | ".join(cli.stdout.strip().splitlines()))
+    if (cli.returncode != 0 or "[train] done" not in cli.stdout
+            or "[train] K12 launches 0;" not in cli.stdout or len(losses) != 2
+            or not all(math.isfinite(x) for x in losses)):
+        raise AssertionError(f"the train CLI: rc {cli.returncode}, losses {losses}\n"
+                             f"{cli.stderr[-4000:]}")
+    log(f"[lm25] phase seconds {time.perf_counter() - t_phase:.1f}")
+    return records
+
 
 
 def static_smem(ptxas: dict, event: str) -> int | None:
@@ -1935,13 +2647,11 @@ def memcheck_run(root: Path) -> dict:
     if tool is None:
         return {"status": "absent", "errors": None, "by_kernel": {}, "seconds": 0.0,
                 "detail": f"no compute-sanitizer on PATH or beside nvcc ({cands[1:]})"}
-    env = dict(os.environ, PYTORCH_NO_CUDA_MEMORY_CACHING="1",
-               PYTHONPATH=str(root / "src") + os.pathsep + os.environ.get("PYTHONPATH", ""))
     t0 = time.perf_counter()
     proc = subprocess.run(
         [tool, "--tool", "memcheck", "--print-limit", "1000", sys.executable, "-m",
-         "repro_torch.analysis", "launch"],
-        capture_output=True, text=True, env=env, timeout=MEMCHECK_TIMEOUT, cwd=root)
+         "repro_torch.analysis", "launch"], capture_output=True, text=True,
+        env=src_env(PYTORCH_NO_CUDA_MEMORY_CACHING="1"), timeout=MEMCHECK_TIMEOUT, cwd=root)
     seconds = time.perf_counter() - t0
     text = proc.stdout + proc.stderr
     (root / "build").mkdir(exist_ok=True)
@@ -2571,15 +3281,11 @@ def tp_phase(args, dev, smi: str, wrappers: dict) -> list:
     torch.cuda.empty_cache()
 
     # (c) one dry-run cell on a fake world of 256 ranks, in a subprocess
-    src_dir = str(Path(__file__).resolve().parent / "src")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent / "build") as d:
-        cli = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "phi4-mini-3.8b",
-             "--shape", "decode_32k", "--mesh", "single", "--out", d],
-            capture_output=True, text=True, timeout=300,
-            env=dict(os.environ, PYTHONPATH=os.pathsep.join(
-                [src_dir, *filter(None, [os.environ.get("PYTHONPATH")])])))
+        cli = run_module("repro_torch.launch.dryrun",
+                         ["--arch", "phi4-mini-3.8b", "--shape", "decode_32k", "--mesh",
+                          "single", "--out", d], 300)
         path = Path(d) / "phi4-mini-3.8b_decode_32k_single.json"
         rec = json.loads(path.read_text()) if path.exists() else None
     log(f"[tp] (c) python -m repro_torch.launch.dryrun --arch phi4-mini-3.8b --shape "
@@ -2755,6 +3461,15 @@ def main() -> int:
     # also before phase 3: four training ranks hold about 17 GB each
     tp_records = tp_phase(args, dev, smi, wrappers)
     phase_end("23 tp")
+
+    # ------------------------------------------------------------ 24. lm-archs
+    # also before phase 3: deepseek-coder-33b alone holds 66.7 GB
+    lm24_records = lm_archs(args, dev, smi, wrappers)
+    phase_end("24 lm-archs")
+
+    # ------------------------------------------------------------ 25. lm-train-families
+    lm25_records = lm_train_families(args, dev, smi, wrappers)
+    phase_end("25 lm-train-families")
 
     # ------------------------------------------------------------ 3. data
     cfg = CorpusConfig(n_docs=args.n_docs, vocab_size=100_000, mean_doc_len=64,
@@ -6082,21 +6797,7 @@ def main() -> int:
     del eng, again, served
 
     # the gemma-2b CLI on the card: full width, hd 256, MQA, tied head, GeGLU
-    src_dir = str(Path(__file__).resolve().parent / "src")
-    t0 = time.perf_counter()
-    cli = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "gemma-2b",
-         "--requests", "8", "--batch", "4", "--new-tokens", "8", "--max-len", "512",
-         "--seed", str(args.seed)], capture_output=True, text=True, timeout=600,
-        env=dict(os.environ, PYTHONPATH=os.pathsep.join(
-            [src_dir, *filter(None, [os.environ.get("PYTHONPATH")])])))
-    m = re.search(r"\[serve\] K12 launches (\d+)", cli.stdout)
-    log("[lm] python -m repro_torch.launch.serve --arch gemma-2b --requests 8 --batch 4 "
-        f"--new-tokens 8 --max-len 512: rc {cli.returncode}, "
-        f"{time.perf_counter() - t0:.1f} s: " + " | ".join(cli.stdout.strip().splitlines()))
-    if cli.returncode != 0 or not m or int(m.group(1)) != 2 * 18:
-        raise AssertionError(f"lm: the gemma-2b CLI: rc {cli.returncode}, K12 "
-                             f"{m and m.group(1)} (expected 36)\n{cli.stderr[-4000:]}")
+    serve_cli(args, "gemma-2b", 2 * 18, "[lm]", max_len=512)
 
     # K12 at the first served prefill's shape (B 4, S = T = its padded
     # length, H 24, KV 8, hd 128), as phase 14 times it
@@ -6250,6 +6951,8 @@ def main() -> int:
     record["kernels"].extend(lm19_records)
     record["kernels"].extend(lm20_records)
     record["kernels"].extend(tp_records)
+    record["kernels"].extend(lm24_records)
+    record["kernels"].extend(lm25_records)
     # each row's entries' launch contracts as phase 21 held them on the card
     static_mode = {"K4s": "K4", "K4ps": "K4p", "K7s": "K7", "K7ps": "K7p"}
     for row in record["kernels"]:

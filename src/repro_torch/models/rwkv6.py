@@ -42,12 +42,19 @@ log-decays.**  Under the random init ``log w`` reaches about -50 a step
 (w0 ~ N(0, 0.5^2) plus a LoRA term of the same order), so a factored form
 that divides by a cumulative decay (k / prod w) overflows within a few
 steps; here the only rounding such a decay can suffer is underflow to 0.
+Pairs with nothing between them (s = t - 1 inside a chunk, s = the
+chunk's last step towards its end) take the constant 0, not the
+difference: in float32 the backward of that difference adds an order-1
+gradient into a cumulative sum and takes it out again, and at strong
+decays the true gradient of ``log w`` (of order e^-50) drowned in that
+rounding: 1.3% of ``w0``'s gradient (ROADMAP Queue 3).  Every other pair
+spans a decay, so its gradient is as small as the true one.
 
 **Launches.**  Counted as the non-view torch operations a call
 dispatches (on the CPU), each one kernel on the card: :func:`wkv_chunked`
-is about 30 whatever S, plus 4 for each of the scan's ``ceil(log2(n +
-1))`` rounds (59 at S = 1024: 7 rounds; 71 at S = 8192); a prompt's time
-mix 103 at S = 1024, its channel mix 17.  A decode step (S = 1) takes
+is about 37 whatever S, plus 4 for each of the scan's ``ceil(log2(n +
+1))`` rounds (66 at S = 1024: 7 rounds; 78 at S = 8192); a prompt's time
+mix 110 at S = 1024, its channel mix 17.  A decode step (S = 1) takes
 the reference's step as it is (:func:`_wkv_step`): 51 for the time mix.
 :func:`wkv_scan_torch` is the reference's step-by-step recurrence, the
 plain version the tests and the card-side check hold the chunked form
@@ -146,15 +153,20 @@ def wkv_chunked(r, k, v, log_w, u, s0: Optional[torch.Tensor] = None):
     A = log_w.cumsum(3)                                   # A_t, inclusive
     A_ex = F.pad(A, (0, 0, 1, 0))[..., :C, :]             # A_{t-1}, A_{-1} = 0
     ti = torch.arange(C, device=r.device)
-    later = (ti[None, :] >= ti[:, None])[..., None]       # (t, s, 1): s >= t
-    decay = A_ex[..., :, None, :] - A[..., None, :, :]    # (B, n, H, C, C, hd)
-    decay.masked_fill_(later, -math.inf).exp_()           # masked before exp
+    # (t, s, 1): the difference where s < t - 1, else a constant (see the
+    # module note): 0 at s = t - 1, -inf (masked before exp) at s >= t
+    between = (ti[:, None] - 1 > ti[None, :])[..., None]
+    fill = A.new_zeros((C, C, 1)).masked_fill_((ti[None, :] >= ti[:, None])[..., None],
+                                               -math.inf)
+    decay = torch.where(between, A_ex[..., :, None, :] - A[..., None, :, :], fill)
+    decay.exp_()                                          # (B, n, H, C, C, hd)
     # decay is not written again: autograd reads it in the backward
     att = torch.einsum("bnhtsd,bnhtd,bnhsd->bnhts", decay, r, k)
     del decay
     o = att @ v + (r * u[:, None, :] * k).sum(-1, keepdim=True) * v
     A_last = A[..., -1:, :]                               # (B, n, H, 1, hd)
-    U = (k * torch.exp(A_last - A)).transpose(-1, -2) @ v  # (B, n, H, hd, hd)
+    rest = torch.where((ti < C - 1)[:, None], A_last - A, 0.0)  # 0 at the last step
+    U = (k * torch.exp(rest)).transpose(-1, -2) @ v       # (B, n, H, hd, hd)
     g = torch.exp(A_last).transpose(-1, -2)               # (B, n, H, hd, 1)
     if s0 is None:
         s0 = U.new_zeros((B, H, K, K))

@@ -143,6 +143,70 @@ def test_strong_decay_stays_finite_and_matches_the_reference(with_state):
         _close(state["s"], want_st["s"])
 
 
+def _rel_l2(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
+
+
+@pytest.mark.parametrize("S", [rw.CHUNK + 1, 3 * rw.CHUNK + 5])
+def test_chunked_gradients_at_decays_down_to_103_match_the_step_scan(S):
+    """log w spread from -1e-3 down to -103 (the random init's deepest, as
+    the card met it in rwkv6-1.6b's layer 0), one channel at -103 every
+    step: exp(-103) is a float32 denormal and every product of two such
+    decays underflows to 0.  ``wkv_chunked``'s gradients for r, k, v,
+    log w and u, through the output and the final state, are finite and
+    within a relative L2 of 1e-4 (a leaf) of ``wkv_scan_torch``'s under
+    autograd, with w = exp(log w) in its graph."""
+    rng = np.random.default_rng(100 + S)
+    B, H, K = 2, 3, 8
+    r, k, v = (rng.standard_normal((B, S, H, K)).astype(np.float32) for _ in range(3))
+    lw = -np.exp(rng.uniform(math.log(1e-3), math.log(103.0), size=(B, S, H, K)))
+    lw[..., 0] = -103.0
+    u = (0.5 * rng.standard_normal((H, K))).astype(np.float32)
+    d_o = rng.standard_normal((B, S, H, K)).astype(np.float32)
+    d_s = rng.standard_normal((B, H, K, K)).astype(np.float32)
+    grads = {}
+    for form in ("chunked", "step"):
+        leaves = [_t(a).requires_grad_(True) for a in (r, k, v, lw.astype(np.float32), u)]
+        if form == "chunked":
+            o, s = rw.wkv_chunked(*leaves)
+        else:
+            o, s = rw.wkv_scan_torch(*leaves[:3], torch.exp(leaves[3]), leaves[4])
+        loss = (o * _t(d_o)).sum() + (s * _t(d_s)).sum()
+        grads[form] = torch.autograd.grad(loss, leaves)
+    for name, got, want in zip(("r", "k", "v", "log_w", "u"), grads["chunked"],
+                               grads["step"]):
+        assert bool(torch.isfinite(got).all()), name
+        assert _rel_l2(got, want) <= TOL, (name, _rel_l2(got, want))
+
+
+def test_time_mix_gradients_at_strong_decays_match_the_reference():
+    """w0 = log 50, so log w reaches past -103: the time mix's gradients
+    for x and every parameter (``jax.grad`` of the reference's ``lax.scan``
+    against autograd through ``wkv_chunked``), finite and within a
+    relative L2 of 1e-4 a leaf."""
+    rng = np.random.default_rng(13)
+    p = _time_params(13, w0=math.log(50.0))
+    x = rng.standard_normal((2, 2 * rw.CHUNK + 3, D)).astype(np.float32)
+    dy = rng.standard_normal(x.shape).astype(np.float32)
+    zw = x + p["mu"][4] * (np.concatenate([np.zeros((2, 1, D), np.float32), x[:, :-1]], 1)
+                           - x)
+    assert (-np.exp(p["w0"] + np.tanh(zw @ p["w_lora_a"]) @ p["w_lora_b"])).min() < -103
+
+    def ref_loss(params, xx):
+        return (ref_rw.apply_rwkv_time_mix(params, xx, HD, None)[0] * dy).sum()
+
+    want_p, want_x = jax.grad(ref_loss, argnums=(0, 1))(
+        {name: jnp.asarray(a) for name, a in p.items()}, jnp.asarray(x))
+    tp = {name: _t(a).requires_grad_(True) for name, a in p.items()}
+    tx = _t(x).requires_grad_(True)
+    y, _ = rw.apply_rwkv_time_mix(tp, tx, HD, None)
+    got = torch.autograd.grad((y * _t(dy)).sum(), [tx, *tp.values()])
+    for name, g, w in zip(["x", *tp], got, [want_x, *(want_p[n] for n in tp)]):
+        assert bool(torch.isfinite(g).all()), name
+        assert _rel_l2(g, w) <= TOL, (name, _rel_l2(g, w))
+
+
 def test_weak_decay_long_sequence_matches_the_reference():
     """w0 = log(-log 0.998) with the LoRA off: w = 0.998 every step, so the
     state keeps nearly every one of S = 300 steps."""

@@ -2,10 +2,12 @@
 
 Both engines serve the same requests (numpy prompts from a seed) on the
 same weights (the reference's, carried by ``params_from_numpy``): greedy
-outputs equal token for token, full and padded partial batches, and for
-the MoE and hybrid families (Moonlight, recurrentgemma: the RG-LRU state
-carried in place from prefill through decode, prompts past the reduced
-local window).  Also:
+outputs equal token for token, full and padded partial batches, for
+every dense arch (deepseek-coder's G 7, starcoder2's LayerNorm and GELU
+MLP, InternVL2's backbone on text), and for the MoE and hybrid families
+(Moonlight; Mixtral with prompts past its reduced sliding window;
+recurrentgemma: the RG-LRU state carried in place from prefill through
+decode, prompts past the reduced local window).  Also:
 identical prompts give identical outputs, ``greedy_token`` ties as
 ``jnp.argmax``, the CLI runs on the CPU, and with no card and no device
 the engine raises."""
@@ -49,9 +51,19 @@ def _serve(eng, request_cls, prompts, new_tokens):
     return {r.rid: r.output for r in done}
 
 
-@pytest.mark.parametrize("n_req,batch", [(8, 4), (7, 3)], ids=["full", "padded"])
-@pytest.mark.parametrize("name", ["gemma-2b", "phi4-mini-3.8b"])
-def test_outputs_equal_the_reference(name, n_req, batch):
+#: (arch, requests, batch, new tokens): full and padded partial batches of
+#: two dense archs; one padded batch of each other dense one (InternVL2's
+#: backbone serves text, as the reference's engine does).
+SERVED = [(name, n_req, batch, 10, f"{name}-{kind}")
+          for name in ("gemma-2b", "phi4-mini-3.8b")
+          for n_req, batch, kind in ((8, 4, "full"), (7, 3, "padded"))] + [
+    (name, 3, 4, 6, f"{name}-padded")
+    for name in ("deepseek-coder-33b", "starcoder2-7b", "internvl2-76b")]
+
+
+@pytest.mark.parametrize("name,n_req,batch,new_tokens", [c[:4] for c in SERVED],
+                         ids=[c[4] for c in SERVED])
+def test_outputs_equal_the_reference(name, n_req, batch, new_tokens):
     ref_cfg = ref_reduce(ref_get_config(name))
     ref_params = ref_init_model(jax.random.PRNGKey(1), ref_cfg)
     cfg = reduce_for_smoke(get_config(name))
@@ -59,29 +71,41 @@ def test_outputs_equal_the_reference(name, n_req, batch):
     prompts = _prompts(n_req, cfg.vocab, 5)
     want = _serve(ref_engine.ServingEngine(ref_cfg, batch_size=batch, max_len=32,
                                            params=ref_params),
-                  ref_engine.Request, prompts, 10)
+                  ref_engine.Request, prompts, new_tokens)
     got = _serve(ServingEngine(cfg, batch_size=batch, max_len=32, device="cpu",
-                               params=params), Request, prompts, 10)
+                               params=params), Request, prompts, new_tokens)
     assert sorted(got) == list(range(n_req))
     assert got == want
-    assert all(len(o) == 10 and all(0 <= t < cfg.vocab for t in o) for o in got.values())
+    assert all(len(o) == new_tokens and all(0 <= t < cfg.vocab for t in o)
+               for o in got.values())
 
 
-@pytest.mark.parametrize("name", ["moonshot-v1-16b-a3b", "recurrentgemma-2b"])
+#: Prompts (lengths lo to hi, how many) of the MoE and hybrid cases: past
+#: the reduced local window of 32, and for Mixtral past its reduced sliding
+#: window of 32 in every prompt, so the window bites in prefill and in
+#: decode (one batch).
+PROMPTS = {"mixtral-8x7b": (40, 52, 2)}
+
+
+@pytest.mark.parametrize("name", ["moonshot-v1-16b-a3b", "recurrentgemma-2b",
+                                  "mixtral-8x7b"])
 def test_moe_and_hybrid_outputs_equal_the_reference(name):
     ref_cfg = ref_reduce(ref_get_config(name))
     ref_params = ref_init_model(jax.random.PRNGKey(2), ref_cfg)
     cfg = reduce_for_smoke(get_config(name))
     params = params_from_numpy(jax.tree.map(np.asarray, ref_params), cfg, "cpu")
     rng = np.random.default_rng(7)
-    prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(30, 45))).astype(np.int32)
-               for _ in range(4)]
+    lo, hi, n_req = PROMPTS.get(name, (30, 45, 4))
+    prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(lo, hi))).astype(np.int32)
+               for _ in range(n_req)]
+    if cfg.sliding_window:
+        assert min(len(p) for p in prompts) > cfg.sliding_window
     want = _serve(ref_engine.ServingEngine(ref_cfg, batch_size=2, max_len=64,
                                            params=ref_params),
                   ref_engine.Request, prompts, 8)
     got = _serve(ServingEngine(cfg, batch_size=2, max_len=64, device="cpu",
                                params=params), Request, prompts, 8)
-    assert sorted(got) == list(range(4))
+    assert sorted(got) == list(range(n_req))
     assert got == want
 
 

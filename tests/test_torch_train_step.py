@@ -181,10 +181,13 @@ def test_loss_decreases_and_frozen_parameters_are_refused():
     assert s.params is params  # updated in place
 
 
-@pytest.mark.parametrize("name", ["moonshot-v1-16b-a3b", "whisper-base", "internvl2-76b"])
+@pytest.mark.parametrize("name", ["moonshot-v1-16b-a3b", "whisper-base", "internvl2-76b",
+                                  "rwkv6-1.6b", "recurrentgemma-2b", "mixtral-8x7b"])
 def test_a_train_step_of_the_other_families_matches_the_reference(name):
-    """MoE (the aux loss), the encoder-decoder (frames) and the vision
-    prefix through one step of both packages."""
+    """MoE (the aux loss; Mixtral's with its sliding window), the
+    encoder-decoder (frames), the vision prefix, RWKV6 (the chunked
+    recurrence under autograd) and the RG-LRU/local hybrid (the doubling
+    scan under remat) through one step of both packages."""
     ref_cfg = ref_reduce(ref_get_config(name))
     cfg = reduce_for_smoke(get_config(name))
     ref_params = ref_model.init_model(jax.random.PRNGKey(3), ref_cfg)
