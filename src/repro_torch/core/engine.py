@@ -81,7 +81,7 @@ from repro_torch.core.index import (
     unpack_flat_postings_torch,
 )
 from repro_torch.kernels.posting_intersect import _take_fill
-from repro_torch.obs.registry import get_registry
+from repro_torch.obs.trace import batch_span
 
 NO_TERM = np.int32(-1)
 NO_ATTR = np.int32(-1)
@@ -115,36 +115,30 @@ def make_query_batch(
     ``device`` (default ``cuda``).
 
     With ``strategy='site_term'`` the site restriction is rewritten into an
-    extra join term (Fig 1(d)) and ``attr_filter`` stays empty.  This runs
-    host-side, so it is where the engine's batch-construction counters live.
+    extra join term (Fig 1(d)) and ``attr_filter`` stays empty.  It runs
+    on the host, inside the ``odys.batch_build`` span (phase
+    ``batch_build``).
     """
     dev = resolve_device(device)
-    reg = get_registry()
-    reg.counter(
-        "odys_engine_batches_built_total",
-        help="query batches constructed for the device",
-    ).inc()
-    reg.counter(
-        "odys_engine_batch_queries_total",
-        help="query slots (incl. padding) across built batches",
-    ).inc(len(queries))
-    q = len(queries)
-    terms = np.full((q, t_max), NO_TERM, dtype=np.int32)
-    n_terms = np.zeros(q, dtype=np.int32)
-    attr = np.full(q, NO_ATTR, dtype=np.int32)
-    for i, (ts, site) in enumerate(queries):
-        ts = list(ts)
-        if site is not None and strategy == "site_term":
-            if meta is None:
-                raise ValueError("strategy='site_term' needs the index meta")
-            ts = ts + [site_term_id(meta, site)]
-        elif site is not None:
-            attr[i] = site
-        if not 1 <= len(ts) <= t_max:
-            raise ValueError(f"query {ts} needs 1..{t_max} terms")
-        terms[i, : len(ts)] = ts
-        n_terms[i] = len(ts)
-    return QueryBatch(*(torch.from_numpy(x).to(dev) for x in (terms, n_terms, attr)))
+    with batch_span("odys.batch_build", "batch_build"):
+        q = len(queries)
+        terms = np.full((q, t_max), NO_TERM, dtype=np.int32)
+        n_terms = np.zeros(q, dtype=np.int32)
+        attr = np.full(q, NO_ATTR, dtype=np.int32)
+        for i, (ts, site) in enumerate(queries):
+            ts = list(ts)
+            if site is not None and strategy == "site_term":
+                if meta is None:
+                    raise ValueError("strategy='site_term' needs the index meta")
+                ts = ts + [site_term_id(meta, site)]
+            elif site is not None:
+                attr[i] = site
+            if not 1 <= len(ts) <= t_max:
+                raise ValueError(f"query {ts} needs 1..{t_max} terms")
+            terms[i, : len(ts)] = ts
+            n_terms[i] = len(ts)
+        return QueryBatch(*(torch.from_numpy(x).to(dev)
+                            for x in (terms, n_terms, attr)))
 
 
 # ---------------------------------------------------------------------------

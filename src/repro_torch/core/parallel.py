@@ -51,6 +51,7 @@ from repro_torch.core.index import (
     local_to_global_docids,
 )
 from repro_torch.indexing.delta import DeltaIndex, ShardedDelta
+from repro_torch.obs.trace import batch_span
 
 
 class SearchResult(NamedTuple):
@@ -203,23 +204,25 @@ def slave_topk_unmerged(
             if x is not None and x.postings.shape[0] != 1:
                 raise ValueError(f"a rank's {what} holds {x.postings.shape[0]} "
                                  "shards, not 1 (rank_shard cuts one)")
-        d, h = query_topk(index.shard(0), batch,
-                          delta=None if delta is None else delta.shard(0),
-                          k=k, window=window, attr_strategy=attr_strategy,
-                          backend=backend)
-        return SearchResult(local_to_global_docids(d, shard, ns)[None], h[None])
+        with batch_span("odys.slave", "slave_launch"):
+            d, h = query_topk(index.shard(0), batch,
+                              delta=None if delta is None else delta.shard(0),
+                              k=k, window=window, attr_strategy=attr_strategy,
+                              backend=backend)
+            return SearchResult(local_to_global_docids(d, shard, ns)[None], h[None])
     if index.postings.shape[0] != ns:
         raise ValueError(f"index holds {index.postings.shape[0]} shards, ns={ns}")
     if delta is not None and delta.postings.shape[0] != ns:
         raise ValueError(f"delta holds {delta.postings.shape[0]} shards, ns={ns}")
     docs, hits = [], []
     for s in range(ns):
-        d, h = query_topk(index.shard(s), batch,
-                          delta=None if delta is None else delta.shard(s),
-                          k=k, window=window, attr_strategy=attr_strategy,
-                          backend=backend)
-        docs.append(local_to_global_docids(d, s, ns))
-        hits.append(h)
+        with batch_span("odys.slave", "slave_launch"):
+            d, h = query_topk(index.shard(s), batch,
+                              delta=None if delta is None else delta.shard(s),
+                              k=k, window=window, attr_strategy=attr_strategy,
+                              backend=backend)
+            docs.append(local_to_global_docids(d, s, ns))
+            hits.append(h)
     return SearchResult(torch.stack(docs), torch.stack(hits))
 
 
@@ -254,18 +257,20 @@ def distributed_query_topk(
     local = slave_topk_unmerged(index, batch, delta, ns=ns, k=k, window=window,
                                 attr_strategy=attr_strategy, backend=backend,
                                 mesh=mesh, axis=axis)
-    if mesh is not None:
-        cands = local.docids[0]
+    with batch_span("odys.merge", "merge_launch"):
+        if mesh is not None:
+            cands = local.docids[0]
+            if merge == "tournament":
+                merged = tournament_merge(cands, ns, backend=backend, mesh=mesh,
+                                          axis=axis)
+            else:
+                merged = allgather_merge(cands, backend=backend, mesh=mesh, axis=axis)
+            return SearchResult(merged, psum(local.n_hits[0], mesh.get_group(axis)))
         if merge == "tournament":
-            merged = tournament_merge(cands, ns, backend=backend, mesh=mesh, axis=axis)
+            merged = tournament_merge(local.docids, ns, backend=backend)
         else:
-            merged = allgather_merge(cands, backend=backend, mesh=mesh, axis=axis)
-        return SearchResult(merged, psum(local.n_hits[0], mesh.get_group(axis)))
-    if merge == "tournament":
-        merged = tournament_merge(local.docids, ns, backend=backend)
-    else:
-        merged = allgather_merge(local.docids, backend=backend)
-    return SearchResult(merged, local.n_hits.sum(dim=0, dtype=torch.int32))
+            merged = allgather_merge(local.docids, backend=backend)
+        return SearchResult(merged, local.n_hits.sum(dim=0, dtype=torch.int32))
 
 
 def replicated_query_topk(

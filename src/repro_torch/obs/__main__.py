@@ -33,7 +33,6 @@ REQUIRED_FAMILIES = {
     "odys_batch_service_seconds": "histogram",
     "odys_queries_submitted_total": "counter",
     "odys_batches_dispatched_total": "counter",
-    "odys_engine_batches_built_total": "counter",
     "odys_model_residual": "gauge",
 }
 
@@ -86,8 +85,9 @@ def _cmd_demo(args) -> int:
     from repro_torch.obs.residual import ModelResidualMonitor
     from repro_torch.obs.trace import PhaseAggregator
 
-    # process-wide enable: the engine's batch-construction counters report
-    # through the process default, not a constructor-injected registry
+    # process-wide enable: the index build's byte gauges and the work
+    # lists' occupancy gauges report through the process default, not a
+    # constructor-injected registry
     reg = enable()
     svc, cal = _build_pipeline(reg, device=args.device)
     agg = PhaseAggregator(registry=reg)

@@ -33,15 +33,65 @@ finalize) are attributed to every query in the batch via batch membership
 — each co-batched span carries the full batch duration plus
 ``batch_queries`` so aggregators can normalize per query when they want
 throughput rather than latency.
+
+**Host spans** (:func:`host_span`, :func:`batch_span`) split the serving path
+further.  Each site is a named interval of host code; the port adds these
+phases, all on ``time.perf_counter`` and never on the scheduler's
+injectable clocks (a replay's readings do not move):
+
+- ``admit``        — one query's whole ``submit`` call, on its own span
+  (timed only: a ``record_function`` a query would cost more than it tells);
+- ``form``         — ``_dispatch`` up to the executor: batch formation,
+  padding, the route, the dispatch-time cache recheck (``odys.form``);
+- ``batch_build``  — ``make_query_batch``: host arrays and their
+  host-to-device copies (``odys.batch_build``);
+- ``slave_launch`` — every slave's plan, join launch, first-k sort and
+  docID globalisation, summed over the slaves (``odys.slave``, one a slave);
+- ``merge_launch`` — the master merge's launches and the ``n_hits`` sum
+  (``odys.merge``);
+- ``complete``     — the executor's return through the ticket loop, cache
+  puts and counters (``odys.complete``).
+
+A traced batch then closes its query spans (their phases, histograms and
+sink) under ``odys.spans``, which no phase holds: that is tracing's own
+cost.
+
+``master_merge`` (``odys.device_wait``) and ``finalize``
+(``odys.finalize``) keep their keys; ``master_merge`` is the wait for the
+device at the batch boundary.  ``batch_build``, ``slave_launch`` and
+``merge_launch`` lie inside ``slave_dispatch``.  The new keys stay out of
+:data:`PHASES`, so the exposition's ``odys_phase_seconds`` series are the
+JAX package's.
+
+A span is gated twice.  While ``torch.profiler`` records it enters
+``torch.profiler.record_function(name)``, so the interval sits in the
+device trace on the profiler's clock (``perf_counter`` is another clock).
+While its batch is timed (the service's live registry, the scheduler's
+``trace``) it adds its host seconds to a phase dict.  Otherwise it is a
+shared inert object: no allocation, no clock read.  No span waits on the
+device; device time stays with the profiler.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
+import time
 from typing import Callable
+
+import torch
 
 from repro_torch.obs.registry import MetricsRegistry, get_registry
 
-__all__ = ["PHASES", "WALL_PHASES", "PhaseAggregator", "QuerySpan"]
+__all__ = [
+    "PHASES",
+    "WALL_PHASES",
+    "PhaseAggregator",
+    "QuerySpan",
+    "batch_span",
+    "close_batch",
+    "host_span",
+    "open_batch",
+]
 
 PHASES = (
     "admission_wait",
@@ -144,3 +194,89 @@ class PhaseAggregator:
 
     def means(self) -> dict[str, float]:
         return {p: self.mean(p) for p in self._n}
+
+
+# ---------------------------------------------------------------------------
+# Host spans
+# ---------------------------------------------------------------------------
+
+_profiler = torch.autograd.profiler
+
+
+class _Open(threading.local):
+    """The timed batch's phase dict, per thread (sets on their own ranks
+    may serve two batches from two threads); None while none is open."""
+
+    phases: dict | None = None
+
+
+_open = _Open()
+
+
+class _Span:
+    """An open host span: a ``record_function`` while the profiler records,
+    ``phases[phase] += seconds`` while ``phases`` is given."""
+
+    __slots__ = ("_name", "_phase", "_phases", "_rf", "_t0")
+
+    def __init__(self, name: str | None, phase: str, phases: dict | None):
+        self._name, self._phase, self._phases = name, phase, phases
+        self._rf = None
+        self._t0 = 0.0
+
+    def __enter__(self) -> "_Span":
+        if self._name is not None:
+            self._rf = torch.profiler.record_function(self._name)
+            self._rf.__enter__()
+        if self._phases is not None:
+            self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self._phases is not None:
+            dt = time.perf_counter() - self._t0
+            self._phases[self._phase] = self._phases.get(self._phase, 0.0) + dt
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+        return False
+
+
+class _Inert:
+    __slots__ = ()
+
+    def __enter__(self) -> "_Inert":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_INERT = _Inert()
+
+
+def host_span(name: str, phase: str, phases: dict | None):
+    """``with host_span("odys.x", "x", phases): ...`` — a host span (module
+    docstring).  ``phases`` is the timed batch's phase dict, or None when
+    the batch is not timed; ``phase`` is the key the seconds go to."""
+    profiling = _profiler._is_profiler_enabled
+    if not profiling and phases is None:
+        return _INERT
+    return _Span(name if profiling else None, phase, phases)
+
+
+def batch_span(name: str, phase: str):
+    """:func:`host_span` into the batch collector open on this thread
+    (:func:`open_batch`), if any: for the engine's sites, which cannot see
+    the service that timed the batch."""
+    return host_span(name, phase, _open.phases)
+
+
+def open_batch() -> dict:
+    """Open this thread's batch collector; :func:`batch_span` sites add to
+    the returned dict until :func:`close_batch`."""
+    _open.phases = {}
+    return _open.phases
+
+
+def close_batch() -> None:
+    _open.phases = None

@@ -47,7 +47,10 @@ distributed query engine.
   and the span schema labels which phase lives in which domain — replay
   traces are never a mix of unlabeled virtual and wall time.  With the
   default :class:`~repro_torch.obs.registry.NullRegistry` all of this is no-op
-  singleton calls and no spans are allocated.
+  singleton calls and no spans are allocated.  The port adds host spans
+  (:func:`~repro_torch.obs.trace.host_span`: ``odys.form``,
+  ``odys.complete``, and ``admit`` on each query's span), timed on
+  ``time.perf_counter`` and never on either injectable clock.
 """
 from __future__ import annotations
 
@@ -59,7 +62,7 @@ from typing import Any, Callable, Hashable, Sequence
 
 from repro_torch.core.perfmodel import sojourn
 from repro_torch.obs.registry import MetricsRegistry, get_registry
-from repro_torch.obs.trace import PHASES, QuerySpan
+from repro_torch.obs.trace import PHASES, QuerySpan, host_span
 
 __all__ = [
     "CacheStats",
@@ -518,7 +521,9 @@ class MasterScheduler:
         self, terms: Sequence[int], site: int | None = None, *, k: int | None = None
     ) -> QueryTicket:
         """Admit one query; returns its ticket (completed already on a
-        cache hit, otherwise filled in by a later dispatch)."""
+        cache hit, otherwise filled in by a later dispatch).  Traced, the
+        whole call lands in the query's ``admit`` phase."""
+        a0 = time.perf_counter() if self.trace else 0.0
         k = self.default_k if k is None else int(k)
         terms_t = tuple(int(t) for t in terms)
         if not terms_t:
@@ -557,11 +562,14 @@ class MasterScheduler:
                     span.finish_time = now
                     self._m_phase["cache_lookup"].observe(
                         span.phases["cache_lookup"])
+                    span.add("admit", time.perf_counter() - a0)
                     if self.span_sink is not None:
                         self.span_sink(span)
                 return ticket
         self._queues.setdefault((bucket, k), []).append(ticket)
         self._m_queue_depth.set(self.pending())
+        if span is not None:
+            span.add("admit", time.perf_counter() - a0)
         return ticket
 
     def pending(self) -> int:
@@ -637,89 +645,93 @@ class MasterScheduler:
 
     def _dispatch(self, key: tuple[int, int]) -> list[QueryTicket]:
         """Form and execute one micro-batch from bucket ``key``."""
-        t_max, k = key
-        queue = self._queues[key]
-        t_form = self._now()        # batch formation instant (scheduler clock)
-        batch = form_batch(
-            queue, self.batch_size,
-            pad=lambda first: dataclasses.replace(first, qid=-1),
-        )
-        if not queue:
-            del self._queues[key]
-        if not batch:
-            return []
-        real = [t for t in batch if t.qid >= 0]
-        route_w0 = self._wall_clock() if self.trace else 0.0
-        try:
-            sref = self.router.route(len(real))
-        except BaseException:
-            # routing can refuse (e.g. every set dead in a health-aware
-            # router): the popped tickets must survive for a later retry
-            self._queues.setdefault(key, [])[:0] = real
-            raise
-        route_wall = self._wall_clock() - route_w0 if self.trace else 0.0
-        version = self._version_fn()
-        queries = [(list(t.terms), t.site) for t in batch]
-        start = max(self._now(), sref.busy_until)
-        # Dispatch-time cache recheck: a result produced by an *earlier*
-        # batch may have matured between this query's admission (where the
-        # submit-path lookup legitimately missed) and its dispatch instant
-        # ``start``.  Tickets satisfied here are served from cache at
-        # ``start``; a batch whose every real query is satisfied launches
-        # nothing at all — the scheduler-level all-inert no-launch path,
-        # accounted below so occupancy stats match the kernels'
-        # ``odys_kernel_steps_saved_total`` story.
-        live = real
-        if self.cache is not None:
-            live = []
-            for ticket in real:
-                hit = self.cache.get(
-                    (ticket.terms, ticket.site, ticket.k), version, start,
-                    count_miss=False,
-                )
-                if hit is None:
-                    live.append(ticket)
-                    continue
-                ticket.result = hit
-                ticket.done = True
-                ticket.from_cache = True
-                ticket.finish_time = start
-                ticket.set_id = sref.sid
-                self._m_response.observe(start - ticket.submit_time)
-                span = ticket.span
-                if span is not None:
-                    span.from_cache = True
-                    span.set_id = sref.sid
-                    span.add("admission_wait", t_form - span.submit_time)
-                    span.add("formation_wait", start - t_form)
-                    span.add("route", route_wall)
-                    span.finish_time = start
-                    for phase, dt in span.phases.items():
-                        hist = self._m_phase.get(phase)
-                        if hist is not None:
-                            hist.observe(dt)
-                    if self.span_sink is not None:
-                        self.span_sink(span)
-        if not live:
-            # Everything in the formed batch is inert (padding clones plus
-            # recheck-satisfied tickets): nothing launches, the set stays
-            # idle, but the batch still counts toward occupancy accounting
-            # with pad_fraction 1.0.
-            self.router.complete(sref, len(real))
-            if sref.first_start is not None:
-                # the set's cache served these queries without new work:
-                # throughput over the unchanged active span goes up
-                self._g_set_qps[sref.sid].set(
-                    sref.n_queries / max(start - sref.first_start, 1e-9)
-                )
-            self.n_batches += 1
-            self.n_short_circuited += 1
-            self._pad_fraction_sum += 1.0
-            self._m_batches.inc()
-            self._m_short_circuited.inc()
-            self._m_pad_fraction.set(1.0)
-            self._m_queue_depth.set(self.pending())
-            return real
+        # Traced, the batch's host spans add to ``spent`` (``form``,
+        # ``complete``), and its finished spans take them before the sink.
+        spent = {} if self.trace else None
+        with host_span("odys.form", "form", spent):
+            t_max, k = key
+            queue = self._queues[key]
+            t_form = self._now()        # batch formation instant (scheduler clock)
+            batch = form_batch(
+                queue, self.batch_size,
+                pad=lambda first: dataclasses.replace(first, qid=-1),
+            )
+            if not queue:
+                del self._queues[key]
+            if not batch:
+                return []
+            real = [t for t in batch if t.qid >= 0]
+            route_w0 = self._wall_clock() if self.trace else 0.0
+            try:
+                sref = self.router.route(len(real))
+            except BaseException:
+                # routing can refuse (e.g. every set dead in a health-aware
+                # router): the popped tickets must survive for a later retry
+                self._queues.setdefault(key, [])[:0] = real
+                raise
+            route_wall = self._wall_clock() - route_w0 if self.trace else 0.0
+            version = self._version_fn()
+            queries = [(list(t.terms), t.site) for t in batch]
+            start = max(self._now(), sref.busy_until)
+            # Dispatch-time cache recheck: a result produced by an *earlier*
+            # batch may have matured between this query's admission (where the
+            # submit-path lookup legitimately missed) and its dispatch instant
+            # ``start``.  Tickets satisfied here are served from cache at
+            # ``start``; a batch whose every real query is satisfied launches
+            # nothing at all — the scheduler-level all-inert no-launch path,
+            # accounted below so occupancy stats match the kernels'
+            # ``odys_kernel_steps_saved_total`` story.
+            live = real
+            if self.cache is not None:
+                live = []
+                for ticket in real:
+                    hit = self.cache.get(
+                        (ticket.terms, ticket.site, ticket.k), version, start,
+                        count_miss=False,
+                    )
+                    if hit is None:
+                        live.append(ticket)
+                        continue
+                    ticket.result = hit
+                    ticket.done = True
+                    ticket.from_cache = True
+                    ticket.finish_time = start
+                    ticket.set_id = sref.sid
+                    self._m_response.observe(start - ticket.submit_time)
+                    span = ticket.span
+                    if span is not None:
+                        span.from_cache = True
+                        span.set_id = sref.sid
+                        span.add("admission_wait", t_form - span.submit_time)
+                        span.add("formation_wait", start - t_form)
+                        span.add("route", route_wall)
+                        span.finish_time = start
+                        for phase, dt in span.phases.items():
+                            hist = self._m_phase.get(phase)
+                            if hist is not None:
+                                hist.observe(dt)
+                        if self.span_sink is not None:
+                            self.span_sink(span)
+            if not live:
+                # Everything in the formed batch is inert (padding clones plus
+                # recheck-satisfied tickets): nothing launches, the set stays
+                # idle, but the batch still counts toward occupancy accounting
+                # with pad_fraction 1.0.
+                self.router.complete(sref, len(real))
+                if sref.first_start is not None:
+                    # the set's cache served these queries without new work:
+                    # throughput over the unchanged active span goes up
+                    self._g_set_qps[sref.sid].set(
+                        sref.n_queries / max(start - sref.first_start, 1e-9)
+                    )
+                self.n_batches += 1
+                self.n_short_circuited += 1
+                self._pad_fraction_sum += 1.0
+                self._m_batches.inc()
+                self._m_short_circuited.inc()
+                self._m_pad_fraction.set(1.0)
+                self._m_queue_depth.set(self.pending())
+                return real
         # Measured service stays on the real monotonic wall clock — never
         # the (possibly virtual) scheduler clock; the span labels it so.
         wall0 = self._wall_clock()
@@ -732,79 +744,87 @@ class MasterScheduler:
             self._queues.setdefault(key, [])[:0] = real
             raise
         wall = self._wall_clock() - wall0
-        exec_phases = (
-            self._exec_phases_fn() if self._exec_phases_fn is not None
-            else None
-        )
-        if key in self._warm_keys:
-            self._service_ewma = (
-                wall if self._service_ewma is None
-                else 0.8 * self._service_ewma + 0.2 * wall
+        finished: list[QuerySpan] = []
+        with host_span("odys.complete", "complete", spent):
+            exec_phases = (
+                self._exec_phases_fn() if self._exec_phases_fn is not None
+                else None
             )
-        else:
-            # every (t_max, k) bucket's first batch pays one-time set-up
-            # (a kernel build, allocator growth): folding that wall time into the EWMA would collapse the
-            # self-fitted capacity (and with it the adaptive deadline)
-            self._warm_keys.add(key)
-        finish = start + wall if self._vclock is not None else self._clock()
-        if sref.first_start is None:
-            sref.first_start = start
-        sref.busy_until = finish
-        self.router.complete(sref, len(real))
-        self._m_service.observe(wall)
-        self._g_set_qps[sref.sid].set(
-            sref.n_queries / max(finish - sref.first_start, 1e-9)
-        )
-        batch_id = self.n_batches
-        # Inert share of the launch: padding clones plus any tickets the
-        # dispatch-time recheck already served from cache (their kernel
-        # slots run but the results are discarded).
-        pad_fraction = (len(batch) - len(live)) / len(batch)
-        for ticket, res in zip(batch, results):
-            if ticket.qid < 0 or ticket.done:
-                continue
-            ticket.result = res
-            ticket.done = True
-            ticket.finish_time = finish
-            ticket.set_id = sref.sid
-            self._m_response.observe(finish - ticket.submit_time)
-            span = ticket.span
-            if span is not None:
-                span.set_id = sref.sid
-                span.batch_id = batch_id
-                span.batch_queries = len(real)
-                span.pad_fraction = pad_fraction
-                span.add("admission_wait", t_form - span.submit_time)
-                span.add("formation_wait", start - t_form)
-                span.add("route", route_wall)
-                if exec_phases:
-                    for phase, dt in exec_phases.items():
-                        span.add(phase, dt)
-                else:
-                    # opaque executor: the whole measured batch service is
-                    # one undecomposed dispatch phase
-                    span.add("slave_dispatch", wall)
-                span.finish_time = finish
-                for phase, dt in span.phases.items():
-                    hist = self._m_phase.get(phase)
-                    if hist is not None:
-                        hist.observe(dt)
-                if self.span_sink is not None:
-                    self.span_sink(span)
-            if self.cache is not None:
-                # stamped with the batch's finish: under replay a result
-                # must not be served at a virtual time before it existed
-                self.cache.put(
-                    (ticket.terms, ticket.site, ticket.k), version, res,
-                    available_at=finish,
+            if key in self._warm_keys:
+                self._service_ewma = (
+                    wall if self._service_ewma is None
+                    else 0.8 * self._service_ewma + 0.2 * wall
                 )
-        self.n_batches += 1
-        self.n_padded += len(batch) - len(real)
-        self._pad_fraction_sum += pad_fraction
-        self._m_batches.inc()
-        self._m_padded.inc(len(batch) - len(real))
-        self._m_pad_fraction.set(pad_fraction)
-        self._m_queue_depth.set(self.pending())
+            else:
+                # every (t_max, k) bucket's first batch pays one-time set-up
+                # (a kernel build, allocator growth): folding that wall time
+                # into the EWMA would collapse the self-fitted capacity (and
+                # with it the adaptive deadline)
+                self._warm_keys.add(key)
+            finish = start + wall if self._vclock is not None else self._clock()
+            if sref.first_start is None:
+                sref.first_start = start
+            sref.busy_until = finish
+            self.router.complete(sref, len(real))
+            self._m_service.observe(wall)
+            self._g_set_qps[sref.sid].set(
+                sref.n_queries / max(finish - sref.first_start, 1e-9)
+            )
+            batch_id = self.n_batches
+            # Inert share of the launch: padding clones plus any tickets the
+            # dispatch-time recheck already served from cache (their kernel
+            # slots run but the results are discarded).
+            pad_fraction = (len(batch) - len(live)) / len(batch)
+            for ticket, res in zip(batch, results):
+                if ticket.qid < 0 or ticket.done:
+                    continue
+                ticket.result = res
+                ticket.done = True
+                ticket.finish_time = finish
+                ticket.set_id = sref.sid
+                self._m_response.observe(finish - ticket.submit_time)
+                if ticket.span is not None:
+                    finished.append(ticket.span)
+                if self.cache is not None:
+                    # stamped with the batch's finish: under replay a result
+                    # must not be served at a virtual time before it existed
+                    self.cache.put(
+                        (ticket.terms, ticket.site, ticket.k), version, res,
+                        available_at=finish,
+                    )
+            self.n_batches += 1
+            self.n_padded += len(batch) - len(real)
+            self._pad_fraction_sum += pad_fraction
+            self._m_batches.inc()
+            self._m_padded.inc(len(batch) - len(real))
+            self._m_pad_fraction.set(pad_fraction)
+            self._m_queue_depth.set(self.pending())
+        if finished:
+            # The spans' own bookkeeping follows ``odys.complete``, so that
+            # no phase holds it; the profiler names it ``odys.spans``.
+            # Batch-level phases, summed per key: an opaque executor's whole
+            # measured service is one dispatch phase; ``spent`` is None for a
+            # span admitted while traced and dispatched untraced.
+            with host_span("odys.spans", "spans", None):
+                shared = {"formation_wait": start - t_form, "route": route_wall}
+                for part in (exec_phases or {"slave_dispatch": wall}, spent or {}):
+                    for phase, dt in part.items():
+                        shared[phase] = shared.get(phase, 0.0) + dt
+                for span in finished:
+                    span.set_id = sref.sid
+                    span.batch_id = batch_id
+                    span.batch_queries = len(real)
+                    span.pad_fraction = pad_fraction
+                    phases = span.phases
+                    span.add("admission_wait", t_form - span.submit_time)
+                    for phase, dt in shared.items():
+                        phases[phase] = phases.get(phase, 0.0) + dt
+                    span.finish_time = finish
+                    for phase, hist in self._m_phase.items():
+                        if phase in phases:
+                            hist.observe(phases[phase])
+                    if self.span_sink is not None:
+                        self.span_sink(span)
         return real
 
     def step(self) -> list[QueryTicket]:

@@ -71,6 +71,7 @@ from repro_torch.data.corpus import Corpus
 from repro_torch.indexing.compaction import compact as _compact
 from repro_torch.indexing.delta import DeltaWriter, ShardedDelta
 from repro_torch.obs.registry import MetricsRegistry, get_registry
+from repro_torch.obs.trace import close_batch, host_span, open_batch
 from repro_torch.serving.router import HealthAwareRouter
 from repro_torch.serving.scheduler import MasterScheduler, QueryTicket
 
@@ -327,30 +328,33 @@ class SearchService:
         the router's pick: with ``set_meshes`` the batch runs on that set's
         ranks; otherwise the sets time-share the one device.
 
-        With a live registry the batch's service splits at the batch
-        boundary only: host build + kernel launches, the copy of the
-        results to the host (which waits for the device), and the host-side
-        result extraction."""
+        With a live registry the batch's service splits into host build +
+        kernel launches (``slave_dispatch``, with the engine's spans inside
+        it), the copy of the results to the host, which waits for the
+        device (``master_merge``), and the host-side result extraction
+        (``finalize``); see :mod:`repro_torch.obs.trace`."""
         timed = self.registry.enabled
-        w0 = time.perf_counter() if timed else 0.0
-        res = self._run_engine(queries, t_max=t_max, k=k, set_id=set_id)
-        w1 = time.perf_counter() if timed else 0.0
-        docs = res.docids.cpu().numpy()
-        hits = res.n_hits.cpu().numpy()
-        w2 = time.perf_counter() if timed else 0.0
-        out = [
-            SearchHit(
-                docids=[int(d) for d in row if d != INVALID_DOC],
-                n_hits=int(h),
-            )
-            for row, h in zip(docs, hits)
-        ]
-        if timed:
-            self._exec_phases = {
-                "slave_dispatch": w1 - w0,   # host build + async launches
-                "master_merge": w2 - w1,     # batch-boundary device sync
-                "finalize": time.perf_counter() - w2,  # host result extraction
-            }
+        phases = open_batch() if timed else None
+        try:
+            w0 = time.perf_counter() if timed else 0.0
+            res = self._run_engine(queries, t_max=t_max, k=k, set_id=set_id)
+            if timed:
+                phases["slave_dispatch"] = time.perf_counter() - w0
+            with host_span("odys.device_wait", "master_merge", phases):
+                docs = res.docids.cpu().numpy()
+                hits = res.n_hits.cpu().numpy()
+            with host_span("odys.finalize", "finalize", phases):
+                out = [
+                    SearchHit(
+                        docids=[int(d) for d in row if d != INVALID_DOC],
+                        n_hits=int(h),
+                    )
+                    for row, h in zip(docs, hits)
+                ]
+        finally:
+            if timed:
+                close_batch()
+        self._exec_phases = phases
         return out
 
     def submit(
