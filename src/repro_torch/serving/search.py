@@ -84,6 +84,20 @@ class SearchHit:
     n_hits: int
 
 
+def _search_hits(docs, hits) -> list[SearchHit]:
+    """One batch's hits from its host result block (``docs`` int32[Q, k],
+    ``hits`` int32[Q]).  A row ascends and ``INVALID_DOC`` sorts after
+    every docID (:class:`~repro_torch.core.parallel.SearchResult`), so a
+    row's hits are its prefix: the prefixes are counted for the whole
+    block, and each becomes Python ints by one ``tolist`` of a slice of
+    the flat block."""
+    q_n, k = docs.shape
+    counts = (docs != INVALID_DOC).sum(1).tolist()
+    flat = memoryview(docs.reshape(-1))
+    return [SearchHit(docids=flat[a:a + c].tolist(), n_hits=h)
+            for a, c, h in zip(range(0, q_n * k, k), counts, hits.tolist())]
+
+
 class SearchService:
     """Serve search queries over a sharded index on one device.
 
@@ -344,13 +358,7 @@ class SearchService:
                 docs = res.docids.cpu().numpy()
                 hits = res.n_hits.cpu().numpy()
             with host_span("odys.finalize", "finalize", phases):
-                out = [
-                    SearchHit(
-                        docids=[int(d) for d in row if d != INVALID_DOC],
-                        n_hits=int(h),
-                    )
-                    for row, h in zip(docs, hits)
-                ]
+                out = _search_hits(docs, hits)
         finally:
             if timed:
                 close_batch()

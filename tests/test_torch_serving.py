@@ -5,6 +5,7 @@ on the same query stream — hits, batch counts, cache hits and
 failure cases of the scheduler copy."""
 import types
 
+import numpy as np
 import pytest
 import torch
 
@@ -14,7 +15,9 @@ from repro.core import index as ref_index
 from repro.data import corpus as ref_corpus
 from repro.serving.search import SearchService as RefService
 from repro_torch.core import index as pt_index
+from repro_torch.core.engine import make_query_batch
 from repro_torch.core.faults import SetHealth
+from repro_torch.core.parallel import SearchResult, distributed_query_topk
 from repro_torch.core.perfmodel import QUERY_MIX_DEFAULT
 from repro_torch.core.perfmodel import sojourn as pt_sojourn
 from repro_torch.core.queries import WorkloadConfig, generate_workload
@@ -90,6 +93,72 @@ def test_submit_drain_and_search_batch(setup):
     for t, row, h in zip(tickets, res.docids.numpy(), res.n_hits.numpy()):
         assert t.result.docids == [int(d) for d in row if d != inv]
         assert t.result.n_hits == int(h)
+
+
+def _result_block(k: int, contiguous: bool):
+    """A synthetic ``SearchResult`` of rows full, partly filled and empty:
+    ascending docIDs up to ``INVALID_DOC - 1``, ``INVALID_DOC`` after
+    them, ``n_hits`` at or above each row's fill."""
+    rng = np.random.default_rng(k)
+    inv = int(pt_index.INVALID_DOC)
+    fills = [k, k // 2, 0, 1, k - 1, k, 0]
+    docs = np.full((len(fills), k + 3), inv, dtype=np.int32)
+    hits = np.zeros(len(fills), dtype=np.int32)
+    for i, c in enumerate(fills):
+        docs[i, :c] = np.sort(rng.choice(inv, c, replace=False))
+        hits[i] = c + (rng.integers(0, 5 * k) if c == k else 0)
+    docs[0, k - 1] = inv - 1  # the largest docID still counts
+    wide = torch.from_numpy(docs)
+    # the plain merge returns a slice of its sorted rows, a view
+    block = wide[:, :k].contiguous() if contiguous else wide[:, :k]
+    return SearchResult(block, torch.from_numpy(hits))
+
+
+@pytest.mark.parametrize("contiguous", [True, False])
+@pytest.mark.parametrize("k", [1, 10, 50, 1000])
+def test_execute_extracts_the_per_element_hits(setup, monkeypatch, k, contiguous):
+    """``_execute``'s hits against the per-element formula, inline here as
+    the oracle: the same docIDs in the same order, as Python ints."""
+    _, _, psh, pmeta = setup
+    svc = SearchService(psh, pmeta, ns=1, device="cpu", window=1024, k=k)
+    res = _result_block(k, contiguous)
+    monkeypatch.setattr(svc, "_run_engine", lambda *a, **kw: res)
+    got = svc._execute([([3], None)] * len(res.n_hits), 4, k, 0)
+    inv = pt_index.INVALID_DOC
+    want = [([int(d) for d in row if d != inv], int(h))
+            for row, h in zip(res.docids.numpy(), res.n_hits.numpy())]
+    assert [(h.docids, h.n_hits) for h in got] == want
+    assert {len(h.docids) for h in got} == {0, 1, k // 2, k - 1, k}
+    for h in got:
+        assert type(h.docids) is list and type(h.n_hits) is int
+        assert all(type(d) is int for d in h.docids)
+
+
+@pytest.mark.parametrize("merge", ["tournament", "allgather"])
+@pytest.mark.parametrize("backend", ["torch", "kernel", "kernel_staged"])
+def test_result_rows_ascend_with_invalid_suffix(merge, backend):
+    """The invariant the service's extraction counts on: every row of
+    ``distributed_query_topk``'s docIDs is non-decreasing (rank order), so
+    ``INVALID_DOC`` (the largest int32) appears only as a suffix, and the
+    valid prefix holds ``min(n_hits, k)`` docIDs."""
+    corpus = pt_corpus.generate_corpus(pt_corpus.CorpusConfig(**CFG))
+    index, meta = pt_index.build_sharded_index(corpus, 2, device="cpu")
+    queries = QUERIES + [([0], None), ([0, 1], None), ([100, 110], 3)]
+    batch = make_query_batch(queries, t_max=4, meta=meta, device="cpu")
+    inv = int(pt_index.INVALID_DOC)
+    fills = set()
+    for k in (1, 16, 64):
+        res = distributed_query_topk(index, batch, ns=2, k=k, window=1024,
+                                     merge=merge, backend=backend)
+        docs, hits = res.docids.numpy(), res.n_hits.numpy()
+        assert docs.shape == (len(queries), k)
+        assert (np.diff(docs.astype(np.int64), axis=1) >= 0).all()
+        valid = docs != inv
+        assert (valid[:, 1:] <= valid[:, :-1]).all()
+        assert valid.sum(1).tolist() == np.minimum(hits, k).tolist()
+        fills |= {"empty" if c == 0 else "full" if c == k else "partial"
+                  for c in valid.sum(1).tolist()}
+    assert fills == {"empty", "partial", "full"}
 
 
 def test_default_device_service_raises_without_card(setup, monkeypatch):
